@@ -1,0 +1,538 @@
+"""Fused Ben-Or rounds over BIT-PLANE packed node state
+(port of benor_tpu/ops/pallas_round.py, the 'sampled' counts regime).
+
+One round is either ONE kernel or TWO, exactly where the JAX package
+dispatches them (``fused_one_pass_eligible``):
+
+  fused_round    — both phases in one pass, one thread block per trial:
+                   proposal tallies -> majority -> vote histogram and
+                   quorum gate in shared memory -> vote tallies + coin +
+                   decide/adopt/commit -> the new plane stack.
+  proposal_hist  — the two-kernel path's proposal pass (per-block vote
+  vote_commit      histogram + alive count, summed here between the two
+                   launches), then the vote pass + commit.
+
+Each wrapper launches its hand-written CUDA kernel (csrc/round_kernels.cu)
+on a CUDA tensor and counts the launch in its ``launches`` attribute; on a
+CPU tensor it runs its plain torch version, which the tests hold against
+the JAX package's Pallas kernels and ``chip_smoke.py`` holds against the
+kernel on the card.  Any other device raises.
+
+The plane stack is a [T, planes, Np/32] tensor of 32-bit words stored as
+torch.int32 (the bit pattern is what counts; the kernels read uint32).
+Plain-version bit work runs in int64 masked to 32 bits.  All randomness
+keys on the global (node, trial) counters, so tiling never moves a bit and
+the fused round equals proposal + sum + vote bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import VAL0, VAL1, VALQ
+from ..state import (NetState, PACK_COINED, PACK_DECIDED, PACK_DOWN,
+                     PACK_FAULTY, PACK_K, PACK_KILLED, PACK_LAYOUT,
+                     PACK_NODES_PER_WORD, PACK_STATIC_WIDTH, PACK_X,
+                     pack_k_bits)
+from . import rng, tally
+from .stream import (TILE_N, _COIN_SALT, bits_to_uniform, cf_draw, lane_ids,
+                     stream_scal, threefry2x32)
+
+#: Single-pass engage caps, kept from the JAX package so both dispatch alike.
+FUSED_ONE_PASS_MAX_NODES = 8192
+FUSED_ONE_PASS_MAX_LANES = 1 << 18
+
+#: Per-block partial-column layouts — name -> (base, width), the JAX
+#: package's tables verbatim.  The kernels write only these columns.
+PROP_PARTIAL_LAYOUT = {
+    "vote_hist": (0, 3),    # cols 0-2: sent-vote class histogram 0/1/"?"
+    "alive": (3, 1),        # alive count (quorum gate / n_alive)
+}
+VOTE_PARTIAL_LAYOUT = {
+    "next_hist": (0, 3),    # cols 0-2: next round's proposal histogram
+    "settled": (3, 1),
+    "unsettled": (4, 1),    # the loop predicate
+}
+PROP_COLS = max(b + w for b, w in PROP_PARTIAL_LAYOUT.values())
+VOTE_COLS = max(b + w for b, w in VOTE_PARTIAL_LAYOUT.values())
+
+_X_BITS = PACK_LAYOUT["x"][1]
+_M32 = 0xFFFFFFFF
+_FAULT_MODELS = ("crash", "byzantine")
+
+
+def fused_one_pass_eligible(cfg, trials: int, n_nodes: int) -> bool:
+    """True iff packed_round takes the single-pass kernel for this
+    (config, shape): sampled counts and the padded node axis within the
+    caps."""
+    if tally.pallas_round_counts_mode(cfg) != "sampled":
+        return False
+    np_total = n_nodes + (-n_nodes) % TILE_N
+    return (np_total <= FUSED_ONE_PASS_MAX_NODES
+            and trials * np_total <= FUSED_ONE_PASS_MAX_LANES)
+
+
+# --------------------------------------------------------------------------
+# Bit-plane pack / unpack.
+# --------------------------------------------------------------------------
+
+
+def _words_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Per-lane 0/1 int64 [T, Np] -> int32 [T, Np/32] words (bit j = lane
+    j of the word), two's-complement for words >= 2**31."""
+    t, n = bits.shape
+    j = torch.arange(PACK_NODES_PER_WORD, dtype=torch.int64,
+                     device=bits.device)
+    w = (bits.reshape(t, n // PACK_NODES_PER_WORD, PACK_NODES_PER_WORD)
+         << j).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _pack_planes(kbits, x, decided, killed, faulty, k, coined):
+    """Per-lane int64 fields [T, Np] -> the plane stack int32
+    [T, PACK_STATIC_WIDTH + kbits, Np/32]; the down plane is 0."""
+    planes = [None] * (PACK_STATIC_WIDTH + kbits)
+    for b in range(_X_BITS):
+        planes[PACK_X + b] = (x >> b) & 1
+    planes[PACK_DECIDED] = decided
+    planes[PACK_KILLED] = killed
+    planes[PACK_COINED] = coined
+    planes[PACK_FAULTY] = faulty
+    planes[PACK_DOWN] = torch.zeros_like(decided)
+    for b in range(kbits):
+        planes[PACK_K + b] = (k >> b) & 1
+    return torch.stack([_words_from_bits(p) for p in planes], dim=1)
+
+
+def pack_state(cfg, state: NetState, faulty: torch.Tensor) -> torch.Tensor:
+    """NetState leaves + faulty mask -> padded plane stack int32
+    [T, state.pack_width(cfg), Np/32].  Pad lanes carry the killed bit and
+    x = "?"; every other pad plane is 0, as is the coin-commit plane."""
+    n = state.x.shape[-1]
+    n_pad = (-n) % TILE_N
+
+    def lanes(a, pad_const):
+        a = a.to(torch.int64)
+        if n_pad:
+            a = torch.nn.functional.pad(a, (0, n_pad), value=pad_const)
+        return a
+
+    x = lanes(state.x, VALQ)
+    dec = lanes(state.decided, 0)
+    return _pack_planes(pack_k_bits(cfg), x, dec, lanes(state.killed, 1),
+                        lanes(faulty, 0), lanes(state.k, 0),
+                        torch.zeros_like(dec))
+
+
+def plane_field(pack: torch.Tensor, base: int, width: int) -> torch.Tensor:
+    """One PACK_LAYOUT field of a plane stack -> int64 [T, Np] per-lane
+    values (node order: word-major, bit = in-word lane)."""
+    t, _, n_w = pack.shape
+    j = torch.arange(PACK_NODES_PER_WORD, dtype=torch.int64,
+                     device=pack.device)
+    val = torch.zeros((t, n_w, PACK_NODES_PER_WORD), dtype=torch.int64,
+                      device=pack.device)
+    for b in range(width):
+        word = pack[:, base + b, :].to(torch.int64) & _M32
+        val = val | (((word[..., None] >> j) & 1) << b)
+    return val.reshape(t, n_w * PACK_NODES_PER_WORD)
+
+
+def unpack_state(pack: torch.Tensor, n_nodes: int) -> NetState:
+    """Plane stack -> NetState (pad lanes dropped)."""
+    kb = pack.shape[1] - PACK_STATIC_WIDTH
+    x = plane_field(pack, PACK_X, _X_BITS)[:, :n_nodes]
+    dec = plane_field(pack, PACK_DECIDED, 1)[:, :n_nodes]
+    kil = plane_field(pack, PACK_KILLED, 1)[:, :n_nodes]
+    k = plane_field(pack, PACK_K, kb)[:, :n_nodes]
+    return NetState(x=x.to(torch.int8), decided=dec.to(torch.bool),
+                    k=k.to(torch.int32), killed=kil.to(torch.bool))
+
+
+# --------------------------------------------------------------------------
+# Per-lane pieces shared by the plain versions (JAX pallas_round.py:466-689).
+# --------------------------------------------------------------------------
+
+
+def _load_fields(pack, freeze):
+    """Plane stack -> per-lane (x, decided, killed, faulty, k) int64 and
+    the (alive, frozen) masks, [T, Np] each."""
+    kbits = pack.shape[1] - PACK_STATIC_WIDTH
+    x = plane_field(pack, PACK_X, _X_BITS)
+    decided = plane_field(pack, PACK_DECIDED, 1)
+    killed = plane_field(pack, PACK_KILLED, 1)
+    faulty = plane_field(pack, PACK_FAULTY, 1)
+    k = plane_field(pack, PACK_K, kbits)
+    alive = killed == 0
+    frozen = (decided == 1) if freeze else torch.zeros_like(alive)
+    return x, decided, killed, faulty, k, alive, frozen
+
+
+def _sent(fault_model, vote, faulty):
+    """Byzantine lanes broadcast bit-flipped values (0 <-> 1, "?" kept)."""
+    if fault_model == "byzantine":
+        flip = torch.where(vote == VAL0, VAL1,
+                           torch.where(vote == VAL1, VAL0, vote))
+        return torch.where(faulty == 1, flip, vote)
+    return vote
+
+
+def _cf_pair_draws(m, key, hist_f, shape, device):
+    """The per-lane CF tally pair: one threefry block per lane gives both
+    uniforms; p0 ~ CF(total, c0, m), p1 | p0 ~ CF(total - c0, c1, m - p0)."""
+    node, trial = lane_ids(shape[0], shape[1], device)
+    b0, b1 = threefry2x32(key[0], key[1], node, trial)
+    u0 = bits_to_uniform(b0)
+    u1 = bits_to_uniform(b1)
+    c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
+    total = c0 + c1 + cq
+    mf = torch.tensor(float(m), dtype=torch.float32, device=device)
+    p0 = cf_draw(u0, total, c0, mf)
+    p1 = cf_draw(u1, torch.clamp_min(total - c0, 0.0), c1,
+                 torch.clamp_min(mf - p0, 0.0))
+    return p0, p1
+
+
+def _class_counts(values, mask):
+    """[T, Np] values + mask -> int32 [T, 3] counts of VAL0 / VAL1 / VALQ."""
+    return torch.stack([((values == v) & mask).sum(1)
+                        for v in (VAL0, VAL1, VALQ)], dim=1).to(torch.int32)
+
+
+def _count_vecs(hist: torch.Tensor) -> torch.Tensor:
+    """The kernels' count operand: the [T, 3] histogram as contiguous f32."""
+    return hist.to(torch.float32).contiguous()
+
+
+def sent_hist_from_pack(cfg, pack: torch.Tensor) -> torch.Tensor:
+    """The proposal histogram int32 [T, 3] of the values live lanes send
+    (byzantine lanes flipped) — round 1's input to the kernels."""
+    x = plane_field(pack, PACK_X, _X_BITS)
+    killed = plane_field(pack, PACK_KILLED, 1)
+    faulty = plane_field(pack, PACK_FAULTY, 1)
+    return _class_counts(_sent(cfg.fault_model, x, faulty), killed == 0)
+
+
+def unsettled_from_pack(pack: torch.Tensor) -> torch.Tensor:
+    """Lanes neither decided nor killed, summed over every trial (pad lanes
+    carry the killed bit, so they never count)."""
+    dec = plane_field(pack, PACK_DECIDED, 1)
+    kil = plane_field(pack, PACK_KILLED, 1)
+    return ((dec | kil) == 0).sum()
+
+
+# --------------------------------------------------------------------------
+# Plain versions of the three kernels.
+# --------------------------------------------------------------------------
+
+
+def proposal_hist_plain(seed, r, phase, hist, pack, m, fault_model, freeze):
+    """Plain version of the proposal kernel -> int32 [T, PROP_COLS]: the
+    vote-class histogram over live lanes (cols 0-2) and the alive count."""
+    x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
+    p0, p1 = _cf_pair_draws(m, stream_scal(seed, r, phase),
+                            _count_vecs(hist), x.shape, pack.device)
+    x1 = torch.where(p0 > p1, VAL0, torch.where(p1 > p0, VAL1, VALQ))
+    vote = _sent(fault_model, torch.where(frozen, x, x1), faulty)
+    alive_n = alive.sum(1, dtype=torch.int32)[:, None]
+    return torch.cat([_class_counts(vote, alive), alive_n], dim=1)
+
+
+def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
+                      rule, fault_model, freeze):
+    """Plain version of the vote kernel -> (new plane stack, int32
+    [T, VOTE_COLS]: next round's proposal histogram, settled, unsettled)."""
+    x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
+    shape, device = x.shape, pack.device
+    v0, v1 = _cf_pair_draws(m, stream_scal(seed, r, phase),
+                            _count_vecs(hist), shape, device)
+    node, trial = lane_ids(shape[0], shape[1], device)
+    ck = stream_scal(seed, r, _COIN_SALT)
+    pbits, _ = threefry2x32(ck[0], ck[1], node, trial)
+    coin = pbits & 1
+
+    ff = float(n_faulty)
+    decide0 = v0 > ff
+    decide1 = v1 > ff
+    if rule == "reference":
+        any_votes = (v0 + v1) > 0.0
+        adopt0 = any_votes & (v0 > v1)
+        adopt1 = any_votes & (v0 < v1)
+        x2 = torch.where(decide0, VAL0,
+             torch.where(decide1, VAL1,
+             torch.where(adopt0, VAL0,
+             torch.where(adopt1, VAL1, coin))))
+        no_adopt = ~adopt0 & ~adopt1
+    else:
+        x2 = torch.where(decide0, VAL0, torch.where(decide1, VAL1, coin))
+        no_adopt = torch.ones_like(decide0)
+    qok = quorum_ok.to(torch.bool)[:, None]
+    active = alive & qok & ~frozen
+    new_x = torch.where(active, x2, x)
+    new_dec = torch.where(active & (decide0 | decide1), 1, decided)
+    new_k = torch.where(active, r + 1, k)
+    coined = (active & ~decide0 & ~decide1 & no_adopt).to(torch.int64)
+    new_pack = _pack_planes(pack.shape[1] - PACK_STATIC_WIDTH, new_x,
+                            new_dec, killed, faulty, new_k, coined)
+
+    settled = (new_dec == 1) | (killed == 1)
+    cols = torch.cat([
+        _class_counts(_sent(fault_model, new_x, faulty), alive),
+        settled.sum(1, dtype=torch.int32)[:, None],
+        (~settled).sum(1, dtype=torch.int32)[:, None]], dim=1)
+    return new_pack, cols
+
+
+def fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
+                      freeze):
+    """Plain version of the single-pass kernel: the proposal pass, the
+    whole-axis vote histogram and quorum gate, then the vote pass ->
+    (new plane stack, partsA [T, PROP_COLS], partsB [T, VOTE_COLS])."""
+    parts_a = proposal_hist_plain(seed, r, rng.PHASE_PROPOSAL, hist1, pack,
+                                  m, fault_model, freeze)
+    new_pack, parts_b = vote_commit_plain(
+        seed, r, rng.PHASE_VOTE, parts_a[:, :3], pack, parts_a[:, 3] >= m,
+        m, n_faulty, rule, fault_model, freeze)
+    return new_pack, parts_a, parts_b
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers: device dispatch, checks, launch, launch counters.
+# --------------------------------------------------------------------------
+
+
+def _on_cpu(pack: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA tensor
+    (kernel); any other device raises."""
+    if pack.device.type == "cpu":
+        return True
+    if pack.device.type != "cuda":
+        raise ValueError(f"round kernels run on cuda or cpu tensors, got "
+                         f"{pack.device}")
+    return False
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+            t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _check_pack(pack):
+    if pack.dim() != 3 or pack.shape[1] <= PACK_STATIC_WIDTH:
+        raise ValueError(f"pack: expected [T, planes > {PACK_STATIC_WIDTH}, "
+                         f"words], got {tuple(pack.shape)}")
+    _check("pack", pack, torch.int32, pack.shape, pack.device)
+
+
+def _check_modes(fault_model, rule="reference"):
+    if fault_model not in _FAULT_MODELS:
+        raise NotImplementedError(
+            f"fault_model={fault_model!r} in the round kernels (ROADMAP "
+            "Queue A item 8)")
+    if rule not in ("reference", "textbook"):
+        raise ValueError(f"unknown rule: {rule}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze):
+    """One launch of the proposal kernel -> raw per-block partials int32
+    [blocks, T, PROP_COLS]."""
+    t, p, n_w = pack.shape
+    parts = torch.empty((lib.benor_round_blocks(n_w), t, PROP_COLS),
+                        dtype=torch.int32,
+                        device=pack.device)
+    _raise_on(lib.benor_proposal_hist(
+        _ptr(pack), _ptr(hist_f), _ptr(parts), t, p, n_w, key[0], key[1],
+        float(m), int(fault_model == "byzantine"), int(bool(freeze)),
+        _stream(pack.device)), "proposal_hist")
+    return parts
+
+
+def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
+                        rule, fault_model, freeze):
+    """One launch of the vote kernel -> (new plane stack, raw per-block
+    partials int32 [blocks, T, VOTE_COLS])."""
+    t, p, n_w = pack.shape
+    new_pack = torch.empty_like(pack)
+    parts = torch.empty((lib.benor_round_blocks(n_w), t, VOTE_COLS),
+                        dtype=torch.int32,
+                        device=pack.device)
+    _raise_on(lib.benor_vote_commit(
+        _ptr(pack), _ptr(hist_f), _ptr(qok), _ptr(new_pack), _ptr(parts),
+        t, p, n_w, vkey[0], vkey[1], ckey[0], ckey[1], int(rk), float(m),
+        float(n_faulty), int(rule == "textbook"),
+        int(fault_model == "byzantine"), int(bool(freeze)),
+        _stream(pack.device)), "vote_commit")
+    return new_pack, parts
+
+
+def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
+                        rule, fault_model, freeze):
+    """One launch of the single-pass kernel -> (new plane stack, partsA
+    int32 [T, PROP_COLS], partsB int32 [T, VOTE_COLS])."""
+    t, p, n_w = pack.shape
+    if n_w * PACK_NODES_PER_WORD > FUSED_ONE_PASS_MAX_NODES:
+        raise ValueError(f"fused_round: {n_w} words exceed the one-block cap")
+    new_pack = torch.empty_like(pack)
+    parts_a = torch.empty((t, PROP_COLS), dtype=torch.int32,
+                          device=pack.device)
+    parts_b = torch.empty((t, VOTE_COLS), dtype=torch.int32,
+                          device=pack.device)
+    _raise_on(lib.benor_fused_round(
+        _ptr(pack), _ptr(hist_f), _ptr(new_pack), _ptr(parts_a),
+        _ptr(parts_b), t, p, n_w, pkey[0], pkey[1], vkey[0], vkey[1],
+        ckey[0], ckey[1], int(rk), float(m), float(n_faulty),
+        int(rule == "textbook"), int(fault_model == "byzantine"),
+        int(bool(freeze)), _stream(pack.device)), "fused_round")
+    return new_pack, parts_a, parts_b
+
+
+def proposal_hist(seed, r, phase, hist, pack, m, fault_model, freeze):
+    """The proposal pass -> int32 [T, PROP_COLS] summed over the node axis
+    (cols 0-2 vote histogram over live lanes, col 3 alive count)."""
+    _check_modes(fault_model)
+    if _on_cpu(pack):
+        return proposal_hist_plain(seed, r, phase, hist, pack, m,
+                                   fault_model, freeze)
+    from ._build import load_library
+
+    _check_pack(pack)
+    hist_f = _count_vecs(hist)
+    _check("hist", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
+    parts = _launch_proposal_hist(load_library(), stream_scal(seed, r, phase),
+                                  hist_f, pack, m, fault_model, freeze)
+    proposal_hist.launches += 1
+    return parts.sum(0, dtype=torch.int32)
+
+
+def vote_commit(seed, r, phase, hist, pack, quorum_ok, m, n_faulty, rule,
+                fault_model, freeze):
+    """The vote pass + commit -> (new plane stack, int32 [T, VOTE_COLS]
+    summed over the node axis)."""
+    _check_modes(fault_model, rule)
+    if _on_cpu(pack):
+        return vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m,
+                                 n_faulty, rule, fault_model, freeze)
+    from ._build import load_library
+
+    _check_pack(pack)
+    t = pack.shape[0]
+    hist_f = _count_vecs(hist)
+    qok = quorum_ok.to(torch.int32).contiguous()
+    _check("hist", hist_f, torch.float32, (t, 3), pack.device)
+    _check("quorum_ok", qok, torch.int32, (t,), pack.device)
+    new_pack, parts = _launch_vote_commit(
+        load_library(), stream_scal(seed, r, phase),
+        stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, qok, pack, m,
+        n_faulty, rule, fault_model, freeze)
+    vote_commit.launches += 1
+    return new_pack, parts.sum(0, dtype=torch.int32)
+
+
+def fused_round(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
+                freeze):
+    """A whole round in one kernel -> (new plane stack, partsA
+    [T, PROP_COLS], partsB [T, VOTE_COLS])."""
+    _check_modes(fault_model, rule)
+    if _on_cpu(pack):
+        return fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule,
+                                 fault_model, freeze)
+    from ._build import load_library
+
+    _check_pack(pack)
+    hist_f = _count_vecs(hist1)
+    _check("hist1", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
+    out = _launch_fused_round(
+        load_library(), stream_scal(seed, r, rng.PHASE_PROPOSAL),
+        stream_scal(seed, r, rng.PHASE_VOTE),
+        stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, pack, m, n_faulty,
+        rule, fault_model, freeze)
+    fused_round.launches += 1
+    return out
+
+
+proposal_hist.launches = 0
+vote_commit.launches = 0
+fused_round.launches = 0
+
+#: The kernel wrappers, by name (their launch counters are ``.launches``).
+KERNELS = {"proposal_hist": proposal_hist, "vote_commit": vote_commit,
+           "fused_round": fused_round}
+
+
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The round and the loop.
+# --------------------------------------------------------------------------
+
+
+def packed_round(cfg, pack, seed, r, hist1, n_local):
+    """One round over the plane stack -> (new_pack, next round's proposal
+    histogram int32 [T, 3], unsettled int32 [T]).  The single-pass kernel
+    within the caps, else the two-kernel path with the node-axis sum (and
+    the quorum gate n_alive >= m) between the passes."""
+    t = pack.shape[0]
+    m = cfg.quorum
+    modes = dict(fault_model=cfg.fault_model,
+                 freeze=bool(cfg.freeze_decided))
+    if fused_one_pass_eligible(cfg, t, n_local):
+        new_pack, _, parts_b = fused_round(seed, r, hist1, pack, m,
+                                           cfg.n_faulty, cfg.rule, **modes)
+    else:
+        parts_a = proposal_hist(seed, r, rng.PHASE_PROPOSAL, hist1, pack, m,
+                                **modes)
+        quorum_ok = parts_a[:, 3] >= m
+        new_pack, parts_b = vote_commit(seed, r, rng.PHASE_VOTE,
+                                        parts_a[:, :3], pack, quorum_ok, m,
+                                        cfg.n_faulty, cfg.rule, **modes)
+    return new_pack, parts_b[:, :3], parts_b[:, 4]
+
+
+def run_packed_slice(cfg, state, faults, seed, from_round):
+    """The packed round loop from ``from_round`` -> (next_round, NetState).
+
+    The JAX package runs this loop on the device (lax.while_loop); here it
+    runs on the host and reads the unsettled count once per round — the
+    one synchronisation per round, with the same predicate
+    ``(r <= max_rounds) & (unsettled > 0)``."""
+    n_local = state.x.shape[-1]
+    pack = pack_state(cfg, state, faults.faulty)
+    hist1 = sent_hist_from_pack(cfg, pack)
+    unsettled = int(unsettled_from_pack(pack))
+    r = int(from_round)
+    while r <= cfg.max_rounds and unsettled > 0:
+        pack, hist1, unsett = packed_round(cfg, pack, seed, r, hist1,
+                                           n_local)
+        unsettled = int(unsett.sum())
+        r += 1
+    return r, unpack_state(pack, n_local)
+
+
+def run_packed(cfg, state, faults, seed):
+    """Run from /start to termination or the round cap -> (rounds, state)."""
+    from ..sim import start_state
+
+    r, final = run_packed_slice(cfg, start_state(cfg, state), faults, seed, 1)
+    return r - 1, final

@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (benor_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run non-zero; nothing is caught):
+
+  1. toolchain: torch / CUDA / nvcc versions, the card, its power limit;
+     build the kernels from benor_tpu_torch/csrc;
+  2. each round kernel against its plain torch version on the card, on the
+     same CUDA tensors, at the main path's shapes (N = 1,000,000 x 32
+     trials for the two-kernel pair, N = 8192 x 32 for the fused kernel):
+     every partial count and plane word must be equal; times over 20
+     launches, the bound;
+  3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
+     bit, at N = 8192 x 32;
+  4. a small run on the card against the same run on the CPU (plain
+     versions): every trial equal;
+  5. the main path: ``simulate``'s loop over bench.py's N = 1M rounds-vs-f
+     regimes (32 trials, max_rounds = 64), then one N = 8192 run that takes
+     the fused kernel, with every kernel's launch count read around it;
+     then each regime's init_state / run_consensus split and one profiled
+     run;
+  6. the kernels line, the card line, and the result line.
+
+It imports nothing of JAX and nothing of the JAX package, and needs one card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+N_MAIN = 1_000_000
+N_FUSED = 8192
+TRIALS = 32
+MAX_ROUNDS = 64
+FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
+SEED = 0
+TIMED_LAUNCHES = 20
+
+# The bound: peaks of one H100 SXM (NVIDIA's data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
+# Operations one lane executes, counted from csrc/stream.cuh and
+# csrc/round_kernels.cu (no lane exits early, so the count is data-free):
+# threefry-2x32-20 = 2 + 20 x (add, shl, shr, or, xor) + 5 x 3 key adds;
+# bits_to_uniform = 5; cf_draw = 50 + ndtri 53; one CF pair = threefry +
+# 2 uniforms + 2 draws + 6; field loads ~2 a plane; ballots and counts.
+OPS_THREEFRY = 117
+OPS_CF_PAIR = OPS_THREEFRY + 2 * 5 + 2 * 103 + 6
+
+
+def ops_per_lane(kernel: str, planes: int) -> int:
+    load = 2 * planes
+    prop = load + OPS_CF_PAIR + 4 + 3 + 8
+    vote = load + OPS_CF_PAIR + OPS_THREEFRY + 1 + 20 + 2 * planes + 10
+    return {"proposal_hist": prop, "vote_commit": vote,
+            "fused_round": prop + vote}[kernel]
+
+
+def sh(cmd: list[str]) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def cuda_ms(fn, n: int) -> float:
+    """Mean device time of ``fn`` over ``n`` calls, after 3 warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def random_pack(cfg, device, seed):
+    """A plane stack of a random mid-run state (x, decided, killed, k,
+    faulty drawn on the device) -> (pack, its proposal histogram)."""
+    import torch
+    from benor_tpu_torch.ops.packed_round import (pack_state,
+                                                  sent_hist_from_pack)
+    from benor_tpu_torch.state import NetState
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.trials, cfg.n_nodes)
+
+    def draw(hi):
+        return torch.randint(0, hi, shape, generator=g, device=device)
+
+    state = NetState(x=draw(3).to(torch.int8),
+                     decided=draw(10) == 0,
+                     k=draw(cfg.max_rounds + 2).to(torch.int32),
+                     killed=draw(10) == 0)
+    pack = pack_state(cfg, state, draw(10) == 0)
+    return pack, sent_hist_from_pack(cfg, pack)
+
+
+def compare(name, lanes, pairs):
+    """Kernel vs plain outputs (partial counts, plane words) -> (differing
+    entries, max |diff|).  The tolerance is exact equality: the kernels
+    and the plain versions run the same f32 operations in the same order,
+    so any difference is a fault."""
+    import torch
+    n_diff, max_err = 0, 0
+    for a, b in pairs:
+        d = (a.to(torch.int64) - b.to(torch.int64))
+        n_diff += int((d != 0).sum())
+        max_err = max(max_err, int(d.abs().max()) if d.numel() else 0)
+    print(f"[kernel] {name}: differing entries {n_diff} over {lanes} lanes, "
+          f"max |diff| {max_err}, {'exact' if n_diff == 0 else 'MISMATCH'}")
+    if n_diff:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return n_diff, max_err
+
+
+def check_final(cfg, rounds, final):
+    """Ben-Or invariants of a finished run: values in range, k within the
+    rounds run, killed lanes never decide, and agreement (all decided lanes
+    of a trial hold one value)."""
+    import torch
+    assert 0 <= rounds <= cfg.max_rounds, rounds
+    assert tuple(final.x.shape) == (cfg.trials, cfg.n_nodes)
+    assert bool(((final.x >= 0) & (final.x <= 2)).all())
+    assert bool(((final.k >= 0) & (final.k <= rounds + 1)).all())
+    assert not bool((final.decided & final.killed).any())
+    dec = final.decided
+    x = final.x.to(torch.int64)
+    has0 = ((x == 0) & dec).any(1)
+    has1 = ((x == 1) & dec).any(1)
+    assert not bool((has0 & has1).any()), "agreement violated"
+    assert not bool(((x == 2) & dec).any()), "decided on '?'"
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+
+    from benor_tpu_torch import SimConfig, simulate
+    from benor_tpu_torch.ops import _build, rng
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import sampling
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import balanced_inputs, random_inputs
+
+    dev = torch.device("cuda")
+    # --- 1. toolchain ----------------------------------------------------
+    nvcc = [ln for ln in sh([_build.nvcc_path(), "--version"]).splitlines()
+            if "release" in ln][0]
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[toolchain] torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{nvcc} | {torch.cuda.get_device_name(0)} sm_{cap[0]}{cap[1]} | "
+          f"{smi}")
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    print(f"[build] {len(_build.sources())} source(s) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    kernels = {}
+
+    def record(name, lanes, planes, nbytes, n_diff, max_err, ms, plain_ms):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = lanes * ops_per_lane(name, planes) / F32_OPS_PER_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="benor_tpu_torch/csrc/round_kernels.cu",
+            replaces=REPLACES[name], launches=0, max_abs_err=max_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, match="exact", differing=n_diff)
+        print(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+              f"operations {t_ops:.4f})")
+
+    # --- 2. kernels vs plain versions on the card -------------------------
+    cfg = SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 4, trials=TRIALS,
+                    max_rounds=MAX_ROUNDS)
+    m, r = cfg.quorum, 3
+    pack, hist1 = random_pack(cfg, dev, SEED)
+    t, planes, n_w = pack.shape
+    lanes = t * n_w * 32
+    pkey = stream_scal(SEED, r, rng.PHASE_PROPOSAL)
+    vkey = stream_scal(SEED, r, rng.PHASE_VOTE)
+    ckey = stream_scal(SEED, r, _COIN_SALT)
+    modes = dict(fault_model="crash", freeze=True)
+    pack_bytes = pack.numel() * 4
+    blocks = lib.benor_round_blocks(n_w)
+
+    parts_k = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m,
+                               **modes)
+    parts_p = pr.proposal_hist_plain(SEED, r, rng.PHASE_PROPOSAL, hist1,
+                                     pack, m, **modes)
+    torch.cuda.synchronize()
+    res = compare("proposal_hist", lanes, [(parts_k, parts_p)])
+    hist_f = hist1.float().contiguous()
+    ms = cuda_ms(lambda: pr._launch_proposal_hist(
+        lib, pkey, hist_f, pack, m, **modes), TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: pr.proposal_hist_plain(
+        SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m, **modes), TIMED_LAUNCHES)
+    record("proposal_hist", lanes, planes,
+           pack_bytes + t * 3 * 4 + blocks * t * pr.PROP_COLS * 4,
+           *res, ms, plain)
+
+    hist2 = parts_p[:, :3]
+    qok = parts_p[:, 3] >= m
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference", **modes)
+    new_k, vparts_k = pr.vote_commit(SEED, r, rng.PHASE_VOTE, hist2, pack,
+                                     qok, **vote)
+    new_p, vparts_p = pr.vote_commit_plain(SEED, r, rng.PHASE_VOTE, hist2,
+                                           pack, qok, **vote)
+    torch.cuda.synchronize()
+    res = compare("vote_commit", lanes, [(new_k, new_p),
+                                         (vparts_k, vparts_p)])
+    hist2_f = hist2.float().contiguous()
+    qok_i = qok.to(torch.int32).contiguous()
+    vargs = (vkey, ckey, r + 1, hist2_f, qok_i, pack, m, cfg.n_faulty,
+             "reference", "crash", True)
+    ms = cuda_ms(lambda: pr._launch_vote_commit(lib, *vargs), TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: pr.vote_commit_plain(
+        SEED, r, rng.PHASE_VOTE, hist2, pack, qok, **vote), TIMED_LAUNCHES)
+    record("vote_commit", lanes, planes,
+           2 * pack_bytes + t * 4 * 4 + blocks * t * pr.VOTE_COLS * 4,
+           *res, ms, plain)
+    del pack, new_k, new_p
+
+    fcfg = cfg.replace(n_nodes=N_FUSED, n_faulty=N_FUSED // 4)
+    fm_ = fcfg.quorum
+    fpack, fhist = random_pack(fcfg, dev, SEED + 1)
+    ft, fplanes, fn_w = fpack.shape
+    flanes = ft * fn_w * 32
+    fvote = dict(m=fm_, n_faulty=fcfg.n_faulty, rule="reference", **modes)
+    out_k = pr.fused_round(SEED, r, fhist, fpack, **fvote)
+    out_p = pr.fused_round_plain(SEED, r, fhist, fpack, **fvote)
+    torch.cuda.synchronize()
+    res = compare("fused_round", flanes, list(zip(out_k, out_p)))
+    fhist_f = fhist.float().contiguous()
+    fargs = (pkey, vkey, ckey, r + 1, fhist_f, fpack, fm_, fcfg.n_faulty,
+             "reference", "crash", True)
+    ms = cuda_ms(lambda: pr._launch_fused_round(lib, *fargs), TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: pr.fused_round_plain(
+        SEED, r, fhist, fpack, **fvote), TIMED_LAUNCHES)
+    record("fused_round", flanes, fplanes,
+           2 * fpack.numel() * 4 + ft * 3 * 4
+           + ft * (pr.PROP_COLS + pr.VOTE_COLS) * 4, *res, ms, plain)
+
+    # --- 3. dispatch identity: fused == proposal + sum + vote -------------
+    parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, fhist, fpack,
+                               fm_, **modes)
+    two_pack, two_b = pr.vote_commit(SEED, r, rng.PHASE_VOTE,
+                                     parts_a[:, :3], fpack,
+                                     parts_a[:, 3] >= fm_, **fvote)
+    same = (torch.equal(out_k[0], two_pack) and torch.equal(out_k[1], parts_a)
+            and torch.equal(out_k[2], two_b))
+    print(f"[dispatch] fused_round vs proposal_hist + sum + vote_commit at "
+          f"N={N_FUSED} T={TRIALS}: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit("fused and two-kernel rounds differ")
+
+    # --- 4. a small run on the card vs the same run on the CPU ------------
+    old = sampling.EXACT_TABLE_MAX
+    sampling.EXACT_TABLE_MAX = 4          # force the CF regime at N = 1000
+    try:
+        scfg = SimConfig(n_nodes=1000, n_faulty=450, trials=8,
+                         delivery="quorum", scheduler="uniform",
+                         path="histogram", use_pallas_hist=True,
+                         use_pallas_round=True, max_rounds=MAX_ROUNDS,
+                         seed=SEED)
+        outs = {}
+        for d in ("cpu", "cuda"):
+            f = FaultSpec.none(scfg.trials, scfg.n_nodes, device=d)
+            st = init_state(scfg, balanced_inputs(scfg.trials, 1000), f)
+            rr, fin = run_consensus(scfg, st, f)
+            check_final(scfg, rr, fin)
+            outs[d] = (rr, fin)
+    finally:
+        sampling.EXACT_TABLE_MAX = old
+    (rc, fc), (rg, fg) = outs["cpu"], outs["cuda"]
+    diff_trials = int(sum(
+        (getattr(fc, n).cpu() != getattr(fg, n).cpu()).any(1)
+        for n in ("x", "decided", "k")).clamp(max=1).sum())
+    print(f"[small] N=1000 T=8 f=0.45: rounds cpu {rc} cuda {rg}, trials "
+          f"differing {diff_trials} of 8")
+    if rc != rg or diff_trials:
+        raise SystemExit("card and CPU runs disagree")
+
+    # --- 5. the main path --------------------------------------------------
+    base = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
+                scheduler="uniform", path="histogram", fault_model="crash",
+                seed=SEED, use_pallas_hist=True, use_pallas_round=True)
+    regimes = []
+    f = int(0.2 * N_MAIN)
+    cfg_iid = SimConfig(n_nodes=N_MAIN, n_faulty=f, **base)
+    regimes.append(("iid_crash_f0.20", cfg_iid,
+                    random_inputs(SEED, TRIALS, N_MAIN),
+                    FaultSpec.first_f(cfg_iid, device=dev)))
+    bal = balanced_inputs(TRIALS, N_MAIN)
+    for frac in FRACS:
+        c = SimConfig(n_nodes=N_MAIN, n_faulty=int(frac * N_MAIN), **base)
+        regimes.append((f"balanced_f{frac:.2f}", c, bal,
+                        FaultSpec.none(TRIALS, N_MAIN, device=dev)))
+    c = SimConfig(n_nodes=N_FUSED, n_faulty=N_FUSED // 4, **base)
+    regimes.append((f"balanced_f0.25_n{N_FUSED}", c,
+                    balanced_inputs(TRIALS, N_FUSED),
+                    FaultSpec.none(TRIALS, N_FUSED, device=dev)))
+    torch.cuda.synchronize()
+
+    pr.reset_launches()
+    for name, c, vals, fl in regimes:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check_final(c, rounds, fin)
+        live = int((~fin.killed).sum())
+        dec = int(fin.decided.sum()) / max(live, 1)
+        print(f"[main] {name}: N={c.n_nodes} T={c.trials} rounds {rounds} "
+              f"decided {dec:.6f} wall {sec:.4f} s trials/s "
+              f"{c.trials / sec:.3f} peak_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    launches = {k: fn.launches for k, fn in pr.KERNELS.items()}
+    print(f"[main] launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"{name} never launched on the main path")
+        kernels[name]["launches"] = n
+
+    # --- where the time goes: state build vs the run, per regime -----------
+    t_runs = {}
+    for name, c, vals, fl in regimes:
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rounds, _ = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_runs[name] = time.perf_counter() - t0
+        print(f"[split] {name}: init_state {t_init:.4f} s, run_consensus "
+              f"{t_run:.4f} s ({rounds} rounds, {c.trials / t_run:.3f} "
+              f"trials/s over run_consensus alone)")
+    name, c, vals, fl = regimes[-2]                      # balanced_f0.45
+    st = init_state(c, vals, fl)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device-side events only (an aten op's entry repeats its kernels' time)
+    evs = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and dev_us(e) > 0), key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in evs) / 1e3
+    top = ", ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in evs[:8])
+    ours = sum(dev_us(e) for e in evs if "_kernel(" in e.key
+               and ("proposal_hist" in e.key or "vote_commit" in e.key
+                    or "fused_round" in e.key)) / 1e3
+    print(f"[breakdown] {name}: profiled run_consensus: device busy "
+          f"{busy_ms:.3f} ms (round kernels {ours:.3f} ms) = "
+          f"{busy_ms / 1e3 / t_runs[name]:.4f} of the unprofiled "
+          f"run_consensus; "
+          f"top device time: {top}")
+
+    # --- 6. the kernels line, the card, the result -------------------------
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+REPLACES = {
+    "proposal_hist": "benor_tpu/ops/pallas_round.py:1024",
+    "vote_commit": "benor_tpu/ops/pallas_round.py:1105",
+    "fused_round": "benor_tpu/ops/pallas_round.py:1195",
+}
+
+if __name__ == "__main__":
+    sys.exit(main())
