@@ -1,9 +1,9 @@
 """benor_tpu_torch — the Ben-Or simulator on PyTorch and CUDA.
 
 A port of ``benor_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
-``SimConfig``, the same bit-plane node state and the same random streams,
-with the round kernels written by hand in CUDA C++ for ``sm_90a``
-(csrc/).  It imports neither JAX nor the JAX package.
+``SimConfig``, the same node state and the same random streams, with the
+round kernels and the histogram samplers written by hand in CUDA C++ for
+``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
 
     from benor_tpu_torch import SimConfig, simulate
     cfg = SimConfig(n_nodes=1_000_000, n_faulty=250_000, trials=32,
@@ -14,8 +14,10 @@ with the round kernels written by hand in CUDA C++ for ``sm_90a``
 """
 
 from .config import SimConfig, VAL0, VAL1, VALQ
-from .sim import run_consensus, simulate
+from .sim import (resume_consensus, run_consensus, run_consensus_slice,
+                  simulate)
 from .state import FaultSpec, NetState, init_state
 
 __all__ = ["SimConfig", "VAL0", "VAL1", "VALQ", "FaultSpec", "NetState",
-           "init_state", "run_consensus", "simulate"]
+           "init_state", "resume_consensus", "run_consensus",
+           "run_consensus_slice", "simulate"]

@@ -27,10 +27,17 @@ VALQ = 2  # the "?" value
 WITNESS_MAX_NODES = 16
 
 
-def _unported_spec(name: str):
+def unported(what: str, item: str):
+    """Raise NotImplementedError for a regime the port does not serve yet,
+    naming the ROADMAP Queue A item that will bring it."""
     raise NotImplementedError(
-        f"SimConfig.{name} spec strings are not ported yet (ROADMAP Queue A "
-        "item 13, the fault and structure planes)")
+        f"{what} is not ported to benor_tpu_torch yet (ROADMAP Queue A "
+        f"item {item})")
+
+
+def _unported_spec(name: str):
+    unported(f"SimConfig.{name} spec strings (the fault and structure "
+             "planes)", "13")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 At first use the sources under ``benor_tpu_torch/csrc/`` are compiled for
 Hopper (``sm_90a``) into ``build/benor_tpu_torch/`` at the root of the
-checkout, one library per hash of the sources and flags, and loaded with
+checkout — one ``nvcc`` per source, all started together, then one link —
+into one library per hash of the sources and flags, and loaded with
 ctypes.  The kernels have a plain C interface, so no PyTorch header is
 compiled and a build takes seconds.  A failed build raises.
 
@@ -26,14 +27,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "benor_tpu_torch"
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+         "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 
-#: argtypes of every C entry point in csrc/round_kernels.cu.
+#: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
     "benor_round_blocks": [_I],
     "benor_proposal_hist": [_P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _I, _P],
@@ -41,6 +42,10 @@ SIGNATURES = {
                           _I, _F, _F, _I, _I, _I, _P],
     "benor_fused_round": [_P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U,
                           _U, _U, _I, _F, _F, _I, _I, _I, _P],
+    "benor_cf_counts": [_P, _P, _I, _I, _U, _U, _F, _P],
+    "benor_coin_flips": [_P, _I, _I, _U, _U, _P],
+    "benor_equiv_counts": [_P, _P, _P, _I, _I, _U, _U, _U, _U, _F, _P],
+    "benor_weak_coin_flips": [_P, _P, _I, _I, _U, _U, _F, _P],
 }
 
 
@@ -56,23 +61,41 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs: list[subprocess.Popen]):
+    """Wait for every process, then raise on the first that failed."""
+    done = [(p, *p.communicate()) for p in procs]
+    for proc, out, err in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(proc.args)}\n{out}\n{err}")
+
+
 def compile_library(flags: list[str], out_dir: Path) -> Path:
-    """Compile csrc/*.cu with ``flags`` into one shared library under
-    ``out_dir``, cached by a hash of the flags and sources -> its path."""
+    """Compile csrc/*.cu with ``flags`` (one nvcc per source, in parallel)
+    and link them into one shared library under ``out_dir``, cached by a
+    hash of the flags and sources -> its path."""
     h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    out = out_dir / f"libbenor_round_{h.hexdigest()[:16]}.so"
+    out = out_dir / f"libbenor_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+    procs = [_run([nvcc_path(), *flags, "-c", str(src), "-o", str(obj)])
+             for src, obj in zip(sources(), objs)]
+    _wait(procs)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    _wait([_run([nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)])])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

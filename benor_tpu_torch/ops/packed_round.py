@@ -27,8 +27,6 @@ the fused round equals proposal + sum + vote bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import VAL0, VAL1, VALQ
@@ -37,7 +35,8 @@ from ..state import (NetState, PACK_COINED, PACK_DECIDED, PACK_DOWN,
                      PACK_NODES_PER_WORD, PACK_STATIC_WIDTH, PACK_X,
                      pack_k_bits)
 from . import rng, tally
-from .stream import (TILE_N, _COIN_SALT, bits_to_uniform, cf_draw, lane_ids,
+from .launch import check, count_vecs, on_cpu, ptr, raise_on, stream
+from .stream import (TILE_N, _COIN_SALT, cf_pair_draws, lane_ids,
                      stream_scal, threefry2x32)
 
 #: Single-pass engage caps, kept from the JAX package so both dispatch alike.
@@ -179,40 +178,14 @@ def _sent(fault_model, vote, faulty):
     return vote
 
 
-def _cf_pair_draws(m, key, hist_f, shape, device):
-    """The per-lane CF tally pair: one threefry block per lane gives both
-    uniforms; p0 ~ CF(total, c0, m), p1 | p0 ~ CF(total - c0, c1, m - p0)."""
-    node, trial = lane_ids(shape[0], shape[1], device)
-    b0, b1 = threefry2x32(key[0], key[1], node, trial)
-    u0 = bits_to_uniform(b0)
-    u1 = bits_to_uniform(b1)
-    c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
-    total = c0 + c1 + cq
-    mf = torch.tensor(float(m), dtype=torch.float32, device=device)
-    p0 = cf_draw(u0, total, c0, mf)
-    p1 = cf_draw(u1, torch.clamp_min(total - c0, 0.0), c1,
-                 torch.clamp_min(mf - p0, 0.0))
-    return p0, p1
-
-
-def _class_counts(values, mask):
-    """[T, Np] values + mask -> int32 [T, 3] counts of VAL0 / VAL1 / VALQ."""
-    return torch.stack([((values == v) & mask).sum(1)
-                        for v in (VAL0, VAL1, VALQ)], dim=1).to(torch.int32)
-
-
-def _count_vecs(hist: torch.Tensor) -> torch.Tensor:
-    """The kernels' count operand: the [T, 3] histogram as contiguous f32."""
-    return hist.to(torch.float32).contiguous()
-
-
 def sent_hist_from_pack(cfg, pack: torch.Tensor) -> torch.Tensor:
     """The proposal histogram int32 [T, 3] of the values live lanes send
     (byzantine lanes flipped) — round 1's input to the kernels."""
     x = plane_field(pack, PACK_X, _X_BITS)
     killed = plane_field(pack, PACK_KILLED, 1)
     faulty = plane_field(pack, PACK_FAULTY, 1)
-    return _class_counts(_sent(cfg.fault_model, x, faulty), killed == 0)
+    return tally.class_histogram(_sent(cfg.fault_model, x, faulty),
+                                 killed == 0)
 
 
 def unsettled_from_pack(pack: torch.Tensor) -> torch.Tensor:
@@ -232,12 +205,12 @@ def proposal_hist_plain(seed, r, phase, hist, pack, m, fault_model, freeze):
     """Plain version of the proposal kernel -> int32 [T, PROP_COLS]: the
     vote-class histogram over live lanes (cols 0-2) and the alive count."""
     x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
-    p0, p1 = _cf_pair_draws(m, stream_scal(seed, r, phase),
-                            _count_vecs(hist), x.shape, pack.device)
+    p0, p1 = cf_pair_draws(m, stream_scal(seed, r, phase),
+                           count_vecs(hist), x.shape, pack.device)
     x1 = torch.where(p0 > p1, VAL0, torch.where(p1 > p0, VAL1, VALQ))
     vote = _sent(fault_model, torch.where(frozen, x, x1), faulty)
     alive_n = alive.sum(1, dtype=torch.int32)[:, None]
-    return torch.cat([_class_counts(vote, alive), alive_n], dim=1)
+    return torch.cat([tally.class_histogram(vote, alive), alive_n], dim=1)
 
 
 def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
@@ -246,8 +219,8 @@ def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
     [T, VOTE_COLS]: next round's proposal histogram, settled, unsettled)."""
     x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
     shape, device = x.shape, pack.device
-    v0, v1 = _cf_pair_draws(m, stream_scal(seed, r, phase),
-                            _count_vecs(hist), shape, device)
+    v0, v1 = cf_pair_draws(m, stream_scal(seed, r, phase),
+                           count_vecs(hist), shape, device)
     node, trial = lane_ids(shape[0], shape[1], device)
     ck = stream_scal(seed, r, _COIN_SALT)
     pbits, _ = threefry2x32(ck[0], ck[1], node, trial)
@@ -279,7 +252,7 @@ def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
 
     settled = (new_dec == 1) | (killed == 1)
     cols = torch.cat([
-        _class_counts(_sent(fault_model, new_x, faulty), alive),
+        tally.class_histogram(_sent(fault_model, new_x, faulty), alive),
         settled.sum(1, dtype=torch.int32)[:, None],
         (~settled).sum(1, dtype=torch.int32)[:, None]], dim=1)
     return new_pack, cols
@@ -303,31 +276,11 @@ def fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
 # --------------------------------------------------------------------------
 
 
-def _on_cpu(pack: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version), False for a CUDA tensor
-    (kernel); any other device raises."""
-    if pack.device.type == "cpu":
-        return True
-    if pack.device.type != "cuda":
-        raise ValueError(f"round kernels run on cuda or cpu tensors, got "
-                         f"{pack.device}")
-    return False
-
-
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
-            t.device != device or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
-
-
 def _check_pack(pack):
     if pack.dim() != 3 or pack.shape[1] <= PACK_STATIC_WIDTH:
         raise ValueError(f"pack: expected [T, planes > {PACK_STATIC_WIDTH}, "
                          f"words], got {tuple(pack.shape)}")
-    _check("pack", pack, torch.int32, pack.shape, pack.device)
+    check("pack", pack, torch.int32, pack.shape, pack.device)
 
 
 def _check_modes(fault_model, rule="reference"):
@@ -339,19 +292,6 @@ def _check_modes(fault_model, rule="reference"):
         raise ValueError(f"unknown rule: {rule}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze):
     """One launch of the proposal kernel -> raw per-block partials int32
     [blocks, T, PROP_COLS]."""
@@ -359,10 +299,10 @@ def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze):
     parts = torch.empty((lib.benor_round_blocks(n_w), t, PROP_COLS),
                         dtype=torch.int32,
                         device=pack.device)
-    _raise_on(lib.benor_proposal_hist(
-        _ptr(pack), _ptr(hist_f), _ptr(parts), t, p, n_w, key[0], key[1],
+    raise_on(lib.benor_proposal_hist(
+        ptr(pack), ptr(hist_f), ptr(parts), t, p, n_w, key[0], key[1],
         float(m), int(fault_model == "byzantine"), int(bool(freeze)),
-        _stream(pack.device)), "proposal_hist")
+        stream(pack.device)), "proposal_hist")
     return parts
 
 
@@ -375,12 +315,12 @@ def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
     parts = torch.empty((lib.benor_round_blocks(n_w), t, VOTE_COLS),
                         dtype=torch.int32,
                         device=pack.device)
-    _raise_on(lib.benor_vote_commit(
-        _ptr(pack), _ptr(hist_f), _ptr(qok), _ptr(new_pack), _ptr(parts),
+    raise_on(lib.benor_vote_commit(
+        ptr(pack), ptr(hist_f), ptr(qok), ptr(new_pack), ptr(parts),
         t, p, n_w, vkey[0], vkey[1], ckey[0], ckey[1], int(rk), float(m),
         float(n_faulty), int(rule == "textbook"),
         int(fault_model == "byzantine"), int(bool(freeze)),
-        _stream(pack.device)), "vote_commit")
+        stream(pack.device)), "vote_commit")
     return new_pack, parts
 
 
@@ -396,12 +336,12 @@ def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
                           device=pack.device)
     parts_b = torch.empty((t, VOTE_COLS), dtype=torch.int32,
                           device=pack.device)
-    _raise_on(lib.benor_fused_round(
-        _ptr(pack), _ptr(hist_f), _ptr(new_pack), _ptr(parts_a),
-        _ptr(parts_b), t, p, n_w, pkey[0], pkey[1], vkey[0], vkey[1],
+    raise_on(lib.benor_fused_round(
+        ptr(pack), ptr(hist_f), ptr(new_pack), ptr(parts_a),
+        ptr(parts_b), t, p, n_w, pkey[0], pkey[1], vkey[0], vkey[1],
         ckey[0], ckey[1], int(rk), float(m), float(n_faulty),
         int(rule == "textbook"), int(fault_model == "byzantine"),
-        int(bool(freeze)), _stream(pack.device)), "fused_round")
+        int(bool(freeze)), stream(pack.device)), "fused_round")
     return new_pack, parts_a, parts_b
 
 
@@ -409,14 +349,14 @@ def proposal_hist(seed, r, phase, hist, pack, m, fault_model, freeze):
     """The proposal pass -> int32 [T, PROP_COLS] summed over the node axis
     (cols 0-2 vote histogram over live lanes, col 3 alive count)."""
     _check_modes(fault_model)
-    if _on_cpu(pack):
+    if on_cpu(pack.device, "round kernels"):
         return proposal_hist_plain(seed, r, phase, hist, pack, m,
                                    fault_model, freeze)
     from ._build import load_library
 
     _check_pack(pack)
-    hist_f = _count_vecs(hist)
-    _check("hist", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
+    hist_f = count_vecs(hist)
+    check("hist", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
     parts = _launch_proposal_hist(load_library(), stream_scal(seed, r, phase),
                                   hist_f, pack, m, fault_model, freeze)
     proposal_hist.launches += 1
@@ -428,17 +368,17 @@ def vote_commit(seed, r, phase, hist, pack, quorum_ok, m, n_faulty, rule,
     """The vote pass + commit -> (new plane stack, int32 [T, VOTE_COLS]
     summed over the node axis)."""
     _check_modes(fault_model, rule)
-    if _on_cpu(pack):
+    if on_cpu(pack.device, "round kernels"):
         return vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m,
                                  n_faulty, rule, fault_model, freeze)
     from ._build import load_library
 
     _check_pack(pack)
     t = pack.shape[0]
-    hist_f = _count_vecs(hist)
+    hist_f = count_vecs(hist)
     qok = quorum_ok.to(torch.int32).contiguous()
-    _check("hist", hist_f, torch.float32, (t, 3), pack.device)
-    _check("quorum_ok", qok, torch.int32, (t,), pack.device)
+    check("hist", hist_f, torch.float32, (t, 3), pack.device)
+    check("quorum_ok", qok, torch.int32, (t,), pack.device)
     new_pack, parts = _launch_vote_commit(
         load_library(), stream_scal(seed, r, phase),
         stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, qok, pack, m,
@@ -452,14 +392,14 @@ def fused_round(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
     """A whole round in one kernel -> (new plane stack, partsA
     [T, PROP_COLS], partsB [T, VOTE_COLS])."""
     _check_modes(fault_model, rule)
-    if _on_cpu(pack):
+    if on_cpu(pack.device, "round kernels"):
         return fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule,
                                  fault_model, freeze)
     from ._build import load_library
 
     _check_pack(pack)
-    hist_f = _count_vecs(hist1)
-    _check("hist1", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
+    hist_f = count_vecs(hist1)
+    check("hist1", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
     out = _launch_fused_round(
         load_library(), stream_scal(seed, r, rng.PHASE_PROPOSAL),
         stream_scal(seed, r, rng.PHASE_VOTE),
@@ -510,29 +450,22 @@ def packed_round(cfg, pack, seed, r, hist1, n_local):
     return new_pack, parts_b[:, :3], parts_b[:, 4]
 
 
-def run_packed_slice(cfg, state, faults, seed, from_round):
-    """The packed round loop from ``from_round`` -> (next_round, NetState).
+def run_packed_slice(cfg, state, faults, seed, from_round, until_round):
+    """The packed round loop from ``from_round``, stopping before
+    ``until_round`` -> (next_round, NetState).
 
     The JAX package runs this loop on the device (lax.while_loop); here it
     runs on the host and reads the unsettled count once per round — the
     one synchronisation per round, with the same predicate
-    ``(r <= max_rounds) & (unsettled > 0)``."""
+    ``(r <= max_rounds) & (unsettled > 0) & (r < until_round)``."""
     n_local = state.x.shape[-1]
     pack = pack_state(cfg, state, faults.faulty)
     hist1 = sent_hist_from_pack(cfg, pack)
     unsettled = int(unsettled_from_pack(pack))
     r = int(from_round)
-    while r <= cfg.max_rounds and unsettled > 0:
+    while r <= cfg.max_rounds and r < until_round and unsettled > 0:
         pack, hist1, unsett = packed_round(cfg, pack, seed, r, hist1,
                                            n_local)
         unsettled = int(unsett.sum())
         r += 1
     return r, unpack_state(pack, n_local)
-
-
-def run_packed(cfg, state, faults, seed):
-    """Run from /start to termination or the round cap -> (rounds, state)."""
-    from ..sim import start_state
-
-    r, final = run_packed_slice(cfg, start_state(cfg, state), faults, seed, 1)
-    return r - 1, final

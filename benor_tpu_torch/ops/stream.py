@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from .rng import key_words
-
 #: Node padding of the plane stack: the pack pads N up to a multiple of
 #: this, as the JAX package does, so the two packs compare word for word.
 TILE_N = 512
@@ -31,6 +29,12 @@ _EQUIV_SALT_OFFSET = 64
 _M32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
+
+
+def key_words(seed: int) -> tuple[int, int]:
+    """The two key words ``jax.random.key_data(jax.random.key(seed))`` holds
+    for a threefry key: ``(0, seed mod 2**32)``."""
+    return 0, int(seed) & _M32
 
 
 def _rotl(x, d: int):
@@ -131,3 +135,21 @@ def cf_draw(u: torch.Tensor, total: torch.Tensor, good: torch.Tensor,
     lo = torch.clamp_min(n - (t - g), 0.0)
     hi = torch.minimum(g, n)
     return torch.minimum(torch.maximum(draw, lo), hi)
+
+
+def cf_pair_draws(m, key, hist_f: torch.Tensor, shape, device):
+    """The per-lane CF tally pair (csrc/stream.cuh ``cf_pair_draws``): one
+    threefry block per lane gives both uniforms; p0 ~ CF(total, c0, m),
+    p1 | p0 ~ CF(total - c0, c1, m - p0).  ``hist_f`` is the f32 [T, 3]
+    class histogram; ``shape`` the lanes' (T, N)."""
+    node, trial = lane_ids(shape[0], shape[1], device)
+    b0, b1 = threefry2x32(key[0], key[1], node, trial)
+    u0 = bits_to_uniform(b0)
+    u1 = bits_to_uniform(b1)
+    c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
+    total = c0 + c1 + cq
+    mf = torch.tensor(float(m), dtype=torch.float32, device=device)
+    p0 = cf_draw(u0, total, c0, mf)
+    p1 = cf_draw(u1, torch.clamp_min(total - c0, 0.0), c1,
+                 torch.clamp_min(mf - p0, 0.0))
+    return p0, p1

@@ -1,11 +1,18 @@
-"""Gate predicates of the fused kernels (port of benor_tpu/ops/tally.py:26-105).
+"""Gate predicates and the histogram-path tally (port of
+benor_tpu/ops/tally.py:26-133, 150-375).
 
-Kept verbatim so the port dispatches exactly where the JAX package does.
+The gates are kept verbatim so the port dispatches exactly where the JAX
+package does.  ``receiver_counts`` serves the uniform-scheduler CF regime
+of the histogram path — the fused samplers of ops/hist.py — and raises
+``NotImplementedError`` naming the ROADMAP item of every other branch.
 """
 
 from __future__ import annotations
 
-from ..config import SimConfig
+import torch
+
+from ..config import SimConfig, VAL0, VAL1, VALQ, unported
+from . import hist as hist_ops
 from . import sampling
 
 
@@ -18,9 +25,21 @@ def pallas_stream_active(cfg: SimConfig) -> bool:
             and cfg.quorum > sampling.EXACT_TABLE_MAX)
 
 
+def pallas_requested(cfg: SimConfig) -> bool:
+    """True iff the config asks for any fused kernel (hist or round),
+    whether or not its regime can serve one."""
+    return cfg.use_pallas_hist or cfg.use_pallas_round
+
+
 def pallas_hist_active(cfg: SimConfig) -> bool:
     """True iff the fused sampler serves this config's histogram tallies."""
     return pallas_stream_active(cfg) and cfg.fault_model != "equivocate"
+
+
+def pallas_equiv_active(cfg: SimConfig) -> bool:
+    """True iff the fused equivocate-regime sampler serves this config's
+    histogram tallies."""
+    return pallas_stream_active(cfg) and cfg.fault_model == "equivocate"
 
 
 def pallas_round_active(cfg: SimConfig) -> bool:
@@ -48,3 +67,53 @@ def pallas_round_counts_mode(cfg: SimConfig) -> str:
     if cfg.scheduler == "targeted":
         return "camps"
     return "sampled"
+
+
+def class_histogram(sent: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Per-trial class counts of live senders' values -> int32 [T, 3]."""
+    return torch.stack([((sent == v) & alive).sum(-1, dtype=torch.int32)
+                        for v in (VAL0, VAL1, VALQ)], dim=-1)
+
+
+def unfused_gap(cfg: SimConfig):
+    """(what, ROADMAP item) of the first branch of the unfused histogram
+    round that the port lacks for ``cfg``, or None when the fused samplers
+    serve every tally."""
+    if cfg.topology is not None or cfg.committee_cap:
+        return "topology / committee delivery", "13"
+    if cfg.drop_prob or cfg.partition is not None:
+        return "drop_prob / partition delivery", "13"
+    if cfg.delivery == "all":
+        return "delivery='all' (the broadcast histogram)", "4"
+    if cfg.scheduler in ("adversarial", "targeted"):
+        return f"scheduler={cfg.scheduler!r} (closed-form counts)", "8"
+    if cfg.resolved_path == "dense":
+        return "the dense path", "9"
+    if cfg.scheduler == "biased":
+        return "scheduler='biased' (the biased samplers)", "9"
+    if not pallas_stream_active(cfg):
+        return ("the XLA samplers (use_pallas_hist=False, or a quorum "
+                "within EXACT_TABLE_MAX)"), "4"
+    return None
+
+
+def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
+                    sent: torch.Tensor, alive: torch.Tensor,
+                    equiv: torch.Tensor | None = None,
+                    n_equiv: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-receiver tallied class counts int32 [T, N, 3] over the global
+    sender population.  ``equiv`` (bool [T, N] or None) marks equivocating
+    senders, whose slot in ``sent`` is ignored; ``n_equiv`` (int32 [T]) is
+    their live count, hoisted by the caller once per round."""
+    gap = unfused_gap(cfg)
+    if gap is not None:
+        unported(*gap)
+    n = sent.shape[-1]
+    honest = alive if equiv is None else (alive & ~equiv)
+    if equiv is not None and n_equiv is None:
+        n_equiv = (equiv & alive).sum(-1, dtype=torch.int32)
+    hist = class_histogram(sent, honest)
+    if equiv is not None:
+        return hist_ops.equiv_counts(seed, r, phase, hist, n_equiv,
+                                     cfg.quorum, n)
+    return hist_ops.cf_counts(seed, r, phase, hist, cfg.quorum, n)

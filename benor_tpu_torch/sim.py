@@ -1,11 +1,14 @@
-"""Simulation entry points (port of benor_tpu/sim.py:189-192, 245-283, 439-457).
+"""Simulation entry points (port of benor_tpu/sim.py:189-192, 245-457).
 
-The port serves the packed main path: the fused round kernels in the
-uniform-scheduler CF regime, private coin, crash or byzantine faults, either
-decision rule, freeze on or off.  Every other regime raises
-``NotImplementedError`` naming the ROADMAP item that will bring it; nothing
-falls back to another path.  Entry points run on the CUDA device unless the
-caller passes ``device="cpu"``.
+Two round loops serve the uniform-scheduler CF regime, as in the JAX
+package: the packed loop (ops/packed_round.py, the fused round kernels) when
+``tally.pallas_round_active`` — private coin, crash or byzantine faults —
+and the unfused loop (models/benor.py, the samplers and coins of
+ops/hist.py) otherwise — crash, byzantine or equivocate faults, private,
+common or weak-common coins.  Both take either decision rule, freeze on or
+off.  Every other regime raises ``NotImplementedError`` naming the ROADMAP
+item that will bring it; nothing falls back to another path.  Entry points
+run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ from typing import Optional
 
 import torch
 
-from .config import SimConfig
-from .ops import tally
+from .config import SimConfig, unported
+from .models import benor
+from .ops import packed_round, tally
 from .state import FaultSpec, NetState, init_state
 
 
@@ -38,32 +42,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to benor_tpu_torch yet (ROADMAP Queue A "
-        f"item {item})")
-
-
 def check_supported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError unless the packed main path serves cfg."""
+    """Raise NotImplementedError unless one of the port's loops serves
+    cfg."""
     if cfg.mesh_shape is not None:
-        _unsupported("mesh_shape (sharded runs)", "15")
+        unported("mesh_shape (sharded runs)", "15")
     if cfg.record or cfg.witness or cfg.kernel_telemetry:
-        _unsupported("record / witness / kernel_telemetry", "11")
+        unported("record / witness / kernel_telemetry", "11")
     if cfg.debug:
-        _unsupported("debug=True (the per-round XLA loop)", "5")
+        unported("debug=True (the per-round host callback)", "5")
     if not tally.pallas_round_active(cfg):
-        if cfg.resolved_path == "dense":
-            _unsupported("the dense path", "9")
-        _unsupported("the unfused round loop (use_pallas_round=False or a "
-                     "regime the fused kernels do not serve)", "5")
+        gap = benor.round_gap(cfg)
+        if gap is not None:
+            unported(*gap)
+        return
     if tally.pallas_round_counts_mode(cfg) != "sampled":
-        _unsupported(f"scheduler={cfg.scheduler!r} (closed-form counts)",
-                     "8")
+        unported(f"scheduler={cfg.scheduler!r} (closed-form counts)", "8")
     if cfg.fault_model not in ("crash", "byzantine"):
-        _unsupported(f"fault_model={cfg.fault_model!r}", "8")
+        unported(f"fault_model={cfg.fault_model!r} in the packed round", "8")
     if cfg.coin_mode != "private":
-        _unsupported(f"coin_mode={cfg.coin_mode!r}", "8")
+        unported(f"coin_mode={cfg.coin_mode!r} in the packed round", "8")
 
 
 def start_state(cfg: SimConfig, state: NetState) -> NetState:
@@ -73,14 +71,56 @@ def start_state(cfg: SimConfig, state: NetState) -> NetState:
                     killed=state.killed)
 
 
+def _unfused_slice(cfg, state, faults, seed, from_round, until_round):
+    """The unfused round loop -> (next_round, state).  The JAX package runs
+    it on the device (lax.while_loop); here it runs on the host and reads
+    the settled predicate once per round, with the same condition
+    ``(r <= max_rounds) & ~all_settled & (r < until_round)``."""
+    r = int(from_round)
+    while r <= cfg.max_rounds and r < until_round and \
+            not bool(benor.all_settled(state)):
+        state = benor.benor_round(cfg, state, faults, seed, r)
+        r += 1
+    return r, state
+
+
+def _slice(cfg, state, faults, from_round, until_round):
+    """The loop that serves cfg, from ``from_round`` up to (not including)
+    ``until_round`` -> (next_round, state)."""
+    check_supported(cfg)
+    run = (packed_round.run_packed_slice if tally.pallas_round_active(cfg)
+           else _unfused_slice)
+    return run(cfg, state, faults, cfg.seed, from_round, until_round)
+
+
 def run_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec):
     """Run from /start to termination or the round cap on the device the
     state lives on -> (rounds_executed, final_state).  cfg.seed keys every
     stream exactly as ``jax.random.key(cfg.seed)`` keys the JAX package's."""
-    from .ops.packed_round import run_packed
+    r, final = _slice(cfg, start_state(cfg, state), faults, 1,
+                      cfg.max_rounds + 2)
+    return r - 1, final
 
-    check_supported(cfg)
-    return run_packed(cfg, state, faults, cfg.seed)
+
+def run_consensus_slice(cfg: SimConfig, state: NetState, faults: FaultSpec,
+                        from_round: int, until_round: int):
+    """At most ``until_round - from_round`` rounds of the loop ->
+    (next_round, state); ``next_round == from_round`` means no progress was
+    possible (already settled or past the round cap).  Randomness keys on
+    (seed, round, phase, trial, node), never on how the loop was entered,
+    so a run in slices equals the one-shot run bit for bit.  ``state`` is
+    taken as given: the first slice of a run starts from
+    ``start_state(cfg, state)``."""
+    return _slice(cfg, state, faults, from_round, until_round)
+
+
+def resume_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec,
+                     from_round: int):
+    """Re-enter the loop from a checkpointed round index -> (rounds_executed,
+    final_state), rounds counted from round 1 as ``run_consensus`` counts
+    them."""
+    r, final = _slice(cfg, state, faults, from_round, cfg.max_rounds + 2)
+    return r - 1, final
 
 
 def simulate(cfg: SimConfig, initial_values, faulty_list=None,

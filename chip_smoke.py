@@ -6,22 +6,27 @@
 Phases (any failure ends the run non-zero; nothing is caught):
 
   1. toolchain: torch / CUDA / nvcc versions, the card, its power limit;
-     build the kernels from benor_tpu_torch/csrc;
-  2. each round kernel against its plain torch version on the card, on the
-     same CUDA tensors, at the main path's shapes (N = 1,000,000 x 32
-     trials for the two-kernel pair, N = 8192 x 32 for the fused kernel):
-     every partial count and plane word must be equal; times over 20
-     launches, the bound;
+     build the kernels from benor_tpu_torch/csrc (one nvcc per source, in
+     parallel);
+  2. each kernel against its plain torch version on the card, on the same
+     CUDA tensors, at the main path's shapes (N = 1,000,000 x 32 trials;
+     N = 8192 x 32 for the fused round kernel): every count, coin and plane
+     word must be equal; times over 20 launches, the bound;
   3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
      bit, at N = 8192 x 32;
-  4. a small run on the card against the same run on the CPU (plain
-     versions): every trial equal;
-  5. the main path: ``simulate``'s loop over bench.py's N = 1M rounds-vs-f
-     regimes (32 trials, max_rounds = 64), then one N = 8192 run that takes
-     the fused kernel, with every kernel's launch count read around it;
-     then each regime's init_state / run_consensus split and one profiled
-     run;
-  6. the kernels line, the card line, and the result line.
+  4. small runs on the card against the same runs on the CPU (plain
+     versions), packed and unfused: every trial equal;
+  5. the packed main path: ``simulate``'s loop over bench.py's N = 1M
+     rounds-vs-f regimes (32 trials, max_rounds = 64), then one N = 8192
+     run that takes the fused kernel, with the round kernels' launch counts
+     read around it; then each regime's init_state / run_consensus split
+     and one profiled run;
+  6. the unfused path (use_pallas_round=False) at N = 1M x 32: the same six
+     regimes, each equal to its packed run in rounds, x, decided, k and
+     killed, then the uniform equivocate regime and the weak-common and
+     common coins, with the histogram kernels' launch counts read around
+     it; one profiled run;
+  7. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -35,6 +40,7 @@ import time
 
 N_MAIN = 1_000_000
 N_FUSED = 8192
+N_SMALL = 1000
 TRIALS = 32
 MAX_ROUNDS = 64
 FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
@@ -44,21 +50,37 @@ TIMED_LAUNCHES = 20
 # The bound: peaks of one H100 SXM (NVIDIA's data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
-# Operations one lane executes, counted from csrc/stream.cuh and
-# csrc/round_kernels.cu (no lane exits early, so the count is data-free):
-# threefry-2x32-20 = 2 + 20 x (add, shl, shr, or, xor) + 5 x 3 key adds;
-# bits_to_uniform = 5; cf_draw = 50 + ndtri 53; one CF pair = threefry +
-# 2 uniforms + 2 draws + 6; field loads ~2 a plane; ballots and counts.
+# Operations one lane executes, counted from csrc/stream.cuh,
+# csrc/round_kernels.cu and csrc/hist_kernels.cu (no lane exits early, so
+# the count is data-free): threefry-2x32-20 = 2 + 20 x (add, shl, shr, or,
+# xor) + 5 x 3 key adds; bits_to_uniform = 5; ndtri = 53; cf_draw = 50 +
+# ndtri; one CF pair = threefry + 2 uniforms + 2 draws + 6; field loads ~2
+# a plane; ballots and counts.
 OPS_THREEFRY = 117
-OPS_CF_PAIR = OPS_THREEFRY + 2 * 5 + 2 * 103 + 6
+OPS_UNIFORM = 5
+OPS_NDTRI = 53
+OPS_CF_DRAW = 50 + OPS_NDTRI
+OPS_CF_PAIR = OPS_THREEFRY + 2 * OPS_UNIFORM + 2 * OPS_CF_DRAW + 6
 
 
-def ops_per_lane(kernel: str, planes: int) -> int:
+def ops_per_lane(kernel: str, planes: int = 0) -> int:
     load = 2 * planes
     prop = load + OPS_CF_PAIR + 4 + 3 + 8
     vote = load + OPS_CF_PAIR + OPS_THREEFRY + 1 + 20 + 2 * planes + 10
-    return {"proposal_hist": prop, "vote_commit": vote,
-            "fused_round": prop + vote}[kernel]
+    return {
+        "proposal_hist": prop, "vote_commit": vote,
+        "fused_round": prop + vote,
+        # the pair, hq = max(m - h0 - h1, 0), three casts
+        "cf_counts": OPS_CF_PAIR + 3 + 3,
+        # one block, the bit, the cast
+        "coin_flips": OPS_THREEFRY + 2,
+        # one block, the bit, the deviation uniform, compare and select
+        "weak_coin_flips": OPS_THREEFRY + 2 + OPS_UNIFORM + 2,
+        # two blocks, four uniforms, three draws, the binomial split's
+        # normal quantile, sums, clamps and the split (~20)
+        "equiv_counts": (2 * OPS_THREEFRY + 4 * OPS_UNIFORM + 3 * OPS_CF_DRAW
+                         + OPS_NDTRI + 20),
+    }[kernel]
 
 
 def sh(cmd: list[str]) -> str:
@@ -105,7 +127,7 @@ def random_pack(cfg, device, seed):
 
 
 def compare(name, lanes, pairs):
-    """Kernel vs plain outputs (partial counts, plane words) -> (differing
+    """Kernel vs plain outputs (counts, coins, plane words) -> (differing
     entries, max |diff|).  The tolerance is exact equality: the kernels
     and the plain versions run the same f32 operations in the same order,
     so any difference is a fault."""
@@ -140,6 +162,43 @@ def check_final(cfg, rounds, final):
     assert not bool(((x == 2) & dec).any()), "decided on '?'"
 
 
+def trials_differing(a, b) -> int:
+    """Trials in which two final states differ in x, decided, k or
+    killed."""
+    diff = sum((getattr(a, n).cpu() != getattr(b, n).cpu()).any(1)
+               for n in ("x", "decided", "k", "killed"))
+    return int(diff.clamp(max=1).sum())
+
+
+def breakdown(tag, name, run, t_run, ours):
+    """Profile one call of ``run`` -> a ``[breakdown]`` line: device busy
+    time, the share of the named kernels, and the top device entries."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device-side events only (an aten op's entry repeats its kernels' time)
+    evs = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and dev_us(e) > 0), key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in evs) / 1e3
+    top = ", ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in evs[:8])
+    ours_ms = sum(dev_us(e) for e in evs if "_kernel(" in e.key
+                  and any(k in e.key for k in ours)) / 1e3
+    print(f"[breakdown] {tag} {name}: profiled run_consensus: device busy "
+          f"{busy_ms:.3f} ms (port kernels {ours_ms:.3f} ms) = "
+          f"{busy_ms / 1e3 / t_run:.4f} of the unprofiled run_consensus; "
+          f"top device time: {top}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -147,10 +206,13 @@ def main() -> int:
         return 1
 
     from benor_tpu_torch import SimConfig, simulate
-    from benor_tpu_torch.ops import _build, rng
+    from benor_tpu_torch.ops import _build, rng, tally
+    from benor_tpu_torch.ops import hist as hk
     from benor_tpu_torch.ops import packed_round as pr
     from benor_tpu_torch.ops import sampling
-    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import (_COIN_SALT, _EQUIV_SALT_OFFSET,
+                                            stream_scal)
     from benor_tpu_torch.sim import run_consensus
     from benor_tpu_torch.state import FaultSpec, init_state
     from benor_tpu_torch.sweep import balanced_inputs, random_inputs
@@ -175,16 +237,18 @@ def main() -> int:
     def record(name, lanes, planes, nbytes, n_diff, max_err, ms, plain_ms):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = lanes * ops_per_lane(name, planes) / F32_OPS_PER_S * 1e3
+        src = "round" if name in pr.KERNELS else "hist"
         kernels[name] = dict(
             name=name, route="cuda",
-            source="benor_tpu_torch/csrc/round_kernels.cu",
+            source=f"benor_tpu_torch/csrc/{src}_kernels.cu",
             replaces=REPLACES[name], launches=0, max_abs_err=max_err,
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None, match="exact", differing=n_diff)
         print(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
-              f"operations {t_ops:.4f})")
+              f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for "
+              f"{nbytes} B, operations {t_ops:.4f} for "
+              f"{ops_per_lane(name, planes)} a lane)")
 
     # --- 2. kernels vs plain versions on the card -------------------------
     cfg = SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 4, trials=TRIALS,
@@ -206,7 +270,7 @@ def main() -> int:
                                      pack, m, **modes)
     torch.cuda.synchronize()
     res = compare("proposal_hist", lanes, [(parts_k, parts_p)])
-    hist_f = hist1.float().contiguous()
+    hist_f = count_vecs(hist1)
     ms = cuda_ms(lambda: pr._launch_proposal_hist(
         lib, pkey, hist_f, pack, m, **modes), TIMED_LAUNCHES)
     plain = cuda_ms(lambda: pr.proposal_hist_plain(
@@ -225,7 +289,7 @@ def main() -> int:
     torch.cuda.synchronize()
     res = compare("vote_commit", lanes, [(new_k, new_p),
                                          (vparts_k, vparts_p)])
-    hist2_f = hist2.float().contiguous()
+    hist2_f = count_vecs(hist2)
     qok_i = qok.to(torch.int32).contiguous()
     vargs = (vkey, ckey, r + 1, hist2_f, qok_i, pack, m, cfg.n_faulty,
              "reference", "crash", True)
@@ -247,7 +311,7 @@ def main() -> int:
     out_p = pr.fused_round_plain(SEED, r, fhist, fpack, **fvote)
     torch.cuda.synchronize()
     res = compare("fused_round", flanes, list(zip(out_k, out_p)))
-    fhist_f = fhist.float().contiguous()
+    fhist_f = count_vecs(fhist)
     fargs = (pkey, vkey, ckey, r + 1, fhist_f, fpack, fm_, fcfg.n_faulty,
              "reference", "crash", True)
     ms = cuda_ms(lambda: pr._launch_fused_round(lib, *fargs), TIMED_LAUNCHES)
@@ -256,6 +320,76 @@ def main() -> int:
     record("fused_round", flanes, fplanes,
            2 * fpack.numel() * 4 + ft * 3 * 4
            + ft * (pr.PROP_COLS + pr.VOTE_COLS) * 4, *res, ms, plain)
+
+    # the histogram kernels at N = 1M x 32, on the unfused path's operands
+    hlanes = TRIALS * N_MAIN
+    f40 = int(0.40 * N_MAIN)                 # balanced f = 0.40, round 1
+    bal_hist = torch.tensor([[N_MAIN // 2, N_MAIN // 2, 0]] * TRIALS,
+                            dtype=torch.int32, device=dev)
+    m40 = N_MAIN - f40
+    res = compare("cf_counts", hlanes, [(
+        hk.cf_counts(SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40, N_MAIN),
+        hk.cf_counts_plain(SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40,
+                           N_MAIN))])
+    bal_f = count_vecs(bal_hist)
+    ms = cuda_ms(lambda: hk._launch_cf_counts(lib, pkey, bal_f, m40, N_MAIN),
+                 TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: hk.cf_counts_plain(
+        SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40, N_MAIN), TIMED_LAUNCHES)
+    record("cf_counts", hlanes, 0, hlanes * 3 * 4 + TRIALS * 3 * 4, *res, ms,
+           plain)
+
+    res = compare("coin_flips", hlanes, [(
+        hk.coin_flips(SEED, r, TRIALS, N_MAIN, dev),
+        hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev))])
+    ms = cuda_ms(lambda: hk._launch_coin_flips(lib, ckey, TRIALS, N_MAIN,
+                                               dev), TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev),
+                    TIMED_LAUNCHES)
+    record("coin_flips", hlanes, 0, hlanes, *res, ms, plain)
+
+    # equiv_uniform_f0.20's round-1 operands: the honest histogram of
+    # balanced inputs with the first F lanes equivocating, all alive
+    ecfg = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.2 * N_MAIN),
+                     trials=TRIALS, fault_model="equivocate")
+    efaults = FaultSpec.first_f(ecfg, device=dev)
+    est = init_state(ecfg, balanced_inputs(TRIALS, N_MAIN), efaults)
+    e_alive = ~est.killed
+    e_hist = tally.class_histogram(est.x, e_alive & ~efaults.faulty)
+    n_equiv = (efaults.faulty & e_alive).sum(-1, dtype=torch.int32)
+    print(f"[operands] equiv_uniform_f0.20 round 1: hist {e_hist[0].tolist()}"
+          f" n_equiv {int(n_equiv[0])} m {ecfg.quorum}")
+    res = compare("equiv_counts", hlanes, [(
+        hk.equiv_counts(SEED, r, rng.PHASE_VOTE, e_hist, n_equiv,
+                        ecfg.quorum, N_MAIN),
+        hk.equiv_counts_plain(SEED, r, rng.PHASE_VOTE, e_hist, n_equiv,
+                              ecfg.quorum, N_MAIN))])
+    e_hist_f, ne_f = count_vecs(e_hist), count_vecs(n_equiv)
+    ekey2 = stream_scal(SEED, r, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET)
+    ms = cuda_ms(lambda: hk._launch_equiv_counts(
+        lib, vkey, ekey2, e_hist_f, ne_f, ecfg.quorum, N_MAIN),
+        TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: hk.equiv_counts_plain(
+        SEED, r, rng.PHASE_VOTE, e_hist, n_equiv, ecfg.quorum, N_MAIN),
+        TIMED_LAUNCHES)
+    record("equiv_counts", hlanes, 0,
+           hlanes * 3 * 4 + TRIALS * 4 * 4, *res, ms, plain)
+    del est, efaults, e_alive
+
+    eps = 0.5
+    shared = rng.coin_flips(SEED, r, rng.ids(TRIALS, device=dev),
+                            rng.ids(1, device=dev), common=True)[:, 0]
+    res = compare("weak_coin_flips", hlanes, [(
+        hk.weak_coin_flips(SEED, r, TRIALS, N_MAIN, eps, shared),
+        hk.weak_coin_flips_plain(SEED, r, TRIALS, N_MAIN, eps, shared))])
+    shared_i = shared.to(torch.int32).contiguous()
+    ms = cuda_ms(lambda: hk._launch_weak_coin_flips(
+        lib, ckey, TRIALS, N_MAIN, eps, shared_i), TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: hk.weak_coin_flips_plain(
+        SEED, r, TRIALS, N_MAIN, eps, shared), TIMED_LAUNCHES)
+    record("weak_coin_flips", hlanes, 0, hlanes + TRIALS * 4, *res, ms,
+           plain)
+    torch.cuda.empty_cache()
 
     # --- 3. dispatch identity: fused == proposal + sum + vote -------------
     parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, fhist, fpack,
@@ -270,34 +404,43 @@ def main() -> int:
     if not same:
         raise SystemExit("fused and two-kernel rounds differ")
 
-    # --- 4. a small run on the card vs the same run on the CPU ------------
+    # --- 4. small runs on the card vs the same runs on the CPU ------------
+    small = [
+        ("packed f=0.45", dict(n_faulty=450, use_pallas_round=True), False),
+        ("unfused equivocate f=0.20",
+         dict(n_faulty=200, fault_model="equivocate"), True),
+        ("unfused weak_common eps=0.5 f=0.45",
+         dict(n_faulty=450, coin_mode="weak_common", coin_eps=0.5), False),
+    ]
     old = sampling.EXACT_TABLE_MAX
     sampling.EXACT_TABLE_MAX = 4          # force the CF regime at N = 1000
     try:
-        scfg = SimConfig(n_nodes=1000, n_faulty=450, trials=8,
-                         delivery="quorum", scheduler="uniform",
-                         path="histogram", use_pallas_hist=True,
-                         use_pallas_round=True, max_rounds=MAX_ROUNDS,
-                         seed=SEED)
-        outs = {}
-        for d in ("cpu", "cuda"):
-            f = FaultSpec.none(scfg.trials, scfg.n_nodes, device=d)
-            st = init_state(scfg, balanced_inputs(scfg.trials, 1000), f)
-            rr, fin = run_consensus(scfg, st, f)
-            check_final(scfg, rr, fin)
-            outs[d] = (rr, fin)
+        for tag, kw, first_f in small:
+            kw = {"use_pallas_round": False, **kw}
+            scfg = SimConfig(n_nodes=N_SMALL, trials=8, delivery="quorum",
+                             scheduler="uniform", path="histogram",
+                             use_pallas_hist=True, max_rounds=MAX_ROUNDS,
+                             seed=SEED, **kw)
+            assert tally.pallas_round_active(scfg) == scfg.use_pallas_round
+            outs = {}
+            for d in ("cpu", "cuda"):
+                f = (FaultSpec.first_f(scfg, device=d) if first_f
+                     else FaultSpec.none(scfg.trials, N_SMALL, device=d))
+                st = init_state(scfg, balanced_inputs(scfg.trials, N_SMALL),
+                                f)
+                rr, fin = run_consensus(scfg, st, f)
+                check_final(scfg, rr, fin)
+                outs[d] = (rr, fin)
+            (rc, fc), (rg, fg) = outs["cpu"], outs["cuda"]
+            diff = trials_differing(fc, fg)
+            print(f"[small] {tag} N={N_SMALL} T=8: rounds cpu {rc} cuda {rg},"
+                  f" trials differing {diff} of 8")
+            if rc != rg or diff:
+                raise SystemExit(f"{tag}: card and CPU runs disagree")
     finally:
         sampling.EXACT_TABLE_MAX = old
-    (rc, fc), (rg, fg) = outs["cpu"], outs["cuda"]
-    diff_trials = int(sum(
-        (getattr(fc, n).cpu() != getattr(fg, n).cpu()).any(1)
-        for n in ("x", "decided", "k")).clamp(max=1).sum())
-    print(f"[small] N=1000 T=8 f=0.45: rounds cpu {rc} cuda {rg}, trials "
-          f"differing {diff_trials} of 8")
-    if rc != rg or diff_trials:
-        raise SystemExit("card and CPU runs disagree")
 
-    # --- 5. the main path --------------------------------------------------
+    # --- 5. the packed main path ---------------------------------------------
     base = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
                 scheduler="uniform", path="histogram", fault_model="crash",
                 seed=SEED, use_pallas_hist=True, use_pallas_round=True)
@@ -318,8 +461,7 @@ def main() -> int:
                     FaultSpec.none(TRIALS, N_FUSED, device=dev)))
     torch.cuda.synchronize()
 
-    pr.reset_launches()
-    for name, c, vals, fl in regimes:
+    def drive(tag, name, c, vals, fl):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
@@ -328,18 +470,28 @@ def main() -> int:
         check_final(c, rounds, fin)
         live = int((~fin.killed).sum())
         dec = int(fin.decided.sum()) / max(live, 1)
-        print(f"[main] {name}: N={c.n_nodes} T={c.trials} rounds {rounds} "
+        print(f"[{tag}] {name}: N={c.n_nodes} T={c.trials} rounds {rounds} "
               f"decided {dec:.6f} wall {sec:.4f} s trials/s "
               f"{c.trials / sec:.3f} peak_mem "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    launches = {k: fn.launches for k, fn in pr.KERNELS.items()}
-    print(f"[main] launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"{name} never launched on the main path")
-        kernels[name]["launches"] = n
+        return rounds, fin
 
-    # --- where the time goes: state build vs the run, per regime -----------
+    def read_launches(tag, table):
+        launches = {k: fn.launches for k, fn in table.items()}
+        print(f"[{tag}] launches {launches}")
+        for name, n in launches.items():
+            if n == 0:
+                raise SystemExit(f"{name} never launched on the {tag} path")
+            kernels[name]["launches"] = n
+
+    packed_out = {}
+    pr.reset_launches()
+    hk.reset_launches()
+    for name, c, vals, fl in regimes:
+        packed_out[name] = drive("main", name, c, vals, fl)
+    read_launches("main", pr.KERNELS)
+
+    # where the time goes: state build vs the run, per regime
     t_runs = {}
     for name, c, vals, fl in regimes:
         t0 = time.perf_counter()
@@ -355,33 +507,55 @@ def main() -> int:
               f"trials/s over run_consensus alone)")
     name, c, vals, fl = regimes[-2]                      # balanced_f0.45
     st = init_state(c, vals, fl)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run_consensus(c, st, fl)
+    breakdown("main", name, lambda: run_consensus(c, st, fl), t_runs[name],
+              tuple(pr.KERNELS))
+    del st
+
+    # --- 6. the unfused path at full width -----------------------------------
+    unfused = [(name, c.replace(use_pallas_round=False), vals, fl)
+               for name, c, vals, fl in regimes[:-1]]
+    eq = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.2 * N_MAIN),
+                   **{**base, "fault_model": "equivocate",
+                      "use_pallas_round": False})
+    unfused.append(("equiv_uniform_f0.20", eq, bal,
+                    FaultSpec.first_f(eq, device=dev)))
+    for coin, extra in (("weak_common", dict(coin_eps=0.5)),
+                        ("common", {})):
+        c = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.40 * N_MAIN),
+                      coin_mode=coin, **{**base, "use_pallas_round": False},
+                      **extra)
+        unfused.append((f"balanced_f0.40_{coin}", c, bal,
+                        FaultSpec.none(TRIALS, N_MAIN, device=dev)))
+    pr.reset_launches()
+    hk.reset_launches()
+    for name, c, vals, fl in unfused:
+        assert not tally.pallas_round_active(c)
+        rounds, fin = drive("unfused", name, c, vals, fl)
+        if name in packed_out:
+            p_rounds, p_fin = packed_out.pop(name)
+            diff = trials_differing(fin, p_fin)
+            print(f"[unfused] {name} vs packed: rounds {rounds} vs "
+                  f"{p_rounds}, trials differing {diff} of {c.trials}")
+            if rounds != p_rounds or diff:
+                raise SystemExit(f"{name}: unfused and packed runs differ")
+        del fin
+    read_launches("unfused", hk.KERNELS)
+    del packed_out
+    # balanced f = 0.45 (private coin) and f = 0.40 under the common coin
+    for name, c, vals, fl in (unfused[-4], unfused[-1]):
+        st = init_state(c, vals, fl)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds, _ = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        print(f"[split] unfused {name}: run_consensus {t_run:.4f} s "
+              f"({rounds} rounds, {c.trials / t_run:.3f} trials/s over "
+              f"run_consensus alone)")
+        breakdown("unfused", name, lambda: run_consensus(c, st, fl), t_run,
+                  tuple(hk.KERNELS))
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only (an aten op's entry repeats its kernels' time)
-    evs = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and dev_us(e) > 0), key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in evs) / 1e3
-    top = ", ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in evs[:8])
-    ours = sum(dev_us(e) for e in evs if "_kernel(" in e.key
-               and ("proposal_hist" in e.key or "vote_commit" in e.key
-                    or "fused_round" in e.key)) / 1e3
-    print(f"[breakdown] {name}: profiled run_consensus: device busy "
-          f"{busy_ms:.3f} ms (round kernels {ours:.3f} ms) = "
-          f"{busy_ms / 1e3 / t_runs[name]:.4f} of the unprofiled "
-          f"run_consensus; "
-          f"top device time: {top}")
-
-    # --- 6. the kernels line, the card, the result -------------------------
+    # --- 7. the kernels line, the card, the result -------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -394,6 +568,10 @@ REPLACES = {
     "proposal_hist": "benor_tpu/ops/pallas_round.py:1024",
     "vote_commit": "benor_tpu/ops/pallas_round.py:1105",
     "fused_round": "benor_tpu/ops/pallas_round.py:1195",
+    "cf_counts": "benor_tpu/ops/pallas_hist.py:412",
+    "coin_flips": "benor_tpu/ops/pallas_hist.py:244",
+    "equiv_counts": "benor_tpu/ops/pallas_hist.py:365",
+    "weak_coin_flips": "benor_tpu/ops/pallas_hist.py:333",
 }
 
 if __name__ == "__main__":

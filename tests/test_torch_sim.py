@@ -110,7 +110,7 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     dict(coin_mode="weak_common", coin_eps=0.5),
     dict(fault_model="equivocate"),
     dict(fault_model="crash_at_round"),
-    dict(use_pallas_round=False),
+    dict(use_pallas_round=False, use_pallas_hist=False),
     dict(use_pallas_hist=False),
     dict(scheduler="adversarial"),
     dict(path="dense"),
