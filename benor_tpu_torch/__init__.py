@@ -2,8 +2,8 @@
 
 A port of ``benor_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 ``SimConfig``, the same node state and the same random streams, with the
-round kernels and the histogram samplers written by hand in CUDA C++ for
-``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
+round kernels, the histogram samplers and the dense tally written by hand
+in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
 
     from benor_tpu_torch import SimConfig, simulate
     cfg = SimConfig(n_nodes=1_000_000, n_faulty=250_000, trials=32,

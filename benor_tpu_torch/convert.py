@@ -36,6 +36,13 @@ def faults_from_numpy(faulty, crash_round, recover_round=None,
                        else t(recover_round, torch.int32)))
 
 
+def mask_from_numpy(mask, device="cpu") -> torch.Tensor:
+    """A delivery mask (bool [T, R, S], any array-like) -> the port's
+    contiguous ``torch.bool`` tensor, one byte of 0 or 1 per edge."""
+    arr = np.ascontiguousarray(np.asarray(mask, dtype=bool))
+    return torch.from_numpy(arr).to(device)
+
+
 def state_to_numpy(state: NetState) -> dict:
     """The port's NetState -> {x int8, decided bool, k int32, killed bool}."""
     return {"x": state.x.cpu().numpy().astype(np.int8),

@@ -6,9 +6,10 @@ proposal phase (tallies -> majority, tie -> "?"), the vote phase (tallies
 -> decide when a count exceeds F, plurality-adopt under the reference
 rule, else the coin) and the commit — the reference node's ``/message``
 handler, lane-vectorised with ``torch.where``.  Every tally comes from
-``tally.receiver_counts`` (the fused samplers of ops/hist.py) and every
-coin from ops/hist.py or the ``fold_in`` chain of ops/rng.py, on the
-streams the JAX package draws, so a run equals the JAX run bit for bit.
+``tally.receiver_counts`` (the dense path's masks and exact tally, or the
+fused samplers of ops/hist.py) and every coin from ops/hist.py or the
+``fold_in`` chain of ops/rng.py, on the streams the JAX package draws, so
+a run equals the JAX run bit for bit.
 
 The slice serves fault_model ``crash``, ``byzantine`` and ``equivocate``;
 ``crash_at_round``, ``crash_recover``, the recorder, the witness and
@@ -110,6 +111,9 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     # majority -> value, tie -> "?"
     x1 = torch.where(p0 > p1, VAL0,
                      torch.where(p1 > p0, VAL1, VALQ)).to(torch.int8)
+    # omission makes the delivered count per-receiver random: keep each
+    # lane's phase-1 total for the per-lane quorum gate below
+    got1 = cnt1.sum(-1) if cfg.drop_prob else None
     del cnt1, p0, p1           # free the [T, N, 3] counts before phase 2
 
     # --- phase 2: vote -----------------------------------------------------
@@ -119,6 +123,10 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     cnt2 = tally.receiver_counts(cfg, seed, r, rng.PHASE_VOTE, sent2, alive,
                                  equiv, n_equiv)
     v0, v1 = cnt2[..., 0], cnt2[..., 1]
+    if got1 is not None:
+        # per-lane quorum gate: a receiver that cleared fewer than N - F
+        # messages in either phase stalls this round (commits only)
+        active = active & (got1 >= m) & (cnt2.sum(-1) >= m)
 
     decide0 = v0 > f
     decide1 = v1 > f

@@ -46,6 +46,7 @@ SIGNATURES = {
     "benor_coin_flips": [_P, _I, _I, _U, _U, _P],
     "benor_equiv_counts": [_P, _P, _P, _I, _I, _U, _U, _U, _U, _F, _P],
     "benor_weak_coin_flips": [_P, _P, _I, _I, _U, _U, _F, _P],
+    "benor_dense_counts": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -14,8 +14,6 @@ A key is a pair of 32-bit words: Python ints for the per-round keys (derived
 on the host, no device work) or int64 tensors masked to 32 bits for the
 per-trial and per-lane keys (derived on the run's device, no sync).  Ids are
 global, so a shard that folds in the ids it owns draws the same bits.
-``edge_uniforms`` (the dense path's per-edge chain) comes with the dense
-slice (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -26,7 +24,8 @@ from .stream import _M32, key_words, threefry2x32
 
 __all__ = ["PHASE_PROPOSAL", "PHASE_VOTE", "PHASE_COIN", "PHASE_COIN_DEV",
            "key_words", "fold_in", "round_key", "grid_keys",
-           "grid_uniforms", "coin_flips", "weak_common_coin_flips", "ids"]
+           "grid_uniforms", "edge_uniforms", "coin_flips",
+           "weak_common_coin_flips", "ids"]
 
 # Phase tags folded into the round key (and the stream salts of the
 # kernels' draws) so proposal, vote and coin never share a stream.
@@ -34,6 +33,11 @@ PHASE_PROPOSAL = 0
 PHASE_VOTE = 1
 PHASE_COIN = 2
 PHASE_COIN_DEV = 3   # weak-common-coin per-lane deviation stream
+
+#: Edges one pass of ``edge_uniforms`` folds at a time.  The threefry runs
+#: on int64 words (8 bytes an edge, about six tensors live), so a pass of
+#: 2**24 edges peaks near 1 GB whatever T x R x S is.
+EDGE_CHUNK = 1 << 24
 
 
 def fold_in(key, data):
@@ -78,6 +82,28 @@ def grid_uniforms(seed: int, r: int, phase: int, trial_ids: torch.Tensor,
     """One f32 uniform in [0, 1) per (trial, node) -> [T, N]."""
     return _uniform(grid_keys(round_key(seed, r, phase), trial_ids,
                               node_ids))
+
+
+def edge_uniforms(seed: int, r: int, phase: int, trial_ids: torch.Tensor,
+                  recv_ids: torch.Tensor,
+                  send_ids: torch.Tensor) -> torch.Tensor:
+    """One f32 uniform in [0, 1) per (trial, receiver, sender) edge ->
+    [T, R, S]: the dense path's delay tensor.  The key chain is
+    round -> trial -> receiver -> sender, ids GLOBAL and never combined
+    arithmetically.  The trial and receiver folds run once at [T] and
+    [T, R]; the sender fold and the draw run in passes over the trials of
+    at most ``EDGE_CHUNK`` edges, so the int64 threefry words never hold
+    the whole [T, R, S]."""
+    r0, r1 = grid_keys(round_key(seed, r, phase), trial_ids, recv_ids)
+    send = send_ids.to(torch.int64)[None, None, :]
+    t, n_recv, n_send = r0.shape[0], r0.shape[1], send.shape[-1]
+    out = torch.empty((t, n_recv, n_send), dtype=torch.float32,
+                      device=r0.device)
+    step = max(1, EDGE_CHUNK // max(n_recv * n_send, 1))
+    for lo in range(0, t, step):
+        key = (r0[lo:lo + step, :, None], r1[lo:lo + step, :, None])
+        out[lo:lo + step] = _uniform(fold_in(key, send))
+    return out
 
 
 def coin_flips(seed: int, r: int, trial_ids: torch.Tensor,

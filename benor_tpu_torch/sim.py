@@ -1,13 +1,19 @@
 """Simulation entry points (port of benor_tpu/sim.py:189-192, 245-457).
 
-Two round loops serve the uniform-scheduler CF regime, as in the JAX
-package: the packed loop (ops/packed_round.py, the fused round kernels) when
-``tally.pallas_round_active`` — private coin, crash or byzantine faults —
-and the unfused loop (models/benor.py, the samplers and coins of
-ops/hist.py) otherwise — crash, byzantine or equivocate faults, private,
-common or weak-common coins.  Both take either decision rule, freeze on or
-off.  Every other regime raises ``NotImplementedError`` naming the ROADMAP
-item that will bring it; nothing falls back to another path.  Entry points
+Two round loops, as in the JAX package: the packed loop
+(ops/packed_round.py, the fused round kernels) when
+``tally.pallas_round_active`` — the uniform-scheduler CF regime of the
+histogram path, private coin, crash or byzantine faults — and the unfused
+loop (models/benor.py) otherwise, in two regimes.  On the histogram path it
+serves the same CF regime with the samplers and coins of ops/hist.py; on
+the dense path (``path='dense'``, or ``'auto'`` at N <= dense_path_max_n)
+it serves quorum delivery under the uniform and biased schedulers and
+per-edge omission (``delivery='all'`` with ``drop_prob``): explicit
+[T, N, N] delivery masks (ops/scheduler.py) tallied exactly (ops/dense.py).
+Both regimes take crash, byzantine or equivocate faults, private, common or
+weak-common coins, either decision rule, freeze on or off.  Every other
+regime raises ``NotImplementedError`` naming the ROADMAP item that will
+bring it; nothing falls back to another path.  Entry points
 run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 

@@ -10,12 +10,15 @@ Phases (any failure ends the run non-zero; nothing is caught):
      parallel);
   2. each kernel against its plain torch version on the card, on the same
      CUDA tensors, at the main path's shapes (N = 1,000,000 x 32 trials;
-     N = 8192 x 32 for the fused round kernel): every count, coin and plane
-     word must be equal; times over 20 launches, the bound;
+     N = 8192 x 32 for the fused round kernel; the dense tally at
+     N = 2048 x 32, at bench.py's 2048 x 8 fixture and at a ragged
+     R = 1000, S = 2047): every count, coin and plane word must be equal;
+     times over 20 launches, the bound, and for the dense tally the
+     library route (bool -> f32 cast + torch.bmm);
   3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
      bit, at N = 8192 x 32;
   4. small runs on the card against the same runs on the CPU (plain
-     versions), packed and unfused: every trial equal;
+     versions), packed, unfused and dense: every trial equal;
   5. the packed main path: ``simulate``'s loop over bench.py's N = 1M
      rounds-vs-f regimes (32 trials, max_rounds = 64), then one N = 8192
      run that takes the fused kernel, with the round kernels' launch counts
@@ -26,7 +29,12 @@ Phases (any failure ends the run non-zero; nothing is caught):
      killed, then the uniform equivocate regime and the weak-common and
      common coins, with the histogram kernels' launch counts read around
      it; one profiled run;
-  7. the kernels line, the card line, and the result line.
+  7. the dense delivery path (path='auto' at N = 2048, use_pallas=True)
+     at 32 trials: the six regimes scaled to this N, the biased scheduler
+     at strength 1.0 and the equivocate regime, with the dense tally's
+     launch count read around it (2 a round); use_pallas on against off;
+     one run timed part by part and one profiled run;
+  8. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -41,6 +49,7 @@ import time
 N_MAIN = 1_000_000
 N_FUSED = 8192
 N_SMALL = 1000
+N_DENSE = 2048            # the cap of path='auto' (dense_path_max_n)
 TRIALS = 32
 MAX_ROUNDS = 64
 FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
@@ -55,7 +64,8 @@ F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
 # the count is data-free): threefry-2x32-20 = 2 + 20 x (add, shl, shr, or,
 # xor) + 5 x 3 key adds; bits_to_uniform = 5; ndtri = 53; cf_draw = 50 +
 # ndtri; one CF pair = threefry + 2 uniforms + 2 draws + 6; field loads ~2
-# a plane; ballots and counts.
+# a plane; ballots and counts.  The dense tally does three integer adds an
+# edge (one per class).
 OPS_THREEFRY = 117
 OPS_UNIFORM = 5
 OPS_NDTRI = 53
@@ -64,6 +74,7 @@ OPS_CF_PAIR = OPS_THREEFRY + 2 * OPS_UNIFORM + 2 * OPS_CF_DRAW + 6
 
 
 def ops_per_lane(kernel: str, planes: int = 0) -> int:
+    """Operations a lane (for the dense tally: an edge) executes."""
     load = 2 * planes
     prop = load + OPS_CF_PAIR + 4 + 3 + 8
     vote = load + OPS_CF_PAIR + OPS_THREEFRY + 1 + 20 + 2 * planes + 10
@@ -80,6 +91,7 @@ def ops_per_lane(kernel: str, planes: int = 0) -> int:
         # normal quantile, sums, clamps and the split (~20)
         "equiv_counts": (2 * OPS_THREEFRY + 4 * OPS_UNIFORM + 3 * OPS_CF_DRAW
                          + OPS_NDTRI + 20),
+        "dense_counts": 3,
     }[kernel]
 
 
@@ -144,10 +156,13 @@ def compare(name, lanes, pairs):
     return n_diff, max_err
 
 
-def check_final(cfg, rounds, final):
+def check_final(cfg, rounds, final, agreement=True):
     """Ben-Or invariants of a finished run: values in range, k within the
-    rounds run, killed lanes never decide, and agreement (all decided lanes
-    of a trial hold one value)."""
+    rounds run, killed lanes never decide, no lane decides "?", and
+    agreement (all decided lanes of a trial hold one value) -> the number
+    of trials that decided both values.  ``agreement=False`` counts them
+    without failing: the biased scheduler's split-bias attack and
+    equivocators at small N break agreement in the JAX package too."""
     import torch
     assert 0 <= rounds <= cfg.max_rounds, rounds
     assert tuple(final.x.shape) == (cfg.trials, cfg.n_nodes)
@@ -158,8 +173,10 @@ def check_final(cfg, rounds, final):
     x = final.x.to(torch.int64)
     has0 = ((x == 0) & dec).any(1)
     has1 = ((x == 1) & dec).any(1)
-    assert not bool((has0 & has1).any()), "agreement violated"
+    split = int((has0 & has1).sum())
+    assert not (agreement and split), "agreement violated"
     assert not bool(((x == 2) & dec).any()), "decided on '?'"
+    return split
 
 
 def trials_differing(a, b) -> int:
@@ -206,7 +223,10 @@ def main() -> int:
         return 1
 
     from benor_tpu_torch import SimConfig, simulate
-    from benor_tpu_torch.ops import _build, rng, tally
+    import numpy as np
+
+    from benor_tpu_torch.ops import _build, rng, scheduler, tally
+    from benor_tpu_torch.ops import dense as dk
     from benor_tpu_torch.ops import hist as hk
     from benor_tpu_torch.ops import packed_round as pr
     from benor_tpu_torch.ops import sampling
@@ -234,20 +254,24 @@ def main() -> int:
 
     kernels = {}
 
-    def record(name, lanes, planes, nbytes, n_diff, max_err, ms, plain_ms):
+    def record(name, lanes, planes, nbytes, n_diff, max_err, ms, plain_ms,
+               library_ms=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = lanes * ops_per_lane(name, planes) / F32_OPS_PER_S * 1e3
-        src = "round" if name in pr.KERNELS else "hist"
+        src = ("round" if name in pr.KERNELS
+               else "tally" if name in dk.KERNELS else "hist")
         kernels[name] = dict(
             name=name, route="cuda",
             source=f"benor_tpu_torch/csrc/{src}_kernels.cu",
             replaces=REPLACES[name], launches=0, max_abs_err=max_err,
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, match="exact", differing=n_diff)
+            library_ms=library_ms, match="exact", differing=n_diff)
+        lib_txt = ("" if library_ms is None
+                   else f"library {library_ms:.4f} ms, ")
         print(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for "
-              f"{nbytes} B, operations {t_ops:.4f} for "
+              f"{lib_txt}bound {max(t_bytes, t_ops):.4f} ms (bytes "
+              f"{t_bytes:.4f} for {nbytes} B, operations {t_ops:.4f} for "
               f"{ops_per_lane(name, planes)} a lane)")
 
     # --- 2. kernels vs plain versions on the card -------------------------
@@ -391,6 +415,46 @@ def main() -> int:
            plain)
     torch.cuda.empty_cache()
 
+    # the dense tally: bench.py's fixture (mask Bernoulli 0.8, sent uniform
+    # in {0, 1, 2}, alive Bernoulli 0.9, made with numpy from the seed) at
+    # its own T = 8, a ragged shape for the byte tails, and last the main
+    # path's T = 32, whose times go into the kernels line
+    def dense_case(t, n_recv, n_send):
+        rs = np.random.default_rng(SEED)
+        mask = rs.random((t, n_recv, n_send), dtype=np.float32) < 0.8
+        sent = rs.integers(0, 3, (t, n_send)).astype(np.int8)
+        alive = rs.random((t, n_send)) < 0.9
+        return [torch.from_numpy(a).to(dev) for a in (mask, sent, alive)]
+
+    for t_d, r_d, s_d in ((8, N_DENSE, N_DENSE), (TRIALS, 1000, 2047),
+                          (TRIALS, N_DENSE, N_DENSE)):
+        ops = dense_case(t_d, r_d, s_d)
+        edges = t_d * r_d * s_d
+        got = dk.dense_counts(*ops)
+        want = dk.dense_counts_plain(*ops)
+        via_bmm = tally.dense_counts(*ops)
+        torch.cuda.synchronize()
+        res = compare(f"dense_counts T={t_d} R={r_d} S={s_d}", edges,
+                      [(got, want), (via_bmm, want)])
+        ms = cuda_ms(lambda: dk._launch_dense_counts(lib, *ops),
+                     TIMED_LAUNCHES)
+        plain = cuda_ms(lambda: dk.dense_counts_plain(*ops), TIMED_LAUNCHES)
+        # the library route, timed whole: three compare-and-cast one-hot
+        # columns, the bool -> f32 cast of the mask, torch.bmm, the int cast
+        lib_ms = cuda_ms(lambda: tally.dense_counts(*ops), TIMED_LAUNCHES)
+        nbytes = edges + 2 * t_d * s_d + t_d * r_d * 3 * 4
+        if (t_d, r_d) != (TRIALS, N_DENSE):
+            print(f"[time] dense_counts T={t_d} R={r_d} S={s_d}: kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, library (cast + bmm) "
+                  f"{lib_ms:.4f} ms, bound "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {nbytes} "
+                  f"B); the same buffers every launch, so a mask under the "
+                  f"50 MB L2 is read from it")
+        else:
+            record("dense_counts", edges, 0, nbytes, *res, ms, plain, lib_ms)
+        del ops, got, want, via_bmm
+    torch.cuda.empty_cache()
+
     # --- 3. dispatch identity: fused == proposal + sum + vote -------------
     parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, fhist, fpack,
                                fm_, **modes)
@@ -440,6 +504,39 @@ def main() -> int:
     finally:
         sampling.EXACT_TABLE_MAX = old
 
+    # the dense path at N = 60, 16 trials: F = 15 crashed from birth on iid
+    # inputs (the biased scheduler, and equivocators at this N, may decide
+    # both values in a trial by design), then a two-round run on balanced
+    # inputs with F = 24 and no crashes
+    n_s, t_s = 60, 16
+    svals = np.random.default_rng(3).integers(0, 2, (t_s, n_s), np.int8)
+    dense_small = [
+        ("dense uniform", dict(n_faulty=15), True, True),
+        ("dense biased 1.0", dict(n_faulty=15, scheduler="biased",
+                                  adversary_strength=1.0), True, False),
+        ("dense equivocate", dict(n_faulty=15, fault_model="equivocate"),
+         True, False),
+        ("dense uniform balanced", dict(n_faulty=24), False, True),
+    ]
+    for tag, kw, crashed, agree in dense_small:
+        scfg = SimConfig(n_nodes=n_s, trials=t_s, max_rounds=48,
+                         delivery="quorum", path="dense", seed=3,
+                         use_pallas=True, **kw)
+        vals = svals if crashed else balanced_inputs(t_s, n_s)
+        outs = {}
+        for d in ("cpu", "cuda"):
+            f = (FaultSpec.first_f(scfg, device=d) if crashed
+                 else FaultSpec.none(t_s, n_s, device=d))
+            rr, fin = run_consensus(scfg, init_state(scfg, vals, f), f)
+            check_final(scfg, rr, fin, agree)
+            outs[d] = (rr, fin)
+        (rc, fc), (rg, fg) = outs["cpu"], outs["cuda"]
+        diff = trials_differing(fc, fg)
+        print(f"[small] {tag} N={n_s} F={scfg.n_faulty} T={t_s}: rounds cpu "
+              f"{rc} cuda {rg}, trials differing {diff} of {t_s}")
+        if rc != rg or diff:
+            raise SystemExit(f"{tag}: card and CPU runs disagree")
+
     # --- 5. the packed main path ---------------------------------------------
     base = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
                 scheduler="uniform", path="histogram", fault_model="crash",
@@ -461,18 +558,18 @@ def main() -> int:
                     FaultSpec.none(TRIALS, N_FUSED, device=dev)))
     torch.cuda.synchronize()
 
-    def drive(tag, name, c, vals, fl):
+    def drive(tag, name, c, vals, fl, agreement=True):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        check_final(c, rounds, fin)
+        split = check_final(c, rounds, fin, agreement)
         live = int((~fin.killed).sum())
         dec = int(fin.decided.sum()) / max(live, 1)
         print(f"[{tag}] {name}: N={c.n_nodes} T={c.trials} rounds {rounds} "
-              f"decided {dec:.6f} wall {sec:.4f} s trials/s "
-              f"{c.trials / sec:.3f} peak_mem "
+              f"decided {dec:.6f} trials split {split} wall {sec:.4f} s "
+              f"trials/s {c.trials / sec:.3f} peak_mem "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
         return rounds, fin
 
@@ -554,8 +651,105 @@ def main() -> int:
               f"run_consensus alone)")
         breakdown("unfused", name, lambda: run_consensus(c, st, fl), t_run,
                   tuple(hk.KERNELS))
+    del st, regimes, unfused, bal, vals, fl
+    torch.cuda.empty_cache()
 
-    # --- 7. the kernels line, the card, the result -------------------------
+    # --- 7. the dense delivery path at full width --------------------------
+    dbase = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
+                 scheduler="uniform", path="auto", fault_model="crash",
+                 seed=SEED, use_pallas=True)
+    dbal = balanced_inputs(TRIALS, N_DENSE)
+    dnone = FaultSpec.none(TRIALS, N_DENSE, device=dev)
+
+    def dcfg(frac, **kw):
+        return SimConfig(n_nodes=N_DENSE, n_faulty=int(frac * N_DENSE),
+                         **{**dbase, **kw})
+
+    c = dcfg(0.20)
+    dense = [("iid_crash_f0.20", c, random_inputs(SEED, TRIALS, N_DENSE),
+              FaultSpec.first_f(c, device=dev), True)]
+    dense += [(f"balanced_f{frac:.2f}", dcfg(frac), dbal, dnone, True)
+              for frac in FRACS]
+    # the split-bias attack decides both values in a trial by design
+    dense.append(("biased1.0_f0.25",
+                  dcfg(0.25, scheduler="biased", adversary_strength=1.0),
+                  dbal, dnone, False))
+    c = dcfg(0.20, fault_model="equivocate")
+    dense.append(("equiv_uniform_f0.20", c, dbal,
+                  FaultSpec.first_f(c, device=dev), True))
+    dk.reset_launches()
+    hk.reset_launches()
+    pr.reset_launches()
+    dense_out, dense_rounds = {}, 0
+    for name, c, vals, fl, agree in dense:
+        assert c.resolved_path == "dense" and tally.dense_gather_needed(c)
+        dense_out[name] = drive("dense", name, c, vals, fl, agree)
+        dense_rounds += dense_out[name][0]
+    read_launches("dense", dk.KERNELS)
+    print(f"[dense] rounds run {dense_rounds}: dense_counts launched "
+          f"{dk.dense_counts.launches} times (2 a round)")
+    if dk.dense_counts.launches != 2 * dense_rounds:
+        raise SystemExit("dense_counts launches != 2 x the rounds run")
+    if any(fn.launches for fn in (*hk.KERNELS.values(),
+                                  *pr.KERNELS.values())):
+        raise SystemExit("a histogram kernel launched on the dense path")
+
+    # use_pallas on (the kernel) against off (the f32 matrix product)
+    name, c, vals, fl, agree = dense[-3]                 # balanced_f0.45
+    rounds_on, fin_on = dense_out[name]
+    rounds_off, fin_off = drive("dense", name + " use_pallas=False",
+                                c.replace(use_pallas=False), vals, fl, agree)
+    diff = trials_differing(fin_on, fin_off)
+    print(f"[dense] {name} use_pallas on vs off: rounds {rounds_on} vs "
+          f"{rounds_off}, trials differing {diff} of {c.trials}")
+    if rounds_on != rounds_off or diff:
+        raise SystemExit("use_pallas on and off differ on the dense path")
+    del dense_out, fin_on, fin_off
+
+    # where the time goes: one run, then its parts timed alone at the
+    # run's shapes (a round draws two delay tensors, builds two masks and
+    # tallies twice)
+    st = init_state(c, vals, fl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds, _ = run_consensus(c, st, fl)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    print(f"[split] dense {name}: run_consensus {t_run:.4f} s ({rounds} "
+          f"rounds, {c.trials / t_run:.3f} trials/s over run_consensus "
+          f"alone)")
+    tid, nid = rng.ids(TRIALS, device=dev), rng.ids(N_DENSE, device=dev)
+
+    def timed_with_peak(fn):
+        """(ms, peak MiB allocated above what was live before) of fn."""
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, 3)
+        return ms, (torch.cuda.max_memory_allocated() - live) / 2**20
+
+    ms_edge, mem_edge = timed_with_peak(
+        lambda: rng.edge_uniforms(SEED, 1, 0, tid, nid, nid))
+    delays = rng.edge_uniforms(SEED, 1, 0, tid, nid, nid)
+    ms_top, mem_top = timed_with_peak(
+        lambda: scheduler._top_m_mask(delays, c.quorum))
+    srt = torch.sort(delays, dim=-1, stable=True).values
+    ties = int((srt[..., c.quorum - 1] == srt[..., c.quorum]).sum())
+    del delays, srt
+    ms_round = t_run / rounds * 1e3
+    ms_k = kernels["dense_counts"]["ms"]
+    rest = ms_round - 2 * (ms_edge + ms_top + ms_k)
+    print(f"[parts] dense {name}: a round {ms_round:.3f} ms = 2 x "
+          f"(edge_uniforms {ms_edge:.3f} ms + top-m sort and scatter "
+          f"{ms_top:.3f} ms + dense_counts {ms_k:.4f} ms) + the rest "
+          f"{rest:.3f} ms (bias / inf fill / alive masks, the round's where "
+          f"chains, the fold_in coins, the host sync); edge_uniforms allocates "
+          f"{mem_edge:.1f} MiB at its peak (its output included), top-m "
+          f"{mem_top:.1f} MiB; rows with "
+          f"equal delays at the m-th place: {ties} of {TRIALS * N_DENSE}")
+    breakdown("dense", name, lambda: run_consensus(c, st, fl), t_run,
+              tuple(dk.KERNELS))
+
+    # --- 8. the kernels line, the card, the result -------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -572,6 +766,7 @@ REPLACES = {
     "coin_flips": "benor_tpu/ops/pallas_hist.py:244",
     "equiv_counts": "benor_tpu/ops/pallas_hist.py:365",
     "weak_coin_flips": "benor_tpu/ops/pallas_hist.py:333",
+    "dense_counts": "benor_tpu/ops/pallas_tally.py:76",
 }
 
 if __name__ == "__main__":

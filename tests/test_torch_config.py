@@ -132,7 +132,8 @@ def test_quorum_and_resolved_path_match(kw):
 
 
 _GATES = ("pallas_stream_active", "pallas_hist_active",
-          "pallas_round_active", "pallas_round_counts_mode")
+          "pallas_round_active", "pallas_round_counts_mode",
+          "dense_gather_needed")
 
 
 @pytest.mark.parametrize("table_max", [4096, 4])
@@ -148,6 +149,8 @@ def test_gate_predicates_match(table_max):
         for kw in ({}, dict(use_pallas_hist=False),
                    dict(use_pallas_round=False), dict(delivery="all"),
                    dict(path="auto"), dict(path="dense"),
+                   dict(path="dense", delivery="all", drop_prob=0.1),
+                   dict(delivery="all", drop_prob=0.1),
                    dict(scheduler="adversarial"), dict(scheduler="targeted"),
                    dict(scheduler="biased", adversary_strength=1.0),
                    dict(fault_model="equivocate"),

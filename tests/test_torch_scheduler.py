@@ -1,0 +1,179 @@
+"""The dense path's per-edge stream and delivery masks:
+benor_tpu_torch.ops.rng.edge_uniforms and benor_tpu_torch.ops.scheduler
+against the JAX package's, on the same numpy-made inputs — uniforms equal as
+int32 bit patterns, masks equal entry for entry, rows with tied delays
+included (the lower sender index wins).  The JAX functions run under
+``jax.jit`` on numpy inputs: one XLA compile a case instead of one per
+eager operation keeps the test process's compile count low."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from benor_tpu.config import SimConfig as JCfg
+from benor_tpu.ops import rng as jrng
+from benor_tpu.ops import scheduler as jsched
+from benor_tpu.ops.tally import dense_counts as j_dense_counts
+from benor_tpu_torch.config import SimConfig as TCfg
+from benor_tpu_torch.ops import dense as tdense
+from benor_tpu_torch.ops import rng as trng
+from benor_tpu_torch.ops import scheduler as tsched
+
+
+J_EDGE_UNIFORMS = jax.jit(jrng.edge_uniforms)
+J_TOP_M_MASK = jax.jit(jsched._top_m_mask, static_argnums=1)
+J_QUORUM_MASK = jax.jit(jsched.quorum_delivery_mask, static_argnums=0)
+J_OMISSION_MASK = jax.jit(jsched.omission_delivery_mask, static_argnums=0)
+J_FULL_MASK = jax.jit(jsched.full_delivery_mask)
+J_REALIZE_MASK = jax.jit(jsched.realize_counts_mask)
+J_DENSE_COUNTS = jax.jit(j_dense_counts)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_programs():
+    """Every XLA:CPU executable keeps memory maps, and a test process that
+    holds too many dies in a later compile: drop this module's when it is
+    done."""
+    yield
+    jax.clear_caches()
+
+
+def _ids(lo, n):
+    return np.arange(lo, lo + n, dtype=np.int32), trng.ids(n, lo)
+
+
+def _senders(seed, t, n, p_alive):
+    rs = np.random.default_rng(seed)
+    sent = rs.integers(0, 3, (t, n)).astype(np.int8)
+    alive = rs.random((t, n)) < p_alive
+    return sent, alive
+
+
+@pytest.mark.parametrize("seed,r,phase,t,n_recv,n_send,offs,chunk", [
+    (0, 1, 0, 3, 7, 9, (0, 0, 0), 1 << 24),
+    (7, 3, 1, 3, 7, 9, (5, 10, 0), 100),       # id offsets, chunked passes
+    (123456789, 40, 33, 2, 5, 16, (1000, 2040, 3), 1),
+    (2**32 + 5, 2, 8, 4, 12, 12, (0, 0, 0), 300),
+])
+def test_edge_uniforms_match_jax_bits(monkeypatch, seed, r, phase, t, n_recv,
+                                      n_send, offs, chunk):
+    monkeypatch.setattr(trng, "EDGE_CHUNK", chunk)
+    (jt, tt), (jr, tr), (js, ts) = (_ids(offs[0], t), _ids(offs[1], n_recv),
+                                    _ids(offs[2], n_send))
+    want = np.asarray(J_EDGE_UNIFORMS(jax.random.key(seed), r, phase, jt, jr,
+                                      js))
+    got = trng.edge_uniforms(seed, r, phase, tt, tr, ts)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("m", [1, 5, 11, 12, 16])
+def test_top_m_mask_ties_match_jax(m):
+    """Delays quantised to a few levels: every row holds ties at the m-th
+    place, and some rows hold inf slots among the m."""
+    rs = np.random.default_rng(m)
+    delays = (rs.integers(0, 4, (3, 9, 16)) / 4.0).astype(np.float32)
+    delays[rs.random(delays.shape) < 0.2] = np.inf
+    want = np.asarray(J_TOP_M_MASK(delays, m))
+    got = tsched._top_m_mask(torch.from_numpy(delays), m).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(-1) == m).all()
+    srt = np.sort(delays, axis=-1)
+    assert (srt[..., m - 1] == srt[..., min(m, 15)]).any()   # ties at m
+
+
+def _quorum_masks(kw, seed, r, phase, sent, alive, t_off=0, r_off=0,
+                  n_recv=None):
+    t, n = alive.shape
+    n_recv = n if n_recv is None else n_recv
+    jt, tt = _ids(t_off, t)
+    jr, tr = _ids(r_off, n_recv)
+    want = np.asarray(J_QUORUM_MASK(JCfg(**kw), jax.random.key(seed), r,
+                                    phase, sent, alive, jt, jr))
+    got = tsched.quorum_delivery_mask(
+        TCfg(**kw), seed, r, phase, torch.from_numpy(sent),
+        torch.from_numpy(alive), tt, tr).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("sched,strength", [
+    ("uniform", 0.0), ("biased", 0.0), ("biased", 0.5), ("biased", 1.0),
+    ("biased", 3.0)])
+@pytest.mark.parametrize("p_alive,f", [(1.0, 12), (0.85, 12), (0.5, 4)],
+                         ids=["all-alive", "dead-senders", "under-quorum"])
+def test_quorum_delivery_mask_matches_jax(sched, strength, p_alive, f):
+    n, t = 40, 3
+    kw = dict(n_nodes=n, n_faulty=f, trials=t, delivery="quorum",
+              scheduler=sched, adversary_strength=strength, path="dense")
+    sent, alive = _senders(11, t, n, p_alive)
+    got, want = _quorum_masks(kw, 5, 2, 1, sent, alive)
+    np.testing.assert_array_equal(got, want)
+    assert not (got & ~alive[:, None, :]).any()
+    live = alive.sum(-1)[:, None]
+    assert (got.sum(-1) == np.minimum(n - f, live)).all()
+    if p_alive == 0.5:
+        assert (live < n - f).any()          # fewer than m alive somewhere
+
+
+def test_quorum_delivery_mask_sharded_receivers_match_jax():
+    """Receivers 16..27 of trials 4..5: the ids are global, R != S."""
+    n, t = 40, 2
+    kw = dict(n_nodes=n, n_faulty=10, trials=t, delivery="quorum",
+              scheduler="biased", adversary_strength=1.0, path="dense")
+    sent, alive = _senders(3, t, n, 0.9)
+    got, want = _quorum_masks(kw, 9, 4, 0, sent, alive, t_off=4, r_off=17,
+                              n_recv=12)
+    assert got.shape == (t, 12, n)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_full_delivery_mask_matches_jax():
+    _, alive = _senders(1, 3, 20, 0.8)
+    want = np.asarray(J_FULL_MASK(alive))
+    got = tsched.full_delivery_mask(torch.from_numpy(alive)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.2, 0.75])
+def test_omission_delivery_mask_matches_jax(drop_p):
+    n, t = 24, 3
+    kw = dict(n_nodes=n, n_faulty=6, trials=t, delivery="all",
+              drop_prob=drop_p, path="dense")
+    _, alive = _senders(2, t, n, 0.9)
+    want = np.asarray(J_OMISSION_MASK(JCfg(**kw), jax.random.key(4), 3, 1,
+                                      alive, drop_p))
+    got = tsched.omission_delivery_mask(
+        TCfg(**kw), 4, 3, 1, torch.from_numpy(alive), drop_p).numpy()
+    np.testing.assert_array_equal(got, want)
+    if drop_p == 0.0:
+        assert (got == alive[:, None, :]).all()
+
+
+def test_omission_partition_epoch_is_not_ported():
+    cfg = TCfg(n_nodes=8, n_faulty=2, drop_prob=0.1, path="dense")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13"):
+        tsched.omission_delivery_mask(cfg, 0, 1, 0,
+                                      torch.ones((1, 8), dtype=torch.bool),
+                                      0.1, part=object())
+
+
+def test_realize_counts_mask_matches_jax_and_gives_the_counts_back():
+    t, n, n_recv = 3, 30, 7
+    sent, alive = _senders(8, t, n, 0.85)
+    rs = np.random.default_rng(9)
+    pops = np.stack([((sent == v) & alive).sum(-1) for v in (0, 1, 2)], -1)
+    counts = (rs.random((t, n_recv, 3)) * (pops[:, None, :] + 1)).astype(
+        np.int32)
+    want = np.asarray(J_REALIZE_MASK(counts, sent, alive))
+    mask = tsched.realize_counts_mask(torch.from_numpy(counts),
+                                      torch.from_numpy(sent),
+                                      torch.from_numpy(alive))
+    np.testing.assert_array_equal(mask.numpy(), want)
+    back = tdense.dense_counts(mask, torch.from_numpy(sent),
+                               torch.from_numpy(alive))
+    np.testing.assert_array_equal(back.numpy(), counts)
+    np.testing.assert_array_equal(
+        np.asarray(J_DENSE_COUNTS(want, sent, alive)), counts)

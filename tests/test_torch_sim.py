@@ -113,7 +113,7 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     dict(use_pallas_round=False, use_pallas_hist=False),
     dict(use_pallas_hist=False),
     dict(scheduler="adversarial"),
-    dict(path="dense"),
+    dict(path="dense", scheduler="targeted"),
     dict(record=True),
     dict(trials=2, witness_trials=(0,), witness_nodes=2),
     dict(kernel_telemetry=True),
@@ -126,3 +126,20 @@ def test_unsupported_regimes_raise(cf_regime, kw):
     cfg = bt.SimConfig(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+
+
+def test_dense_path_runs(cf_regime):
+    """path='dense' is served by the unfused loop whatever the histogram
+    kernels' switches say, and equals the run with them off."""
+    outs = []
+    for kw in (dict(), dict(use_pallas_hist=False, use_pallas_round=False)):
+        base = _kw(96, 2, n_faulty=24)
+        base.update(path="dense", **kw)
+        cfg = bt.SimConfig(**base)
+        outs.append(bt.simulate(cfg, balanced_inputs(2, 96),
+                                faults=TFaults.none(2, 96), device="cpu"))
+    (ra, fa, _), (rb, fb, _) = outs
+    assert ra == rb >= 1
+    assert bool(fa.decided.all())
+    for name in ("x", "decided", "k", "killed"):
+        assert torch.equal(getattr(fa, name), getattr(fb, name)), name

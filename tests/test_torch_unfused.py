@@ -173,8 +173,8 @@ def test_cpu_run_launches_no_kernel(cf_regime):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="adversarial"), "8"),
-    (dict(scheduler="biased", adversary_strength=0.5), "9"),
-    (dict(path="dense"), "9"),
+    (dict(scheduler="biased", adversary_strength=0.5), "4"),
+    (dict(scheduler="biased", adversary_strength=1.0), "4"),
     (dict(delivery="all"), "4"),
     (dict(fault_model="crash_at_round"), "8"),
     (dict(use_pallas_hist=False), "4"),
@@ -189,3 +189,18 @@ def test_unfused_unsupported_regimes_raise(cf_regime, kw, item):
                        match=f"ROADMAP Queue A item {item}\\)"):
         bt.simulate(cfg, balanced_inputs(T, N), faults=TFaults.none(T, N),
                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(path="dense"),
+    dict(path="dense", scheduler="biased", adversary_strength=0.5),
+], ids=["dense", "dense-biased"])
+def test_unfused_dense_regimes_run(cf_regime, kw):
+    """The dense path and its biased scheduler run on the unfused loop."""
+    base = _kw(n_faulty=24)
+    base.update(kw)
+    cfg = bt.SimConfig(**base)
+    rounds, final, _ = bt.simulate(cfg, balanced_inputs(T, N),
+                                   faults=TFaults.none(T, N), device="cpu")
+    assert 1 <= rounds <= cfg.max_rounds
+    assert bool(final.decided.all())
