@@ -18,9 +18,10 @@
 //
 // What bounds them.  At N = 1M x 32 trials (the bench's north-star size):
 //   cf_counts   one threefry-2x32-20 block (~117 integer ops), two
-//               uniforms, two CF draws (~103 f32 ops each: a log, three
-//               square roots and ~7 IEEE divides) — ~339 ops a lane,
-//               0.16 ms at 67 Tops/s, against 12 bytes a lane written
+//               uniforms, two CF draws (stream.cuh cf_pair; each lane
+//               also computes its trial's terms, a log, three square
+//               roots and ~7 IEEE divides a draw) — ~300 ops a lane,
+//               ~0.14 ms at 67 Tops/s, against 12 bytes a lane written
 //               (384 MB, 0.115 ms at 3.35 TB/s): operations.
 //   coin_flips  one block and a mask — ~119 ops a lane (0.057 ms) against
 //               one byte (0.0096 ms): operations.
@@ -70,7 +71,8 @@ cf_counts_kernel(const float* __restrict__ hist, int* __restrict__ out,
     const float c1 = hist[trial * 3 + 1];
     const float cq = hist[trial * 3 + 2];
     float h0, h1;
-    benor::cf_pair_draws(k0, k1, node, trial, c0, c1, cq, m, &h0, &h1);
+    benor::cf_pair(k0, k1, node, trial, benor::cf_trial(c0, c1, cq, m), &h0,
+                   &h1);
     const float hq = fmaxf(m - h0 - h1, 0.0f);
     int* o = out + l * 3;
     o[0] = (int)h0;
@@ -118,13 +120,16 @@ equiv_counts_kernel(const float* __restrict__ hist,
     const float ne = n_equiv[trial];
     const float total_h = c0 + c1 + cq;
     const float total = total_h + ne;
-    const float h_b = benor::cf_draw(u_b, total, ne, m);
+    const float h_b =
+        benor::cf_sample(u_b, benor::cf_terms(benor::cf_pop(total, ne), m));
     const float rem = fmaxf(m - h_b, 0.0f);
-    const float h0 = benor::cf_draw(u0, total_h, c0, rem);
-    const float h1 = benor::cf_draw(u1, fmaxf(total_h - c0, 0.0f), c1,
-                                    fmaxf(rem - h0, 0.0f));
+    const float h0 =
+        benor::cf_sample(u0, benor::cf_terms(benor::cf_pop(total_h, c0), rem));
+    const float h1 = benor::cf_sample(
+        u1, benor::cf_terms(benor::cf_pop(fmaxf(total_h - c0, 0.0f), c1),
+                            fmaxf(rem - h0, 0.0f)));
     const float hq = fmaxf(rem - h0 - h1, 0.0f);
-    const float z = benor::ndtri_as241(u_s);
+    const float z = benor::ndtri_clipped(u_s);
     const float bs =
         fminf(fmaxf(rintf(h_b * 0.5f + z * sqrtf(h_b) * 0.5f), 0.0f), h_b);
     int* o = out + l * 3;

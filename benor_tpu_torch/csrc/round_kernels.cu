@@ -11,27 +11,46 @@
 // Layout.  The node state is a [T, P, n_w] stack of 32-bit plane words
 // (state.PACK_LAYOUT): plane base + b holds bit b of a field for the 32
 // nodes of a word, node id = word * 32 + bit.  One WARP handles one plane
-// word: lane L is node word * 32 + L, reads its bits from the word (a
-// broadcast load), and the new words are rebuilt with __ballot_sync and
-// stored by lane 0.  Per-warp counts are __popc(__ballot_sync(...)), summed
-// over the block in shared memory and written as int32 partials
-// [blocks, T, cols]; the wrapper sums them over blocks (integer sums, so
-// the order moves no bit).  Random draws key on the global (node, trial)
-// counters, so the tiling never moves a bit either.
+// word at a time: lane L is node word * 32 + L.  Lane p < P loads plane p
+// of the word, the planes every lane reads are shuffled out of those
+// lanes, and lane p stores plane p of the new word.  Per-warp counts are
+// popcounts of ballots and plane words, summed over the block in shared
+// memory and written as int32 partials [blocks, T, cols]; the wrapper sums
+// them over blocks (integer sums, so the order moves no bit).  Random
+// draws key on the global (node, trial) counters, so the tiling never
+// moves a bit either.
 //
-// What bounds them.  At N = 1M, T = 32, max_rounds = 64 the stack is
-// 14 planes x 31,264 words x 4 B x 32 trials = 56 MB a read, about 17 us at
-// 3.35 TB/s.  Every lane runs at least one threefry-2x32-20 block (~120
-// integer ops) and two CF draws (each a log, three square roots and ~6
-// divides inside ~60 f32 ops): some 300 operations a lane in the proposal
-// pass and 420 in the vote pass, against 0.2 bytes a lane.  The kernels are
-// bound by ALU and SFU work, not by bytes.  The simple design answers that
-// by keeping the arithmetic in registers end to end — nothing per lane
-// touches memory but the plane words — and by launching enough warps
-// (one per word and trial, ~1M at N = 1M) to fill every SM.  The fused
-// kernel runs one block per trial (it needs the whole node axis for the
-// vote histogram between its phases), so it fills T SMs only; it serves
-// N <= 8192, where the whole round is a few microseconds of work.
+// What bounds them.  Not bytes: at N = 1M, T = 32, max_rounds = 64 the
+// stack is 14 planes x 31,264 words x 4 B x 32 trials = 56 MB a read,
+// 0.017 ms at 3.35 TB/s.  Not one pipe either.  Measured on an H100 SXM
+// at 700 W and clocks.sm 1980 MHz (round_stats.py), the two-kernel pair
+// as first ported issued 751 (proposal) and 1318 (vote) static SASS
+// instructions a lane's pass; at one instruction a clock per scheduler
+// over the 32,014,336 lanes that is 0.719 and 1.261 ms, against 0.714 and
+// 1.275 ms measured: they were bound by instruction issue.  Their other
+// floors: MUFU 0.168 ms, f32 0.259 ms, integer and compare 0.454 and
+// 1.233 ms (the vote's plane addressing and rebuild).  So the design
+// issues fewer instructions:
+//  - the split CF draw (stream.cuh cf_trial, cf_pair): every term
+//    of a draw that depends only on the trial's histogram and the quorum
+//    is computed once a block, by one thread, into shared memory; a lane
+//    keeps its threefry, uniforms, two clipped normal quantiles (no far
+//    tail, one divide each) and the terms of its own sample size: 6 IEEE
+//    divides, 4 square roots and 2 logs a pair instead of 14, 8 and 2;
+//  - warp skips: a draw or coin that no lane of the warp reads is not
+//    made (__any_sync);
+//  - one load and one store a word, the load issued one word ahead (it
+//    took 7-9 % off both kernels), the k planes rebuilt with bit
+//    operations on the old words, counts from word masks;
+//  - a persistent grid of one wave (the occupancy query's blocks an SM
+//    times the SMs, spread over the trials), so the per-trial prologue
+//    runs a few hundred times a launch, not 125,000 times.
+// Occupancy: the first port used 35 and 48 registers (5-6 blocks of 8
+// warps an SM) and was issue-bound, not latency-bound, so one word a warp
+// is kept (no interleaved chains) and the launch bound only caps
+// registers at 64 (4 blocks an SM).  TMA, wgmma and the tensor cores have
+// no part here: there is no tile to stream (0.2 bytes a lane) and no
+// product to compute.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (ops/_build.py).  No fast-math: the
@@ -46,9 +65,11 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// Plane words (warps) per block on the two-kernel path.  The wrappers size
-// the partials buffer from benor_round_blocks(), so this is the only copy.
-constexpr int kWordsPerBlock = 8;
+// Warps of a block on the two-kernel path, and the blocks an SM must hold
+// at once (the launch bound that caps registers at 65536 / (256 * 4) = 64
+// a thread).
+constexpr int kWarpsPerBlock = 8;
+constexpr int kMinBlocksPerSM = 4;
 // Warps of the fused kernel's one block per trial (512 threads, so the
 // launch bound leaves each thread up to 128 registers).
 constexpr int kFusedWarps = 16;
@@ -64,131 +85,176 @@ constexpr int kPropCols = 4;      // PROP_PARTIAL_LAYOUT
 constexpr int kVoteCols = 5;      // VOTE_PARTIAL_LAYOUT
 constexpr int kVal0 = 0, kVal1 = 1, kValQ = 2;
 
-// One lane's fields, read from its word of every plane.
+// One lane's view of its warp's word.  Lane p < P loads plane p's word
+// (one load a warp); the planes every lane reads are shuffled out of those
+// lanes.  The k planes stay in their lanes: no kernel needs a lane's k.
 struct Lane {
-  int x, decided, killed, faulty, k;
-  bool alive, frozen;
+  uint32_t plane;                 // plane `lane` of the word (lane < P)
+  uint32_t dec_w, kil_w, fau_w;   // the word's decided / killed / faulty
+  int x;
+  bool decided, alive, faulty, frozen;
 };
 
-__device__ __forceinline__ Lane load_lane(const uint32_t* words, int P,
-                                          size_t stride, int lane,
+__device__ __forceinline__ bool lane_bit(uint32_t w, int lane) {
+  return (w >> lane) & 1u;
+}
+
+// Plane `lane` of the word at `words`, 0 for lanes >= P or a word past
+// the end (`in_range` false).
+__device__ __forceinline__ uint32_t load_plane(const uint32_t* words, int P,
+                                               size_t stride, int lane,
+                                               bool in_range) {
+  return (in_range && lane < P) ? words[lane * stride] : 0u;
+}
+
+__device__ __forceinline__ Lane lane_from(uint32_t plane, int lane,
                                           int freeze) {
   Lane f;
-  const uint32_t x0 = words[kPlaneX * stride];
-  const uint32_t x1 = words[(kPlaneX + 1) * stride];
-  f.x = (int)((x0 >> lane) & 1u) | ((int)((x1 >> lane) & 1u) << 1);
-  f.decided = (int)((words[kPlaneDecided * stride] >> lane) & 1u);
-  f.killed = (int)((words[kPlaneKilled * stride] >> lane) & 1u);
-  f.faulty = (int)((words[kPlaneFaulty * stride] >> lane) & 1u);
-  int k = 0;
-  for (int b = 0; b < P - kPlaneK; ++b)
-    k |= (int)((words[(kPlaneK + b) * stride] >> lane) & 1u) << b;
-  f.k = k;
-  f.alive = f.killed == 0;
-  f.frozen = freeze ? (f.decided == 1) : false;
+  f.plane = plane;
+  const uint32_t x0 = __shfl_sync(kFull, f.plane, kPlaneX);
+  const uint32_t x1 = __shfl_sync(kFull, f.plane, kPlaneX + 1);
+  f.dec_w = __shfl_sync(kFull, f.plane, kPlaneDecided);
+  f.kil_w = __shfl_sync(kFull, f.plane, kPlaneKilled);
+  f.fau_w = __shfl_sync(kFull, f.plane, kPlaneFaulty);
+  f.x = (int)lane_bit(x0, lane) | ((int)lane_bit(x1, lane) << 1);
+  f.decided = lane_bit(f.dec_w, lane);
+  f.alive = !lane_bit(f.kil_w, lane);
+  f.faulty = lane_bit(f.fau_w, lane);
+  f.frozen = freeze && f.decided;
   return f;
 }
 
 // Byzantine lanes broadcast bit-flipped values (0 <-> 1, "?" kept).
-__device__ __forceinline__ int sent(int byz, int v, int faulty) {
-  if (byz && faulty == 1) return v == kVal0 ? kVal1 : (v == kVal1 ? kVal0 : v);
+__device__ __forceinline__ int sent(int byz, int v, bool faulty) {
+  if (byz && faulty) return v == kVal0 ? kVal1 : (v == kVal1 ? kVal0 : v);
   return v;
 }
 
-__device__ __forceinline__ int popc_ballot(bool pred) {
-  return __popc(__ballot_sync(kFull, pred));
+// One thread of the block computes its trial's CF terms into shared
+// memory; every thread then copies them.  Holds a __syncthreads.
+__device__ __forceinline__ benor::CfTrial block_cf_trial(
+    benor::CfTrial* smem, float c0, float c1, float cq, float m) {
+  if (threadIdx.x == 0) *smem = benor::cf_trial(c0, c1, cq, m);
+  __syncthreads();
+  return *smem;
 }
 
-// Proposal phase of one lane -> its sent vote value.
+// Proposal phase of one lane -> its sent vote value.  The CF pair is drawn
+// only in warps with a lane alive and not frozen: a frozen lane sends its
+// x and a dead lane is not counted, so no skipped draw is ever read.
 __device__ __forceinline__ int proposal_vote(const Lane& f, uint32_t k0,
                                              uint32_t k1, uint32_t node,
-                                             uint32_t trial, float c0,
-                                             float c1, float cq, float m,
+                                             uint32_t trial,
+                                             const benor::CfTrial& ct,
                                              int byz) {
-  float p0, p1;
-  benor::cf_pair_draws(k0, k1, node, trial, c0, c1, cq, m, &p0, &p1);
-  const int x1 = p0 > p1 ? kVal0 : (p1 > p0 ? kVal1 : kValQ);
+  int x1 = f.x;
+  if (__any_sync(kFull, f.alive && !f.frozen)) {
+    float p0, p1;
+    benor::cf_pair(k0, k1, node, trial, ct, &p0, &p1);
+    x1 = p0 > p1 ? kVal0 : (p1 > p0 ? kVal1 : kValQ);
+  }
   return sent(byz, f.frozen ? f.x : x1, f.faulty);
 }
 
 struct Commit {
-  int x, decided, k;
-  bool coined;
+  int x;
+  bool decided, coined, active;
 };
 
 // Vote phase of one lane: tallies, coin, decide / adopt / commit
-// (pallas_round.py _decide_commit).
+// (pallas_round.py _decide_commit).  The CF pair is drawn only in warps
+// with an active lane (alive, quorum met, not frozen), and the coin's
+// threefry block only in warps with an active lane that neither decides
+// nor adopts: every other lane keeps its fields, so no skipped value is
+// ever read.
 __device__ __forceinline__ Commit vote_lane(const Lane& f, uint32_t vk0,
                                             uint32_t vk1, uint32_t ck0,
                                             uint32_t ck1, uint32_t node,
-                                            uint32_t trial, float c0,
-                                            float c1, float cq, float m,
-                                            float nf, int qok, int rk,
-                                            int textbook) {
+                                            uint32_t trial,
+                                            const benor::CfTrial& ct,
+                                            float nf, int qok, int textbook) {
+  Commit c{f.x, f.decided, false, f.alive && qok != 0 && !f.frozen};
+  if (!__any_sync(kFull, c.active)) return c;
   float v0, v1;
-  benor::cf_pair_draws(vk0, vk1, node, trial, c0, c1, cq, m, &v0, &v1);
-  uint32_t pbits, dbits;
-  benor::threefry2x32(ck0, ck1, node, trial, &pbits, &dbits);
-  const int coin = (int)(pbits & 1u);
+  benor::cf_pair(vk0, vk1, node, trial, ct, &v0, &v1);
   const bool decide0 = v0 > nf;
   const bool decide1 = v1 > nf;
-  bool no_adopt = true;
-  int x2;
+  bool adopt0 = false, adopt1 = false;
   if (!textbook) {
     const bool any_votes = (v0 + v1) > 0.0f;
-    const bool adopt0 = any_votes && (v0 > v1);
-    const bool adopt1 = any_votes && (v0 < v1);
-    no_adopt = !adopt0 && !adopt1;
-    x2 = decide0 ? kVal0
-                 : decide1 ? kVal1 : adopt0 ? kVal0 : adopt1 ? kVal1 : coin;
-  } else {
-    x2 = decide0 ? kVal0 : decide1 ? kVal1 : coin;
+    adopt0 = any_votes && (v0 > v1);
+    adopt1 = any_votes && (v0 < v1);
   }
-  const bool active = f.alive && qok != 0 && !f.frozen;
-  Commit c;
-  c.x = active ? x2 : f.x;
-  c.decided = (active && (decide0 || decide1)) ? 1 : f.decided;
-  c.k = active ? rk : f.k;
-  c.coined = active && !decide0 && !decide1 && no_adopt;
+  c.coined = c.active && !decide0 && !decide1 && !adopt0 && !adopt1;
+  int coin = 0;
+  if (__any_sync(kFull, c.coined)) {
+    uint32_t pbits, dbits;
+    benor::threefry2x32(ck0, ck1, node, trial, &pbits, &dbits);
+    coin = (int)(pbits & 1u);
+  }
+  if (c.active) {
+    c.x = decide0 ? kVal0
+          : decide1 ? kVal1 : adopt0 ? kVal0 : adopt1 ? kVal1 : coin;
+    c.decided = c.decided || decide0 || decide1;
+  }
   return c;
 }
 
-// Rebuild the lane's word of every plane with ballots; lane 0 stores.
-__device__ __forceinline__ void store_planes(uint32_t* out, int P,
-                                             size_t stride, int lane,
-                                             const Lane& f, const Commit& c) {
+// The new word of every plane; lane p < P stores plane p.  killed and
+// faulty keep their words, down is 0, and k takes rk in the active lanes:
+// plane k_b of the word is (old | active) where bit b of rk is set, else
+// (old & ~active).  Returns the new decided word.
+__device__ __forceinline__ uint32_t store_planes(uint32_t* words, int P,
+                                                 size_t stride, int lane,
+                                                 const Lane& f,
+                                                 const Commit& c, int rk) {
   const uint32_t x0 = __ballot_sync(kFull, c.x & 1);
   const uint32_t x1 = __ballot_sync(kFull, (c.x >> 1) & 1);
-  const uint32_t dec = __ballot_sync(kFull, c.decided == 1);
-  const uint32_t kil = __ballot_sync(kFull, f.killed == 1);
+  const uint32_t dec = __ballot_sync(kFull, c.decided);
   const uint32_t coi = __ballot_sync(kFull, c.coined);
-  const uint32_t fau = __ballot_sync(kFull, f.faulty == 1);
-  if (lane == 0) {
-    out[kPlaneX * stride] = x0;
-    out[(kPlaneX + 1) * stride] = x1;
-    out[kPlaneDecided * stride] = dec;
-    out[kPlaneKilled * stride] = kil;
-    out[kPlaneCoined * stride] = coi;
-    out[kPlaneFaulty * stride] = fau;
-    out[kPlaneDown * stride] = 0u;
-  }
-  for (int b = 0; b < P - kPlaneK; ++b) {
-    const uint32_t kw = __ballot_sync(kFull, (c.k >> b) & 1);
-    if (lane == 0) out[(kPlaneK + b) * stride] = kw;
-  }
+  const uint32_t act = __ballot_sync(kFull, c.active);
+  const int kb = lane >= kPlaneK ? lane - kPlaneK : 0;
+  const uint32_t k_new = ((rk >> kb) & 1) ? (f.plane | act)
+                                          : (f.plane & ~act);
+  const uint32_t w = lane == kPlaneX ? x0
+                     : lane == kPlaneX + 1 ? x1
+                     : lane == kPlaneDecided ? dec
+                     : lane == kPlaneCoined ? coi
+                     : lane == kPlaneDown ? 0u
+                     : lane >= kPlaneK ? k_new : f.plane;
+  if (lane < P) words[lane * stride] = w;
+  return dec;
+}
+
+// Proposal-pass counts of one lane's warp: the sent-vote histogram over
+// live lanes and the alive count.
+__device__ __forceinline__ void proposal_counts(int* acc, const Lane& f,
+                                                int vote) {
+  const uint32_t live = ~f.kil_w;
+  const int n0 = __popc(__ballot_sync(kFull, vote == kVal0) & live);
+  const int n1 = __popc(__ballot_sync(kFull, vote == kVal1) & live);
+  const int alive = __popc(live);
+  acc[0] += n0;
+  acc[1] += n1;
+  acc[2] += alive - n0 - n1;
+  acc[3] += alive;
 }
 
 // Vote-pass counts of one lane's warp: next round's proposal histogram over
 // live lanes, settled and unsettled.
 __device__ __forceinline__ void vote_counts(int* acc, const Lane& f,
-                                            const Commit& c, int byz) {
+                                            const Commit& c, uint32_t dec,
+                                            int byz) {
   const int s = sent(byz, c.x, f.faulty);
-  const bool settled = c.decided == 1 || f.killed == 1;
-  acc[0] += popc_ballot(f.alive && s == kVal0);
-  acc[1] += popc_ballot(f.alive && s == kVal1);
-  acc[2] += popc_ballot(f.alive && s == kValQ);
-  acc[3] += popc_ballot(settled);
-  acc[4] += popc_ballot(!settled);
+  const uint32_t live = ~f.kil_w;
+  const int n0 = __popc(__ballot_sync(kFull, s == kVal0) & live);
+  const int n1 = __popc(__ballot_sync(kFull, s == kVal1) & live);
+  const int settled = __popc(dec | f.kil_w);
+  acc[0] += n0;
+  acc[1] += n1;
+  acc[2] += __popc(live) - n0 - n1;
+  acc[3] += settled;
+  acc[4] += kWarp - settled;
 }
 
 // Sum per-warp counts over the block: smem[warp][cols] -> out[cols].
@@ -203,86 +269,104 @@ __device__ __forceinline__ void block_sum(int (*smem)[kCols], int warps,
   }
 }
 
-// grid (ceil(n_w / 8), T), block 8 warps: one warp per plane word.
-__global__ void __launch_bounds__(kWordsPerBlock * kWarp)
+// grid (blocks, T), 8 warps a block: the blocks of a trial walk its words,
+// one warp a word, with a stride of blocks x 8 words.
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSM)
 proposal_hist_kernel(const uint32_t* __restrict__ pack,
-                                     const float* __restrict__ hist,
-                                     int* __restrict__ partials, int T,
-                                     int P, int n_w, uint32_t k0,
-                                     uint32_t k1, float m, int byz,
-                                     int freeze) {
-  __shared__ int smem[kWordsPerBlock][kPropCols];
+                     const float* __restrict__ hist,
+                     int* __restrict__ partials, int T, int P, int n_w,
+                     uint32_t k0, uint32_t k1, float m, int byz,
+                     int freeze) {
+  __shared__ benor::CfTrial ct_s;
+  __shared__ int smem[kWarpsPerBlock][kPropCols];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int trial = blockIdx.y;
-  const int word = blockIdx.x * kWordsPerBlock + warp;
+  const benor::CfTrial ct = block_cf_trial(
+      &ct_s, hist[trial * 3 + 0], hist[trial * 3 + 1], hist[trial * 3 + 2],
+      m);
+  const size_t stride = (size_t)n_w;
+  const uint32_t* tpack = pack + (size_t)trial * P * stride;
   int acc[kPropCols] = {0, 0, 0, 0};
-  if (word < n_w) {  // warp-uniform
-    const size_t stride = (size_t)n_w;
-    const uint32_t* words = pack + (size_t)trial * P * stride + word;
-    const Lane f = load_lane(words, P, stride, lane, freeze);
-    const int vote = proposal_vote(
-        f, k0, k1, (uint32_t)(word * kWarp + lane), (uint32_t)trial,
-        hist[trial * 3 + 0], hist[trial * 3 + 1], hist[trial * 3 + 2], m,
-        byz);
-    acc[0] = popc_ballot(f.alive && vote == kVal0);
-    acc[1] = popc_ballot(f.alive && vote == kVal1);
-    acc[2] = popc_ballot(f.alive && vote == kValQ);
-    acc[3] = popc_ballot(f.alive);
+  // a word's planes are loaded one word ahead, so the load overlaps the
+  // draws of the word before
+  const int step = gridDim.x * kWarpsPerBlock;
+  int word = blockIdx.x * kWarpsPerBlock + warp;
+  uint32_t plane = load_plane(tpack + word, P, stride, lane, word < n_w);
+  for (; word < n_w; word += step) {  // warp-uniform
+    const uint32_t next = load_plane(tpack + word + step, P, stride, lane,
+                                     word + step < n_w);
+    const Lane f = lane_from(plane, lane, freeze);
+    const int vote = proposal_vote(f, k0, k1,
+                                   (uint32_t)(word * kWarp + lane),
+                                   (uint32_t)trial, ct, byz);
+    proposal_counts(acc, f, vote);
+    plane = next;
   }
   if (lane == 0)
     for (int c = 0; c < kPropCols; ++c) smem[warp][c] = acc[c];
-  block_sum<kPropCols>(smem, kWordsPerBlock,
+  block_sum<kPropCols>(smem, kWarpsPerBlock,
                        partials + ((size_t)blockIdx.x * T + trial) * kPropCols);
 }
 
-// grid (ceil(n_w / 8), T), block 8 warps: one warp per plane word.
-__global__ void __launch_bounds__(kWordsPerBlock * kWarp)
+// grid (blocks, T), 8 warps a block, words walked as in proposal_hist.
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSM)
 vote_commit_kernel(const uint32_t* __restrict__ pack,
-                                   const float* __restrict__ hist,
-                                   const int* __restrict__ quorum_ok,
-                                   uint32_t* __restrict__ new_pack,
-                                   int* __restrict__ partials, int T, int P,
-                                   int n_w, uint32_t vk0, uint32_t vk1,
-                                   uint32_t ck0, uint32_t ck1, int rk,
-                                   float m, float nf, int textbook, int byz,
-                                   int freeze) {
-  __shared__ int smem[kWordsPerBlock][kVoteCols];
+                   const float* __restrict__ hist,
+                   const int* __restrict__ quorum_ok,
+                   uint32_t* __restrict__ new_pack,
+                   int* __restrict__ partials, int T, int P, int n_w,
+                   uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
+                   int rk, float m, float nf, int textbook, int byz,
+                   int freeze) {
+  __shared__ benor::CfTrial ct_s;
+  __shared__ int smem[kWarpsPerBlock][kVoteCols];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int trial = blockIdx.y;
-  const int word = blockIdx.x * kWordsPerBlock + warp;
+  const benor::CfTrial ct = block_cf_trial(
+      &ct_s, hist[trial * 3 + 0], hist[trial * 3 + 1], hist[trial * 3 + 2],
+      m);
+  const int qok = quorum_ok[trial];
+  const size_t stride = (size_t)n_w;
+  const size_t tbase = (size_t)trial * P * stride;
   int acc[kVoteCols] = {0, 0, 0, 0, 0};
-  if (word < n_w) {  // warp-uniform
-    const size_t stride = (size_t)n_w;
-    const size_t base = (size_t)trial * P * stride + word;
-    const Lane f = load_lane(pack + base, P, stride, lane, freeze);
-    const Commit c = vote_lane(
-        f, vk0, vk1, ck0, ck1, (uint32_t)(word * kWarp + lane),
-        (uint32_t)trial, hist[trial * 3 + 0], hist[trial * 3 + 1],
-        hist[trial * 3 + 2], m, nf, quorum_ok[trial], rk, textbook);
-    store_planes(new_pack + base, P, stride, lane, f, c);
-    vote_counts(acc, f, c, byz);
+  const int step = gridDim.x * kWarpsPerBlock;   // loads one word ahead
+  int word = blockIdx.x * kWarpsPerBlock + warp;
+  uint32_t plane = load_plane(pack + tbase + word, P, stride, lane,
+                              word < n_w);
+  for (; word < n_w; word += step) {  // warp-uniform
+    const uint32_t next = load_plane(pack + tbase + word + step, P, stride,
+                                     lane, word + step < n_w);
+    const Lane f = lane_from(plane, lane, freeze);
+    plane = next;
+    const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
+                               (uint32_t)(word * kWarp + lane),
+                               (uint32_t)trial, ct, nf, qok, textbook);
+    const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
+                                      lane, f, c, rk);
+    vote_counts(acc, f, c, dec, byz);
   }
   if (lane == 0)
     for (int c = 0; c < kVoteCols; ++c) smem[warp][c] = acc[c];
-  block_sum<kVoteCols>(smem, kWordsPerBlock,
+  block_sum<kVoteCols>(smem, kWarpsPerBlock,
                        partials + ((size_t)blockIdx.x * T + trial) * kVoteCols);
 }
 
 // grid (T), block 16 warps: one block walks its trial's n_w <= 256 words
 // twice — the proposal pass, the whole-axis vote histogram and quorum gate
-// in shared memory, then the vote pass + commit.
+// in shared memory, then the vote pass + commit.  Each pass's CF terms are
+// computed in the block from the histogram it draws against.
 __global__ void __launch_bounds__(kFusedWarps * kWarp)
 fused_round_kernel(const uint32_t* __restrict__ pack,
-                                   const float* __restrict__ hist1,
-                                   uint32_t* __restrict__ new_pack,
-                                   int* __restrict__ parts_a,
-                                   int* __restrict__ parts_b, int T, int P,
-                                   int n_w, uint32_t pk0, uint32_t pk1,
-                                   uint32_t vk0, uint32_t vk1, uint32_t ck0,
-                                   uint32_t ck1, int rk, float m, float nf,
-                                   int textbook, int byz, int freeze) {
+                   const float* __restrict__ hist1,
+                   uint32_t* __restrict__ new_pack,
+                   int* __restrict__ parts_a, int* __restrict__ parts_b,
+                   int T, int P, int n_w, uint32_t pk0, uint32_t pk1,
+                   uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
+                   int rk, float m, float nf, int textbook, int byz,
+                   int freeze) {
+  __shared__ benor::CfTrial ct_s;
   __shared__ int smem_a[kFusedWarps][kPropCols];
   __shared__ int smem_b[kFusedWarps][kVoteCols];
   __shared__ int tot_a[kPropCols];
@@ -293,19 +377,17 @@ fused_round_kernel(const uint32_t* __restrict__ pack,
   const size_t tbase = (size_t)trial * P * stride;
 
   // --- phase 1: proposal tallies -> majority -> vote values -------------
-  const float c0 = hist1[trial * 3 + 0];
-  const float c1 = hist1[trial * 3 + 1];
-  const float cq = hist1[trial * 3 + 2];
+  const benor::CfTrial ct1 = block_cf_trial(
+      &ct_s, hist1[trial * 3 + 0], hist1[trial * 3 + 1],
+      hist1[trial * 3 + 2], m);
   int acc_a[kPropCols] = {0, 0, 0, 0};
   for (int word = warp; word < n_w; word += kFusedWarps) {
-    const Lane f = load_lane(pack + tbase + word, P, stride, lane, freeze);
+    const Lane f = lane_from(
+        load_plane(pack + tbase + word, P, stride, lane, true), lane, freeze);
     const int vote = proposal_vote(f, pk0, pk1,
                                    (uint32_t)(word * kWarp + lane),
-                                   (uint32_t)trial, c0, c1, cq, m, byz);
-    acc_a[0] += popc_ballot(f.alive && vote == kVal0);
-    acc_a[1] += popc_ballot(f.alive && vote == kVal1);
-    acc_a[2] += popc_ballot(f.alive && vote == kValQ);
-    acc_a[3] += popc_ballot(f.alive);
+                                   (uint32_t)trial, ct1, byz);
+    proposal_counts(acc_a, f, vote);
   }
   if (lane == 0)
     for (int c = 0; c < kPropCols; ++c) smem_a[warp][c] = acc_a[c];
@@ -315,21 +397,21 @@ fused_round_kernel(const uint32_t* __restrict__ pack,
     parts_a[trial * kPropCols + threadIdx.x] = tot_a[threadIdx.x];
 
   // --- the vote-phase global histogram + quorum gate, whole-axis --------
-  const float v_c0 = (float)tot_a[0];
-  const float v_c1 = (float)tot_a[1];
-  const float v_cq = (float)tot_a[2];
+  const benor::CfTrial ct2 = block_cf_trial(
+      &ct_s, (float)tot_a[0], (float)tot_a[1], (float)tot_a[2], m);
   const int qok = tot_a[3] >= (int)m ? 1 : 0;   // n_alive >= quorum
 
   // --- phase 2: vote tallies -> decide/adopt/coin -> commit -------------
   int acc_b[kVoteCols] = {0, 0, 0, 0, 0};
   for (int word = warp; word < n_w; word += kFusedWarps) {
-    const Lane f = load_lane(pack + tbase + word, P, stride, lane, freeze);
+    const Lane f = lane_from(
+        load_plane(pack + tbase + word, P, stride, lane, true), lane, freeze);
     const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
                                (uint32_t)(word * kWarp + lane),
-                               (uint32_t)trial, v_c0, v_c1, v_cq, m, nf, qok,
-                               rk, textbook);
-    store_planes(new_pack + tbase + word, P, stride, lane, f, c);
-    vote_counts(acc_b, f, c, byz);
+                               (uint32_t)trial, ct2, nf, qok, textbook);
+    const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
+                                      lane, f, c, rk);
+    vote_counts(acc_b, f, c, dec, byz);
   }
   if (lane == 0)
     for (int c = 0; c < kVoteCols; ++c) smem_b[warp][c] = acc_b[c];
@@ -341,19 +423,39 @@ fused_round_kernel(const uint32_t* __restrict__ pack,
 // Plain C interface, loaded with ctypes.  Each launcher returns
 // cudaGetLastError() after its launch (0 = launched).
 
-// Word-blocks of the two-kernel path for n_w plane words: the leading axis
-// of the [blocks, T, cols] partials the caller allocates.
-extern "C" int benor_round_blocks(int n_w) {
-  return (n_w + kWordsPerBlock - 1) / kWordsPerBlock;
+// Blocks a trial of proposal_hist (kernel 0) or vote_commit (kernel 1) on
+// the current device for n_w plane words and T trials -> *blocks: as many
+// as fit T times in one wave of the kernel over the card (the SMs times
+// the blocks an SM holds), at least one, and never more than a warp a
+// word.  Rounding up would put the last few blocks in a second wave of
+// their own.  The caller works it out once per shape, sizes the
+// [blocks, T, cols] partials from it and passes it to the launcher.
+// Returns the first failed query's cudaError (0 = *blocks set).
+extern "C" int benor_round_blocks(int kernel, int n_w, int T, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        kernel == 0 ? (const void*)proposal_hist_kernel
+                    : (const void*)vote_commit_kernel,
+        kWarpsPerBlock * kWarp, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int word_blocks = (n_w + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int wave = sms * per_sm / T;
+  *blocks = wave < 1 ? 1 : (wave < word_blocks ? wave : word_blocks);
+  return 0;
 }
 
 extern "C" int benor_proposal_hist(const uint32_t* pack, const float* hist,
                                    int* partials, int T, int P, int n_w,
                                    uint32_t k0, uint32_t k1, float m,
-                                   int byz, int freeze,
+                                   int byz, int freeze, int blocks,
                                    cudaStream_t stream) {
-  const dim3 grid(benor_round_blocks(n_w), T);
-  proposal_hist_kernel<<<grid, kWordsPerBlock * kWarp, 0, stream>>>(
+  const dim3 grid(blocks, T);
+  proposal_hist_kernel<<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(
       pack, hist, partials, T, P, n_w, k0, k1, m, byz, freeze);
   return (int)cudaGetLastError();
 }
@@ -364,9 +466,9 @@ extern "C" int benor_vote_commit(const uint32_t* pack, const float* hist,
                                  uint32_t vk0, uint32_t vk1, uint32_t ck0,
                                  uint32_t ck1, int rk, float m, float nf,
                                  int textbook, int byz, int freeze,
-                                 cudaStream_t stream) {
-  const dim3 grid(benor_round_blocks(n_w), T);
-  vote_commit_kernel<<<grid, kWordsPerBlock * kWarp, 0, stream>>>(
+                                 int blocks, cudaStream_t stream) {
+  const dim3 grid(blocks, T);
+  vote_commit_kernel<<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(
       pack, hist, quorum_ok, new_pack, partials, T, P, n_w, vk0, vk1, ck0,
       ck1, rk, m, nf, textbook, byz, freeze);
   return (int)cudaGetLastError();

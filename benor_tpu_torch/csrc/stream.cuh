@@ -1,6 +1,8 @@
 // Shared device math of the round kernels: the __device__ twins of
 // benor_tpu_torch/ops/stream.py (which ports benor_tpu/ops/pallas_hist.py:
 // _threefry2x32, _bits_to_uniform, _ndtri_as241, _cf_draw).
+// The CF draw is split into per-trial and per-lane terms (cf_pop,
+// cf_terms, cf_sample); the plain twins are written the same way.
 //
 // Every expression is written in the same order as its plain torch version,
 // one rounding per operation: the library is built with -fmad=false (no
@@ -49,8 +51,13 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
   return fminf(fmaxf(f, BENOR_F32(1e-7)), BENOR_F32(1.0 - 1e-7));
 }
 
-// Inverse normal CDF, Wichura AS241 PPND7.
-__device__ __forceinline__ float ndtri_as241(float p) {
+// Inverse normal CDF, Wichura AS241 PPND7, for the p that bits_to_uniform
+// returns.  Its clip to [1e-7, 1 - 1e-7] keeps r_t = sqrt(-log(min(p,
+// 1 - p))) <= 4.02, so AS241's far-tail branch (r_t > 5) is never selected
+// and is left out.  Selecting the numerator and denominator before one
+// divide gives the same value as dividing both branches and selecting:
+// -(a / b) == (-a) / b in IEEE round-to-nearest.
+__device__ __forceinline__ float ndtri_clipped(float p) {
   const float q = p - 0.5f;
   const float r_c = BENOR_F32(0.180625) - q * q;
   const float num_c = ((BENOR_F32(5.9109374720e+01) * r_c +
@@ -60,8 +67,6 @@ __device__ __forceinline__ float ndtri_as241(float p) {
   const float den_c = ((BENOR_F32(6.7187563600e+01) * r_c +
                         BENOR_F32(7.8757757664e+01)) * r_c +
                        BENOR_F32(1.7895169469e+01)) * r_c + 1.0f;
-  const float central = q * num_c / den_c;
-
   const float r_t = sqrtf(-logf(fminf(p, 1.0f - p)));
   const float r_m = r_t - BENOR_F32(1.6);
   const float num_m = ((BENOR_F32(1.7023821103e-01) * r_m +
@@ -70,59 +75,90 @@ __device__ __forceinline__ float ndtri_as241(float p) {
                       BENOR_F32(1.4234372777e+00);
   const float den_m = (BENOR_F32(1.2021132975e-01) * r_m +
                        BENOR_F32(7.3700164250e-01)) * r_m + 1.0f;
-  const float r_f = r_t - 5.0f;
-  const float num_f = ((BENOR_F32(1.7337203997e-02) * r_f +
-                        BENOR_F32(4.2868294337e-01)) * r_f +
-                       BENOR_F32(3.0812263860e+00)) * r_f +
-                      BENOR_F32(6.6579051150e+00);
-  const float den_f = (BENOR_F32(1.2258202635e-02) * r_f +
-                       BENOR_F32(2.4197894225e-01)) * r_f + 1.0f;
-  const float tail_m = num_m / den_m;
-  const float tail_f = num_f / den_f;
-  float tail = (r_t <= 5.0f) ? tail_m : tail_f;
-  tail = (q < 0.0f) ? -tail : tail;
-  return (fabsf(q) <= BENOR_F32(0.425)) ? central : tail;
+  const bool central = fabsf(q) <= BENOR_F32(0.425);
+  const float num = central ? q * num_c : (q < 0.0f ? -num_m : num_m);
+  return num / (central ? den_c : den_m);
 }
 
-// Skew-corrected (Cornish-Fisher) hypergeometric quantile draw of n from a
-// population t with g successes, clamped to the support.
-__device__ __forceinline__ float cf_draw(float u, float total, float good,
-                                         float nsample) {
-  const float t = fmaxf(total, 1.0f);
-  const float g = good;
-  const float n = nsample;
-  const float p = g / t;
-  const float mean = n * p;
-  const float fpc_v = (t - n) / fmaxf(t - 1.0f, 1.0f);
-  const float fpc = (t > 1.0f) ? fpc_v : 0.0f;
-  const float var = fmaxf(n * p * (1.0f - p) * fpc, 0.0f);
-  float z = ndtri_as241(u);
-  const float denom = sqrtf(fmaxf(n * g * (t - g) * (t - n), 1.0f)) *
-                      fmaxf(t - 2.0f, 1.0f);
-  const float skew = (t - 2.0f * g) * sqrtf(fmaxf(t - 1.0f, 0.0f)) *
-                     (t - 2.0f * n) / denom;
-  z = z + (z * z - 1.0f) * skew / 6.0f;
-  const float draw = rintf(mean + z * sqrtf(var));
-  const float lo = fmaxf(n - (t - g), 0.0f);
-  const float hi = fminf(g, n);
-  return fminf(fmaxf(draw, lo), hi);
+// The skew-corrected (Cornish-Fisher) hypergeometric quantile draw of n
+// from a population t with g successes, clamped to the support, in three
+// parts, so that a kernel computes each term where its inputs vary: the
+// population's terms (cf_pop: per trial), the terms of the sample size
+// (cf_terms: per trial where n is the quorum, per lane where n depends on
+// the lane's first draw), and the lane's own remainder (cf_sample).  The
+// three together are pallas_hist.py _cf_draw, expression for expression.
+struct CfPop {
+  float t, g, p, omp, tm1, tm2, tmg, a;
+  int t_gt1;
+};
+
+__device__ __forceinline__ CfPop cf_pop(float total, float good) {
+  CfPop c;
+  c.t = fmaxf(total, 1.0f);
+  c.g = good;
+  c.p = c.g / c.t;
+  c.omp = 1.0f - c.p;
+  c.tm1 = fmaxf(c.t - 1.0f, 1.0f);
+  c.t_gt1 = c.t > 1.0f;
+  c.tm2 = fmaxf(c.t - 2.0f, 1.0f);
+  c.tmg = c.t - c.g;
+  c.a = (c.t - 2.0f * c.g) * sqrtf(fmaxf(c.t - 1.0f, 0.0f));
+  return c;
 }
 
-// The per-lane CF tally pair of one phase: one threefry block on the lane's
-// global (node, trial) counters gives both uniforms; p0 ~ CF(total, c0, m),
-// p1 | p0 ~ CF(total - c0, c1, m - p0).
-__device__ __forceinline__ void cf_pair_draws(uint32_t k0, uint32_t k1,
-                                              uint32_t node, uint32_t trial,
-                                              float c0, float c1, float cq,
-                                              float m, float* p0,
-                                              float* p1) {
+struct CfTerms {
+  float mean, sd, skew, lo, hi;
+};
+
+__device__ __forceinline__ CfTerms cf_terms(const CfPop& c, float n) {
+  CfTerms d;
+  d.mean = n * c.p;
+  const float tmn = c.t - n;
+  const float fpc = c.t_gt1 ? tmn / c.tm1 : 0.0f;
+  d.sd = sqrtf(fmaxf(d.mean * c.omp * fpc, 0.0f));
+  const float denom = sqrtf(fmaxf(n * c.g * c.tmg * tmn, 1.0f)) * c.tm2;
+  d.skew = c.a * (c.t - 2.0f * n) / denom;
+  d.lo = fmaxf(n - c.tmg, 0.0f);
+  d.hi = fminf(c.g, n);
+  return d;
+}
+
+__device__ __forceinline__ float cf_sample(float u, const CfTerms& d) {
+  float z = ndtri_clipped(u);
+  z = z + (z * z - 1.0f) * d.skew / 6.0f;
+  return fminf(fmaxf(rintf(d.mean + z * d.sd), d.lo), d.hi);
+}
+
+// The per-trial terms of a phase's CF tally pair: p0 ~ CF(total, c0, m)
+// whole, and the population of p1 | p0 ~ CF(max(total - c0, 0), c1,
+// max(m - p0, 0)), whose sample size is the lane's.
+struct CfTrial {
+  CfTerms d1;
+  CfPop pop2;
+  float m;
+};
+
+__device__ __forceinline__ CfTrial cf_trial(float c0, float c1, float cq,
+                                            float m) {
+  const float total = c0 + c1 + cq;
+  CfTrial c;
+  c.d1 = cf_terms(cf_pop(total, c0), m);
+  c.pop2 = cf_pop(fmaxf(total - c0, 0.0f), c1);
+  c.m = m;
+  return c;
+}
+
+// One lane's CF tally pair from its trial's terms: one threefry block on
+// the lane's global (node, trial) counters gives both uniforms.
+__device__ __forceinline__ void cf_pair(uint32_t k0, uint32_t k1,
+                                        uint32_t node, uint32_t trial,
+                                        const CfTrial& c, float* p0,
+                                        float* p1) {
   uint32_t b0, b1;
   threefry2x32(k0, k1, node, trial, &b0, &b1);
-  const float u0 = bits_to_uniform(b0);
-  const float u1 = bits_to_uniform(b1);
-  const float total = c0 + c1 + cq;
-  *p0 = cf_draw(u0, total, c0, m);
-  *p1 = cf_draw(u1, fmaxf(total - c0, 0.0f), c1, fmaxf(m - *p0, 0.0f));
+  *p0 = cf_sample(bits_to_uniform(b0), c.d1);
+  *p1 = cf_sample(bits_to_uniform(b1),
+                  cf_terms(c.pop2, fmaxf(c.m - *p0, 0.0f)));
 }
 
 }  // namespace benor

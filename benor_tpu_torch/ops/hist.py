@@ -31,7 +31,7 @@ import torch
 
 from .launch import check, count_vecs, on_cpu, ptr, raise_on, stream
 from .stream import (_COIN_SALT, _EQUIV_SALT_OFFSET, bits_to_uniform,
-                     cf_draw, cf_pair_draws, lane_ids, ndtri_as241,
+                     cf_draw, cf_pair_draws, lane_ids, ndtri_clipped,
                      stream_scal, threefry2x32)
 
 
@@ -85,7 +85,7 @@ def equiv_counts_plain(seed, r, phase, hist, n_equiv, m, n_nodes):
     h1 = cf_draw(u1, torch.clamp_min(total_h - c0, 0.0), c1,
                  torch.clamp_min(rem - h0, 0.0))
     hq = torch.clamp_min(rem - h0 - h1, 0.0)
-    z = ndtri_as241(u_s)
+    z = ndtri_clipped(u_s)
     bs = torch.round(h_b * 0.5 + z * torch.sqrt(h_b) * 0.5)
     bs = torch.minimum(torch.clamp_min(bs, 0.0), h_b)
     return torch.stack([h0 + (h_b - bs), h1 + bs, hq],

@@ -46,6 +46,7 @@ def stream(device) -> ctypes.c_void_p:
 
 
 def raise_on(rc: int, name: str):
-    """Raise if a C entry returned a non-zero cudaError."""
+    """Raise if a C entry (a launch or a query) returned a non-zero
+    cudaError."""
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name}: CUDA call failed: cudaError {rc}")

@@ -27,6 +27,9 @@ the fused round equals proposal + sum + vote bit for bit.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..config import VAL0, VAL1, VALQ
@@ -292,17 +295,30 @@ def _check_modes(fault_model, rule="reference"):
         raise ValueError(f"unknown rule: {rule}")
 
 
+@functools.cache
+def round_blocks(lib, kernel: int, n_w: int, t: int, device) -> int:
+    """Blocks a trial of proposal_hist (``kernel`` 0) or vote_commit (1) on
+    ``device`` for ``n_w`` plane words and ``t`` trials: one wave of the
+    kernel over the card, worked out once per shape.  It sizes the
+    partials and is passed to the launch.  A failed CUDA query raises."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        raise_on(lib.benor_round_blocks(kernel, n_w, t, ctypes.byref(blocks)),
+                 "round_blocks")
+    return blocks.value
+
+
 def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze):
     """One launch of the proposal kernel -> raw per-block partials int32
     [blocks, T, PROP_COLS]."""
     t, p, n_w = pack.shape
-    parts = torch.empty((lib.benor_round_blocks(n_w), t, PROP_COLS),
-                        dtype=torch.int32,
+    blocks = round_blocks(lib, 0, n_w, t, pack.device)
+    parts = torch.empty((blocks, t, PROP_COLS), dtype=torch.int32,
                         device=pack.device)
     raise_on(lib.benor_proposal_hist(
         ptr(pack), ptr(hist_f), ptr(parts), t, p, n_w, key[0], key[1],
         float(m), int(fault_model == "byzantine"), int(bool(freeze)),
-        stream(pack.device)), "proposal_hist")
+        blocks, stream(pack.device)), "proposal_hist")
     return parts
 
 
@@ -311,15 +327,15 @@ def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
     """One launch of the vote kernel -> (new plane stack, raw per-block
     partials int32 [blocks, T, VOTE_COLS])."""
     t, p, n_w = pack.shape
+    blocks = round_blocks(lib, 1, n_w, t, pack.device)
     new_pack = torch.empty_like(pack)
-    parts = torch.empty((lib.benor_round_blocks(n_w), t, VOTE_COLS),
-                        dtype=torch.int32,
+    parts = torch.empty((blocks, t, VOTE_COLS), dtype=torch.int32,
                         device=pack.device)
     raise_on(lib.benor_vote_commit(
         ptr(pack), ptr(hist_f), ptr(qok), ptr(new_pack), ptr(parts),
         t, p, n_w, vkey[0], vkey[1], ckey[0], ckey[1], int(rk), float(m),
         float(n_faulty), int(rule == "textbook"),
-        int(fault_model == "byzantine"), int(bool(freeze)),
+        int(fault_model == "byzantine"), int(bool(freeze)), blocks,
         stream(pack.device)), "vote_commit")
     return new_pack, parts
 

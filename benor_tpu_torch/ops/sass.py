@@ -1,0 +1,221 @@
+"""What nvcc makes of the round kernels: registers, spills and shared
+memory (``-Xptxas -v``), the static SASS mix by class (``cuobjdump
+-sass``), and each pipe's floor for a number of lanes at a clock.
+
+Used by ``chip_smoke.py`` and ``round_stats.py`` on a machine with the CUDA
+toolkit; the simulation never imports it.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+from pathlib import Path
+
+from . import _build
+
+ROUND_KERNELS = ("proposal_hist_kernel", "vote_commit_kernel",
+                 "fused_round_kernel")
+
+# SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
+# named here count as "uniform".
+SASS_CLASSES = {
+    "integer": {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD",
+                "IMUL", "ISETP", "LEA", "IMNMX", "SEL", "PRMT", "IABS",
+                "BMSK", "SGXT", "BREV", "FLO", "IDP", "BFE", "BFI"},
+    "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK",
+             "FRND", "FSET", "FSWZADD"},
+    "mufu": {"MUFU"},
+    "conversion": {"F2I", "I2F", "F2F", "I2I", "F2FP", "I2FP", "F2IP"},
+    "branch": {"BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
+               "BREAK", "WARPSYNC", "NANOSLEEP", "YIELD", "BPT", "KILL"},
+    "vote_popc_shuffle": {"VOTE", "VOTEU", "POPC", "SHFL", "REDUX",
+                          "MATCH"},
+    "load_store": {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL",
+                   "LDC", "ATOM", "ATOMS", "ATOMG", "RED", "LDSM"},
+}
+# Warp lanes a clock an SM can take, compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions): one
+# instruction a clock from each of 4 schedulers; f32 add/mul/fma 128;
+# integer add/logic/shift/multiply-add and every compare/min/max/select
+# 64; MUFU and conversions 16; population count 16; shuffles 32; one
+# load/store unit instruction a clock.
+PIPES = {
+    "issue": (128, None),
+    "fp32 add/mul/fma": (128, {"FADD", "FMUL", "FFMA"}),
+    "integer + compare/select": (64, SASS_CLASSES["integer"]
+                                 | {"FMNMX", "FSETP", "FSEL", "FCHK",
+                                    "FSET"}),
+    "mufu + conversion": (16, SASS_CLASSES["mufu"]
+                          | SASS_CLASSES["conversion"]),
+    "popc": (16, {"POPC"}),
+    "load/store": (32, SASS_CLASSES["load_store"]),
+}
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                   r"(\S*)\s*([^;]*);")
+
+
+def sass_class(op: str) -> str:
+    for cls, ops in SASS_CLASSES.items():
+        if op in ops:
+            return cls
+    return "uniform" if op.startswith("U") else "other"
+
+
+def parse_ptxas(text: str) -> dict:
+    """``-Xptxas -v`` output -> {mangled entry: {registers, spill_stores,
+    spill_loads, smem, stack}}."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {mangled function: [(addr, opcode,
+    operands, predicated)]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _INSN.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(3), m.group(5).strip(),
+                        bool(m.group(2))))
+    return funcs
+
+
+def _mix(insns) -> dict:
+    mix = {}
+    for _, op, _, _ in insns:
+        cls = sass_class(op)
+        mix[cls] = mix.get(cls, 0) + 1
+    mix["total"] = len(insns)
+    return mix
+
+
+def _ops(insns) -> dict:
+    ops = {}
+    for _, op, _, _ in insns:
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def sections(insns) -> dict:
+    """A function's instructions -> {"all", "body", "loop"}: all of them;
+    those up to the first unpredicated EXIT (the slow paths of IEEE divide
+    and square root sit after it); and the span of the outermost backward
+    branch in the body (the per-word loop), if there is one."""
+    body = insns
+    for i, (_, op, _, pred) in enumerate(insns):
+        if op == "EXIT" and not pred:
+            body = insns[:i + 1]
+            break
+    loop = None
+    for addr, op, args, _ in body:
+        if op != "BRA":
+            continue
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        lo, hi = int(m.group(1), 16), addr
+        if loop is None or hi - lo > loop[1] - loop[0]:
+            loop = (lo, hi)
+    out = {"all": insns, "body": body}
+    if loop:
+        out["loop"] = [x for x in body if loop[0] <= x[0] <= loop[1]]
+    return out
+
+
+def resource_report(src: Path, out_dir: Path) -> dict:
+    """Build one CUDA source to a cubin with the port's flags and
+    ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
+    class counts}, ops: opcode counts of one lane's pass}} for the round
+    kernels it holds."""
+    nvcc = _build.nvcc_path()
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin = out_dir / f"{src.stem}.{os.getpid()}.cubin"
+    flags = [f for f in _build.FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    res = subprocess.run([nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
+                          str(cubin), str(src)], capture_output=True,
+                         text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc -cubin failed:\n{res.stdout}\n{res.stderr}")
+    ptxas = parse_ptxas(res.stdout + res.stderr)
+    sass = parse_sass(subprocess.run([cuobjdump, "-sass", str(cubin)],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)
+    cubin.unlink()
+    report = {}
+    for name in ROUND_KERNELS:
+        keys = [k for k in ptxas if name in k]
+        fkeys = [k for k in sass if name in k]
+        if not keys or not fkeys:
+            continue
+        info = dict(ptxas[keys[0]])
+        secs = sections(sass[fkeys[0]])
+        info["sass"] = {s: _mix(v) for s, v in secs.items()}
+        # one lane's pass: the per-word loop where the kernel has one (it
+        # then holds most of the body), else the body
+        loop = secs.get("loop", [])
+        info["ops"] = _ops(loop if 2 * len(loop) > len(secs["body"])
+                           else secs["body"])
+        report[name] = info
+    return report
+
+
+def pipe_floors(mix_ops: dict, lanes: int, sms: int, clk_mhz: float) -> dict:
+    """Opcode counts of one lane's pass -> {pipe: floor ms} for ``lanes``
+    lanes on ``sms`` SMs at ``clk_mhz``."""
+    out = {}
+    for pipe, (rate, ops) in PIPES.items():
+        n = sum(c for op, c in mix_ops.items() if ops is None or op in ops)
+        out[pipe] = n * lanes / (rate * sms * clk_mhz * 1e6) * 1e3
+    return out
+
+
+def print_resources(tag: str, resources: dict, lanes: int, sms: int,
+                    mhz: float):
+    """The step-1 lines of one checkout (``resource_report``'s dict):
+    resources and SASS classes of each round kernel, and the two-kernel
+    pair's pipe floors for ``lanes`` lanes at ``mhz``."""
+    for name, info in resources.items():
+        print(f"[ptxas] {tag} {name}: {info.get('registers')} registers, "
+              f"spill stores {info.get('spill_stores')} B, spill loads "
+              f"{info.get('spill_loads')} B, stack {info.get('stack')} B, "
+              f"smem {info.get('smem')} B")
+        for sec, mix in info["sass"].items():
+            print(f"[sass] {tag} {name} {sec}: "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(mix.items())))
+        if name == "fused_round_kernel":    # runs at N <= 8192, not here
+            continue
+        floors = pipe_floors(info["ops"], lanes, sms, mhz)
+        top = sorted(info["ops"].items(), key=lambda kv: -kv[1])[:16]
+        print(f"[pipes] {tag} {name} at {mhz:.0f} MHz, {sms} SMs, {lanes} "
+              f"lanes: " + ", ".join(f"{p} {v:.4f} ms"
+                                     for p, v in floors.items())
+              + "; top opcodes " + ", ".join(f"{k} {v}" for k, v in top))

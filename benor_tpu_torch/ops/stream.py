@@ -2,7 +2,8 @@
 (port of benor_tpu/ops/pallas_hist.py:58-187, 239-240).
 
     counter-based threefry2x32 bits -> uniforms -> AS241 normal quantile ->
-    skew-corrected Cornish-Fisher hypergeometric draws
+    skew-corrected Cornish-Fisher hypergeometric draws (split into
+    per-trial and per-lane terms, as the kernels compute them)
 
 Every function here is the plain version of a ``__device__`` twin in
 csrc/stream.cuh; the two are written op for op alike, so the kernels
@@ -84,72 +85,94 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp(f, 1e-7, 1.0 - 1e-7)
 
 
-def ndtri_as241(p: torch.Tensor) -> torch.Tensor:
-    """Inverse normal CDF, Wichura AS241 PPND7, f32 op for op."""
+def ndtri_clipped(p: torch.Tensor) -> torch.Tensor:
+    """Inverse normal CDF, Wichura AS241 PPND7, f32 op for op, for the p
+    that ``bits_to_uniform`` returns: its clip to [1e-7, 1 - 1e-7] keeps
+    sqrt(-log(min(p, 1 - p))) <= 4.02, so AS241's far tail (r_t > 5) is
+    never selected and is left out; the numerator and denominator are
+    selected before one divide."""
     q = p - 0.5
     r_c = 0.180625 - q * q
     num_c = ((((5.9109374720e+01 * r_c + 1.5929113202e+02) * r_c +
                5.0434271938e+01) * r_c + 3.3871327179e+00))
     den_c = ((((6.7187563600e+01 * r_c + 7.8757757664e+01) * r_c +
                1.7895169469e+01) * r_c + 1.0))
-    central = q * num_c / den_c
-
     r_t = torch.sqrt(-torch.log(torch.minimum(p, 1.0 - p)))
     r_m = r_t - 1.6
     num_m = ((((1.7023821103e-01 * r_m + 1.3067284816e+00) * r_m +
                2.7568153900e+00) * r_m + 1.4234372777e+00))
     den_m = (1.2021132975e-01 * r_m + 7.3700164250e-01) * r_m + 1.0
-    r_f = r_t - 5.0
-    num_f = ((((1.7337203997e-02 * r_f + 4.2868294337e-01) * r_f +
-               3.0812263860e+00) * r_f + 6.6579051150e+00))
-    den_f = (1.2258202635e-02 * r_f + 2.4197894225e-01) * r_f + 1.0
-    tail = torch.where(r_t <= 5.0, num_m / den_m, num_f / den_f)
-    tail = torch.where(q < 0.0, -tail, tail)
+    central = torch.abs(q) <= 0.425
+    num = torch.where(central, q * num_c,
+                      torch.where(q < 0.0, -num_m, num_m))
+    return num / torch.where(central, den_c, den_m)
 
-    return torch.where(torch.abs(q) <= 0.425, central, tail)
+
+# The skew-corrected (Cornish-Fisher) hypergeometric quantile draw, in the
+# three parts of csrc/stream.cuh (cf_pop, cf_terms, cf_sample): the
+# population's terms, the sample size's terms, the lane's remainder.  On
+# [T, 1] operands torch computes the first two once per trial, as the
+# kernels do.
+
+
+def cf_pop(total: torch.Tensor, good: torch.Tensor) -> dict:
+    """The terms of a draw that depend only on its population."""
+    t = torch.clamp_min(total, 1.0)
+    g = good
+    p = g / t
+    return dict(t=t, g=g, p=p, omp=1.0 - p,
+                tm1=torch.clamp_min(t - 1.0, 1.0), t_gt1=t > 1.0,
+                tm2=torch.clamp_min(t - 2.0, 1.0), tmg=t - g,
+                a=(t - 2.0 * g) * torch.sqrt(torch.clamp_min(t - 1.0, 0.0)))
+
+
+def cf_terms(c: dict, n: torch.Tensor) -> dict:
+    """The terms of a draw of ``n`` from the population ``c``."""
+    t = c["t"]
+    mean = n * c["p"]
+    tmn = t - n
+    fpc = torch.where(c["t_gt1"], tmn / c["tm1"], 0.0)
+    sd = torch.sqrt(torch.clamp_min(mean * c["omp"] * fpc, 0.0))
+    denom = torch.sqrt(torch.clamp_min(n * c["g"] * c["tmg"] * tmn, 1.0)) \
+        * c["tm2"]
+    return dict(mean=mean, sd=sd, skew=c["a"] * (t - 2.0 * n) / denom,
+                lo=torch.clamp_min(n - c["tmg"], 0.0),
+                hi=torch.minimum(c["g"], n))
+
+
+def cf_sample(u: torch.Tensor, d: dict) -> torch.Tensor:
+    """A lane's draw from its uniform and its draw's terms."""
+    z = ndtri_clipped(u)
+    z = z + (z * z - 1.0) * d["skew"] / 6.0
+    return torch.minimum(torch.maximum(torch.round(d["mean"] + z * d["sd"]),
+                                       d["lo"]), d["hi"])
 
 
 def cf_draw(u: torch.Tensor, total: torch.Tensor, good: torch.Tensor,
             nsample) -> torch.Tensor:
-    """Skew-corrected (Cornish-Fisher) hypergeometric quantile draw of
-    ``nsample`` from a population ``total`` with ``good`` successes, f32,
-    clamped to the support.  ``nsample`` is a tensor or a Python number
-    (the quorum, exact in f32)."""
+    """Draw of ``nsample`` from a population ``total`` with ``good``
+    successes, f32, clamped to the support.  ``nsample`` is a tensor or a
+    Python number (the quorum, exact in f32)."""
     if not torch.is_tensor(nsample):
         nsample = torch.tensor(nsample, dtype=torch.float32,
                                device=u.device)
-    t = torch.clamp_min(total, 1.0)
-    g = good
-    n = nsample
-    p = g / t
-    mean = n * p
-    fpc = torch.where(t > 1.0, (t - n) / torch.clamp_min(t - 1.0, 1.0), 0.0)
-    var = torch.clamp_min(n * p * (1.0 - p) * fpc, 0.0)
-    z = ndtri_as241(u)
-    denom = torch.sqrt(torch.clamp_min(n * g * (t - g) * (t - n), 1.0)) * \
-        torch.clamp_min(t - 2.0, 1.0)
-    skew = (t - 2.0 * g) * torch.sqrt(torch.clamp_min(t - 1.0, 0.0)) * \
-        (t - 2.0 * n) / denom
-    z = z + (z * z - 1.0) * skew / 6.0
-    draw = torch.round(mean + z * torch.sqrt(var))
-    lo = torch.clamp_min(n - (t - g), 0.0)
-    hi = torch.minimum(g, n)
-    return torch.minimum(torch.maximum(draw, lo), hi)
+    return cf_sample(u, cf_terms(cf_pop(total, good), nsample))
 
 
 def cf_pair_draws(m, key, hist_f: torch.Tensor, shape, device):
-    """The per-lane CF tally pair (csrc/stream.cuh ``cf_pair_draws``): one
-    threefry block per lane gives both uniforms; p0 ~ CF(total, c0, m),
-    p1 | p0 ~ CF(total - c0, c1, m - p0).  ``hist_f`` is the f32 [T, 3]
-    class histogram; ``shape`` the lanes' (T, N)."""
+    """The per-lane CF tally pair (csrc/stream.cuh ``cf_trial`` +
+    ``cf_pair``): one threefry block per lane gives both uniforms;
+    p0 ~ CF(total, c0, m), p1 | p0 ~ CF(total - c0, c1, m - p0).
+    ``hist_f`` is the f32 [T, 3] class histogram; ``shape`` the lanes'
+    (T, N)."""
     node, trial = lane_ids(shape[0], shape[1], device)
     b0, b1 = threefry2x32(key[0], key[1], node, trial)
     u0 = bits_to_uniform(b0)
     u1 = bits_to_uniform(b1)
     c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
     total = c0 + c1 + cq
-    mf = torch.tensor(float(m), dtype=torch.float32, device=device)
-    p0 = cf_draw(u0, total, c0, mf)
-    p1 = cf_draw(u1, torch.clamp_min(total - c0, 0.0), c1,
-                 torch.clamp_min(mf - p0, 0.0))
+    mf = torch.full_like(c0, float(m))
+    p0 = cf_sample(u0, cf_terms(cf_pop(total, c0), mf))
+    p1 = cf_sample(u1, cf_terms(cf_pop(torch.clamp_min(total - c0, 0.0), c1),
+                                torch.clamp_min(mf - p0, 0.0)))
     return p0, p1

@@ -13,8 +13,15 @@ Phases (any failure ends the run non-zero; nothing is caught):
      N = 8192 x 32 for the fused round kernel; the dense tally at
      N = 2048 x 32, at bench.py's 2048 x 8 fixture and at a ragged
      R = 1000, S = 2047): every count, coin and plane word must be equal;
-     times over 20 launches, the bound, and for the dense tally the
-     library route (bool -> f32 cast + torch.bmm);
+     three repeats of the mean over 20 launches, the bound (the
+     operations this run's inputs need, with the whole-draw count beside
+     it),
+     and for the dense tally the library route (bool -> f32 cast +
+     torch.bmm).  The two-kernel round pair also runs on two more
+     N = 1M x 32 fixtures, one edge histogram a trial and whole warps
+     inactive; the round kernels' registers, spills, shared memory, SASS
+     mix and pipe floors at the measured clocks.sm
+     (benor_tpu_torch/ops/sass.py);
   3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
      bit, at N = 8192 x 32;
   4. small runs on the card against the same runs on the CPU (plain
@@ -42,6 +49,7 @@ It imports nothing of JAX and nothing of the JAX package, and needs one card.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,43 +62,105 @@ TRIALS = 32
 MAX_ROUNDS = 64
 FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
 SEED = 0
+ROUND = 3                 # the round whose stream keys the fixtures use
 TIMED_LAUNCHES = 20
+MODES = dict(fault_model="crash", freeze=True)
 
 # The bound: peaks of one H100 SXM (NVIDIA's data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
-# Operations one lane executes, counted from csrc/stream.cuh,
-# csrc/round_kernels.cu and csrc/hist_kernels.cu (no lane exits early, so
-# the count is data-free): threefry-2x32-20 = 2 + 20 x (add, shl, shr, or,
-# xor) + 5 x 3 key adds; bits_to_uniform = 5; ndtri = 53; cf_draw = 50 +
-# ndtri; one CF pair = threefry + 2 uniforms + 2 draws + 6; field loads ~2
-# a plane; ballots and counts.  The dense tally does three integer adds an
-# edge (one per class).
+# Operations the functions need on this run's inputs, counted from
+# csrc/stream.cuh and csrc/*_kernels.cu (an IEEE divide, square root or
+# log counts as one):
+#  - threefry-2x32-20 = 2 + 20 x (add, shl, shr, or, xor) + 5 x 3 key adds;
+#    bits_to_uniform = 5;
+#  - the normal quantile (ndtri_clipped) by the branch its uniform takes:
+#    q = p - 0.5, |q|, the compare (3), then central (|q| <= 0.425: r_c,
+#    num_c and den_c by Horner, q * num_c, the divide: 16) or middle tail
+#    (1 - p, min, log, negate, sqrt, r_m, num_m and den_m by Horner, the
+#    sign, the divide: 19).  bits_to_uniform clips u to [1e-7, 1 - 1e-7],
+#    which keeps r_t <= 4.02, so AS241's far tail (r_t > 5) is never needed;
+#  - a CF draw's population and quorum terms (cf_pop, and cf_terms of the
+#    first draw of a pair) once a trial: 55 for a pair.  A lane then needs
+#    10 + its quantile for a draw whose terms are its trial's (the first
+#    of a pair) and 33 + its quantile for one whose sample size is its own
+#    (the second: cf_terms + cf_sample);
+#  - a round kernel reads 5 planes a lane (x0, x1, decided, killed,
+#    faulty: shift and mask, 2 each); the vote sets 4 new bits a lane and
+#    rebuilds each k plane of a word with 2 word operations; the rest of a
+#    lane's logic, ballots and counts is 15 (proposal) or 31 (vote);
+#  - the round kernels need a CF pair only for the lanes that read it (see
+#    lane_needs), the coin only for lanes that coin; the dense tally does
+#    three integer adds an edge (one per class).
 OPS_THREEFRY = 117
 OPS_UNIFORM = 5
-OPS_NDTRI = 53
-OPS_CF_DRAW = 50 + OPS_NDTRI
-OPS_CF_PAIR = OPS_THREEFRY + 2 * OPS_UNIFORM + 2 * OPS_CF_DRAW + 6
+OPS_NDTRI_CENTRAL = 3 + 16
+OPS_NDTRI_TAIL = 3 + 19
+OPS_CF_PAIR_LANE = OPS_THREEFRY + 2 * OPS_UNIFORM + 10 + 33   # no quantiles
+OPS_CF_TRIAL = 55
+OPS_READ_PLANES = 5 * 2
 
 
-def ops_per_lane(kernel: str, planes: int = 0) -> int:
-    """Operations a lane (for the dense tally: an edge) executes."""
-    load = 2 * planes
-    prop = load + OPS_CF_PAIR + 4 + 3 + 8
-    vote = load + OPS_CF_PAIR + OPS_THREEFRY + 1 + 20 + 2 * planes + 10
+def ops_quantiles(n: int, tails: int) -> int:
+    """Operations of ``n`` normal quantiles, ``tails`` of them in the
+    middle tail."""
+    return (n - tails) * OPS_NDTRI_CENTRAL + tails * OPS_NDTRI_TAIL
+
+
+def ops_needed(kernel: str, lanes: int, trials: int = 0, words: int = 0,
+               k_planes: int = 0, draws: int = 0, tails: int = 0,
+               coins: int = 0) -> int:
+    """Operations the function needs on this run's inputs: ``lanes`` lanes
+    (for the dense tally: edges) in ``words`` plane words with ``k_planes``
+    k planes, ``trials`` trials; for the round kernels ``draws`` lanes
+    drawing a CF pair (two quantiles each, ``tails`` of them in the tail)
+    and ``coins`` lanes drawing a coin; for cf_counts and equiv_counts
+    ``tails`` of the lanes' 2 or 4 quantiles in the tail."""
+    prop = OPS_READ_PLANES + 15
+    vote = OPS_READ_PLANES + 4 + 31
+    if kernel in ("proposal_hist", "vote_commit", "fused_round"):
+        base = {"proposal_hist": prop, "vote_commit": vote,
+                "fused_round": prop + vote}[kernel]
+        k_ops = 0 if kernel == "proposal_hist" else words * 2 * k_planes
+        n_phases = 2 if kernel == "fused_round" else 1
+        return (lanes * base + k_ops + draws * OPS_CF_PAIR_LANE
+                + ops_quantiles(2 * draws, tails)
+                + coins * (OPS_THREEFRY + 1)
+                + n_phases * trials * OPS_CF_TRIAL)
+    return {
+        # the pair, hq = max(m - h0 - h1, 0), three casts
+        "cf_counts": lanes * (OPS_CF_PAIR_LANE + 6)
+        + ops_quantiles(2 * lanes, tails) + trials * OPS_CF_TRIAL,
+        # one block, the bit, the cast
+        "coin_flips": lanes * (OPS_THREEFRY + 2),
+        # one block, the bit, the deviation uniform, compare and select
+        "weak_coin_flips": lanes * (OPS_THREEFRY + 2 + OPS_UNIFORM + 2),
+        # two blocks, four uniforms, h_b (trial's terms: 10), h0 and h1
+        # (the lane's sample sizes: 33 each), the binomial split's ~8 ops
+        # and its quantile, ~8 sums and clamps; four quantiles; the trial
+        # terms of h_b and of h0's and h1's populations
+        "equiv_counts": lanes * (2 * OPS_THREEFRY + 4 * OPS_UNIFORM
+                                 + 10 + 2 * 33 + 16)
+        + ops_quantiles(4 * lanes, tails) + trials * 80,
+        "dense_counts": 3 * lanes,
+    }[kernel]
+
+
+def ops_per_lane_whole(kernel: str, planes: int = 0) -> int:
+    """The whole-draw count of one lane's operations, printed beside
+    ``ops_needed``: every lane charged every draw whole (its trial's terms
+    and the far tail of the normal quantile included) and the coin."""
+    threefry, uniform, ndtri = 117, 5, 53
+    draw = 50 + ndtri
+    pair = threefry + 2 * uniform + 2 * draw + 6
+    prop = 2 * planes + pair + 15
+    vote = 2 * planes + pair + threefry + 31 + 2 * planes
     return {
         "proposal_hist": prop, "vote_commit": vote,
-        "fused_round": prop + vote,
-        # the pair, hq = max(m - h0 - h1, 0), three casts
-        "cf_counts": OPS_CF_PAIR + 3 + 3,
-        # one block, the bit, the cast
-        "coin_flips": OPS_THREEFRY + 2,
-        # one block, the bit, the deviation uniform, compare and select
-        "weak_coin_flips": OPS_THREEFRY + 2 + OPS_UNIFORM + 2,
-        # two blocks, four uniforms, three draws, the binomial split's
-        # normal quantile, sums, clamps and the split (~20)
-        "equiv_counts": (2 * OPS_THREEFRY + 4 * OPS_UNIFORM + 3 * OPS_CF_DRAW
-                         + OPS_NDTRI + 20),
+        "fused_round": prop + vote, "cf_counts": pair + 6,
+        "coin_flips": threefry + 2,
+        "weak_coin_flips": threefry + 2 + uniform + 2,
+        "equiv_counts": 2 * threefry + 4 * uniform + 3 * draw + ndtri + 20,
         "dense_counts": 3,
     }[kernel]
 
@@ -98,6 +168,42 @@ def ops_per_lane(kernel: str, planes: int = 0) -> int:
 def sh(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+def smi(query: str) -> str:
+    """One nvidia-smi reading of the first card, without units."""
+    return sh(["nvidia-smi", f"--query-gpu={query}",
+               "--format=csv,noheader,nounits"]).splitlines()[0]
+
+
+def clock_during(fn, seconds: float = 1.0) -> float:
+    """Run ``fn`` over and over for about ``seconds`` on the card while
+    nvidia-smi reads ``clocks.sm`` half-way -> the reading in MHz (NaN if
+    nvidia-smi gave none)."""
+    import threading
+
+    import torch
+    seen = {}
+
+    def read():
+        try:
+            seen["mhz"] = float(smi("clocks.sm"))
+        except (OSError, ValueError, subprocess.CalledProcessError) as e:
+            print(f"[clock] nvidia-smi: {e!r}", file=sys.stderr)
+
+    reader = threading.Thread(target=read, daemon=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds or reader.is_alive():
+        if not reader.ident and time.perf_counter() - t0 > seconds / 2:
+            reader.start()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 20 * seconds:
+            break
+    if reader.ident:
+        reader.join(timeout=30)
+    return seen.get("mhz", float("nan"))
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -134,6 +240,156 @@ def random_pack(cfg, device, seed):
                      decided=draw(10) == 0,
                      k=draw(cfg.max_rounds + 2).to(torch.int32),
                      killed=draw(10) == 0)
+    pack = pack_state(cfg, state, draw(10) == 0)
+    return pack, sent_hist_from_pack(cfg, pack)
+
+
+def repeats(fn, n: int = 3) -> list[float]:
+    """``n`` repeats of ``cuda_ms(fn, TIMED_LAUNCHES)``."""
+    return [cuda_ms(fn, TIMED_LAUNCHES) for _ in range(n)]
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def tail_quantiles(key, need) -> int:
+    """Of the two uniforms of each lane's threefry block under ``key``, how
+    many take the normal quantile's middle-tail branch (|u - 0.5| > 0.425
+    in f32, as ndtri_clipped tests it), over the lanes where the bool
+    [T, N] ``need`` holds."""
+    from benor_tpu_torch.ops.stream import (bits_to_uniform, lane_ids,
+                                            threefry2x32)
+    node, trial = lane_ids(need.shape[0], need.shape[1], need.device)
+    tails = 0
+    for bits in threefry2x32(key[0], key[1], node, trial):
+        tails += int((((bits_to_uniform(bits) - 0.5).abs() > 0.425)
+                      & need).sum())
+    return tails
+
+
+def lane_needs(pack, keys, freeze=True, qok=None, new_pack=None) -> dict:
+    """Lanes of a plane stack whose draws a round kernel's function reads:
+    the proposal's CF pair where a lane is alive and not frozen, the vote's
+    where it is also in a trial whose quorum is met, the coin where the
+    vote's new stack has the coined bit -> counts of those lanes and of
+    their quantiles that take the tail (``keys``: the proposal's and the
+    vote's stream keys)."""
+    from benor_tpu_torch.ops.packed_round import plane_field
+    from benor_tpu_torch.state import PACK_COINED, PACK_DECIDED, PACK_KILLED
+    live = plane_field(pack, PACK_KILLED, 1) == 0
+    if freeze:
+        live &= plane_field(pack, PACK_DECIDED, 1) == 0
+    out = {"proposal_draws": int(live.sum()),
+           "proposal_tails": tail_quantiles(keys[0], live)}
+    if qok is not None:
+        vneed = live & qok.bool()[:, None]
+        out["vote_draws"] = int(vneed.sum())
+        out["vote_tails"] = tail_quantiles(keys[1], vneed)
+    if new_pack is not None:
+        out["coins"] = int(plane_field(new_pack, PACK_COINED, 1).sum())
+    return out
+
+
+def main_cfg():
+    """The main path's configuration at N = 1M x 32 that the kernel fixtures
+    are drawn for."""
+    from benor_tpu_torch import SimConfig
+    return SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 4, trials=TRIALS,
+                     max_rounds=MAX_ROUNDS)
+
+
+def round_pair(tag, lib, cfg, pack, hist1, hist2=None, qok=None) -> dict:
+    """proposal_hist and vote_commit against their plain versions on one
+    fixture (the vote on the proposal's own histogram and gate unless
+    given), then three timed repeats of each -> dict: res (each kernel's
+    compare result), ms (its repeats), needs (lane_needs), calls (the two
+    launches), plain (the two plain versions, untimed), lanes."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+
+    m, r = cfg.quorum, ROUND
+    t, _, n_w = pack.shape
+    lanes = t * n_w * 32
+    keys = [stream_scal(SEED, r, s) for s in (rng.PHASE_PROPOSAL,
+                                              rng.PHASE_VOTE, _COIN_SALT)]
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference", **MODES)
+    parts_k = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m,
+                               **MODES)
+    parts_p = pr.proposal_hist_plain(SEED, r, rng.PHASE_PROPOSAL, hist1,
+                                     pack, m, **MODES)
+    torch.cuda.synchronize()
+    res_p = compare(f"proposal_hist {tag}", lanes, [(parts_k, parts_p)])
+    hist2 = parts_p[:, :3] if hist2 is None else hist2
+    qok = parts_p[:, 3] >= m if qok is None else qok
+    new_k, vparts_k = pr.vote_commit(SEED, r, rng.PHASE_VOTE, hist2, pack,
+                                     qok, **vote)
+    new_p, vparts_p = pr.vote_commit_plain(SEED, r, rng.PHASE_VOTE, hist2,
+                                           pack, qok, **vote)
+    torch.cuda.synchronize()
+    res_v = compare(f"vote_commit {tag}", lanes, [(new_k, new_p),
+                                                  (vparts_k, vparts_p)])
+    needs = lane_needs(pack, keys, MODES["freeze"], qok, new_p)
+    del new_k, new_p
+    hist_f, hist2_f = count_vecs(hist1), count_vecs(hist2)
+    qok_i = qok.to(torch.int32).contiguous()
+    calls = {
+        "proposal_hist": lambda: pr._launch_proposal_hist(
+            lib, keys[0], hist_f, pack, m, **MODES),
+        "vote_commit": lambda: pr._launch_vote_commit(
+            lib, keys[1], keys[2], r + 1, hist2_f, qok_i, pack, m,
+            cfg.n_faulty, "reference", "crash", True),
+    }
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    print(f"[fixture] {tag}: lanes {lanes}, needs {needs}; kernel ms {ms}")
+    return dict(res=(res_p, res_v), ms=ms, needs=needs, calls=calls,
+                lanes=lanes,
+                plain=(lambda: pr.proposal_hist_plain(
+                    SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m, **MODES),
+                    lambda: pr.vote_commit_plain(
+                    SEED, r, rng.PHASE_VOTE, hist2, pack, qok, **vote)))
+
+
+def edge_hists(n: int, m: int, trials: int, device):
+    """One edge histogram (c0, c1, "?") a trial, cycling: total 0 and 1,
+    c0 = 0, c0 = total, all "?", the quorum above the total, c0 near the
+    total (so m - p0 <= 0 in many lanes), balanced, a ragged mix."""
+    cases = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, n // 2, n // 2), (n, 0, 0),
+             (0, 0, n), (m // 4, m // 4, m // 8), (n - 10, 5, 5),
+             (n // 2, n // 2, 0), (n // 3, n // 2, n - n // 3 - n // 2)]
+    import torch
+    return torch.tensor([cases[i % len(cases)] for i in range(trials)],
+                        dtype=torch.int32, device=device)
+
+
+def inactive_pack(cfg, device, seed):
+    """A plane stack with whole warps inactive: per trial the first F nodes
+    killed (FaultSpec.first_f's layout) and a run of N/64 more, a run of
+    decided (frozen) lanes over a quarter of the nodes, the rest random as
+    in random_pack -> (pack, its proposal histogram)."""
+    import torch
+    from benor_tpu_torch.ops.packed_round import (pack_state,
+                                                  sent_hist_from_pack)
+    from benor_tpu_torch.state import NetState
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.trials, cfg.n_nodes)
+
+    def draw(hi):
+        return torch.randint(0, hi, shape, generator=g, device=device)
+
+    node = torch.arange(cfg.n_nodes, device=device)[None, :]
+    n = cfg.n_nodes
+    run = (node >= n // 2) & (node < n // 2 + n // 64)
+    frozen = (node >= n // 4) & (node < n // 2)
+    killed = ((draw(10) == 0) | (node < cfg.n_faulty) | run) & ~frozen
+    state = NetState(x=draw(3).to(torch.int8),
+                     decided=(draw(10) == 0) | frozen,
+                     k=draw(cfg.max_rounds + 2).to(torch.int32),
+                     killed=killed)
     pack = pack_state(cfg, state, draw(10) == 0)
     return pack, sent_hist_from_pack(cfg, pack)
 
@@ -210,8 +466,12 @@ def breakdown(tag, name, run, t_run, ours):
                     for e in evs[:8])
     ours_ms = sum(dev_us(e) for e in evs if "_kernel(" in e.key
                   and any(k in e.key for k in ours)) / 1e3
+    per = ", ".join(f"{re.search(r'(\w+_kernel)\(', e.key).group(1)} "
+                    f"{dev_us(e) / e.count / 1e3:.4f} ms a launch x{e.count}"
+                    for e in evs if "_kernel(" in e.key
+                    and any(k in e.key for k in ours))
     print(f"[breakdown] {tag} {name}: profiled run_consensus: device busy "
-          f"{busy_ms:.3f} ms (port kernels {ours_ms:.3f} ms) = "
+          f"{busy_ms:.3f} ms (port kernels {ours_ms:.3f} ms: {per}) = "
           f"{busy_ms / 1e3 / t_run:.4f} of the unprofiled run_consensus; "
           f"top device time: {top}")
 
@@ -231,22 +491,23 @@ def main() -> int:
     from benor_tpu_torch.ops import packed_round as pr
     from benor_tpu_torch.ops import sampling
     from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops import sass
     from benor_tpu_torch.ops.stream import (_COIN_SALT, _EQUIV_SALT_OFFSET,
                                             stream_scal)
     from benor_tpu_torch.sim import run_consensus
-    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.state import PACK_K, FaultSpec, init_state
     from benor_tpu_torch.sweep import balanced_inputs, random_inputs
 
     dev = torch.device("cuda")
     # --- 1. toolchain ----------------------------------------------------
     nvcc = [ln for ln in sh([_build.nvcc_path(), "--version"]).splitlines()
             if "release" in ln][0]
-    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
-              "--format=csv,noheader"]).splitlines()[0]
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
     cap = torch.cuda.get_device_capability(0)
     print(f"[toolchain] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{nvcc} | {torch.cuda.get_device_name(0)} sm_{cap[0]}{cap[1]} | "
-          f"{smi}")
+          f"{card}")
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"[build] {len(_build.sources())} source(s) in "
@@ -254,76 +515,93 @@ def main() -> int:
 
     kernels = {}
 
-    def record(name, lanes, planes, nbytes, n_diff, max_err, ms, plain_ms,
+    def record(name, nbytes, ops, ops_whole, n_diff, max_err, ms, plain_ms,
                library_ms=None):
+        """One kernel's row of the kernels line.  ``ms`` holds the kernel's
+        three repeats (the row takes their median); the bound is taken from
+        ``ops`` (what this run's inputs need), the whole-draw count
+        ``ops_whole`` is printed beside it."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = lanes * ops_per_lane(name, planes) / F32_OPS_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_old = max(t_bytes, ops_whole / F32_OPS_PER_S * 1e3)
         src = ("round" if name in pr.KERNELS
                else "tally" if name in dk.KERNELS else "hist")
         kernels[name] = dict(
             name=name, route="cuda",
             source=f"benor_tpu_torch/csrc/{src}_kernels.cu",
             replaces=REPLACES[name], launches=0, max_abs_err=max_err,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            ms=median(ms), plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=library_ms, match="exact", differing=n_diff)
+            library_ms=library_ms, match="exact", differing=n_diff,
+            ms_repeats=ms)
         lib_txt = ("" if library_ms is None
                    else f"library {library_ms:.4f} ms, ")
-        print(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"{lib_txt}bound {max(t_bytes, t_ops):.4f} ms (bytes "
-              f"{t_bytes:.4f} for {nbytes} B, operations {t_ops:.4f} for "
-              f"{ops_per_lane(name, planes)} a lane)")
+        print(f"[time] {name}: kernel {ms} ms (median {median(ms):.4f}), "
+              f"plain {plain_ms:.4f} ms, {lib_txt}bound "
+              f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for "
+              f"{nbytes} B, operations {t_ops:.4f} for {ops} needed; "
+              f"whole-draw count {ops_whole}, bound {t_old:.4f} ms)")
 
     # --- 2. kernels vs plain versions on the card -------------------------
-    cfg = SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 4, trials=TRIALS,
-                    max_rounds=MAX_ROUNDS)
-    m, r = cfg.quorum, 3
+    cfg = main_cfg()
+    m, r = cfg.quorum, ROUND
     pack, hist1 = random_pack(cfg, dev, SEED)
     t, planes, n_w = pack.shape
     lanes = t * n_w * 32
+    k_planes = planes - PACK_K
     pkey = stream_scal(SEED, r, rng.PHASE_PROPOSAL)
     vkey = stream_scal(SEED, r, rng.PHASE_VOTE)
     ckey = stream_scal(SEED, r, _COIN_SALT)
-    modes = dict(fault_model="crash", freeze=True)
+    modes = MODES
     pack_bytes = pack.numel() * 4
-    blocks = lib.benor_round_blocks(n_w)
 
-    parts_k = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m,
-                               **modes)
-    parts_p = pr.proposal_hist_plain(SEED, r, rng.PHASE_PROPOSAL, hist1,
-                                     pack, m, **modes)
-    torch.cuda.synchronize()
-    res = compare("proposal_hist", lanes, [(parts_k, parts_p)])
-    hist_f = count_vecs(hist1)
-    ms = cuda_ms(lambda: pr._launch_proposal_hist(
-        lib, pkey, hist_f, pack, m, **modes), TIMED_LAUNCHES)
-    plain = cuda_ms(lambda: pr.proposal_hist_plain(
-        SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m, **modes), TIMED_LAUNCHES)
-    record("proposal_hist", lanes, planes,
-           pack_bytes + t * 3 * 4 + blocks * t * pr.PROP_COLS * 4,
-           *res, ms, plain)
+    # the random fixture (the first port's): its times go into the kernels
+    # line
+    rnd = round_pair("random", lib, cfg, pack, hist1)
+    plain_p, plain_v = (cuda_ms(fn, TIMED_LAUNCHES) for fn in rnd["plain"])
+    nd = rnd["needs"]
+    record("proposal_hist",
+           pack_bytes + t * 3 * 4
+           + pr.round_blocks(lib, 0, n_w, t, dev) * t * pr.PROP_COLS * 4,
+           ops_needed("proposal_hist", lanes, t, n_w * t, k_planes,
+                      draws=nd["proposal_draws"], tails=nd["proposal_tails"]),
+           lanes * ops_per_lane_whole("proposal_hist", planes),
+           *rnd["res"][0], rnd["ms"]["proposal_hist"], plain_p)
+    record("vote_commit",
+           2 * pack_bytes + t * 4 * 4
+           + pr.round_blocks(lib, 1, n_w, t, dev) * t * pr.VOTE_COLS * 4,
+           ops_needed("vote_commit", lanes, t, n_w * t, k_planes,
+                      draws=nd["vote_draws"], tails=nd["vote_tails"],
+                      coins=nd["coins"]),
+           lanes * ops_per_lane_whole("vote_commit", planes),
+           *rnd["res"][1], rnd["ms"]["vote_commit"], plain_v)
 
-    hist2 = parts_p[:, :3]
-    qok = parts_p[:, 3] >= m
-    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference", **modes)
-    new_k, vparts_k = pr.vote_commit(SEED, r, rng.PHASE_VOTE, hist2, pack,
-                                     qok, **vote)
-    new_p, vparts_p = pr.vote_commit_plain(SEED, r, rng.PHASE_VOTE, hist2,
-                                           pack, qok, **vote)
-    torch.cuda.synchronize()
-    res = compare("vote_commit", lanes, [(new_k, new_p),
-                                         (vparts_k, vparts_p)])
-    hist2_f = count_vecs(hist2)
-    qok_i = qok.to(torch.int32).contiguous()
-    vargs = (vkey, ckey, r + 1, hist2_f, qok_i, pack, m, cfg.n_faulty,
-             "reference", "crash", True)
-    ms = cuda_ms(lambda: pr._launch_vote_commit(lib, *vargs), TIMED_LAUNCHES)
-    plain = cuda_ms(lambda: pr.vote_commit_plain(
-        SEED, r, rng.PHASE_VOTE, hist2, pack, qok, **vote), TIMED_LAUNCHES)
-    record("vote_commit", lanes, planes,
-           2 * pack_bytes + t * 4 * 4 + blocks * t * pr.VOTE_COLS * 4,
-           *res, ms, plain)
-    del pack, new_k, new_p
+    # step 1's lines: registers, spills and shared memory (ptxas), the
+    # static SASS mix by class, and each pipe's floor for these lanes at
+    # the SM clock read while the vote kernel runs
+    mhz = clock_during(rnd["calls"]["vote_commit"])
+    sass.print_resources(
+        "chip_smoke", sass.resource_report(_build.CSRC / "round_kernels.cu",
+                                           _build.BUILD_DIR),
+        lanes, torch.cuda.get_device_properties(0).multi_processor_count,
+        mhz)
+    print(f"[clock] clocks.sm {mhz:.0f} MHz while vote_commit ran")
+
+    # two more fixtures at the same shape: one edge histogram a trial (both
+    # phases, the quorum gate false in every third trial), and whole warps
+    # inactive (killed and decided-and-frozen runs, the gate false in every
+    # fourth trial)
+    qok_e = torch.arange(TRIALS, device=dev) % 3 != 2
+    edge = round_pair("edge-histograms", lib, cfg, pack,
+                      edge_hists(N_MAIN, m, TRIALS, dev),
+                      edge_hists(N_MAIN, m, TRIALS, dev), qok_e)
+    if not edge["needs"]["coins"]:
+        raise SystemExit("the edge-histogram fixture coined no lane")
+    del pack
+    ipack, ihist = inactive_pack(cfg, dev, SEED + 2)
+    round_pair("inactive-warps", lib, cfg, ipack, ihist,
+               qok=torch.arange(TRIALS, device=dev) % 4 != 3)
+    del ipack, edge, rnd
 
     fcfg = cfg.replace(n_nodes=N_FUSED, n_faulty=N_FUSED // 4)
     fm_ = fcfg.quorum
@@ -338,15 +616,24 @@ def main() -> int:
     fhist_f = count_vecs(fhist)
     fargs = (pkey, vkey, ckey, r + 1, fhist_f, fpack, fm_, fcfg.n_faulty,
              "reference", "crash", True)
-    ms = cuda_ms(lambda: pr._launch_fused_round(lib, *fargs), TIMED_LAUNCHES)
+    ms = repeats(lambda: pr._launch_fused_round(lib, *fargs))
     plain = cuda_ms(lambda: pr.fused_round_plain(
         SEED, r, fhist, fpack, **fvote), TIMED_LAUNCHES)
-    record("fused_round", flanes, fplanes,
+    fneeds = lane_needs(fpack, (pkey, vkey), True, out_p[1][:, 3] >= fm_,
+                        out_p[0])
+    record("fused_round",
            2 * fpack.numel() * 4 + ft * 3 * 4
-           + ft * (pr.PROP_COLS + pr.VOTE_COLS) * 4, *res, ms, plain)
+           + ft * (pr.PROP_COLS + pr.VOTE_COLS) * 4,
+           ops_needed("fused_round", flanes, ft, fn_w * ft,
+                      fplanes - PACK_K,
+                      draws=fneeds["proposal_draws"] + fneeds["vote_draws"],
+                      tails=fneeds["proposal_tails"] + fneeds["vote_tails"],
+                      coins=fneeds["coins"]),
+           flanes * ops_per_lane_whole("fused_round", fplanes), *res, ms, plain)
 
     # the histogram kernels at N = 1M x 32, on the unfused path's operands
     hlanes = TRIALS * N_MAIN
+    every = torch.ones((TRIALS, N_MAIN), dtype=torch.bool, device=dev)
     f40 = int(0.40 * N_MAIN)                 # balanced f = 0.40, round 1
     bal_hist = torch.tensor([[N_MAIN // 2, N_MAIN // 2, 0]] * TRIALS,
                             dtype=torch.int32, device=dev)
@@ -356,21 +643,23 @@ def main() -> int:
         hk.cf_counts_plain(SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40,
                            N_MAIN))])
     bal_f = count_vecs(bal_hist)
-    ms = cuda_ms(lambda: hk._launch_cf_counts(lib, pkey, bal_f, m40, N_MAIN),
-                 TIMED_LAUNCHES)
+    ms = repeats(lambda: hk._launch_cf_counts(lib, pkey, bal_f, m40, N_MAIN))
     plain = cuda_ms(lambda: hk.cf_counts_plain(
         SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40, N_MAIN), TIMED_LAUNCHES)
-    record("cf_counts", hlanes, 0, hlanes * 3 * 4 + TRIALS * 3 * 4, *res, ms,
-           plain)
+    record("cf_counts", hlanes * 3 * 4 + TRIALS * 3 * 4,
+           ops_needed("cf_counts", hlanes, trials=TRIALS,
+                      tails=tail_quantiles(pkey, every)),
+           hlanes * ops_per_lane_whole("cf_counts"), *res, ms, plain)
 
     res = compare("coin_flips", hlanes, [(
         hk.coin_flips(SEED, r, TRIALS, N_MAIN, dev),
         hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev))])
-    ms = cuda_ms(lambda: hk._launch_coin_flips(lib, ckey, TRIALS, N_MAIN,
-                                               dev), TIMED_LAUNCHES)
+    ms = repeats(lambda: hk._launch_coin_flips(lib, ckey, TRIALS, N_MAIN,
+                                               dev))
     plain = cuda_ms(lambda: hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev),
                     TIMED_LAUNCHES)
-    record("coin_flips", hlanes, 0, hlanes, *res, ms, plain)
+    record("coin_flips", hlanes, ops_needed("coin_flips", hlanes),
+           hlanes * ops_per_lane_whole("coin_flips"), *res, ms, plain)
 
     # equiv_uniform_f0.20's round-1 operands: the honest histogram of
     # balanced inputs with the first F lanes equivocating, all alive
@@ -390,14 +679,16 @@ def main() -> int:
                               ecfg.quorum, N_MAIN))])
     e_hist_f, ne_f = count_vecs(e_hist), count_vecs(n_equiv)
     ekey2 = stream_scal(SEED, r, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET)
-    ms = cuda_ms(lambda: hk._launch_equiv_counts(
-        lib, vkey, ekey2, e_hist_f, ne_f, ecfg.quorum, N_MAIN),
-        TIMED_LAUNCHES)
+    ms = repeats(lambda: hk._launch_equiv_counts(
+        lib, vkey, ekey2, e_hist_f, ne_f, ecfg.quorum, N_MAIN))
     plain = cuda_ms(lambda: hk.equiv_counts_plain(
         SEED, r, rng.PHASE_VOTE, e_hist, n_equiv, ecfg.quorum, N_MAIN),
         TIMED_LAUNCHES)
-    record("equiv_counts", hlanes, 0,
-           hlanes * 3 * 4 + TRIALS * 4 * 4, *res, ms, plain)
+    record("equiv_counts", hlanes * 3 * 4 + TRIALS * 4 * 4,
+           ops_needed("equiv_counts", hlanes, trials=TRIALS,
+                      tails=tail_quantiles(vkey, every)
+                      + tail_quantiles(ekey2, every)),
+           hlanes * ops_per_lane_whole("equiv_counts"), *res, ms, plain)
     del est, efaults, e_alive
 
     eps = 0.5
@@ -407,12 +698,13 @@ def main() -> int:
         hk.weak_coin_flips(SEED, r, TRIALS, N_MAIN, eps, shared),
         hk.weak_coin_flips_plain(SEED, r, TRIALS, N_MAIN, eps, shared))])
     shared_i = shared.to(torch.int32).contiguous()
-    ms = cuda_ms(lambda: hk._launch_weak_coin_flips(
-        lib, ckey, TRIALS, N_MAIN, eps, shared_i), TIMED_LAUNCHES)
+    ms = repeats(lambda: hk._launch_weak_coin_flips(
+        lib, ckey, TRIALS, N_MAIN, eps, shared_i))
     plain = cuda_ms(lambda: hk.weak_coin_flips_plain(
         SEED, r, TRIALS, N_MAIN, eps, shared), TIMED_LAUNCHES)
-    record("weak_coin_flips", hlanes, 0, hlanes + TRIALS * 4, *res, ms,
-           plain)
+    record("weak_coin_flips", hlanes + TRIALS * 4,
+           ops_needed("weak_coin_flips", hlanes),
+           hlanes * ops_per_lane_whole("weak_coin_flips"), *res, ms, plain)
     torch.cuda.empty_cache()
 
     # the dense tally: bench.py's fixture (mask Bernoulli 0.8, sent uniform
@@ -436,8 +728,7 @@ def main() -> int:
         torch.cuda.synchronize()
         res = compare(f"dense_counts T={t_d} R={r_d} S={s_d}", edges,
                       [(got, want), (via_bmm, want)])
-        ms = cuda_ms(lambda: dk._launch_dense_counts(lib, *ops),
-                     TIMED_LAUNCHES)
+        ms = repeats(lambda: dk._launch_dense_counts(lib, *ops))
         plain = cuda_ms(lambda: dk.dense_counts_plain(*ops), TIMED_LAUNCHES)
         # the library route, timed whole: three compare-and-cast one-hot
         # columns, the bool -> f32 cast of the mask, torch.bmm, the int cast
@@ -445,13 +736,15 @@ def main() -> int:
         nbytes = edges + 2 * t_d * s_d + t_d * r_d * 3 * 4
         if (t_d, r_d) != (TRIALS, N_DENSE):
             print(f"[time] dense_counts T={t_d} R={r_d} S={s_d}: kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, library (cast + bmm) "
+                  f"{ms} ms, plain {plain:.4f} ms, library (cast + bmm) "
                   f"{lib_ms:.4f} ms, bound "
                   f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {nbytes} "
                   f"B); the same buffers every launch, so a mask under the "
                   f"50 MB L2 is read from it")
         else:
-            record("dense_counts", edges, 0, nbytes, *res, ms, plain, lib_ms)
+            record("dense_counts", nbytes, ops_needed("dense_counts", edges),
+                   edges * ops_per_lane_whole("dense_counts"), *res, ms, plain,
+                   lib_ms)
         del ops, got, want, via_bmm
     torch.cuda.empty_cache()
 
@@ -751,7 +1044,7 @@ def main() -> int:
 
     # --- 8. the kernels line, the card, the result -------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
-    print(smi)
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
