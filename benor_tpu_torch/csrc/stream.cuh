@@ -161,4 +161,122 @@ __device__ __forceinline__ void cf_pair(uint32_t k0, uint32_t k1,
                   cf_terms(c.pop2, fmaxf(c.m - *p0, 0.0f)));
 }
 
+// A block's table of a population's cf_terms over a window of W sample
+// sizes, n = base + i.  The lanes of a trial draw a per-lane sample size
+// near one value, so a lane whose n falls in the window reads the terms
+// that depend on n alone (mean, sd, skew) instead of computing them (two
+// IEEE divides and two square roots); the table holds the same f32
+// expression of the same f32 n, so the draw is the same bit for bit.  A
+// lane outside the window computes its terms.
+template <int W>
+struct TermsTable {
+  float base;               // an integer-valued float
+  float mean[W], sd[W], skew[W];
+};
+
+// A draw's value at z = 0 (the rint of its mean, clamped to its support):
+// what the next draw's sample size is centred on.
+__device__ __forceinline__ float centre_draw(const CfTerms& d) {
+  return fminf(fmaxf(rintf(d.mean), d.lo), d.hi);
+}
+
+// Every thread of the block fills its share of the table for a window
+// centred on `center` (the trial's expected n); the caller synchronises
+// the block before a lane reads it.
+template <int W>
+__device__ __forceinline__ void fill_table(TermsTable<W>* tab,
+                                           const CfPop& pop, float center) {
+  const float base = rintf(center) - (float)(W / 2);
+  if (threadIdx.x == 0) tab->base = base;
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    const CfTerms d = cf_terms(pop, base + (float)i);
+    tab->mean[i] = d.mean;
+    tab->sd[i] = d.sd;
+    tab->skew[i] = d.skew;
+  }
+}
+
+// cf_terms(pop, n), read from the table where n is one of its sample
+// sizes, else computed.
+template <int W>
+__device__ __forceinline__ CfTerms table_terms(const TermsTable<W>& tab,
+                                               const CfPop& pop, float n) {
+  const float off = n - tab.base;
+  if (off >= 0.0f && off < (float)W) {
+    const int i = (int)off;
+    if (tab.base + (float)i == n) {
+      CfTerms d;
+      d.mean = tab.mean[i];
+      d.sd = tab.sd[i];
+      d.skew = tab.skew[i];
+      d.lo = fmaxf(n - pop.tmg, 0.0f);
+      d.hi = fminf(pop.g, n);
+      return d;
+    }
+  }
+  return cf_terms(pop, n);
+}
+
+// The per-trial terms of the equivocate regime's mixed-population tally
+// (pallas_hist.py _equiv_kernel): h_b ~ CF(total_h + n_equiv, n_equiv, m)
+// whole, and the populations of h0 ~ CF(total_h, c0, rem) and h1 | h0 ~
+// CF(max(total_h - c0, 0), c1, max(rem - h0, 0)), whose sample sizes are
+// the lane's.
+struct EquivTrial {
+  CfTerms db;
+  CfPop pop0, pop1;
+  float m;
+};
+
+__device__ __forceinline__ EquivTrial equiv_trial(float c0, float c1,
+                                                  float cq, float ne,
+                                                  float m) {
+  const float total_h = c0 + c1 + cq;
+  const float total = total_h + ne;
+  EquivTrial e;
+  e.db = cf_terms(cf_pop(total, ne), m);
+  e.pop0 = cf_pop(total_h, c0);
+  e.pop1 = cf_pop(fmaxf(total_h - c0, 0.0f), c1);
+  e.m = m;
+  return e;
+}
+
+// The tables of the two per-lane sample sizes of the equivocate tally:
+// h0's rem = max(m - h_b, 0), centred on m less h_b's centre draw, and
+// h1's max(rem - h0, 0), centred on that less h0's centre draw there.
+template <int W>
+__device__ __forceinline__ void fill_equiv_tables(const EquivTrial& e,
+                                                  TermsTable<W>* rem_tab,
+                                                  TermsTable<W>* rest_tab) {
+  const float rem = fmaxf(e.m - centre_draw(e.db), 0.0f);
+  fill_table(rem_tab, e.pop0, rem);
+  fill_table(rest_tab, e.pop1,
+             fmaxf(rem - centre_draw(cf_terms(e.pop0, rem)), 0.0f));
+}
+
+// One lane's equivocate tally from its trial's terms, the block's two
+// tables and its four uniforms (u0, u1 of the phase stream, u_b, u_s of
+// the phase + 64 stream) -> the class-0, class-1 and "?" counts it
+// receives: h_b delivered equivocators, the honest split of the rest, and
+// a normal-quantile Binomial(h_b, 1/2) class split of the h_b.
+template <int W>
+__device__ __forceinline__ void equiv_draws(const EquivTrial& e,
+                                            const TermsTable<W>& rem_tab,
+                                            const TermsTable<W>& rest_tab,
+                                            float u0, float u1, float u_b,
+                                            float u_s, float* n0, float* n1,
+                                            float* nq) {
+  const float h_b = cf_sample(u_b, e.db);
+  const float rem = fmaxf(e.m - h_b, 0.0f);
+  const float h0 = cf_sample(u0, table_terms(rem_tab, e.pop0, rem));
+  const float h1 = cf_sample(
+      u1, table_terms(rest_tab, e.pop1, fmaxf(rem - h0, 0.0f)));
+  *nq = fmaxf(rem - h0 - h1, 0.0f);
+  const float z = ndtri_clipped(u_s);
+  const float bs =
+      fminf(fmaxf(rintf(h_b * 0.5f + z * sqrtf(h_b) * 0.5f), 0.0f), h_b);
+  *n0 = h0 + (h_b - bs);
+  *n1 = h1 + bs;
+}
+
 }  // namespace benor

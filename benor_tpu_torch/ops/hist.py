@@ -27,12 +27,18 @@ JAX kernels' f32 ops in the same order (ops/stream.py).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .launch import check, count_vecs, on_cpu, ptr, raise_on, stream
 from .stream import (_COIN_SALT, _EQUIV_SALT_OFFSET, bits_to_uniform,
-                     cf_draw, cf_pair_draws, lane_ids, ndtri_clipped,
+                     cf_pair_draws, equiv_draws, equiv_trial, lane_ids,
                      stream_scal, threefry2x32)
+
+#: Threads a block of the counts kernels (csrc/hist_kernels.cu kThreads).
+THREADS = 256
 
 
 # --------------------------------------------------------------------------
@@ -61,35 +67,17 @@ def coin_flips_plain(seed, r, trials, n_nodes, device):
 def equiv_counts_plain(seed, r, phase, hist, n_equiv, m, n_nodes):
     """Plain version of the equivocate-regime sampler kernel -> int32
     [T, N, 3]: h_b delivered equivocators ~ CF, the honest split of the
-    rest, and a Binomial(h_b, 1/2) class split of the h_b."""
+    rest, and a Binomial(h_b, 1/2) class split of the h_b (the trial's
+    terms once a trial, as the kernel computes them)."""
     t, device = hist.shape[0], hist.device
     node, trial = lane_ids(t, n_nodes, device)
     k = stream_scal(seed, r, phase)
     k2 = stream_scal(seed, r, phase + _EQUIV_SALT_OFFSET)
     b0, b1 = threefry2x32(k[0], k[1], node, trial)
     b2, b3 = threefry2x32(k2[0], k2[1], node, trial)
-    u0 = bits_to_uniform(b0)
-    u1 = bits_to_uniform(b1)
-    u_b = bits_to_uniform(b2)
-    u_s = bits_to_uniform(b3)
-
-    cls = count_vecs(hist)
-    c0, c1, cq = cls[:, 0:1], cls[:, 1:2], cls[:, 2:3]
-    ne = count_vecs(n_equiv)[:, None]
-    total_h = c0 + c1 + cq
-    total = total_h + ne
-    mf = torch.tensor(float(m), dtype=torch.float32, device=device)
-    h_b = cf_draw(u_b, total, ne, mf)
-    rem = torch.clamp_min(mf - h_b, 0.0)
-    h0 = cf_draw(u0, total_h, c0, rem)
-    h1 = cf_draw(u1, torch.clamp_min(total_h - c0, 0.0), c1,
-                 torch.clamp_min(rem - h0, 0.0))
-    hq = torch.clamp_min(rem - h0 - h1, 0.0)
-    z = ndtri_clipped(u_s)
-    bs = torch.round(h_b * 0.5 + z * torch.sqrt(h_b) * 0.5)
-    bs = torch.minimum(torch.clamp_min(bs, 0.0), h_b)
-    return torch.stack([h0 + (h_b - bs), h1 + bs, hq],
-                       dim=-1).to(torch.int32)
+    counts = equiv_draws(equiv_trial(count_vecs(hist), count_vecs(n_equiv), m),
+                         *(bits_to_uniform(b) for b in (b0, b1, b2, b3)))
+    return torch.stack(counts, dim=-1).to(torch.int32)
 
 
 def weak_coin_flips_plain(seed, r, trials, n_nodes, eps, shared):
@@ -110,13 +98,34 @@ def weak_coin_flips_plain(seed, r, trials, n_nodes, eps, shared):
 # --------------------------------------------------------------------------
 
 
+def tile_blocks(wave: int, n_nodes: int, trials: int) -> int:
+    """Blocks a trial of the counts kernels for one ``wave`` of the kernel
+    (the SMs times the blocks an SM holds): as many as fit ``trials`` times
+    in the wave, at least one, at most one per ``THREADS`` nodes.  The grid
+    is ``trials`` times that; block b serves trial b // blocks."""
+    return max(1, min(wave // max(trials, 1), -(-n_nodes // THREADS)))
+
+
+@functools.cache
+def hist_blocks(lib, kernel: int, n_nodes: int, trials: int, device) -> int:
+    """Blocks a trial of cf_counts (``kernel`` 0) or equiv_counts (1) on
+    ``device``: ``tile_blocks`` of the kernel's wave from the CUDA
+    occupancy query, worked out once per shape.  A failed query raises."""
+    wave = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        raise_on(lib.benor_hist_wave(kernel, ctypes.byref(wave)),
+                 "hist_wave")
+    return tile_blocks(wave.value, n_nodes, trials)
+
+
 def _launch_cf_counts(lib, key, hist_f, m, n_nodes):
     t = hist_f.shape[0]
     out = torch.empty((t, n_nodes, 3), dtype=torch.int32,
                       device=hist_f.device)
-    raise_on(lib.benor_cf_counts(ptr(hist_f), ptr(out), t, n_nodes, key[0],
-                                 key[1], float(m), stream(hist_f.device)),
-             "cf_counts")
+    blocks = hist_blocks(lib, 0, n_nodes, t, hist_f.device)
+    raise_on(lib.benor_cf_counts(ptr(hist_f), ptr(out), t, n_nodes, blocks,
+                                 key[0], key[1], float(m),
+                                 stream(hist_f.device)), "cf_counts")
     return out
 
 
@@ -131,8 +140,9 @@ def _launch_equiv_counts(lib, key, key2, hist_f, ne_f, m, n_nodes):
     t = hist_f.shape[0]
     out = torch.empty((t, n_nodes, 3), dtype=torch.int32,
                       device=hist_f.device)
+    blocks = hist_blocks(lib, 1, n_nodes, t, hist_f.device)
     raise_on(lib.benor_equiv_counts(
-        ptr(hist_f), ptr(ne_f), ptr(out), t, n_nodes, key[0], key[1],
+        ptr(hist_f), ptr(ne_f), ptr(out), t, n_nodes, blocks, key[0], key[1],
         key2[0], key2[1], float(m), stream(hist_f.device)), "equiv_counts")
     return out
 

@@ -1,6 +1,7 @@
-"""What nvcc makes of the round kernels: registers, spills and shared
-memory (``-Xptxas -v``), the static SASS mix by class (``cuobjdump
--sass``), and each pipe's floor for a number of lanes at a clock.
+"""What nvcc makes of the round kernels and the histogram counts kernels:
+registers, spills and shared memory (``-Xptxas -v``), the static SASS mix
+by class (``cuobjdump -sass``), and each pipe's floor for a number of
+lanes at a clock.
 
 Used by ``chip_smoke.py`` and ``round_stats.py`` on a machine with the CUDA
 toolkit; the simulation never imports it.
@@ -17,6 +18,7 @@ from . import _build
 
 ROUND_KERNELS = ("proposal_hist_kernel", "vote_commit_kernel",
                  "fused_round_kernel")
+HIST_KERNELS = ("cf_counts_kernel", "equiv_counts_kernel")
 
 # SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
 # named here count as "uniform".
@@ -150,11 +152,12 @@ def sections(insns) -> dict:
     return out
 
 
-def resource_report(src: Path, out_dir: Path) -> dict:
+def resource_report(src: Path, out_dir: Path,
+                    kernels=ROUND_KERNELS) -> dict:
     """Build one CUDA source to a cubin with the port's flags and
     ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
-    class counts}, ops: opcode counts of one lane's pass}} for the round
-    kernels it holds."""
+    class counts}, ops: opcode counts of one lane's pass}} for the
+    ``kernels`` it holds."""
     nvcc = _build.nvcc_path()
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -171,7 +174,7 @@ def resource_report(src: Path, out_dir: Path) -> dict:
                                      check=True).stdout)
     cubin.unlink()
     report = {}
-    for name in ROUND_KERNELS:
+    for name in kernels:
         keys = [k for k in ptxas if name in k]
         fkeys = [k for k in sass if name in k]
         if not keys or not fkeys:
@@ -179,11 +182,9 @@ def resource_report(src: Path, out_dir: Path) -> dict:
         info = dict(ptxas[keys[0]])
         secs = sections(sass[fkeys[0]])
         info["sass"] = {s: _mix(v) for s, v in secs.items()}
-        # one lane's pass: the per-word loop where the kernel has one (it
-        # then holds most of the body), else the body
-        loop = secs.get("loop", [])
-        info["ops"] = _ops(loop if 2 * len(loop) > len(secs["body"])
-                           else secs["body"])
+        # one lane's pass: the per-word or per-node loop where the kernel
+        # has one, else the body
+        info["ops"] = _ops(secs.get("loop", secs["body"]))
         report[name] = info
     return report
 
@@ -201,8 +202,8 @@ def pipe_floors(mix_ops: dict, lanes: int, sms: int, clk_mhz: float) -> dict:
 def print_resources(tag: str, resources: dict, lanes: int, sms: int,
                     mhz: float):
     """The step-1 lines of one checkout (``resource_report``'s dict):
-    resources and SASS classes of each round kernel, and the two-kernel
-    pair's pipe floors for ``lanes`` lanes at ``mhz``."""
+    resources and SASS classes of each kernel, and the pipe floors of each
+    kernel but the fused one for ``lanes`` lanes at ``mhz``."""
     for name, info in resources.items():
         print(f"[ptxas] {tag} {name}: {info.get('registers')} registers, "
               f"spill stores {info.get('spill_stores')} B, spill loads "

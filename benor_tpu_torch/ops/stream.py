@@ -176,3 +176,33 @@ def cf_pair_draws(m, key, hist_f: torch.Tensor, shape, device):
     p1 = cf_sample(u1, cf_terms(cf_pop(torch.clamp_min(total - c0, 0.0), c1),
                                 torch.clamp_min(mf - p0, 0.0)))
     return p0, p1
+
+
+def equiv_trial(hist_f: torch.Tensor, ne_f: torch.Tensor, m) -> dict:
+    """The per-trial terms of the equivocate tally (csrc/stream.cuh
+    ``equiv_trial``) from the f32 [T, 3] honest histogram and the f32 [T]
+    live equivocators: h_b's terms at the quorum ``m`` and the populations
+    of h0 and h1, each [T, 1]."""
+    c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
+    ne = ne_f[:, None]
+    total_h = c0 + c1 + cq
+    total = total_h + ne
+    mf = torch.full_like(c0, float(m))
+    return dict(db=cf_terms(cf_pop(total, ne), mf), pop0=cf_pop(total_h, c0),
+                pop1=cf_pop(torch.clamp_min(total_h - c0, 0.0), c1), m=mf)
+
+
+def equiv_draws(e: dict, u0, u1, u_b, u_s):
+    """A lane's equivocate tally (csrc/stream.cuh ``equiv_draws``) from its
+    trial's terms and its four uniforms -> the class-0, class-1 and "?"
+    counts it receives (f32): h_b delivered equivocators, the honest split
+    of the rest, a Binomial(h_b, 1/2) class split of the h_b."""
+    h_b = cf_sample(u_b, e["db"])
+    rem = torch.clamp_min(e["m"] - h_b, 0.0)
+    h0 = cf_sample(u0, cf_terms(e["pop0"], rem))
+    h1 = cf_sample(u1, cf_terms(e["pop1"], torch.clamp_min(rem - h0, 0.0)))
+    hq = torch.clamp_min(rem - h0 - h1, 0.0)
+    z = ndtri_clipped(u_s)
+    bs = torch.round(h_b * 0.5 + z * torch.sqrt(h_b) * 0.5)
+    bs = torch.minimum(torch.clamp_min(bs, 0.0), h_b)
+    return h0 + (h_b - bs), h1 + bs, hq

@@ -19,9 +19,12 @@ Phases (any failure ends the run non-zero; nothing is caught):
      and for the dense tally the library route (bool -> f32 cast +
      torch.bmm).  The two-kernel round pair also runs on two more
      N = 1M x 32 fixtures, one edge histogram a trial and whole warps
-     inactive; the round kernels' registers, spills, shared memory, SASS
-     mix and pipe floors at the measured clocks.sm
-     (benor_tpu_torch/ops/sass.py);
+     inactive; cf_counts and equiv_counts run on three fixtures (the
+     unfused path's balanced operands, one edge histogram a trial, a
+     ragged N = 1,000,003 x 7) and at the grid's corners (T = 1 with
+     N = 1 and N = 1,000,003; T = 1500, N = 33); the registers, spills,
+     shared memory, SASS mix and pipe floors at the measured clocks.sm of
+     the round kernels and of those two (benor_tpu_torch/ops/sass.py);
   3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
      bit, at N = 8192 x 32;
   4. small runs on the card against the same runs on the CPU (plain
@@ -58,6 +61,7 @@ N_MAIN = 1_000_000
 N_FUSED = 8192
 N_SMALL = 1000
 N_DENSE = 2048            # the cap of path='auto' (dense_path_max_n)
+N_RAGGED, T_RAGGED = 1_000_003, 7     # the counts kernels' ragged fixture
 TRIALS = 32
 MAX_ROUNDS = 64
 FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
@@ -82,9 +86,10 @@ F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
 #    which keeps r_t <= 4.02, so AS241's far tail (r_t > 5) is never needed;
 #  - a CF draw's population and quorum terms (cf_pop, and cf_terms of the
 #    first draw of a pair) once a trial: 55 for a pair.  A lane then needs
-#    10 + its quantile for a draw whose terms are its trial's (the first
-#    of a pair) and 33 + its quantile for one whose sample size is its own
-#    (the second: cf_terms + cf_sample);
+#    10 + its quantile for each draw (cf_sample); the terms of a sample
+#    size that is the lane's own (the second draw of a pair: max(m - p0,
+#    0); equivocate's rem and rem - h0), 23 (cf_terms), once for each
+#    distinct (trial, sample size) that this run's lanes draw;
 #  - a round kernel reads 5 planes a lane (x0, x1, decided, killed,
 #    faulty: shift and mask, 2 each); the vote sets 4 new bits a lane and
 #    rebuilds each k plane of a word with 2 word operations; the rest of a
@@ -96,9 +101,15 @@ OPS_THREEFRY = 117
 OPS_UNIFORM = 5
 OPS_NDTRI_CENTRAL = 3 + 16
 OPS_NDTRI_TAIL = 3 + 19
-OPS_CF_PAIR_LANE = OPS_THREEFRY + 2 * OPS_UNIFORM + 10 + 33   # no quantiles
+OPS_CF_SAMPLE = 10
+OPS_CF_TERMS = 23
+# a pair's lane work without its quantiles and its sample-size terms
+OPS_CF_PAIR_LANE = OPS_THREEFRY + 2 * OPS_UNIFORM + 2 * OPS_CF_SAMPLE
 OPS_CF_TRIAL = 55
 OPS_READ_PLANES = 5 * 2
+# Sample sizes a block of cf_counts / equiv_counts tabulates its per-lane
+# terms over (csrc/hist_kernels.cu kCfWindow, kEquivWindow).
+CF_WINDOW, EQUIV_WINDOW = 2048, 1024
 
 
 def ops_quantiles(n: int, tails: int) -> int:
@@ -109,13 +120,15 @@ def ops_quantiles(n: int, tails: int) -> int:
 
 def ops_needed(kernel: str, lanes: int, trials: int = 0, words: int = 0,
                k_planes: int = 0, draws: int = 0, tails: int = 0,
-               coins: int = 0) -> int:
+               coins: int = 0, sizes: int = 0) -> int:
     """Operations the function needs on this run's inputs: ``lanes`` lanes
     (for the dense tally: edges) in ``words`` plane words with ``k_planes``
     k planes, ``trials`` trials; for the round kernels ``draws`` lanes
     drawing a CF pair (two quantiles each, ``tails`` of them in the tail)
     and ``coins`` lanes drawing a coin; for cf_counts and equiv_counts
-    ``tails`` of the lanes' 2 or 4 quantiles in the tail."""
+    ``tails`` of the lanes' 2 or 4 quantiles in the tail; ``sizes``
+    distinct (trial, sample size) pairs of the draws whose sample size is
+    the lane's own."""
     prop = OPS_READ_PLANES + 15
     vote = OPS_READ_PLANES + 4 + 31
     if kernel in ("proposal_hist", "vote_commit", "fused_round"):
@@ -124,24 +137,25 @@ def ops_needed(kernel: str, lanes: int, trials: int = 0, words: int = 0,
         k_ops = 0 if kernel == "proposal_hist" else words * 2 * k_planes
         n_phases = 2 if kernel == "fused_round" else 1
         return (lanes * base + k_ops + draws * OPS_CF_PAIR_LANE
-                + ops_quantiles(2 * draws, tails)
+                + sizes * OPS_CF_TERMS + ops_quantiles(2 * draws, tails)
                 + coins * (OPS_THREEFRY + 1)
                 + n_phases * trials * OPS_CF_TRIAL)
     return {
         # the pair, hq = max(m - h0 - h1, 0), three casts
-        "cf_counts": lanes * (OPS_CF_PAIR_LANE + 6)
+        "cf_counts": lanes * (OPS_CF_PAIR_LANE + 6) + sizes * OPS_CF_TERMS
         + ops_quantiles(2 * lanes, tails) + trials * OPS_CF_TRIAL,
         # one block, the bit, the cast
         "coin_flips": lanes * (OPS_THREEFRY + 2),
         # one block, the bit, the deviation uniform, compare and select
         "weak_coin_flips": lanes * (OPS_THREEFRY + 2 + OPS_UNIFORM + 2),
-        # two blocks, four uniforms, h_b (trial's terms: 10), h0 and h1
-        # (the lane's sample sizes: 33 each), the binomial split's ~8 ops
-        # and its quantile, ~8 sums and clamps; four quantiles; the trial
-        # terms of h_b and of h0's and h1's populations
+        # two blocks, four uniforms, the samples of h_b, h0 and h1, the
+        # binomial split's ~8 ops and its quantile, ~8 sums and clamps;
+        # four quantiles; the terms of h0's and h1's sample sizes; the
+        # trial terms of h_b and of h0's and h1's populations
         "equiv_counts": lanes * (2 * OPS_THREEFRY + 4 * OPS_UNIFORM
-                                 + 10 + 2 * 33 + 16)
-        + ops_quantiles(4 * lanes, tails) + trials * 80,
+                                 + 3 * OPS_CF_SAMPLE + 16)
+        + sizes * OPS_CF_TERMS + ops_quantiles(4 * lanes, tails)
+        + trials * 80,
         "dense_counts": 3 * lanes,
     }[kernel]
 
@@ -268,24 +282,106 @@ def tail_quantiles(key, need) -> int:
     return tails
 
 
-def lane_needs(pack, keys, freeze=True, qok=None, new_pack=None) -> dict:
+def distinct_sizes(sizes, need=None) -> int:
+    """Distinct (trial, value) pairs of a [T, N] tensor of sample sizes
+    (>= 0), over the lanes where the bool ``need`` holds."""
+    import torch
+    if need is not None:
+        sizes = torch.where(need, sizes, -1.0)
+    s = sizes.sort(dim=1).values
+    new = s >= 0
+    new[:, 1:] &= s[:, 1:] != s[:, :-1]
+    return int(new.sum())
+
+
+def pair_sizes(key, hist, m, shape, device):
+    """The second draw's sample sizes max(m - p0, 0) of the CF pairs
+    (stream.cuh cf_pair) under ``key`` against the int [T, 3] ``hist`` ->
+    (sizes f32 [T, N] for the lanes' ``shape``, the window centre the
+    counts kernel tabulates around, [T, 1])."""
+    import torch
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import (bits_to_uniform, cf_pop,
+                                            cf_sample, cf_terms, lane_ids,
+                                            threefry2x32)
+    node, trial = lane_ids(shape[0], shape[1], device)
+    b0, _ = threefry2x32(key[0], key[1], node, trial)
+    h = count_vecs(hist)
+    mf = torch.full_like(h[:, 0:1], float(m))
+    d1 = cf_terms(cf_pop(h[:, 0:1] + h[:, 1:2] + h[:, 2:3], h[:, 0:1]), mf)
+    p0 = cf_sample(bits_to_uniform(b0), d1)
+    return (torch.clamp_min(mf - p0, 0.0),
+            torch.clamp_min(mf - centre_draw(d1), 0.0))
+
+
+def equiv_sizes(hist, n_equiv, m, n_nodes):
+    """The sample sizes of equiv_counts' h0 and h1 draws (stream.cuh
+    equiv_draws) under the vote phase's streams of ROUND -> ((rem, its
+    window centre), (max(rem - h0, 0), its window centre)), [T, N] and
+    [T, 1] f32."""
+    import torch
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import (_EQUIV_SALT_OFFSET,
+                                            bits_to_uniform, cf_sample,
+                                            cf_terms, equiv_trial, lane_ids,
+                                            stream_scal, threefry2x32)
+    node, trial = lane_ids(hist.shape[0], n_nodes, hist.device)
+    k, k2 = (stream_scal(SEED, ROUND, s) for s in (
+        rng.PHASE_VOTE, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET))
+    b0, _ = threefry2x32(k[0], k[1], node, trial)
+    b2, _ = threefry2x32(k2[0], k2[1], node, trial)
+    e = equiv_trial(count_vecs(hist), count_vecs(n_equiv), m)
+    rem = torch.clamp_min(e["m"] - cf_sample(bits_to_uniform(b2), e["db"]),
+                          0.0)
+    h0 = cf_sample(bits_to_uniform(b0), cf_terms(e["pop0"], rem))
+    c_rem = torch.clamp_min(e["m"] - centre_draw(e["db"]), 0.0)
+    c_rest = torch.clamp_min(
+        c_rem - centre_draw(cf_terms(e["pop0"], c_rem)), 0.0)
+    return (rem, c_rem), (torch.clamp_min(rem - h0, 0.0), c_rest)
+
+
+def centre_draw(d):
+    """A draw's value at z = 0, clamped to its support (stream.cuh
+    centre_draw), from its terms (ops/stream.py cf_terms)."""
+    import torch
+    return torch.minimum(torch.maximum(torch.round(d["mean"]), d["lo"]),
+                         d["hi"])
+
+
+def outside_window(sizes, center, window) -> int:
+    """Lanes whose sample size falls outside the ``window`` sizes a counts
+    kernel's block tabulates around ``center`` (stream.cuh fill_table):
+    they compute their terms."""
+    import torch
+    off = sizes - (torch.round(center) - window // 2)
+    return int(((off < 0) | (off >= window)).sum())
+
+
+def lane_needs(pack, keys, m, hists, freeze=True, qok=None,
+               new_pack=None) -> dict:
     """Lanes of a plane stack whose draws a round kernel's function reads:
     the proposal's CF pair where a lane is alive and not frozen, the vote's
     where it is also in a trial whose quorum is met, the coin where the
-    vote's new stack has the coined bit -> counts of those lanes and of
-    their quantiles that take the tail (``keys``: the proposal's and the
-    vote's stream keys)."""
+    vote's new stack has the coined bit -> counts of those lanes, of their
+    quantiles that take the tail and of the distinct (trial, sample size)
+    of their second draws (``keys``: the proposal's and the vote's stream
+    keys; ``hists``: the two phases' histograms; ``m``: the quorum)."""
     from benor_tpu_torch.ops.packed_round import plane_field
     from benor_tpu_torch.state import PACK_COINED, PACK_DECIDED, PACK_KILLED
     live = plane_field(pack, PACK_KILLED, 1) == 0
     if freeze:
         live &= plane_field(pack, PACK_DECIDED, 1) == 0
     out = {"proposal_draws": int(live.sum()),
-           "proposal_tails": tail_quantiles(keys[0], live)}
+           "proposal_tails": tail_quantiles(keys[0], live),
+           "proposal_sizes": distinct_sizes(pair_sizes(
+               keys[0], hists[0], m, live.shape, live.device)[0], live)}
     if qok is not None:
         vneed = live & qok.bool()[:, None]
         out["vote_draws"] = int(vneed.sum())
         out["vote_tails"] = tail_quantiles(keys[1], vneed)
+        out["vote_sizes"] = distinct_sizes(pair_sizes(
+            keys[1], hists[1], m, vneed.shape, vneed.device)[0], vneed)
     if new_pack is not None:
         out["coins"] = int(plane_field(new_pack, PACK_COINED, 1).sum())
     return out
@@ -332,7 +428,8 @@ def round_pair(tag, lib, cfg, pack, hist1, hist2=None, qok=None) -> dict:
     torch.cuda.synchronize()
     res_v = compare(f"vote_commit {tag}", lanes, [(new_k, new_p),
                                                   (vparts_k, vparts_p)])
-    needs = lane_needs(pack, keys, MODES["freeze"], qok, new_p)
+    needs = lane_needs(pack, keys, m, (hist1, hist2), MODES["freeze"], qok,
+                       new_p)
     del new_k, new_p
     hist_f, hist2_f = count_vecs(hist1), count_vecs(hist2)
     qok_i = qok.to(torch.int32).contiguous()
@@ -392,6 +489,136 @@ def inactive_pack(cfg, device, seed):
                      killed=killed)
     pack = pack_state(cfg, state, draw(10) == 0)
     return pack, sent_hist_from_pack(cfg, pack)
+
+
+def cf_fixtures(device) -> dict:
+    """cf_counts' fixtures -> {tag: (hist int32 [T, 3], m, N)}: the unfused
+    path's round-1 operands at balanced f = 0.40, one edge histogram a
+    trial (edge_hists) at the same quorum, and a ragged N = 1,000,003 x 7
+    with multinomial histograms from the seed."""
+    import numpy as np
+    import torch
+    m = N_MAIN - int(0.40 * N_MAIN)
+    bal = torch.tensor([[N_MAIN // 2, N_MAIN // 2, 0]] * TRIALS,
+                       dtype=torch.int32, device=device)
+    ragged = np.random.default_rng(SEED).multinomial(
+        N_RAGGED, [0.45, 0.45, 0.1], size=T_RAGGED)
+    return {"balanced": (bal, m, N_MAIN),
+            "edge-histograms": (edge_hists(N_MAIN, m, TRIALS, device), m,
+                                N_MAIN),
+            "ragged": (torch.tensor(ragged, dtype=torch.int32, device=device),
+                       N_RAGGED - int(0.40 * N_RAGGED), N_RAGGED)}
+
+
+def equiv_fixtures(device) -> dict:
+    """equiv_counts' fixtures -> {tag: (honest hist int32 [T, 3], n_equiv
+    int32 [T], m, N)}: equiv_uniform_f0.20's round-1 operands (balanced
+    inputs, the first F lanes equivocating, all alive), one edge histogram
+    a trial with n_equiv cycling over 0, the trial's total and F, and a
+    ragged N = 1,000,003 x 7 with F = N / 5 (a few equivocators not
+    live)."""
+    import numpy as np
+    import torch
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.ops import tally
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    ecfg = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.2 * N_MAIN),
+                     trials=TRIALS, fault_model="equivocate")
+    faults = FaultSpec.first_f(ecfg, device=device)
+    st = init_state(ecfg, balanced_inputs(TRIALS, N_MAIN), faults)
+    alive = ~st.killed
+    hist = tally.class_histogram(st.x, alive & ~faults.faulty)
+    n_equiv = (faults.faulty & alive).sum(-1, dtype=torch.int32)
+    print(f"[operands] equiv_uniform_f0.20 round 1: hist {hist[0].tolist()}"
+          f" n_equiv {int(n_equiv[0])} m {ecfg.quorum}")
+    edge = edge_hists(N_MAIN, ecfg.quorum, TRIALS, device)
+    cycle = torch.stack([torch.zeros_like(edge[:, 0]),
+                         edge.sum(1, dtype=torch.int32),
+                         torch.full_like(edge[:, 0], ecfg.n_faulty)], 1)
+    edge_ne = cycle[torch.arange(TRIALS, device=device),
+                    torch.arange(TRIALS, device=device) % 3]
+    f_r = N_RAGGED // 5
+    ragged = np.random.default_rng(SEED + 1).multinomial(
+        N_RAGGED - f_r, [0.45, 0.45, 0.1], size=T_RAGGED)
+    return {"balanced": (hist, n_equiv, ecfg.quorum, N_MAIN),
+            "edge-histograms": (edge, edge_ne.contiguous(), ecfg.quorum,
+                                N_MAIN),
+            "ragged": (torch.tensor(ragged, dtype=torch.int32, device=device),
+                       f_r - torch.arange(T_RAGGED, dtype=torch.int32,
+                                          device=device),
+                       N_RAGGED - f_r, N_RAGGED)}
+
+
+def hist_pair(tag, lib, cf, eq) -> dict:
+    """cf_counts and equiv_counts against their plain versions on one
+    fixture (``cf``: hist, m, N; ``eq``: hist, n_equiv, m, N; the proposal
+    and the vote stream of ROUND), then three timed repeats of each ->
+    dict: res (each kernel's compare result), ms (its repeats), calls (the
+    two launches), plain (the two plain versions, untimed)."""
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import _EQUIV_SALT_OFFSET, stream_scal
+
+    (hist, m, n), (ehist, ne, em, en) = cf, eq
+    args = (SEED, ROUND, rng.PHASE_PROPOSAL, hist, m, n)
+    eargs = (SEED, ROUND, rng.PHASE_VOTE, ehist, ne, em, en)
+    res_c = compare(f"cf_counts {tag}", hist.shape[0] * n,
+                    [(hk.cf_counts(*args), hk.cf_counts_plain(*args))])
+    res_e = compare(f"equiv_counts {tag}", ehist.shape[0] * en,
+                    [(hk.equiv_counts(*eargs), hk.equiv_counts_plain(*eargs))])
+    pkey, vkey, ekey2 = (stream_scal(SEED, ROUND, s) for s in (
+        rng.PHASE_PROPOSAL, rng.PHASE_VOTE,
+        rng.PHASE_VOTE + _EQUIV_SALT_OFFSET))
+    hist_f, ehist_f, ne_f = count_vecs(hist), count_vecs(ehist), count_vecs(ne)
+    calls = {
+        "cf_counts": lambda: hk._launch_cf_counts(lib, pkey, hist_f, m, n),
+        "equiv_counts": lambda: hk._launch_equiv_counts(
+            lib, vkey, ekey2, ehist_f, ne_f, em, en),
+    }
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    print(f"[fixture] {tag}: cf_counts {hist.shape[0]} x {n} m {m}, "
+          f"equiv_counts {ehist.shape[0]} x {en} m {em}; kernel ms {ms}")
+    return dict(res=(res_c, res_e), ms=ms, calls=calls,
+                plain=(lambda: hk.cf_counts_plain(*args),
+                       lambda: hk.equiv_counts_plain(*eargs)))
+
+
+def dense_case(t, n_recv, n_send, device):
+    """The dense tally's operands, bench.py's fixture made with numpy from
+    the seed: mask Bernoulli 0.8 [t, n_recv, n_send], sent uniform in
+    {0, 1, 2} and alive Bernoulli 0.9 [t, n_send]."""
+    import numpy as np
+    import torch
+    rs = np.random.default_rng(SEED)
+    mask = rs.random((t, n_recv, n_send), dtype=np.float32) < 0.8
+    sent = rs.integers(0, 3, (t, n_send)).astype(np.int8)
+    alive = rs.random((t, n_send)) < 0.9
+    return [torch.from_numpy(a).to(device) for a in (mask, sent, alive)]
+
+
+def table_sizes(tag, cf, eq) -> dict:
+    """The per-lane sample sizes of cf_counts and equiv_counts on one
+    fixture (``cf``, ``eq`` as hist_pair takes them) -> {kernel: distinct
+    (trial, sample size) pairs}, printed with the lanes that fall outside
+    the blocks' tables and so compute their terms."""
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.stream import stream_scal
+    cfh, m, n = cf
+    sizes, center = pair_sizes(stream_scal(SEED, ROUND, rng.PHASE_PROPOSAL),
+                               cfh, m, (cfh.shape[0], n), cfh.device)
+    eq = equiv_sizes(*eq)
+    n_sizes = {"cf_counts": distinct_sizes(sizes),
+               "equiv_counts": sum(distinct_sizes(x) for x, _ in eq)}
+    outside = {"cf_counts": outside_window(sizes, center, CF_WINDOW),
+               "equiv_counts": [outside_window(x, c, EQUIV_WINDOW)
+                                for x, c in eq]}
+    print(f"[tables] {tag}: distinct (trial, sample size) {n_sizes}; lanes "
+          f"outside the tables' windows {outside} (they compute their "
+          f"terms)")
+    return n_sizes
 
 
 def compare(name, lanes, pairs):
@@ -564,7 +791,8 @@ def main() -> int:
            pack_bytes + t * 3 * 4
            + pr.round_blocks(lib, 0, n_w, t, dev) * t * pr.PROP_COLS * 4,
            ops_needed("proposal_hist", lanes, t, n_w * t, k_planes,
-                      draws=nd["proposal_draws"], tails=nd["proposal_tails"]),
+                      draws=nd["proposal_draws"], tails=nd["proposal_tails"],
+                      sizes=nd["proposal_sizes"]),
            lanes * ops_per_lane_whole("proposal_hist", planes),
            *rnd["res"][0], rnd["ms"]["proposal_hist"], plain_p)
     record("vote_commit",
@@ -572,7 +800,7 @@ def main() -> int:
            + pr.round_blocks(lib, 1, n_w, t, dev) * t * pr.VOTE_COLS * 4,
            ops_needed("vote_commit", lanes, t, n_w * t, k_planes,
                       draws=nd["vote_draws"], tails=nd["vote_tails"],
-                      coins=nd["coins"]),
+                      coins=nd["coins"], sizes=nd["vote_sizes"]),
            lanes * ops_per_lane_whole("vote_commit", planes),
            *rnd["res"][1], rnd["ms"]["vote_commit"], plain_v)
 
@@ -580,11 +808,11 @@ def main() -> int:
     # static SASS mix by class, and each pipe's floor for these lanes at
     # the SM clock read while the vote kernel runs
     mhz = clock_during(rnd["calls"]["vote_commit"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     sass.print_resources(
         "chip_smoke", sass.resource_report(_build.CSRC / "round_kernels.cu",
                                            _build.BUILD_DIR),
-        lanes, torch.cuda.get_device_properties(0).multi_processor_count,
-        mhz)
+        lanes, sms, mhz)
     print(f"[clock] clocks.sm {mhz:.0f} MHz while vote_commit ran")
 
     # two more fixtures at the same shape: one edge histogram a trial (both
@@ -619,8 +847,8 @@ def main() -> int:
     ms = repeats(lambda: pr._launch_fused_round(lib, *fargs))
     plain = cuda_ms(lambda: pr.fused_round_plain(
         SEED, r, fhist, fpack, **fvote), TIMED_LAUNCHES)
-    fneeds = lane_needs(fpack, (pkey, vkey), True, out_p[1][:, 3] >= fm_,
-                        out_p[0])
+    fneeds = lane_needs(fpack, (pkey, vkey), fm_, (fhist, out_p[1][:, :3]),
+                        True, out_p[1][:, 3] >= fm_, out_p[0])
     record("fused_round",
            2 * fpack.numel() * 4 + ft * 3 * 4
            + ft * (pr.PROP_COLS + pr.VOTE_COLS) * 4,
@@ -628,28 +856,62 @@ def main() -> int:
                       fplanes - PACK_K,
                       draws=fneeds["proposal_draws"] + fneeds["vote_draws"],
                       tails=fneeds["proposal_tails"] + fneeds["vote_tails"],
-                      coins=fneeds["coins"]),
+                      coins=fneeds["coins"],
+                      sizes=fneeds["proposal_sizes"]
+                      + fneeds["vote_sizes"]),
            flanes * ops_per_lane_whole("fused_round", fplanes), *res, ms, plain)
 
-    # the histogram kernels at N = 1M x 32, on the unfused path's operands
+    # the counts kernels at N = 1M x 32 on three fixtures; the unfused
+    # path's balanced operands give the kernels line its times
     hlanes = TRIALS * N_MAIN
+    cfx, efx = cf_fixtures(dev), equiv_fixtures(dev)
+    hruns = {tag: hist_pair(tag, lib, cfx[tag], efx[tag]) for tag in cfx}
+    hsizes = {tag: table_sizes(tag, cfx[tag], efx[tag]) for tag in cfx}
+    # the grid's corners: one lane, one trial of a ragged N, more trials
+    # than a wave holds blocks
+    for t_g, n_g in ((1, 1), (1, N_RAGGED), (1500, 33)):
+        g_hist = torch.tensor(np.random.default_rng(t_g).multinomial(
+            n_g, [0.45, 0.45, 0.1], size=t_g), dtype=torch.int32, device=dev)
+        g_ne = torch.full((t_g,), n_g // 5, dtype=torch.int32, device=dev)
+        g_m = n_g - int(0.4 * n_g)
+        args = (SEED, r, rng.PHASE_PROPOSAL, g_hist, g_m, n_g)
+        compare(f"cf_counts T={t_g} N={n_g}", t_g * n_g,
+                [(hk.cf_counts(*args), hk.cf_counts_plain(*args))])
+        args = (SEED, r, rng.PHASE_VOTE, g_hist, g_ne, g_m, n_g)
+        compare(f"equiv_counts T={t_g} N={n_g}", t_g * n_g,
+                [(hk.equiv_counts(*args), hk.equiv_counts_plain(*args))])
+    hbal = hruns["balanced"]
+    print(f"[grid] blocks a trial: cf_counts "
+          f"{hk.hist_blocks(lib, 0, N_MAIN, TRIALS, dev)}, equiv_counts "
+          f"{hk.hist_blocks(lib, 1, N_MAIN, TRIALS, dev)} at T = {TRIALS}; "
+          f"{hk.hist_blocks(lib, 0, N_RAGGED, T_RAGGED, dev)} and "
+          f"{hk.hist_blocks(lib, 1, N_RAGGED, T_RAGGED, dev)} at T = "
+          f"{T_RAGGED}")
+    plain_c, plain_e = (cuda_ms(fn, TIMED_LAUNCHES) for fn in hbal["plain"])
     every = torch.ones((TRIALS, N_MAIN), dtype=torch.bool, device=dev)
-    f40 = int(0.40 * N_MAIN)                 # balanced f = 0.40, round 1
-    bal_hist = torch.tensor([[N_MAIN // 2, N_MAIN // 2, 0]] * TRIALS,
-                            dtype=torch.int32, device=dev)
-    m40 = N_MAIN - f40
-    res = compare("cf_counts", hlanes, [(
-        hk.cf_counts(SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40, N_MAIN),
-        hk.cf_counts_plain(SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40,
-                           N_MAIN))])
-    bal_f = count_vecs(bal_hist)
-    ms = repeats(lambda: hk._launch_cf_counts(lib, pkey, bal_f, m40, N_MAIN))
-    plain = cuda_ms(lambda: hk.cf_counts_plain(
-        SEED, r, rng.PHASE_PROPOSAL, bal_hist, m40, N_MAIN), TIMED_LAUNCHES)
+    ekey2 = stream_scal(SEED, r, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET)
     record("cf_counts", hlanes * 3 * 4 + TRIALS * 3 * 4,
            ops_needed("cf_counts", hlanes, trials=TRIALS,
-                      tails=tail_quantiles(pkey, every)),
-           hlanes * ops_per_lane_whole("cf_counts"), *res, ms, plain)
+                      tails=tail_quantiles(pkey, every),
+                      sizes=hsizes["balanced"]["cf_counts"]),
+           hlanes * ops_per_lane_whole("cf_counts"), *hbal["res"][0],
+           hbal["ms"]["cf_counts"], plain_c)
+    record("equiv_counts", hlanes * 3 * 4 + TRIALS * 4 * 4,
+           ops_needed("equiv_counts", hlanes, trials=TRIALS,
+                      tails=tail_quantiles(vkey, every)
+                      + tail_quantiles(ekey2, every),
+                      sizes=hsizes["balanced"]["equiv_counts"]),
+           hlanes * ops_per_lane_whole("equiv_counts"), *hbal["res"][1],
+           hbal["ms"]["equiv_counts"], plain_e)
+    mhz_h = clock_during(hbal["calls"]["cf_counts"])
+    sass.print_resources(
+        "chip_smoke", sass.resource_report(_build.CSRC / "hist_kernels.cu",
+                                           _build.BUILD_DIR,
+                                           sass.HIST_KERNELS),
+        hlanes, sms, mhz_h)
+    print(f"[clock] clocks.sm {mhz_h:.0f} MHz while cf_counts ran")
+    del cfx, efx, hruns, hbal, hsizes
+    torch.cuda.empty_cache()
 
     res = compare("coin_flips", hlanes, [(
         hk.coin_flips(SEED, r, TRIALS, N_MAIN, dev),
@@ -660,36 +922,6 @@ def main() -> int:
                     TIMED_LAUNCHES)
     record("coin_flips", hlanes, ops_needed("coin_flips", hlanes),
            hlanes * ops_per_lane_whole("coin_flips"), *res, ms, plain)
-
-    # equiv_uniform_f0.20's round-1 operands: the honest histogram of
-    # balanced inputs with the first F lanes equivocating, all alive
-    ecfg = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.2 * N_MAIN),
-                     trials=TRIALS, fault_model="equivocate")
-    efaults = FaultSpec.first_f(ecfg, device=dev)
-    est = init_state(ecfg, balanced_inputs(TRIALS, N_MAIN), efaults)
-    e_alive = ~est.killed
-    e_hist = tally.class_histogram(est.x, e_alive & ~efaults.faulty)
-    n_equiv = (efaults.faulty & e_alive).sum(-1, dtype=torch.int32)
-    print(f"[operands] equiv_uniform_f0.20 round 1: hist {e_hist[0].tolist()}"
-          f" n_equiv {int(n_equiv[0])} m {ecfg.quorum}")
-    res = compare("equiv_counts", hlanes, [(
-        hk.equiv_counts(SEED, r, rng.PHASE_VOTE, e_hist, n_equiv,
-                        ecfg.quorum, N_MAIN),
-        hk.equiv_counts_plain(SEED, r, rng.PHASE_VOTE, e_hist, n_equiv,
-                              ecfg.quorum, N_MAIN))])
-    e_hist_f, ne_f = count_vecs(e_hist), count_vecs(n_equiv)
-    ekey2 = stream_scal(SEED, r, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET)
-    ms = repeats(lambda: hk._launch_equiv_counts(
-        lib, vkey, ekey2, e_hist_f, ne_f, ecfg.quorum, N_MAIN))
-    plain = cuda_ms(lambda: hk.equiv_counts_plain(
-        SEED, r, rng.PHASE_VOTE, e_hist, n_equiv, ecfg.quorum, N_MAIN),
-        TIMED_LAUNCHES)
-    record("equiv_counts", hlanes * 3 * 4 + TRIALS * 4 * 4,
-           ops_needed("equiv_counts", hlanes, trials=TRIALS,
-                      tails=tail_quantiles(vkey, every)
-                      + tail_quantiles(ekey2, every)),
-           hlanes * ops_per_lane_whole("equiv_counts"), *res, ms, plain)
-    del est, efaults, e_alive
 
     eps = 0.5
     shared = rng.coin_flips(SEED, r, rng.ids(TRIALS, device=dev),
@@ -707,20 +939,12 @@ def main() -> int:
            hlanes * ops_per_lane_whole("weak_coin_flips"), *res, ms, plain)
     torch.cuda.empty_cache()
 
-    # the dense tally: bench.py's fixture (mask Bernoulli 0.8, sent uniform
-    # in {0, 1, 2}, alive Bernoulli 0.9, made with numpy from the seed) at
-    # its own T = 8, a ragged shape for the byte tails, and last the main
-    # path's T = 32, whose times go into the kernels line
-    def dense_case(t, n_recv, n_send):
-        rs = np.random.default_rng(SEED)
-        mask = rs.random((t, n_recv, n_send), dtype=np.float32) < 0.8
-        sent = rs.integers(0, 3, (t, n_send)).astype(np.int8)
-        alive = rs.random((t, n_send)) < 0.9
-        return [torch.from_numpy(a).to(dev) for a in (mask, sent, alive)]
-
+    # the dense tally (dense_case) at bench.py's own T = 8, a ragged shape
+    # for the byte tails, and last the main path's T = 32, whose times go
+    # into the kernels line
     for t_d, r_d, s_d in ((8, N_DENSE, N_DENSE), (TRIALS, 1000, 2047),
                           (TRIALS, N_DENSE, N_DENSE)):
-        ops = dense_case(t_d, r_d, s_d)
+        ops = dense_case(t_d, r_d, s_d, dev)
         edges = t_d * r_d * s_d
         got = dk.dense_counts(*ops)
         want = dk.dense_counts_plain(*ops)

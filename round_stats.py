@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times and resources of the packed round kernels of two checkouts, on one
-GPU.
+"""Times and resources of the round kernels and the histogram counts
+kernels of two checkouts, on one GPU.
 
     python3 round_stats.py                 # this checkout
     python3 round_stats.py --base DIR      # and the checkout at DIR, in turns
@@ -10,9 +10,12 @@ this, this, base), with that checkout's package first on ``sys.path``.
 There it runs chip_smoke.py's random N = 1,000,000 x 32 fixture through
 chip_smoke.py's ``round_pair`` (``proposal_hist`` and ``vote_commit``
 against their plain versions, then three repeats of the mean over 20
-launches), times ``coin_flips`` as a control and reads ``clocks.sm`` while
-the vote kernel runs.  Then it prints each checkout's registers, spills,
-shared memory, SASS mix and pipe floors (benor_tpu_torch/ops/sass.py).
+launches) and its balanced counts fixture through ``hist_pair``
+(``cf_counts`` and ``equiv_counts`` the same way), times ``coin_flips``
+(N = 1M x 32) and ``dense_counts`` (T = 32, R = S = 2048) as controls and
+reads ``clocks.sm`` while ``vote_commit`` and while ``cf_counts`` runs.
+Then it prints each checkout's registers, spills, shared memory, SASS mix
+and pipe floors of both kernel sets (benor_tpu_torch/ops/sass.py).
 Prints one JSON line last and writes the whole result to
 chiprun_out/round_stats.json.
 """
@@ -40,6 +43,7 @@ def worker(tree: Path) -> dict:
 
     import benor_tpu_torch
     from benor_tpu_torch.ops import _build
+    from benor_tpu_torch.ops import dense as dk
     from benor_tpu_torch.ops import hist as hk
     from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
 
@@ -52,11 +56,20 @@ def worker(tree: Path) -> dict:
     cfg = cs.main_cfg()
     pack, hist1 = cs.random_pack(cfg, dev, cs.SEED)
     rnd = cs.round_pair("random", lib, cfg, pack, hist1)
+    counts = cs.hist_pair("balanced", lib, cs.cf_fixtures(dev)["balanced"],
+                          cs.equiv_fixtures(dev)["balanced"])
     ckey = stream_scal(cs.SEED, cs.ROUND, _COIN_SALT)
-    ms = dict(rnd["ms"], coin_flips=cs.repeats(lambda: hk._launch_coin_flips(
-        lib, ckey, cs.TRIALS, cs.N_MAIN, dev)))
-    return dict(tree=str(tree), lanes=rnd["lanes"], ms=ms,
+    dense = cs.dense_case(cs.TRIALS, cs.N_DENSE, cs.N_DENSE, dev)
+    ms = dict(rnd["ms"], **counts["ms"],
+              coin_flips=cs.repeats(lambda: hk._launch_coin_flips(
+                  lib, ckey, cs.TRIALS, cs.N_MAIN, dev)),
+              dense_counts=cs.repeats(
+                  lambda: dk._launch_dense_counts(lib, *dense)))
+    return dict(tree=str(tree), lanes=rnd["lanes"],
+                hist_lanes=cs.TRIALS * cs.N_MAIN, ms=ms,
                 clocks_sm_mhz=cs.clock_during(rnd["calls"]["vote_commit"]),
+                hist_clocks_sm_mhz=cs.clock_during(
+                    counts["calls"]["cf_counts"]),
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
 
@@ -90,24 +103,32 @@ def main() -> int:
         results.append(res)
         print(f"[time] {tag} ({tree}): " + "; ".join(
             f"{k} {v} ms" for k, v in res["ms"].items())
-            + f"; clocks.sm {res['clocks_sm_mhz']:.0f} MHz; kernels == plain")
+            + f"; clocks.sm {res['clocks_sm_mhz']:.0f} MHz (vote_commit), "
+            f"{res['hist_clocks_sm_mhz']:.0f} MHz (cf_counts); kernels == "
+            "plain")
     reports = {}
     for res in results:
         tree = Path(res["tree"])
         if res["tag"] in reports:
             continue
-        reports[res["tag"]] = sass.resource_report(
-            tree / "benor_tpu_torch" / "csrc" / "round_kernels.cu",
-            _build.BUILD_DIR)
-        sass.print_resources(res["tag"], reports[res["tag"]], res["lanes"],
+        csrc = tree / "benor_tpu_torch" / "csrc"
+        rep = reports[res["tag"]] = {
+            "round": sass.resource_report(csrc / "round_kernels.cu",
+                                          _build.BUILD_DIR),
+            "hist": sass.resource_report(csrc / "hist_kernels.cu",
+                                         _build.BUILD_DIR, sass.HIST_KERNELS)}
+        sass.print_resources(res["tag"], rep["round"], res["lanes"],
                              res["sms"], res["clocks_sm_mhz"])
+        sass.print_resources(res["tag"], rep["hist"], res["hist_lanes"],
+                             res["sms"], res["hist_clocks_sm_mhz"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "round_stats.json").write_text(json.dumps(
         {"card": card, "runs": results, "resources": reports}, indent=1))
     print(card)
     print(json.dumps({"card": card, "runs": [
-        {k: res[k] for k in ("tag", "ms", "clocks_sm_mhz")}
+        {k: res[k] for k in ("tag", "ms", "clocks_sm_mhz",
+                             "hist_clocks_sm_mhz")}
         for res in results]}))
     return 0
 
