@@ -15,9 +15,25 @@
 // moves no bit.  The per-trial counts are read from a [T, 3] f32 operand
 // (the same f32 the TPU kernels get as [T, 1] blocks).
 //
-// The coin kernels run one thread per lane l = trial * N + node in a
-// grid-stride loop (a 64-bit divide a lane splits l); they are issue-bound
-// too (~119 and ~126 ops a lane against one byte).
+// The coin kernels (coin_flips_kernel <- _coin_kernel, weak_coin_flips_
+// kernel <- _weak_coin_kernel) are one threefry block a lane against one
+// byte stored: 32-bit integer work, ~70 SASS a lane, nearly all of it
+// adds, rotates and xors.  What bounds them on the H100 (PERF.md): not
+// bytes (32 MB, 0.0096 ms at 3.35 TB/s) but the ALU pipe (64 lanes a
+// clock an SM), which takes every rotate (SHF) and xor (LOP3).  The first
+// ports also paid a 64-bit divide a lane in a grid-stride loop and ran at
+// 1.27x their ALU floor; these run at 1.05x.  They run the counts
+// kernels' trial-aligned grid (below, B capped at one block per
+// 256 x kCoinNodes nodes): trial and node are 32-bit, with no divide in
+// the loop.  A thread takes kCoinNodes = 8 consecutive nodes a pass: 8
+// independent threefry chains, whose bytes go out as one 64-bit store
+// where the row's address is aligned (byte stores in an unaligned row and
+// at the ragged end of a row).  The threefry adds issue as IMAD to the
+// FMA-heavy pipe (threefry2x32's ``one``), leaving the ALU the rotates
+// and xors.  The weak coin reads its trial's shared bit once, before the
+// loop.  Measured and slower: 1 and 4 nodes a thread, rotates as
+// IMAD.WIDE products (the times fit two FMA-heavy clocks each), and 8
+// blocks an SM as the launch bound (the default holds 8 already).
 //
 // cf_counts and equiv_counts run a trial-aligned grid of one wave: the
 // host gives each trial B blocks (hist_wave + ops/hist.py tile_blocks: as
@@ -59,21 +75,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Grid cap of the coin kernels: the grid-stride loop walks the lanes
-// beyond it.
-constexpr size_t kMaxBlocks = (size_t)1 << 20;
 // The blocks an SM must hold at once for the counts kernels: the launch
 // bound caps their registers at 65536 / (256 * 8) = 32 a thread, the
 // SM's full 64 warps (measured against 4 and 6 blocks: PERF.md).
 constexpr int kMinBlocksPerSM = 8;
-
-__device__ __forceinline__ size_t lane_begin() {
-  return (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ size_t lane_stride() {
-  return (size_t)gridDim.x * blockDim.x;
-}
+// Consecutive nodes a thread of the coin kernels takes in one pass of its
+// loop (ops/hist.py COIN_NODES): as many independent threefry chains, and
+// their coin bytes stored as one word.
+constexpr int kCoinNodes = 8;
+constexpr int kCoinBlockNodes = kThreads * kCoinNodes;
 
 // Sample sizes in a block's tables of per-lane draw terms (stream.cuh
 // TermsTable, 24 KB a block): at N = 1M a draw's sd is 150-250, so
@@ -119,17 +129,59 @@ cf_counts_kernel(const float* __restrict__ hist, int* __restrict__ out,
   }
 }
 
-// Private coin: bit 0 of threefry word 0 (pallas_hist.py _coin_kernel).
-__global__ void __launch_bounds__(kThreads)
-coin_flips_kernel(int8_t* __restrict__ out, int N, size_t lanes, uint32_t k0,
-                  uint32_t k1) {
-  for (size_t l = lane_begin(); l < lanes; l += lane_stride()) {
-    const uint32_t trial = (uint32_t)(l / (size_t)N);
-    const uint32_t node = (uint32_t)(l - (size_t)trial * N);
-    uint32_t b0, b1;
-    benor::threefry2x32(k0, k1, node, trial, &b0, &b1);
-    out[l] = (int8_t)(b0 & 1u);
+// The coin bytes c[0..kCoinNodes) of nodes node .. node + kCoinNodes - 1
+// of a row: one 8-byte word where the row's address is 8-aligned
+// (``wide``) and the nodes lie in the row, else one byte a node inside the
+// row.
+static_assert(kCoinNodes == sizeof(unsigned long long),
+              "a pass's coin bytes fill one store word");
+__device__ __forceinline__ void store_coins(int8_t* row, uint32_t node,
+                                            uint32_t N, bool wide,
+                                            const uint32_t (&c)[kCoinNodes]) {
+  if (wide && node + kCoinNodes <= N) {
+    unsigned long long w = 0;
+#pragma unroll
+    for (int j = 0; j < kCoinNodes; ++j)
+      w |= (unsigned long long)c[j] << (8 * j);
+    *reinterpret_cast<unsigned long long*>(row + node) = w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCoinNodes; ++j)
+      if (node + j < N) row[node + j] = (int8_t)c[j];
   }
+}
+
+// The coin kernels' loop over the T * B blocks: block b serves trial
+// b / B, and a pass of a thread takes kCoinNodes consecutive nodes, whose
+// bytes coin(node) gives.
+template <typename Coin>
+__device__ __forceinline__ void coin_rows(int8_t* __restrict__ out, int N,
+                                          int B, uint32_t trial, Coin coin) {
+  int8_t* const row = out + (size_t)trial * N;
+  const bool wide = (uintptr_t)row % kCoinNodes == 0;
+  const uint32_t stride = (uint32_t)B * kCoinBlockNodes;
+  for (uint32_t node = ((blockIdx.x - trial * B) * kThreads + threadIdx.x) *
+                       kCoinNodes;
+       node < (uint32_t)N; node += stride) {
+    uint32_t c[kCoinNodes];
+#pragma unroll
+    for (int j = 0; j < kCoinNodes; ++j) c[j] = coin(node + j);
+    store_coins(row, node, (uint32_t)N, wide, c);
+  }
+}
+
+// Private coin: bit 0 of threefry word 0 (pallas_hist.py _coin_kernel).
+// ``one`` is 1, an argument so that the compiler cannot fold it: the
+// threefry adds then issue as IMAD (stream.cuh threefry2x32).
+__global__ void __launch_bounds__(kThreads)
+coin_flips_kernel(int8_t* __restrict__ out, int N, int B, uint32_t k0,
+                  uint32_t k1, uint32_t one) {
+  const uint32_t trial = blockIdx.x / (uint32_t)B;
+  coin_rows(out, N, B, trial, [=](uint32_t node) {
+    uint32_t b0, b1;
+    benor::threefry2x32(k0, k1, node, trial, &b0, &b1, one);
+    return b0 & 1u;
+  });
 }
 
 // Mixed-population sampler (pallas_hist.py _equiv_kernel): h_b delivered
@@ -169,27 +221,21 @@ equiv_counts_kernel(const float* __restrict__ hist,
   }
 }
 
-// Weak-common coin (pallas_hist.py _weak_coin_kernel): one block per lane,
-// word 0 the private bit, word 1 the deviation uniform; uniform < eps takes
-// the private bit, else the trial's shared bit.
+// Weak-common coin (pallas_hist.py _weak_coin_kernel): word 0 the private
+// bit, word 1 the deviation uniform; uniform < eps takes the private bit,
+// else the trial's shared bit (its low byte, as the int8 cast keeps it),
+// read once before the loop.  Grid and ``one`` as coin_flips_kernel's.
 __global__ void __launch_bounds__(kThreads)
 weak_coin_flips_kernel(const int* __restrict__ shared,
-                       int8_t* __restrict__ out, int N, size_t lanes,
-                       uint32_t k0, uint32_t k1, float eps) {
-  for (size_t l = lane_begin(); l < lanes; l += lane_stride()) {
-    const uint32_t trial = (uint32_t)(l / (size_t)N);
-    const uint32_t node = (uint32_t)(l - (size_t)trial * N);
+                       int8_t* __restrict__ out, int N, int B, uint32_t k0,
+                       uint32_t k1, float eps, uint32_t one) {
+  const uint32_t trial = blockIdx.x / (uint32_t)B;
+  const uint32_t common = (uint8_t)shared[trial];
+  coin_rows(out, N, B, trial, [=](uint32_t node) {
     uint32_t pbits, dbits;
-    benor::threefry2x32(k0, k1, node, trial, &pbits, &dbits);
-    const int priv = (int)(pbits & 1u);
-    const bool dev = benor::bits_to_uniform(dbits) < eps;
-    out[l] = (int8_t)(dev ? priv : shared[trial]);
-  }
-}
-
-int blocks_for(size_t lanes) {
-  const size_t b = (lanes + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+    benor::threefry2x32(k0, k1, node, trial, &pbits, &dbits, one);
+    return benor::bits_to_uniform(dbits) < eps ? pbits & 1u : common;
+  });
 }
 
 }  // namespace
@@ -198,22 +244,24 @@ int blocks_for(size_t lanes) {
 // cudaGetLastError() after its launch (0 = launched); an empty lane set
 // launches nothing.
 
-// One wave of cf_counts (kernel 0) or equiv_counts (kernel 1) on the
-// current device -> *wave: the SMs times the blocks of the kernel an SM
-// holds.  The caller splits it over the trials (ops/hist.py tile_blocks),
-// once per shape, and passes the blocks a trial to the launcher.  Returns
-// the first failed query's cudaError (0 = *wave set).
+// One wave of cf_counts (kernel 0), equiv_counts (1), coin_flips (2) or
+// weak_coin_flips (3) on the current device -> *wave: the SMs times the
+// blocks of the kernel an SM holds.  The caller splits it over the trials
+// (ops/hist.py tile_blocks), once per shape, and passes the blocks a trial
+// to the launcher.  Returns the first failed query's cudaError (0 = *wave
+// set).
 extern "C" int benor_hist_wave(int kernel, int* wave) {
+  const void* const kernels[] = {
+      (const void*)cf_counts_kernel, (const void*)equiv_counts_kernel,
+      (const void*)coin_flips_kernel, (const void*)weak_coin_flips_kernel};
+  if (kernel < 0 || kernel > 3) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm,
-        kernel == 0 ? (const void*)cf_counts_kernel
-                    : (const void*)equiv_counts_kernel,
-        kThreads, 0);
+        &per_sm, kernels[kernel], kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   *wave = sms * per_sm;
   return 0;
@@ -229,12 +277,20 @@ extern "C" int benor_cf_counts(const float* hist, int* out, int T, int N,
   return (int)cudaGetLastError();
 }
 
-extern "C" int benor_coin_flips(int8_t* out, int T, int N, uint32_t k0,
-                                uint32_t k1, cudaStream_t stream) {
-  const size_t lanes = (size_t)T * (size_t)N;
-  if (lanes == 0) return 0;
-  coin_flips_kernel<<<blocks_for(lanes), kThreads, 0, stream>>>(
-      out, N, lanes, k0, k1);
+// The coins' blocks a trial: at least one, at most one per kCoinBlockNodes
+// nodes (so that a node plus the stride stays below 2^32).
+static bool coin_blocks_ok(int N, int B) {
+  const long long cap =
+      ((long long)N + kCoinBlockNodes - 1) / kCoinBlockNodes;
+  return B >= 1 && B <= (cap > 1 ? cap : 1);
+}
+
+extern "C" int benor_coin_flips(int8_t* out, int T, int N, int B,
+                                uint32_t k0, uint32_t k1,
+                                cudaStream_t stream) {
+  if (!coin_blocks_ok(N, B)) return (int)cudaErrorInvalidValue;
+  if (T == 0 || N == 0) return 0;
+  coin_flips_kernel<<<T * B, kThreads, 0, stream>>>(out, N, B, k0, k1, 1u);
   return (int)cudaGetLastError();
 }
 
@@ -250,11 +306,11 @@ extern "C" int benor_equiv_counts(const float* hist, const float* n_equiv,
 }
 
 extern "C" int benor_weak_coin_flips(const int* shared, int8_t* out, int T,
-                                     int N, uint32_t k0, uint32_t k1,
+                                     int N, int B, uint32_t k0, uint32_t k1,
                                      float eps, cudaStream_t stream) {
-  const size_t lanes = (size_t)T * (size_t)N;
-  if (lanes == 0) return 0;
-  weak_coin_flips_kernel<<<blocks_for(lanes), kThreads, 0, stream>>>(
-      shared, out, N, lanes, k0, k1, eps);
+  if (!coin_blocks_ok(N, B)) return (int)cudaErrorInvalidValue;
+  if (T == 0 || N == 0) return 0;
+  weak_coin_flips_kernel<<<T * B, kThreads, 0, stream>>>(shared, out, N, B,
+                                                         k0, k1, eps, 1u);
   return (int)cudaGetLastError();
 }

@@ -23,22 +23,30 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
 }
 
 // Threefry-2x32-20 block cipher: key (k0, k1), counter (x0, x1).
+//
+// Every add is written as a multiply-add by ``one``, which must be 1.
+// With the default the compiler folds it back to an add.  A caller that
+// passes a 1 the compiler cannot see (a kernel argument) gets the adds as
+// IMAD, which issue to the FMA-heavy pipe, instead of IADD3 on the ALU,
+// where the rotates (SHF) and xors (LOP3) already fill every slot: the
+// coin kernels, which are nothing but this block (PERF.md).
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
                                              uint32_t x0, uint32_t x1,
-                                             uint32_t* y0, uint32_t* y1) {
+                                             uint32_t* y0, uint32_t* y1,
+                                             uint32_t one = 1u) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += k0;
-  x1 += k1;
+  x0 = k0 * one + x0;
+  x1 = k1 * one + x1;
 #pragma unroll
   for (int group = 0; group < 5; ++group) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x0 += x1;
+      x0 = x1 * one + x0;
       x1 = rotl32(x1, rot[group & 1][i]) ^ x0;
     }
-    x0 += ks[(group + 1) % 3];
-    x1 += ks[(group + 2) % 3] + (uint32_t)(group + 1);
+    x0 = ks[(group + 1) % 3] * one + x0;
+    x1 = (ks[(group + 2) % 3] + (uint32_t)(group + 1)) * one + x1;
   }
   *y0 = x0;
   *y1 = x1;

@@ -45,10 +45,10 @@ SIGNATURES = {
                           _U, _U, _I, _F, _F, _I, _I, _I, _P],
     "benor_hist_wave": [_I, _P],
     "benor_cf_counts": [_P, _P, _I, _I, _I, _U, _U, _F, _P],
-    "benor_coin_flips": [_P, _I, _I, _U, _U, _P],
+    "benor_coin_flips": [_P, _I, _I, _I, _U, _U, _P],
     "benor_equiv_counts": [_P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _F,
                            _P],
-    "benor_weak_coin_flips": [_P, _P, _I, _I, _U, _U, _F, _P],
+    "benor_weak_coin_flips": [_P, _P, _I, _I, _I, _U, _U, _F, _P],
     "benor_dense_counts": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 

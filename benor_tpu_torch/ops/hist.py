@@ -37,8 +37,16 @@ from .stream import (_COIN_SALT, _EQUIV_SALT_OFFSET, bits_to_uniform,
                      cf_pair_draws, equiv_draws, equiv_trial, lane_ids,
                      stream_scal, threefry2x32)
 
-#: Threads a block of the counts kernels (csrc/hist_kernels.cu kThreads).
+#: Threads a block of the histogram kernels (csrc/hist_kernels.cu
+#: kThreads).
 THREADS = 256
+#: Consecutive nodes a thread of the coin kernels takes a pass
+#: (csrc/hist_kernels.cu kCoinNodes).
+COIN_NODES = 8
+#: Nodes a block takes a pass, by the wave query's kernel id: cf_counts
+#: (0) and equiv_counts (1) one a thread, coin_flips (2) and
+#: weak_coin_flips (3) COIN_NODES a thread.
+BLOCK_NODES = (THREADS, THREADS, THREADS * COIN_NODES, THREADS * COIN_NODES)
 
 
 # --------------------------------------------------------------------------
@@ -98,24 +106,27 @@ def weak_coin_flips_plain(seed, r, trials, n_nodes, eps, shared):
 # --------------------------------------------------------------------------
 
 
-def tile_blocks(wave: int, n_nodes: int, trials: int) -> int:
-    """Blocks a trial of the counts kernels for one ``wave`` of the kernel
+def tile_blocks(wave: int, n_nodes: int, trials: int,
+                block_nodes: int = THREADS) -> int:
+    """Blocks a trial of a histogram kernel for one ``wave`` of the kernel
     (the SMs times the blocks an SM holds): as many as fit ``trials`` times
-    in the wave, at least one, at most one per ``THREADS`` nodes.  The grid
-    is ``trials`` times that; block b serves trial b // blocks."""
-    return max(1, min(wave // max(trials, 1), -(-n_nodes // THREADS)))
+    in the wave, at least one, at most one per ``block_nodes`` nodes (the
+    nodes a block takes a pass).  The grid is ``trials`` times that; block
+    b serves trial b // blocks."""
+    return max(1, min(wave // max(trials, 1), -(-n_nodes // block_nodes)))
 
 
 @functools.cache
 def hist_blocks(lib, kernel: int, n_nodes: int, trials: int, device) -> int:
-    """Blocks a trial of cf_counts (``kernel`` 0) or equiv_counts (1) on
-    ``device``: ``tile_blocks`` of the kernel's wave from the CUDA
-    occupancy query, worked out once per shape.  A failed query raises."""
+    """Blocks a trial of cf_counts (``kernel`` 0), equiv_counts (1),
+    coin_flips (2) or weak_coin_flips (3) on ``device``: ``tile_blocks`` of
+    the kernel's wave from the CUDA occupancy query, worked out once per
+    shape.  A failed query raises."""
     wave = ctypes.c_int(0)
     with torch.cuda.device(device):
         raise_on(lib.benor_hist_wave(kernel, ctypes.byref(wave)),
                  "hist_wave")
-    return tile_blocks(wave.value, n_nodes, trials)
+    return tile_blocks(wave.value, n_nodes, trials, BLOCK_NODES[kernel])
 
 
 def _launch_cf_counts(lib, key, hist_f, m, n_nodes):
@@ -131,8 +142,9 @@ def _launch_cf_counts(lib, key, hist_f, m, n_nodes):
 
 def _launch_coin_flips(lib, key, trials, n_nodes, device):
     out = torch.empty((trials, n_nodes), dtype=torch.int8, device=device)
-    raise_on(lib.benor_coin_flips(ptr(out), trials, n_nodes, key[0], key[1],
-                                  stream(device)), "coin_flips")
+    blocks = hist_blocks(lib, 2, n_nodes, trials, device)
+    raise_on(lib.benor_coin_flips(ptr(out), trials, n_nodes, blocks, key[0],
+                                  key[1], stream(device)), "coin_flips")
     return out
 
 
@@ -150,8 +162,9 @@ def _launch_equiv_counts(lib, key, key2, hist_f, ne_f, m, n_nodes):
 def _launch_weak_coin_flips(lib, key, trials, n_nodes, eps, shared_i):
     out = torch.empty((trials, n_nodes), dtype=torch.int8,
                       device=shared_i.device)
+    blocks = hist_blocks(lib, 3, n_nodes, trials, shared_i.device)
     raise_on(lib.benor_weak_coin_flips(
-        ptr(shared_i), ptr(out), trials, n_nodes, key[0], key[1],
+        ptr(shared_i), ptr(out), trials, n_nodes, blocks, key[0], key[1],
         float(eps), stream(shared_i.device)), "weak_coin_flips")
     return out
 

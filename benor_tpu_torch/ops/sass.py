@@ -1,7 +1,14 @@
-"""What nvcc makes of the round kernels and the histogram counts kernels:
+"""What nvcc makes of the round kernels and the histogram kernels:
 registers, spills and shared memory (``-Xptxas -v``), the static SASS mix
 by class (``cuobjdump -sass``), and each pipe's floor for a number of
 lanes at a clock.
+
+The pipes and their rates are those of compute capability 9.0: the lanes
+a clock an SM from the CUDA C++ Programming Guide's table of arithmetic
+instruction throughput, and which pipe an opcode issues to from the pipe
+definitions of NVIDIA's Nsight Compute Kernel Profiling Guide (``alu``:
+integer and logic work but IMAD / IMUL, and the f32 compares, min / max
+and selects; ``fmaheavy``: IMAD, IMUL and IDP besides f32 multiply-adds).
 
 Used by ``chip_smoke.py`` and ``round_stats.py`` on a machine with the CUDA
 toolkit; the simulation never imports it.
@@ -19,13 +26,15 @@ from . import _build
 ROUND_KERNELS = ("proposal_hist_kernel", "vote_commit_kernel",
                  "fused_round_kernel")
 HIST_KERNELS = ("cf_counts_kernel", "equiv_counts_kernel")
+COIN_KERNELS = ("coin_flips_kernel", "weak_coin_flips_kernel")
 
 # SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
 # named here count as "uniform".
 SASS_CLASSES = {
     "integer": {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD",
                 "IMUL", "ISETP", "LEA", "IMNMX", "SEL", "PRMT", "IABS",
-                "BMSK", "SGXT", "BREV", "FLO", "IDP", "BFE", "BFI"},
+                "BMSK", "SGXT", "BREV", "FLO", "IDP", "BFE", "BFI", "VIADD",
+                "VIMNMX"},
     "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK",
              "FRND", "FSET", "FSWZADD"},
     "mufu": {"MUFU"},
@@ -37,18 +46,28 @@ SASS_CLASSES = {
     "load_store": {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL",
                    "LDC", "ATOM", "ATOMS", "ATOMG", "RED", "LDSM"},
 }
+# Integer opcodes that issue to the FMA-heavy pipe; the rest of the
+# integer class, and the f32 compares, min / max and selects, issue to the
+# ALU (Nsight Compute Kernel Profiling Guide, pipelines "alu" and
+# "fmaheavy").  sm_90's VIADD and VIMNMX are not named there: they are
+# counted with the ALU's adds and min / max.
+FMA_HEAVY = {"IMAD", "IMUL", "IDP"}
+FP32_ARITH = {"FADD", "FMUL", "FFMA"}
 # Warp lanes a clock an SM can take, compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions): one
 # instruction a clock from each of 4 schedulers; f32 add/mul/fma 128;
-# integer add/logic/shift/multiply-add and every compare/min/max/select
-# 64; MUFU and conversions 16; population count 16; shuffles 32; one
-# load/store unit instruction a clock.
+# integer add/logic/shift, every compare/min/max/select, and integer
+# multiply-add 64 each, on two pipes that run side by side (the ALU, and
+# the FMA-heavy half of the f32 lanes, so f32 work and IMAD share 128
+# lanes: the joint floor); MUFU and conversions 16; population count 16;
+# one load/store unit instruction a clock.
 PIPES = {
     "issue": (128, None),
-    "fp32 add/mul/fma": (128, {"FADD", "FMUL", "FFMA"}),
-    "integer + compare/select": (64, SASS_CLASSES["integer"]
-                                 | {"FMNMX", "FSETP", "FSEL", "FCHK",
-                                    "FSET"}),
+    "fp32 add/mul/fma": (128, FP32_ARITH),
+    "alu": (64, (SASS_CLASSES["integer"] - FMA_HEAVY)
+            | {"FMNMX", "FSETP", "FSEL", "FCHK", "FSET"}),
+    "fma-heavy (imad)": (64, FMA_HEAVY),
+    "fp32 + imad (joint)": (128, FP32_ARITH | FMA_HEAVY),
     "mufu + conversion": (16, SASS_CLASSES["mufu"]
                           | SASS_CLASSES["conversion"]),
     "popc": (16, {"POPC"}),
@@ -156,7 +175,7 @@ def resource_report(src: Path, out_dir: Path,
                     kernels=ROUND_KERNELS) -> dict:
     """Build one CUDA source to a cubin with the port's flags and
     ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
-    class counts}, ops: opcode counts of one lane's pass}} for the
+    class counts}, ops: opcode counts of one pass of its loop}} for the
     ``kernels`` it holds."""
     nvcc = _build.nvcc_path()
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
@@ -175,35 +194,41 @@ def resource_report(src: Path, out_dir: Path,
     cubin.unlink()
     report = {}
     for name in kernels:
-        keys = [k for k in ptxas if name in k]
-        fkeys = [k for k in sass if name in k]
+        # the mangled name's length prefix keeps coin_flips_kernel apart
+        # from weak_coin_flips_kernel
+        tag = f"{len(name)}{name}"
+        keys = [k for k in ptxas if tag in k]
+        fkeys = [k for k in sass if tag in k]
         if not keys or not fkeys:
             continue
         info = dict(ptxas[keys[0]])
         secs = sections(sass[fkeys[0]])
         info["sass"] = {s: _mix(v) for s, v in secs.items()}
-        # one lane's pass: the per-word or per-node loop where the kernel
-        # has one, else the body
+        # one pass: the per-word or per-node loop where the kernel has
+        # one, else the body
         info["ops"] = _ops(secs.get("loop", secs["body"]))
         report[name] = info
     return report
 
 
-def pipe_floors(mix_ops: dict, lanes: int, sms: int, clk_mhz: float) -> dict:
-    """Opcode counts of one lane's pass -> {pipe: floor ms} for ``lanes``
-    lanes on ``sms`` SMs at ``clk_mhz``."""
+def pipe_floors(mix_ops: dict, passes: float, sms: int,
+                clk_mhz: float) -> dict:
+    """Opcode counts of one pass of a kernel's loop -> {pipe: floor ms} for
+    ``passes`` passes on ``sms`` SMs at ``clk_mhz``."""
     out = {}
     for pipe, (rate, ops) in PIPES.items():
         n = sum(c for op, c in mix_ops.items() if ops is None or op in ops)
-        out[pipe] = n * lanes / (rate * sms * clk_mhz * 1e6) * 1e3
+        out[pipe] = n * passes / (rate * sms * clk_mhz * 1e6) * 1e3
     return out
 
 
 def print_resources(tag: str, resources: dict, lanes: int, sms: int,
-                    mhz: float):
+                    mhz: float, lanes_a_pass: int = 1):
     """The step-1 lines of one checkout (``resource_report``'s dict):
     resources and SASS classes of each kernel, and the pipe floors of each
-    kernel but the fused one for ``lanes`` lanes at ``mhz``."""
+    kernel but the fused one for ``lanes`` lanes at ``mhz``, a pass of a
+    coin kernel's loop taking ``lanes_a_pass`` lanes (the checkout's
+    ``hist.COIN_NODES``)."""
     for name, info in resources.items():
         print(f"[ptxas] {tag} {name}: {info.get('registers')} registers, "
               f"spill stores {info.get('spill_stores')} B, spill loads "
@@ -214,9 +239,10 @@ def print_resources(tag: str, resources: dict, lanes: int, sms: int,
                   + ", ".join(f"{k} {v}" for k, v in sorted(mix.items())))
         if name == "fused_round_kernel":    # runs at N <= 8192, not here
             continue
-        floors = pipe_floors(info["ops"], lanes, sms, mhz)
+        per = lanes_a_pass if name in COIN_KERNELS else 1
+        floors = pipe_floors(info["ops"], lanes / per, sms, mhz)
         top = sorted(info["ops"].items(), key=lambda kv: -kv[1])[:16]
         print(f"[pipes] {tag} {name} at {mhz:.0f} MHz, {sms} SMs, {lanes} "
-              f"lanes: " + ", ".join(f"{p} {v:.4f} ms"
+              f"lanes, {per} a pass: " + ", ".join(f"{p} {v:.4f} ms"
                                      for p, v in floors.items())
               + "; top opcodes " + ", ".join(f"{k} {v}" for k, v in top))

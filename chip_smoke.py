@@ -22,9 +22,13 @@ Phases (any failure ends the run non-zero; nothing is caught):
      inactive; cf_counts and equiv_counts run on three fixtures (the
      unfused path's balanced operands, one edge histogram a trial, a
      ragged N = 1,000,003 x 7) and at the grid's corners (T = 1 with
-     N = 1 and N = 1,000,003; T = 1500, N = 33); the registers, spills,
+     N = 1 and N = 1,000,003; T = 1500, N = 33); the coins on N = 1M x
+     32, the ragged N = 1,000,003 x 7, the same corners and T = 7, N = 5
+     (every row unaligned), the weak coin at eps 0.25, 0.5 and 0.75, with
+     their grid (blocks a trial, nodes a thread); the registers, spills,
      shared memory, SASS mix and pipe floors at the measured clocks.sm of
-     the round kernels and of those two (benor_tpu_torch/ops/sass.py);
+     the round kernels, of the counts kernels and of the coins
+     (benor_tpu_torch/ops/sass.py);
   3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
      bit, at N = 8192 x 32;
   4. small runs on the card against the same runs on the CPU (plain
@@ -61,7 +65,13 @@ N_MAIN = 1_000_000
 N_FUSED = 8192
 N_SMALL = 1000
 N_DENSE = 2048            # the cap of path='auto' (dense_path_max_n)
-N_RAGGED, T_RAGGED = 1_000_003, 7     # the counts kernels' ragged fixture
+N_RAGGED, T_RAGGED = 1_000_003, 7     # the histogram kernels' ragged fixture
+# the histogram kernels' grid corners (T, N): one lane, one trial of a
+# ragged N, more trials than a wave holds blocks; and for the coins every
+# row unaligned with a ragged end (N = 5)
+GRID_CORNERS = ((1, 1), (1, N_RAGGED), (1500, 33))
+COIN_CORNERS = GRID_CORNERS + ((7, 5),)
+COIN_EPS = (0.25, 0.5, 0.75)          # the weak coin's deviation rates
 TRIALS = 32
 MAX_ROUNDS = 64
 FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
@@ -586,6 +596,75 @@ def hist_pair(tag, lib, cf, eq) -> dict:
                        lambda: hk.equiv_counts_plain(*eargs)))
 
 
+def coin_shared(trials, device):
+    """The weak coin's shared operand: ROUND's common coin, one bit a trial
+    (int8 [T])."""
+    from benor_tpu_torch.ops import rng
+    return rng.coin_flips(SEED, ROUND, rng.ids(trials, device=device),
+                          rng.ids(1, device=device), common=True)[:, 0]
+
+
+def coin_exact(tag, trials, n, device) -> dict:
+    """coin_flips, and weak_coin_flips at each of COIN_EPS, against their
+    plain versions on ``trials`` x ``n`` lanes under ROUND's coin stream ->
+    {kernel: compare result} (the weak coin's at eps = 0.5)."""
+    from benor_tpu_torch.ops import hist as hk
+    res = {"coin_flips": compare(
+        f"coin_flips {tag}", trials * n,
+        [(hk.coin_flips(SEED, ROUND, trials, n, device),
+          hk.coin_flips_plain(SEED, ROUND, trials, n, device))])}
+    shared = coin_shared(trials, device)
+    for eps in COIN_EPS:
+        args = (SEED, ROUND, trials, n, eps, shared)
+        r = compare(f"weak_coin_flips {tag} eps={eps}", trials * n,
+                    [(hk.weak_coin_flips(*args),
+                      hk.weak_coin_flips_plain(*args))])
+        if eps == 0.5:
+            res["weak_coin_flips"] = r
+    return res
+
+
+def coin_pair(tag, lib, trials, n, device) -> dict:
+    """The coin kernels against their plain versions (coin_exact), then
+    three timed repeats of each launch (the weak coin at eps = 0.5) ->
+    dict: res (each kernel's compare result), ms (its repeats), calls (the
+    two launches), plain (the two plain versions, untimed)."""
+    import torch
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+
+    res = coin_exact(tag, trials, n, device)
+    key = stream_scal(SEED, ROUND, _COIN_SALT)
+    shared = coin_shared(trials, device)
+    shared_i = shared.to(torch.int32).contiguous()
+    calls = {
+        "coin_flips": lambda: hk._launch_coin_flips(lib, key, trials, n,
+                                                    device),
+        "weak_coin_flips": lambda: hk._launch_weak_coin_flips(
+            lib, key, trials, n, 0.5, shared_i),
+    }
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    print(f"[fixture] {tag}: coins {trials} x {n}; kernel ms {ms}")
+    return dict(res=res, ms=ms, calls=calls, plain=(
+        lambda: hk.coin_flips_plain(SEED, ROUND, trials, n, device),
+        lambda: hk.weak_coin_flips_plain(SEED, ROUND, trials, n, 0.5,
+                                         shared)))
+
+
+def coin_grid(lib, shapes, device) -> str:
+    """The coin kernels' grid at each (T, N) of ``shapes``: blocks a trial
+    B of each kernel, the nodes a thread takes a pass K and the grid's
+    blocks T x B."""
+    from benor_tpu_torch.ops import hist as hk
+    parts = []
+    for t, n in shapes:
+        b = [hk.hist_blocks(lib, k, n, t, device) for k in (2, 3)]
+        parts.append(f"T={t} N={n}: B {b[0]} / {b[1]}, blocks {t * b[0]} / "
+                     f"{t * b[1]}")
+    return (f"coin_flips / weak_coin_flips, K {hk.COIN_NODES} nodes a "
+            f"thread: " + "; ".join(parts))
+
+
 def dense_case(t, n_recv, n_send, device):
     """The dense tally's operands, bench.py's fixture made with numpy from
     the seed: mask Bernoulli 0.8 [t, n_recv, n_send], sent uniform in
@@ -869,7 +948,7 @@ def main() -> int:
     hsizes = {tag: table_sizes(tag, cfx[tag], efx[tag]) for tag in cfx}
     # the grid's corners: one lane, one trial of a ragged N, more trials
     # than a wave holds blocks
-    for t_g, n_g in ((1, 1), (1, N_RAGGED), (1500, 33)):
+    for t_g, n_g in GRID_CORNERS:
         g_hist = torch.tensor(np.random.default_rng(t_g).multinomial(
             n_g, [0.45, 0.45, 0.1], size=t_g), dtype=torch.int32, device=dev)
         g_ne = torch.full((t_g,), n_g // 5, dtype=torch.int32, device=dev)
@@ -913,30 +992,31 @@ def main() -> int:
     del cfx, efx, hruns, hbal, hsizes
     torch.cuda.empty_cache()
 
-    res = compare("coin_flips", hlanes, [(
-        hk.coin_flips(SEED, r, TRIALS, N_MAIN, dev),
-        hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev))])
-    ms = repeats(lambda: hk._launch_coin_flips(lib, ckey, TRIALS, N_MAIN,
-                                               dev))
-    plain = cuda_ms(lambda: hk.coin_flips_plain(SEED, r, TRIALS, N_MAIN, dev),
-                    TIMED_LAUNCHES)
+    # the coin kernels: both against their plain versions (the weak coin at
+    # each of COIN_EPS) at N = 1M x 32, whose times go into the kernels
+    # line, at the ragged N = 1,000,003 x 7 and at the grid's corners
+    coins = coin_pair("balanced", lib, TRIALS, N_MAIN, dev)
+    for t_c, n_c in ((T_RAGGED, N_RAGGED),) + COIN_CORNERS:
+        coin_exact(f"T={t_c} N={n_c}", t_c, n_c, dev)
+    print("[grid] " + coin_grid(lib, ((TRIALS, N_MAIN), (T_RAGGED, N_RAGGED))
+                                + COIN_CORNERS, dev))
+    plain_cf, plain_wc = (cuda_ms(fn, TIMED_LAUNCHES) for fn in coins["plain"])
     record("coin_flips", hlanes, ops_needed("coin_flips", hlanes),
-           hlanes * ops_per_lane_whole("coin_flips"), *res, ms, plain)
-
-    eps = 0.5
-    shared = rng.coin_flips(SEED, r, rng.ids(TRIALS, device=dev),
-                            rng.ids(1, device=dev), common=True)[:, 0]
-    res = compare("weak_coin_flips", hlanes, [(
-        hk.weak_coin_flips(SEED, r, TRIALS, N_MAIN, eps, shared),
-        hk.weak_coin_flips_plain(SEED, r, TRIALS, N_MAIN, eps, shared))])
-    shared_i = shared.to(torch.int32).contiguous()
-    ms = repeats(lambda: hk._launch_weak_coin_flips(
-        lib, ckey, TRIALS, N_MAIN, eps, shared_i))
-    plain = cuda_ms(lambda: hk.weak_coin_flips_plain(
-        SEED, r, TRIALS, N_MAIN, eps, shared), TIMED_LAUNCHES)
+           hlanes * ops_per_lane_whole("coin_flips"),
+           *coins["res"]["coin_flips"], coins["ms"]["coin_flips"], plain_cf)
     record("weak_coin_flips", hlanes + TRIALS * 4,
            ops_needed("weak_coin_flips", hlanes),
-           hlanes * ops_per_lane_whole("weak_coin_flips"), *res, ms, plain)
+           hlanes * ops_per_lane_whole("weak_coin_flips"),
+           *coins["res"]["weak_coin_flips"], coins["ms"]["weak_coin_flips"],
+           plain_wc)
+    mhz_c = clock_during(coins["calls"]["coin_flips"])
+    sass.print_resources(
+        "chip_smoke", sass.resource_report(_build.CSRC / "hist_kernels.cu",
+                                           _build.BUILD_DIR,
+                                           sass.COIN_KERNELS),
+        hlanes, sms, mhz_c, hk.COIN_NODES)
+    print(f"[clock] clocks.sm {mhz_c:.0f} MHz while coin_flips ran")
+    del coins
     torch.cuda.empty_cache()
 
     # the dense tally (dense_case) at bench.py's own T = 8, a ragged shape

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times and resources of the round kernels and the histogram counts
-kernels of two checkouts, on one GPU.
+"""Times and resources of the round kernels, the histogram counts kernels
+and the coin kernels of two checkouts, on one GPU.
 
     python3 round_stats.py                 # this checkout
     python3 round_stats.py --base DIR      # and the checkout at DIR, in turns
@@ -11,11 +11,13 @@ There it runs chip_smoke.py's random N = 1,000,000 x 32 fixture through
 chip_smoke.py's ``round_pair`` (``proposal_hist`` and ``vote_commit``
 against their plain versions, then three repeats of the mean over 20
 launches) and its balanced counts fixture through ``hist_pair``
-(``cf_counts`` and ``equiv_counts`` the same way), times ``coin_flips``
-(N = 1M x 32) and ``dense_counts`` (T = 32, R = S = 2048) as controls and
-reads ``clocks.sm`` while ``vote_commit`` and while ``cf_counts`` runs.
+(``cf_counts`` and ``equiv_counts`` the same way) and the coins through
+``coin_pair`` (``coin_flips`` and ``weak_coin_flips`` at N = 1M x 32, the
+weak coin checked at each of ``COIN_EPS`` and timed at eps = 0.5), times
+``dense_counts`` (T = 32, R = S = 2048) as a control and reads
+``clocks.sm`` while ``vote_commit``, ``cf_counts`` and ``coin_flips`` run.
 Then it prints each checkout's registers, spills, shared memory, SASS mix
-and pipe floors of both kernel sets (benor_tpu_torch/ops/sass.py).
+and pipe floors of the three kernel sets (benor_tpu_torch/ops/sass.py).
 Prints one JSON line last and writes the whole result to
 chiprun_out/round_stats.json.
 """
@@ -45,7 +47,6 @@ def worker(tree: Path) -> dict:
     from benor_tpu_torch.ops import _build
     from benor_tpu_torch.ops import dense as dk
     from benor_tpu_torch.ops import hist as hk
-    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
 
     if not Path(benor_tpu_torch.__file__).resolve().is_relative_to(
             tree.resolve()):
@@ -58,11 +59,9 @@ def worker(tree: Path) -> dict:
     rnd = cs.round_pair("random", lib, cfg, pack, hist1)
     counts = cs.hist_pair("balanced", lib, cs.cf_fixtures(dev)["balanced"],
                           cs.equiv_fixtures(dev)["balanced"])
-    ckey = stream_scal(cs.SEED, cs.ROUND, _COIN_SALT)
+    coins = cs.coin_pair("balanced", lib, cs.TRIALS, cs.N_MAIN, dev)
     dense = cs.dense_case(cs.TRIALS, cs.N_DENSE, cs.N_DENSE, dev)
-    ms = dict(rnd["ms"], **counts["ms"],
-              coin_flips=cs.repeats(lambda: hk._launch_coin_flips(
-                  lib, ckey, cs.TRIALS, cs.N_MAIN, dev)),
+    ms = dict(rnd["ms"], **counts["ms"], **coins["ms"],
               dense_counts=cs.repeats(
                   lambda: dk._launch_dense_counts(lib, *dense)))
     return dict(tree=str(tree), lanes=rnd["lanes"],
@@ -70,6 +69,9 @@ def worker(tree: Path) -> dict:
                 clocks_sm_mhz=cs.clock_during(rnd["calls"]["vote_commit"]),
                 hist_clocks_sm_mhz=cs.clock_during(
                     counts["calls"]["cf_counts"]),
+                coin_clocks_sm_mhz=cs.clock_during(
+                    coins["calls"]["coin_flips"]),
+                coin_nodes=getattr(hk, "COIN_NODES", 1),
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
 
@@ -104,7 +106,8 @@ def main() -> int:
         print(f"[time] {tag} ({tree}): " + "; ".join(
             f"{k} {v} ms" for k, v in res["ms"].items())
             + f"; clocks.sm {res['clocks_sm_mhz']:.0f} MHz (vote_commit), "
-            f"{res['hist_clocks_sm_mhz']:.0f} MHz (cf_counts); kernels == "
+            f"{res['hist_clocks_sm_mhz']:.0f} MHz (cf_counts), "
+            f"{res['coin_clocks_sm_mhz']:.0f} MHz (coin_flips); kernels == "
             "plain")
     reports = {}
     for res in results:
@@ -116,11 +119,17 @@ def main() -> int:
             "round": sass.resource_report(csrc / "round_kernels.cu",
                                           _build.BUILD_DIR),
             "hist": sass.resource_report(csrc / "hist_kernels.cu",
-                                         _build.BUILD_DIR, sass.HIST_KERNELS)}
+                                         _build.BUILD_DIR, sass.HIST_KERNELS),
+            "coins": sass.resource_report(csrc / "hist_kernels.cu",
+                                          _build.BUILD_DIR,
+                                          sass.COIN_KERNELS)}
         sass.print_resources(res["tag"], rep["round"], res["lanes"],
                              res["sms"], res["clocks_sm_mhz"])
         sass.print_resources(res["tag"], rep["hist"], res["hist_lanes"],
                              res["sms"], res["hist_clocks_sm_mhz"])
+        sass.print_resources(res["tag"], rep["coins"], res["hist_lanes"],
+                             res["sms"], res["coin_clocks_sm_mhz"],
+                             res["coin_nodes"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "round_stats.json").write_text(json.dumps(
@@ -128,7 +137,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"card": card, "runs": [
         {k: res[k] for k in ("tag", "ms", "clocks_sm_mhz",
-                             "hist_clocks_sm_mhz")}
+                             "hist_clocks_sm_mhz", "coin_clocks_sm_mhz")}
         for res in results]}))
     return 0
 
