@@ -3,7 +3,8 @@
 // They replace the Pallas TPU kernels of benor_tpu/ops/pallas_round.py:
 //   proposal_hist_kernel <- _prop_hist_kernel    (proposal_hist_pallas)
 //   vote_commit_kernel   <- _vote_commit_kernel  (vote_commit_pallas)
-//   fused_round_kernel   <- _fused_round_kernel  (fused_round_pallas)
+//   fused_round_kernel   <- _fused_round_kernel  (fused_round_pallas),
+//   fused_cluster_kernel    its cluster form (the same body)
 // in the 'sampled' counts regime with private coins, crash or byzantine
 // faults, either decision rule, freeze on or off.  Their plain torch
 // versions live beside the wrappers in ops/packed_round.py.
@@ -52,16 +53,43 @@
 // no part here: there is no tile to stream (0.2 bytes a lane) and no
 // product to compute.
 //
+// The fused kernel (N <= 8192 and T x Np <= 2^18, Np = N padded to 512)
+// is bound by latency, not by issue.  As first ported, one block of 16
+// warps a trial walked each of its up to 256 words twice, 1005 static SASS
+// a word through both phases: at N = 8192 x 32 it ran on 32 of the 132
+// SMs, 0.0480 ms of device time against an issue floor of 0.0079 ms over
+// the card, and 0.0437 ms at T = 1 (launches queued; NVIDIA H100 80GB
+// HBM3, 700.00 W, clocks.sm 1980 MHz, round_stats.py); there the
+// two-kernel route took less device time.  So a trial's words are spread
+// over a thread-block cluster of up to 16 blocks on as many SMs
+// (fused_cluster_kernel), a warp's few words are loaded at once and kept
+// in registers across the phase barrier, and the vote phase's whole-trial
+// histogram goes from block to block through distributed shared memory:
+// one launch, no second pass over the words in memory, no host-side sum.
+// Where one block a trial is the best grid, fused_round_kernel runs the
+// same body without the cluster's code.  ops/packed_round.py fused_grid
+// picks the cluster size and block width from the occupancy query
+// (benor_fused_fits): all T clusters at once, the most warps a trial, then
+// no cluster where one block will do and else the smallest blocks.  A
+// measured scan of every grid (round_stats.py --fused-scan, the same card,
+// launches queued) ranks them so at each shape of the family: at
+// N = 8192 x 32, 16 blocks of 4 warps (0.0187 ms) beat 4 of 16
+// (0.0253 ms), since an SM then holds blocks of several trials, whose
+// per-trial terms and barriers overlap the others' words.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (ops/_build.py).  No fast-math: the
 // kernels must round as torch's elementwise ops do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "stream.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -70,9 +98,16 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // a thread).
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMinBlocksPerSM = 4;
-// Warps of the fused kernel's one block per trial (512 threads, so the
-// launch bound leaves each thread up to 128 registers).
-constexpr int kFusedWarps = 16;
+// The fused kernel: a cluster of C blocks a trial, C in {1, 2, 4, 8, 16}
+// (16 is a non-portable cluster size), of W in {16, 8, 4} warps; a warp
+// holds at most kFusedKeep words.  Its launch bound, two blocks of 16
+// warps an SM, caps registers at 64 a thread.
+constexpr int kFusedMaxWarps = 16;
+constexpr int kFusedMinBlocks = 2;
+constexpr int kFusedKeep = 4;
+constexpr int kFusedClusters[] = {1, 2, 4, 8, 16};
+constexpr int kFusedWarpChoices[] = {16, 8, 4};
+constexpr int kPortableCluster = 8;
 // Plane layout (state.PACK_LAYOUT).
 constexpr int kPlaneX = 0;        // 2 planes
 constexpr int kPlaneDecided = 2;
@@ -353,69 +388,196 @@ vote_commit_kernel(const uint32_t* __restrict__ pack,
                        partials + ((size_t)blockIdx.x * T + trial) * kVoteCols);
 }
 
-// grid (T), block 16 warps: one block walks its trial's n_w <= 256 words
-// twice — the proposal pass, the whole-axis vote histogram and quorum gate
-// in shared memory, then the vote pass + commit.  Each pass's CF terms are
-// computed in the block from the histogram it draws against.
-__global__ void __launch_bounds__(kFusedWarps * kWarp)
-fused_round_kernel(const uint32_t* __restrict__ pack,
-                   const float* __restrict__ hist1,
-                   uint32_t* __restrict__ new_pack,
-                   int* __restrict__ parts_a, int* __restrict__ parts_b,
-                   int T, int P, int n_w, uint32_t pk0, uint32_t pk1,
-                   uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
-                   int rk, float m, float nf, int textbook, int byz,
-                   int freeze) {
+// Sum kCols ints over the blocks of the cluster: `blk` is the same
+// shared array in each block.  Called by a whole warp after a
+// cluster.sync(): lane r < C reads rank r's columns through distributed
+// shared memory, and every lane gets the sums (integers, so the order
+// moves no bit).
+template <int kCols>
+__device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
+                                            int* blk, int C, int lane,
+                                            int* tot) {
+  int v[kCols];
+  const int* src = cluster.map_shared_rank(blk, lane < C ? lane : 0);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) v[c] = lane < C ? src[c] : 0;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) tot[c] = __reduce_add_sync(kFull, v[c]);
+}
+
+// The warp's kept words, one place on: kept[0] is the next word's.
+__device__ __forceinline__ void rotate(uint32_t (&kept)[kFusedKeep]) {
+  const uint32_t first = kept[0];
+#pragma unroll
+  for (int k = 0; k + 1 < kFusedKeep; ++k) kept[k] = kept[k + 1];
+  kept[kFusedKeep - 1] = first;
+}
+
+// One trial's round on a grid of C blocks of W warps a trial (block rank
+// = blockIdx.x % C), kCluster = C > 1: the body of fused_round_kernel
+// (C = 1, a plain launch) and of fused_cluster_kernel (a cluster of C
+// blocks a trial).  Warp g = rank * W + warp of the trial takes words g,
+// g + C * W, ... (at most kFusedKeep of them), loads them all before the
+// block's proposal terms are computed and keeps them in registers for both
+// phases.  Phase 1: proposal tallies.  One block (C = 1) sums its warps'
+// counts in shared memory and computes the vote phase's CF terms and
+// quorum gate from the sum, as a block of the pair does.  In a cluster
+// each block adds its warps' counts into its shared memory; after
+// cluster.sync() one warp of every block sums the C blocks' counts through
+// distributed shared memory, so every block computes the terms and gate
+// from the same integers (rank 0 writes partsA).  Phase 2: vote + commit,
+// the tallies summed the same way into partsB (by rank 0), and in a
+// cluster a last cluster.sync() so that no block leaves while rank 0 reads
+// its shared memory.
+template <bool kCluster>
+__device__ __forceinline__ void fused_round_body(
+    const uint32_t* __restrict__ pack, const float* __restrict__ hist1,
+    uint32_t* __restrict__ new_pack, int* __restrict__ parts_a,
+    int* __restrict__ parts_b, int P, int n_w, uint32_t pk0, uint32_t pk1,
+    uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1, int rk, float m,
+    float nf, int textbook, int byz, int freeze) {
   __shared__ benor::CfTrial ct_s;
-  __shared__ int smem_a[kFusedWarps][kPropCols];
-  __shared__ int smem_b[kFusedWarps][kVoteCols];
+  __shared__ int smem_a[kFusedMaxWarps][kPropCols];
+  __shared__ int smem_b[kFusedMaxWarps][kVoteCols];
   __shared__ int tot_a[kPropCols];
+  __shared__ int tot_b[kVoteCols];
+  __shared__ int qok_s;
+  const int C = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
+  const int warps = (int)(blockDim.x / kWarp);
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int trial = blockIdx.x;
+  const int trial = kCluster ? (int)blockIdx.x / C : (int)blockIdx.x;
+  const int step = C * warps;
+  const int first = rank * warps + warp;
   const size_t stride = (size_t)n_w;
   const size_t tbase = (size_t)trial * P * stride;
+  if (kCluster && threadIdx.x < kPropCols) tot_a[threadIdx.x] = 0;
+  if (kCluster && threadIdx.x < kVoteCols) tot_b[threadIdx.x] = 0;
+  uint32_t kept[kFusedKeep];
+#pragma unroll
+  for (int k = 0; k < kFusedKeep; ++k) {
+    const int word = first + k * step;
+    kept[k] = load_plane(pack + tbase + word, P, stride, lane, word < n_w);
+  }
 
   // --- phase 1: proposal tallies -> majority -> vote values -------------
   const benor::CfTrial ct1 = block_cf_trial(
       &ct_s, hist1[trial * 3 + 0], hist1[trial * 3 + 1],
       hist1[trial * 3 + 2], m);
   int acc_a[kPropCols] = {0, 0, 0, 0};
-  for (int word = warp; word < n_w; word += kFusedWarps) {
-    const Lane f = lane_from(
-        load_plane(pack + tbase + word, P, stride, lane, true), lane, freeze);
-    const int vote = proposal_vote(f, pk0, pk1,
-                                   (uint32_t)(word * kWarp + lane),
-                                   (uint32_t)trial, ct1, byz);
-    proposal_counts(acc_a, f, vote);
+#pragma unroll 1
+  for (int k = 0; k < kFusedKeep; ++k) {
+    const int word = first + k * step;
+    if (word < n_w) {  // warp-uniform
+      const Lane f = lane_from(kept[0], lane, freeze);
+      const int vote = proposal_vote(f, pk0, pk1,
+                                     (uint32_t)(word * kWarp + lane),
+                                     (uint32_t)trial, ct1, byz);
+      proposal_counts(acc_a, f, vote);
+    }
+    rotate(kept);
   }
-  if (lane == 0)
-    for (int c = 0; c < kPropCols; ++c) smem_a[warp][c] = acc_a[c];
-  block_sum<kPropCols>(smem_a, kFusedWarps, tot_a);
-  __syncthreads();
-  if (threadIdx.x < kPropCols)
-    parts_a[trial * kPropCols + threadIdx.x] = tot_a[threadIdx.x];
 
-  // --- the vote-phase global histogram + quorum gate, whole-axis --------
-  const benor::CfTrial ct2 = block_cf_trial(
-      &ct_s, (float)tot_a[0], (float)tot_a[1], (float)tot_a[2], m);
-  const int qok = tot_a[3] >= (int)m ? 1 : 0;   // n_alive >= quorum
+  // --- the vote-phase histogram + quorum gate, whole trial --------------
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (lane == 0)
+      for (int c = 0; c < kPropCols; ++c) atomicAdd(&tot_a[c], acc_a[c]);
+    cluster.sync();
+    if (warp == 0) {
+      int tot[kPropCols];
+      cluster_sum<kPropCols>(cluster, tot_a, C, lane, tot);
+      if (lane == 0) {
+        ct_s = benor::cf_trial((float)tot[0], (float)tot[1], (float)tot[2],
+                               m);
+        qok_s = tot[3] >= (int)m ? 1 : 0;
+        if (rank == 0)
+          for (int c = 0; c < kPropCols; ++c)
+            parts_a[trial * kPropCols + c] = tot[c];
+      }
+    }
+    __syncthreads();
+  } else {
+    if (lane == 0)
+      for (int c = 0; c < kPropCols; ++c) smem_a[warp][c] = acc_a[c];
+    block_sum<kPropCols>(smem_a, warps, tot_a);
+    __syncthreads();
+    if (threadIdx.x < kPropCols)
+      parts_a[trial * kPropCols + threadIdx.x] = tot_a[threadIdx.x];
+    if (threadIdx.x == 0) {
+      ct_s = benor::cf_trial((float)tot_a[0], (float)tot_a[1],
+                             (float)tot_a[2], m);
+      qok_s = tot_a[3] >= (int)m ? 1 : 0;
+    }
+    __syncthreads();
+  }
+  const benor::CfTrial ct2 = ct_s;
+  const int qok = qok_s;   // n_alive >= quorum
 
   // --- phase 2: vote tallies -> decide/adopt/coin -> commit -------------
   int acc_b[kVoteCols] = {0, 0, 0, 0, 0};
-  for (int word = warp; word < n_w; word += kFusedWarps) {
-    const Lane f = lane_from(
-        load_plane(pack + tbase + word, P, stride, lane, true), lane, freeze);
-    const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
-                               (uint32_t)(word * kWarp + lane),
-                               (uint32_t)trial, ct2, nf, qok, textbook);
-    const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
-                                      lane, f, c, rk);
-    vote_counts(acc_b, f, c, dec, byz);
+#pragma unroll 1
+  for (int k = 0; k < kFusedKeep; ++k) {
+    const int word = first + k * step;
+    if (word < n_w) {  // warp-uniform
+      const Lane f = lane_from(kept[0], lane, freeze);
+      const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
+                                 (uint32_t)(word * kWarp + lane),
+                                 (uint32_t)trial, ct2, nf, qok, textbook);
+      const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
+                                        lane, f, c, rk);
+      vote_counts(acc_b, f, c, dec, byz);
+    }
+    rotate(kept);
   }
-  if (lane == 0)
-    for (int c = 0; c < kVoteCols; ++c) smem_b[warp][c] = acc_b[c];
-  block_sum<kVoteCols>(smem_b, kFusedWarps, parts_b + trial * kVoteCols);
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (lane == 0)
+      for (int c = 0; c < kVoteCols; ++c) atomicAdd(&tot_b[c], acc_b[c]);
+    cluster.sync();
+    if (rank == 0 && warp == 0) {
+      int tot[kVoteCols];
+      cluster_sum<kVoteCols>(cluster, tot_b, C, lane, tot);
+      if (lane == 0)
+        for (int c = 0; c < kVoteCols; ++c)
+          parts_b[trial * kVoteCols + c] = tot[c];
+    }
+    cluster.sync();
+  } else {
+    if (lane == 0)
+      for (int c = 0; c < kVoteCols; ++c) smem_b[warp][c] = acc_b[c];
+    block_sum<kVoteCols>(smem_b, warps, parts_b + trial * kVoteCols);
+  }
+}
+
+// grid (T) blocks of W warps: one block a trial.
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocks)
+fused_round_kernel(const uint32_t* __restrict__ pack,
+                   const float* __restrict__ hist1,
+                   uint32_t* __restrict__ new_pack,
+                   int* __restrict__ parts_a, int* __restrict__ parts_b,
+                   int P, int n_w, uint32_t pk0, uint32_t pk1, uint32_t vk0,
+                   uint32_t vk1, uint32_t ck0, uint32_t ck1, int rk, float m,
+                   float nf, int textbook, int byz, int freeze) {
+  fused_round_body<false>(pack, hist1, new_pack, parts_a, parts_b, P, n_w,
+                          pk0, pk1, vk0, vk1, ck0, ck1, rk, m, nf, textbook,
+                          byz, freeze);
+}
+
+// grid (C x T) blocks of W warps, launched as T clusters of C blocks.
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocks)
+fused_cluster_kernel(const uint32_t* __restrict__ pack,
+                     const float* __restrict__ hist1,
+                     uint32_t* __restrict__ new_pack,
+                     int* __restrict__ parts_a, int* __restrict__ parts_b,
+                     int P, int n_w, uint32_t pk0, uint32_t pk1,
+                     uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
+                     int rk, float m, float nf, int textbook, int byz,
+                     int freeze) {
+  fused_round_body<true>(pack, hist1, new_pack, parts_a, parts_b, P, n_w,
+                         pk0, pk1, vk0, vk1, ck0, ck1, rk, m, nf, textbook,
+                         byz, freeze);
 }
 
 }  // namespace
@@ -474,15 +636,79 @@ extern "C" int benor_vote_commit(const uint32_t* pack, const float* hist,
   return (int)cudaGetLastError();
 }
 
+// The launch of T clusters of C blocks of `warps` warps of the fused kernel
+// on `stream` (T = 1: one cluster, as the occupancy query takes it).  C = 1
+// is a plain launch, with no cluster attribute.
+static cudaLaunchConfig_t fused_config(int C, int warps, int T,
+                                       cudaStream_t stream,
+                                       cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(C * T);
+  config.blockDim = dim3(warps * kWarp);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = C > 1 ? 1 : 0;
+  return config;
+}
+
+// True if C blocks of `warps` warps a trial are a grid the fused kernel
+// takes for n_w words: C and warps among the choices, every warp with a
+// word, no warp with more than kFusedKeep.
+static bool fused_dims_ok(int n_w, int C, int warps) {
+  bool c_ok = false, w_ok = false;
+  for (int c : kFusedClusters) c_ok = c_ok || c == C;
+  for (int w : kFusedWarpChoices) w_ok = w_ok || w == warps;
+  return c_ok && w_ok && C * warps <= n_w &&
+         C * warps * kFusedKeep >= n_w;
+}
+
+// Clusters of C blocks of `warps` warps of the fused kernel that the
+// current device holds at once -> *clusters (cudaOccupancyMaxActiveClusters
+// of fused_round_kernel, a cluster of one block, at C = 1, else of
+// fused_cluster_kernel).  For C > 8 it first allows the cluster kernel
+// non-portable cluster sizes, which the launch of such a grid needs: the
+// wrapper's grid rule (ops/packed_round.py fused_grid) reads these counts
+// before its first launch on a device.  Returns the cudaError (0 = set).
+extern "C" int benor_fused_fits(int C, int warps, int* clusters) {
+  cudaError_t e = cudaSuccess;
+  if (C > kPortableCluster)
+    e = cudaFuncSetAttribute(fused_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = fused_config(C, warps, 1, 0, &attr);
+  config.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters,
+      C > 1 ? (const void*)fused_cluster_kernel
+            : (const void*)fused_round_kernel,
+      &config);
+}
+
+// One launch of the fused kernel as T clusters of C blocks of `warps`
+// warps (ops/packed_round.py fused_grid's choice): fused_round_kernel at
+// C = 1, else fused_cluster_kernel.  A grid it does not take, or a refused
+// cluster launch, returns its cudaError: nothing falls back.
 extern "C" int benor_fused_round(const uint32_t* pack, const float* hist1,
                                  uint32_t* new_pack, int* parts_a,
                                  int* parts_b, int T, int P, int n_w,
                                  uint32_t pk0, uint32_t pk1, uint32_t vk0,
                                  uint32_t vk1, uint32_t ck0, uint32_t ck1,
                                  int rk, float m, float nf, int textbook,
-                                 int byz, int freeze, cudaStream_t stream) {
-  fused_round_kernel<<<T, kFusedWarps * kWarp, 0, stream>>>(
-      pack, hist1, new_pack, parts_a, parts_b, T, P, n_w, pk0, pk1, vk0, vk1,
-      ck0, ck1, rk, m, nf, textbook, byz, freeze);
+                                 int byz, int freeze, int C, int warps,
+                                 cudaStream_t stream) {
+  if (!fused_dims_ok(n_w, C, warps)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = fused_config(C, warps, T, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, C > 1 ? fused_cluster_kernel : fused_round_kernel, pack,
+      hist1, new_pack, parts_a, parts_b, P, n_w, pk0, pk1, vk0, vk1, ck0,
+      ck1, rk, m, nf, textbook, byz, freeze);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

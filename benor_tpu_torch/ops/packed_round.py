@@ -4,10 +4,11 @@
 One round is either ONE kernel or TWO, exactly where the JAX package
 dispatches them (``fused_one_pass_eligible``):
 
-  fused_round    — both phases in one pass, one thread block per trial:
-                   proposal tallies -> majority -> vote histogram and
-                   quorum gate in shared memory -> vote tallies + coin +
-                   decide/adopt/commit -> the new plane stack.
+  fused_round    — both phases in one pass, a thread-block cluster per
+                   trial: proposal tallies -> majority -> vote histogram
+                   and quorum gate through the cluster's shared memory ->
+                   vote tallies + coin + decide/adopt/commit -> the new
+                   plane stack.
   proposal_hist  — the two-kernel path's proposal pass (per-block vote
   vote_commit      histogram + alive count, summed here between the two
                    launches), then the vote pass + commit.
@@ -45,6 +46,13 @@ from .stream import (TILE_N, _COIN_SALT, cf_pair_draws, lane_ids,
 #: Single-pass engage caps, kept from the JAX package so both dispatch alike.
 FUSED_ONE_PASS_MAX_NODES = 8192
 FUSED_ONE_PASS_MAX_LANES = 1 << 18
+
+#: The fused kernel's grid choices (csrc/round_kernels.cu kFusedClusters,
+#: kFusedWarpChoices, kFusedKeep): blocks a trial's cluster, warps a block,
+#: and the most words a warp holds across the phase barrier.
+FUSED_CLUSTERS = (1, 2, 4, 8, 16)
+FUSED_WARPS = (16, 8, 4)
+FUSED_KEEP = 4
 
 #: Per-block partial-column layouts — name -> (base, width), the JAX
 #: package's tables verbatim.  The kernels write only these columns.
@@ -340,13 +348,64 @@ def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
     return new_pack, parts
 
 
+def fused_cluster(n_w: int, trials: int, fits) -> tuple[int, int]:
+    """The fused kernel's grid rule: ``n_w`` plane words and ``trials``
+    trials -> (C blocks a trial's cluster, W warps a block).
+    ``fits[(C, W)]``: the clusters of C blocks of W warps the card holds at
+    once (``fused_fits``).  Warp g of a trial takes words g, g + C * W, ...;
+    among the (C, W) that give every warp a word and none more than
+    FUSED_KEEP, the first by: all ``trials`` clusters at once (one wave),
+    the most warps a trial (the shortest chain of words a warp), C = 1 (a
+    plain launch, without the cluster's launch and barrier costs), the most
+    blocks a cluster (an SM then holds blocks of several trials, whose
+    per-trial terms and barriers overlap the others' words)."""
+    best = None
+    for w in FUSED_WARPS:
+        for c in FUSED_CLUSTERS:
+            if not c * w <= n_w <= c * w * FUSED_KEEP:
+                continue
+            key = (trials <= fits[(c, w)], c * w, c == 1, c)
+            if best is None or key > best[0]:
+                best = (key, (c, w))
+    if best is None:
+        raise ValueError(f"fused_round: no grid for {n_w} words")
+    return best[1]
+
+
+@functools.cache
+def fused_fits(lib, device) -> dict:
+    """{(C, W): clusters of C blocks of W warps of the fused kernel that
+    ``device`` holds at once} for every choice (``benor_fused_fits``, which
+    also allows the kernel the non-portable C = 16 there), asked once per
+    device.  A failed CUDA query raises."""
+    out = {}
+    with torch.cuda.device(device):
+        for c in FUSED_CLUSTERS:
+            for w in FUSED_WARPS:
+                n = ctypes.c_int(0)
+                raise_on(lib.benor_fused_fits(c, w, ctypes.byref(n)),
+                         "fused_fits")
+                out[(c, w)] = n.value
+    return out
+
+
+@functools.cache
+def fused_grid(lib, n_w: int, t: int, device) -> tuple[int, int]:
+    """The fused kernel's (C, W) on ``device`` for ``n_w`` words and ``t``
+    trials: ``fused_cluster`` on the device's ``fused_fits``, worked out
+    once per shape."""
+    return fused_cluster(n_w, t, fused_fits(lib, device))
+
+
 def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
-                        rule, fault_model, freeze):
-    """One launch of the single-pass kernel -> (new plane stack, partsA
-    int32 [T, PROP_COLS], partsB int32 [T, VOTE_COLS])."""
+                        rule, fault_model, freeze, grid):
+    """One launch of the single-pass kernel as ``t`` clusters of C blocks
+    of W warps, ``grid`` = (C, W) (``fused_grid``'s, or one a measurement
+    names) -> (new plane stack, partsA int32 [T, PROP_COLS], partsB int32
+    [T, VOTE_COLS])."""
     t, p, n_w = pack.shape
     if n_w * PACK_NODES_PER_WORD > FUSED_ONE_PASS_MAX_NODES:
-        raise ValueError(f"fused_round: {n_w} words exceed the one-block cap")
+        raise ValueError(f"fused_round: {n_w} words exceed the one-pass cap")
     new_pack = torch.empty_like(pack)
     parts_a = torch.empty((t, PROP_COLS), dtype=torch.int32,
                           device=pack.device)
@@ -357,7 +416,8 @@ def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
         ptr(parts_b), t, p, n_w, pkey[0], pkey[1], vkey[0], vkey[1],
         ckey[0], ckey[1], int(rk), float(m), float(n_faulty),
         int(rule == "textbook"), int(fault_model == "byzantine"),
-        int(bool(freeze)), stream(pack.device)), "fused_round")
+        int(bool(freeze)), grid[0], grid[1], stream(pack.device)),
+        "fused_round")
     return new_pack, parts_a, parts_b
 
 
@@ -416,11 +476,13 @@ def fused_round(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
     _check_pack(pack)
     hist_f = count_vecs(hist1)
     check("hist1", hist_f, torch.float32, (pack.shape[0], 3), pack.device)
+    lib = load_library()
+    t, _, n_w = pack.shape
     out = _launch_fused_round(
-        load_library(), stream_scal(seed, r, rng.PHASE_PROPOSAL),
+        lib, stream_scal(seed, r, rng.PHASE_PROPOSAL),
         stream_scal(seed, r, rng.PHASE_VOTE),
         stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, pack, m, n_faulty,
-        rule, fault_model, freeze)
+        rule, fault_model, freeze, fused_grid(lib, n_w, t, pack.device))
     fused_round.launches += 1
     return out
 

@@ -24,9 +24,13 @@ from pathlib import Path
 from . import _build
 
 ROUND_KERNELS = ("proposal_hist_kernel", "vote_commit_kernel",
-                 "fused_round_kernel")
+                 "fused_round_kernel", "fused_cluster_kernel")
 HIST_KERNELS = ("cf_counts_kernel", "equiv_counts_kernel")
 COIN_KERNELS = ("coin_flips_kernel", "weak_coin_flips_kernel")
+# Per-word loops that make up one pass of a kernel, where there is more
+# than one: the fused round walks its words once a phase.
+LOOPS = {"fused_round_kernel": 2, "fused_cluster_kernel": 2}
+FUSED_KERNELS = ("fused_round_kernel", "fused_cluster_kernel")
 
 # SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
 # named here count as "uniform".
@@ -145,29 +149,33 @@ def _ops(insns) -> dict:
     return ops
 
 
-def sections(insns) -> dict:
+def sections(insns, loops: int = 1) -> dict:
     """A function's instructions -> {"all", "body", "loop"}: all of them;
     those up to the first unpredicated EXIT (the slow paths of IEEE divide
-    and square root sit after it); and the span of the outermost backward
-    branch in the body (the per-word loop), if there is one."""
+    and square root sit after it); and the spans of the ``loops`` largest
+    outermost backward branches in the body (the per-word loops), if there
+    are any."""
     body = insns
     for i, (_, op, _, pred) in enumerate(insns):
         if op == "EXIT" and not pred:
             body = insns[:i + 1]
             break
-    loop = None
+    spans = []
     for addr, op, args, _ in body:
         if op != "BRA":
             continue
         m = re.search(r"0x([0-9a-f]+)", args)
         if not m or int(m.group(1), 16) >= addr:
             continue
-        lo, hi = int(m.group(1), 16), addr
-        if loop is None or hi - lo > loop[1] - loop[0]:
-            loop = (lo, hi)
+        spans.append((int(m.group(1), 16), addr))
+    outer = [a for a in spans
+             if not any(b != a and b[0] <= a[0] and a[1] <= b[1]
+                        for b in spans)]
+    outer = sorted(outer, key=lambda sp: sp[0] - sp[1])[:loops]
     out = {"all": insns, "body": body}
-    if loop:
-        out["loop"] = [x for x in body if loop[0] <= x[0] <= loop[1]]
+    if outer:
+        out["loop"] = [x for x in body
+                       if any(lo <= x[0] <= hi for lo, hi in outer)]
     return out
 
 
@@ -202,7 +210,7 @@ def resource_report(src: Path, out_dir: Path,
         if not keys or not fkeys:
             continue
         info = dict(ptxas[keys[0]])
-        secs = sections(sass[fkeys[0]])
+        secs = sections(sass[fkeys[0]], LOOPS.get(name, 1))
         info["sass"] = {s: _mix(v) for s, v in secs.items()}
         # one pass: the per-word or per-node loop where the kernel has
         # one, else the body
@@ -223,12 +231,15 @@ def pipe_floors(mix_ops: dict, passes: float, sms: int,
 
 
 def print_resources(tag: str, resources: dict, lanes: int, sms: int,
-                    mhz: float, lanes_a_pass: int = 1):
-    """The step-1 lines of one checkout (``resource_report``'s dict):
-    resources and SASS classes of each kernel, and the pipe floors of each
-    kernel but the fused one for ``lanes`` lanes at ``mhz``, a pass of a
-    coin kernel's loop taking ``lanes_a_pass`` lanes (the checkout's
-    ``hist.COIN_NODES``)."""
+                    mhz: float, lanes_a_pass: int = 1,
+                    latency_ms: float | None = None):
+    """The step-1 lines of one checkout (``resource_report``'s dict, or
+    some of its kernels): resources and SASS classes of each kernel, and
+    its pipe floors for ``lanes`` lanes at ``mhz``, a pass of a coin
+    kernel's loop taking ``lanes_a_pass`` lanes (the checkout's
+    ``hist.COIN_NODES``; a pass of the fused round is one word through both
+    phases).  ``latency_ms``, the latency probe's measured time, is
+    printed beside the floors."""
     for name, info in resources.items():
         print(f"[ptxas] {tag} {name}: {info.get('registers')} registers, "
               f"spill stores {info.get('spill_stores')} B, spill loads "
@@ -237,12 +248,13 @@ def print_resources(tag: str, resources: dict, lanes: int, sms: int,
         for sec, mix in info["sass"].items():
             print(f"[sass] {tag} {name} {sec}: "
                   + ", ".join(f"{k} {v}" for k, v in sorted(mix.items())))
-        if name == "fused_round_kernel":    # runs at N <= 8192, not here
-            continue
         per = lanes_a_pass if name in COIN_KERNELS else 1
         floors = pipe_floors(info["ops"], lanes / per, sms, mhz)
         top = sorted(info["ops"].items(), key=lambda kv: -kv[1])[:16]
+        probe = ("" if latency_ms is None
+                 else f"; latency probe {latency_ms:.4f} ms")
         print(f"[pipes] {tag} {name} at {mhz:.0f} MHz, {sms} SMs, {lanes} "
               f"lanes, {per} a pass: " + ", ".join(f"{p} {v:.4f} ms"
                                      for p, v in floors.items())
-              + "; top opcodes " + ", ".join(f"{k} {v}" for k, v in top))
+              + "; top opcodes " + ", ".join(f"{k} {v}" for k, v in top)
+              + probe)

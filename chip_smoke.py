@@ -10,8 +10,8 @@ Phases (any failure ends the run non-zero; nothing is caught):
      parallel);
   2. each kernel against its plain torch version on the card, on the same
      CUDA tensors, at the main path's shapes (N = 1,000,000 x 32 trials;
-     N = 8192 x 32 for the fused round kernel; the dense tally at
-     N = 2048 x 32, at bench.py's 2048 x 8 fixture and at a ragged
+     the fused round kernel at each shape of FUSED_FAMILY; the dense
+     tally at N = 2048 x 32, at bench.py's 2048 x 8 fixture and at a ragged
      R = 1000, S = 2047): every count, coin and plane word must be equal;
      three repeats of the mean over 20 launches, the bound (the
      operations this run's inputs need, with the whole-draw count beside
@@ -29,15 +29,23 @@ Phases (any failure ends the run non-zero; nothing is caught):
      shared memory, SASS mix and pipe floors at the measured clocks.sm of
      the round kernels, of the counts kernels and of the coins
      (benor_tpu_torch/ops/sass.py);
-  3. dispatch identity: the fused kernel == proposal + sum + vote, bit for
-     bit, at N = 8192 x 32;
+  3. the fused round at each shape of its family (N = 8192 at T = 32, 8
+     and 1; T x Np = 2^18 at N = 1024 and 512; the upstream N = 10 x 1,
+     its latency probe): the kernel == its plain version == proposal + sum
+     + vote (the dispatch's other route), bit for bit; its cluster grid
+     (C blocks of W warps a trial, packed_round.fused_grid) printed; the
+     kernel, the fused wrapper and the two-kernel route timed side by
+     side, as every kernel is and queued (``cuda_ms``);
+     its registers, SASS and pipe floors at N = 8192 x 32 with the probe's
+     time beside them;
   4. small runs on the card against the same runs on the CPU (plain
      versions), packed, unfused and dense: every trial equal;
   5. the packed main path: ``simulate``'s loop over bench.py's N = 1M
-     rounds-vs-f regimes (32 trials, max_rounds = 64), then one N = 8192
-     run that takes the fused kernel, with the round kernels' launch counts
-     read around it; then each regime's init_state / run_consensus split
-     and one profiled run;
+     rounds-vs-f regimes (32 trials, max_rounds = 64), then two N = 8192
+     runs that take the fused kernel, at 32 trials and at one (one fused
+     launch a round, no other round kernel), with the round kernels'
+     launch counts read around them; then each run's init_state /
+     run_consensus split and one profiled run;
   6. the unfused path (use_pallas_round=False) at N = 1M x 32: the same six
      regimes, each equal to its packed run in rounds, x, decided, k and
      killed, then the uniform equivocate regime and the weak-common and
@@ -78,7 +86,19 @@ FRACS = (0.10, 0.25, 0.35, 0.40, 0.45)
 SEED = 0
 ROUND = 3                 # the round whose stream keys the fixtures use
 TIMED_LAUNCHES = 20
+# ~10 ms at the H100's 1980 MHz: longer than the host takes to queue
+# TIMED_LAUNCHES calls of any timed function here (cuda_ms(queued=True))
+LEAD_CYCLES = 20_000_000
+# the fused round's shape family (T, N): its cap N = 8192 at T = 32, 8 and
+# 1; T x Np = 2^18 at Np = 1024 and 512; the upstream default N = 10 (one
+# trial, padded to 512 nodes: the latency probe)
+FUSED_FAMILY = ((32, 8192), (8, 8192), (1, 8192), (256, 1024), (512, 512),
+                (1, 10))
 MODES = dict(fault_model="crash", freeze=True)
+# the packed main path's settings but N and F (bench.py's regimes)
+MAIN_RUN = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
+                scheduler="uniform", path="histogram", fault_model="crash",
+                seed=SEED, use_pallas_hist=True, use_pallas_round=True)
 
 # The bound: peaks of one H100 SXM (NVIDIA's data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -230,14 +250,20 @@ def clock_during(fn, seconds: float = 1.0) -> float:
     return seen.get("mhz", float("nan"))
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean device time of ``fn`` over ``n`` calls, after 3 warm-up calls."""
+def cuda_ms(fn, n: int, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``n`` calls, after 3 warm-up calls.
+    A call of a few microseconds can be held to the host's pace of
+    launching; ``queued``: the card first sleeps for LEAD_CYCLES, so the
+    host has queued the ``n`` calls before the first runs, and the time is
+    the device's alone."""
     import torch
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -268,9 +294,9 @@ def random_pack(cfg, device, seed):
     return pack, sent_hist_from_pack(cfg, pack)
 
 
-def repeats(fn, n: int = 3) -> list[float]:
-    """``n`` repeats of ``cuda_ms(fn, TIMED_LAUNCHES)``."""
-    return [cuda_ms(fn, TIMED_LAUNCHES) for _ in range(n)]
+def repeats(fn, n: int = 3, queued: bool = False) -> list[float]:
+    """``n`` repeats of ``cuda_ms(fn, TIMED_LAUNCHES, queued)``."""
+    return [cuda_ms(fn, TIMED_LAUNCHES, queued) for _ in range(n)]
 
 
 def median(xs):
@@ -458,6 +484,112 @@ def round_pair(tag, lib, cfg, pack, hist1, hist2=None, qok=None) -> dict:
                     SEED, r, rng.PHASE_PROPOSAL, hist1, pack, m, **MODES),
                     lambda: pr.vote_commit_plain(
                     SEED, r, rng.PHASE_VOTE, hist2, pack, qok, **vote)))
+
+
+def fused_shape(lib, trials, n, device) -> dict:
+    """fused_round on a random_pack fixture of ``trials`` x ``n`` against
+    its plain version and against the two-kernel route (proposal_hist, the
+    node-axis sum and the quorum gate, vote_commit: packed_round's other
+    branch), bit for bit, then three timed repeats each of the kernel's
+    launch alone, of the fused wrapper and of the two-kernel route, each
+    timed as every kernel is and queued (``cuda_ms``) -> dict: res (the
+    kernel's compare result), ms (the repeats by name, the queued ones
+    under "<name>_queued"), cfg, pack, hist, out (the plain version's
+    outputs), kernel (the launch), lanes, n_w."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.launch import count_vecs
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+
+    cfg = main_cfg().replace(n_nodes=n, n_faulty=n // 4, trials=trials)
+    m, r = cfg.quorum, ROUND
+    pack, hist = random_pack(cfg, device, SEED + 1)
+    lanes = trials * pack.shape[2] * 32
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference", **MODES)
+
+    def fused():
+        return pr.fused_round(SEED, r, hist, pack, **vote)
+
+    def two_kernel():
+        parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist, pack, m,
+                                   **MODES)
+        new_pack, parts_b = pr.vote_commit(SEED, r, rng.PHASE_VOTE,
+                                           parts_a[:, :3], pack,
+                                           parts_a[:, 3] >= m, **vote)
+        return new_pack, parts_a, parts_b
+
+    out_k = fused()
+    out_p = pr.fused_round_plain(SEED, r, hist, pack, **vote)
+    out_2 = two_kernel()
+    torch.cuda.synchronize()
+    tag = f"T={trials} N={n}"
+    res = compare(f"fused_round {tag}", lanes, list(zip(out_k, out_p)))
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_2))
+    print(f"[dispatch] fused_round vs proposal_hist + sum + vote_commit at "
+          f"{tag}: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit(f"fused and two-kernel rounds differ at {tag}")
+    keys = [stream_scal(SEED, r, s) for s in (rng.PHASE_PROPOSAL,
+                                              rng.PHASE_VOTE, _COIN_SALT)]
+    hist_f = count_vecs(hist)
+
+    # trees from before the cluster kernel (round_stats.py --base) take
+    # no grid
+    grid = ((pr.fused_grid(lib, pack.shape[2], trials, device),)
+            if hasattr(pr, "fused_grid") else ())
+
+    def kernel():
+        return pr._launch_fused_round(lib, *keys, r + 1, hist_f, pack, m,
+                                      cfg.n_faulty, "reference", "crash",
+                                      True, *grid)
+
+    ms = {}
+    for name, fn in (("kernel", kernel), ("fused", fused),
+                     ("two_kernel", two_kernel)):
+        ms[name] = repeats(fn)
+        ms[f"{name}_queued"] = repeats(fn, queued=True)
+    return dict(res=res, ms=ms, cfg=cfg, pack=pack, hist=hist, out=out_p,
+                kernel=kernel, lanes=lanes, n_w=pack.shape[2])
+
+
+def fused_family(lib, device) -> dict:
+    """fused_shape at every shape of FUSED_FAMILY -> {(T, N): its dict},
+    each shape's times printed on a [time] line, timed as every kernel is
+    and queued (the device's time alone)."""
+    out = {}
+    for t, n in FUSED_FAMILY:
+        f = out[(t, n)] = fused_shape(lib, t, n, device)
+        ms = {k: median(v) for k, v in f["ms"].items()}
+        line = []
+        for how, sfx in (("timed", ""), ("queued", "_queued")):
+            k, w, r = (ms[f"kernel{sfx}"], ms[f"fused{sfx}"],
+                       ms[f"two_kernel{sfx}"])
+            line.append(f"{how}: kernel {f['ms']['kernel' + sfx]} ms "
+                        f"(median {k:.4f}), fused wrapper {w:.4f} ms beside "
+                        f"the two-kernel route {r:.4f} ms ({w / r:.3f}x)")
+        print(f"[time] fused_round T={t} N={n} (route: proposal_hist + sum "
+              f"+ vote_commit): " + "; ".join(line))
+    return out
+
+
+def fused_run_cases(base: dict, device) -> list:
+    """The packed main path's runs that take the fused kernel: its cap
+    N = 8192 at 32 trials and at one, balanced inputs, f = 0.25, no
+    crashes, the other settings ``base`` -> [(name, cfg, inputs,
+    faults)]."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    out = []
+    for t in (TRIALS, 1):
+        c = SimConfig(n_nodes=N_FUSED, n_faulty=N_FUSED // 4,
+                      **{**base, "trials": t})
+        out.append((f"balanced_f0.25_n{N_FUSED}_t{t}", c,
+                    balanced_inputs(t, N_FUSED),
+                    FaultSpec.none(t, N_FUSED, device=device)))
+    return out
 
 
 def edge_hists(n: int, m: int, trials: int, device):
@@ -796,10 +928,8 @@ def main() -> int:
     from benor_tpu_torch.ops import hist as hk
     from benor_tpu_torch.ops import packed_round as pr
     from benor_tpu_torch.ops import sampling
-    from benor_tpu_torch.ops.launch import count_vecs
     from benor_tpu_torch.ops import sass
-    from benor_tpu_torch.ops.stream import (_COIN_SALT, _EQUIV_SALT_OFFSET,
-                                            stream_scal)
+    from benor_tpu_torch.ops.stream import _EQUIV_SALT_OFFSET, stream_scal
     from benor_tpu_torch.sim import run_consensus
     from benor_tpu_torch.state import PACK_K, FaultSpec, init_state
     from benor_tpu_torch.sweep import balanced_inputs, random_inputs
@@ -857,7 +987,6 @@ def main() -> int:
     k_planes = planes - PACK_K
     pkey = stream_scal(SEED, r, rng.PHASE_PROPOSAL)
     vkey = stream_scal(SEED, r, rng.PHASE_VOTE)
-    ckey = stream_scal(SEED, r, _COIN_SALT)
     modes = MODES
     pack_bytes = pack.numel() * 4
 
@@ -888,10 +1017,11 @@ def main() -> int:
     # the SM clock read while the vote kernel runs
     mhz = clock_during(rnd["calls"]["vote_commit"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sass.print_resources(
-        "chip_smoke", sass.resource_report(_build.CSRC / "round_kernels.cu",
-                                           _build.BUILD_DIR),
-        lanes, sms, mhz)
+    round_res = sass.resource_report(_build.CSRC / "round_kernels.cu",
+                                     _build.BUILD_DIR)
+    fused_res = {k: round_res.pop(k) for k in sass.FUSED_KERNELS
+                 if k in round_res}
+    sass.print_resources("chip_smoke", round_res, lanes, sms, mhz)
     print(f"[clock] clocks.sm {mhz:.0f} MHz while vote_commit ran")
 
     # two more fixtures at the same shape: one edge histogram a trial (both
@@ -910,22 +1040,28 @@ def main() -> int:
                qok=torch.arange(TRIALS, device=dev) % 4 != 3)
     del ipack, edge, rnd
 
-    fcfg = cfg.replace(n_nodes=N_FUSED, n_faulty=N_FUSED // 4)
+    # the fused round at every shape of its family (FUSED_FAMILY), each
+    # against its plain version and the two-kernel route and timed beside
+    # it, with its grid; N = 8192 x 32 gives the kernels line its numbers,
+    # N = 10 x 1 (one word a warp) the latency probe's time
+    family = fused_family(lib, dev)
+    fits = pr.fused_fits(lib, dev)
+    for (t_f, n_f), f in family.items():
+        c_f, w_f = pr.fused_grid(lib, f["n_w"], t_f, dev)
+        print(f"[grid] fused_round T={t_f} N={n_f}: {f['n_w']} words, C "
+              f"{c_f} blocks a cluster, {w_f} warps a block, "
+              f"{-(-f['n_w'] // (c_f * w_f))} words a warp, {t_f} clusters "
+              f"({c_f * t_f} blocks; {fits[(c_f, w_f)]} such clusters fit "
+              f"at once)")
+    print(f"[grid] fused_round clusters that fit at once by (C, W): {fits}")
+    cap = family[FUSED_FAMILY[0]]
+    fcfg, fpack, fhist, out_p = cap["cfg"], cap["pack"], cap["hist"], cap["out"]
     fm_ = fcfg.quorum
-    fpack, fhist = random_pack(fcfg, dev, SEED + 1)
     ft, fplanes, fn_w = fpack.shape
     flanes = ft * fn_w * 32
-    fvote = dict(m=fm_, n_faulty=fcfg.n_faulty, rule="reference", **modes)
-    out_k = pr.fused_round(SEED, r, fhist, fpack, **fvote)
-    out_p = pr.fused_round_plain(SEED, r, fhist, fpack, **fvote)
-    torch.cuda.synchronize()
-    res = compare("fused_round", flanes, list(zip(out_k, out_p)))
-    fhist_f = count_vecs(fhist)
-    fargs = (pkey, vkey, ckey, r + 1, fhist_f, fpack, fm_, fcfg.n_faulty,
-             "reference", "crash", True)
-    ms = repeats(lambda: pr._launch_fused_round(lib, *fargs))
     plain = cuda_ms(lambda: pr.fused_round_plain(
-        SEED, r, fhist, fpack, **fvote), TIMED_LAUNCHES)
+        SEED, r, fhist, fpack, m=fm_, n_faulty=fcfg.n_faulty,
+        rule="reference", **modes), TIMED_LAUNCHES)
     fneeds = lane_needs(fpack, (pkey, vkey), fm_, (fhist, out_p[1][:, :3]),
                         True, out_p[1][:, 3] >= fm_, out_p[0])
     record("fused_round",
@@ -938,7 +1074,22 @@ def main() -> int:
                       coins=fneeds["coins"],
                       sizes=fneeds["proposal_sizes"]
                       + fneeds["vote_sizes"]),
-           flanes * ops_per_lane_whole("fused_round", fplanes), *res, ms, plain)
+           flanes * ops_per_lane_whole("fused_round", fplanes), *cap["res"],
+           cap["ms"]["kernel"], plain)
+    probe = family[(1, 10)]["ms"]
+    kernels["fused_round"].update(
+        two_kernel_ms=median(cap["ms"]["two_kernel"]),
+        fused_wrapper_ms=median(cap["ms"]["fused"]),
+        latency_probe_ms=median(probe["kernel"]),
+        queued_ms=median(cap["ms"]["kernel_queued"]),
+        two_kernel_queued_ms=median(cap["ms"]["two_kernel_queued"]),
+        fused_wrapper_queued_ms=median(cap["ms"]["fused_queued"]),
+        latency_probe_queued_ms=median(probe["kernel_queued"]))
+    mhz_f = clock_during(cap["kernel"])
+    sass.print_resources("chip_smoke", fused_res, flanes, sms, mhz_f,
+                         latency_ms=median(probe["kernel_queued"]))
+    print(f"[clock] clocks.sm {mhz_f:.0f} MHz while fused_round ran")
+    del family, cap, fpack, out_p
 
     # the counts kernels at N = 1M x 32 on three fixtures; the unfused
     # path's balanced operands give the kernels line its times
@@ -1052,19 +1203,6 @@ def main() -> int:
         del ops, got, want, via_bmm
     torch.cuda.empty_cache()
 
-    # --- 3. dispatch identity: fused == proposal + sum + vote -------------
-    parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, fhist, fpack,
-                               fm_, **modes)
-    two_pack, two_b = pr.vote_commit(SEED, r, rng.PHASE_VOTE,
-                                     parts_a[:, :3], fpack,
-                                     parts_a[:, 3] >= fm_, **fvote)
-    same = (torch.equal(out_k[0], two_pack) and torch.equal(out_k[1], parts_a)
-            and torch.equal(out_k[2], two_b))
-    print(f"[dispatch] fused_round vs proposal_hist + sum + vote_commit at "
-          f"N={N_FUSED} T={TRIALS}: {'bit-identical' if same else 'DIFFER'}")
-    if not same:
-        raise SystemExit("fused and two-kernel rounds differ")
-
     # --- 4. small runs on the card vs the same runs on the CPU ------------
     small = [
         ("packed f=0.45", dict(n_faulty=450, use_pallas_round=True), False),
@@ -1135,9 +1273,7 @@ def main() -> int:
             raise SystemExit(f"{tag}: card and CPU runs disagree")
 
     # --- 5. the packed main path ---------------------------------------------
-    base = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
-                scheduler="uniform", path="histogram", fault_model="crash",
-                seed=SEED, use_pallas_hist=True, use_pallas_round=True)
+    base = MAIN_RUN
     regimes = []
     f = int(0.2 * N_MAIN)
     cfg_iid = SimConfig(n_nodes=N_MAIN, n_faulty=f, **base)
@@ -1149,10 +1285,7 @@ def main() -> int:
         c = SimConfig(n_nodes=N_MAIN, n_faulty=int(frac * N_MAIN), **base)
         regimes.append((f"balanced_f{frac:.2f}", c, bal,
                         FaultSpec.none(TRIALS, N_MAIN, device=dev)))
-    c = SimConfig(n_nodes=N_FUSED, n_faulty=N_FUSED // 4, **base)
-    regimes.append((f"balanced_f0.25_n{N_FUSED}", c,
-                    balanced_inputs(TRIALS, N_FUSED),
-                    FaultSpec.none(TRIALS, N_FUSED, device=dev)))
+    fused_runs = fused_run_cases(base, dev)
     torch.cuda.synchronize()
 
     def drive(tag, name, c, vals, fl, agreement=True):
@@ -1183,11 +1316,19 @@ def main() -> int:
     hk.reset_launches()
     for name, c, vals, fl in regimes:
         packed_out[name] = drive("main", name, c, vals, fl)
+    for name, c, vals, fl in fused_runs:
+        before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+        rounds, _ = drive("main", name, c, vals, fl)
+        grown = {k: fn.launches - before[k] for k, fn in pr.KERNELS.items()}
+        print(f"[main] {name}: {rounds} rounds, launches {grown}")
+        if grown != {"proposal_hist": 0, "vote_commit": 0,
+                     "fused_round": rounds}:
+            raise SystemExit(f"{name}: not one fused_round launch a round")
     read_launches("main", pr.KERNELS)
 
     # where the time goes: state build vs the run, per regime
     t_runs = {}
-    for name, c, vals, fl in regimes:
+    for name, c, vals, fl in regimes + fused_runs:
         t0 = time.perf_counter()
         st = init_state(c, vals, fl)
         torch.cuda.synchronize()
@@ -1199,7 +1340,7 @@ def main() -> int:
         print(f"[split] {name}: init_state {t_init:.4f} s, run_consensus "
               f"{t_run:.4f} s ({rounds} rounds, {c.trials / t_run:.3f} "
               f"trials/s over run_consensus alone)")
-    name, c, vals, fl = regimes[-2]                      # balanced_f0.45
+    name, c, vals, fl = regimes[-1]                      # balanced_f0.45
     st = init_state(c, vals, fl)
     breakdown("main", name, lambda: run_consensus(c, st, fl), t_runs[name],
               tuple(pr.KERNELS))
@@ -1207,7 +1348,7 @@ def main() -> int:
 
     # --- 6. the unfused path at full width -----------------------------------
     unfused = [(name, c.replace(use_pallas_round=False), vals, fl)
-               for name, c, vals, fl in regimes[:-1]]
+               for name, c, vals, fl in regimes]
     eq = SimConfig(n_nodes=N_MAIN, n_faulty=int(0.2 * N_MAIN),
                    **{**base, "fault_model": "equivocate",
                       "use_pallas_round": False})
@@ -1248,7 +1389,7 @@ def main() -> int:
               f"run_consensus alone)")
         breakdown("unfused", name, lambda: run_consensus(c, st, fl), t_run,
                   tuple(hk.KERNELS))
-    del st, regimes, unfused, bal, vals, fl
+    del st, regimes, fused_runs, unfused, bal, vals, fl
     torch.cuda.empty_cache()
 
     # --- 7. the dense delivery path at full width --------------------------

@@ -63,7 +63,8 @@ def main() -> int:
             "reference", "crash", True),
         "fused_round": lambda lib: pr._launch_fused_round(
             lib, pkey, vkey, ckey, r + 1, fhist_f, fpack, fcfg.quorum,
-            fcfg.n_faulty, "reference", "crash", True),
+            fcfg.n_faulty, "reference", "crash", True,
+            pr.fused_grid(lib, fpack.shape[2], TRIALS, dev)),
     }
     out = {}
     for name, call in calls.items():
