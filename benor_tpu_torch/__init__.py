@@ -5,19 +5,28 @@ A port of ``benor_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 round kernels, the histogram samplers and the dense tally written by hand
 in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
 
-    from benor_tpu_torch import SimConfig, simulate
-    cfg = SimConfig(n_nodes=1_000_000, n_faulty=250_000, trials=32,
-                    delivery="quorum", scheduler="uniform",
-                    path="histogram", use_pallas_hist=True,
-                    use_pallas_round=True, max_rounds=64)
-    rounds, state, faults = simulate(cfg, initial_values)   # on CUDA
+    from benor_tpu_torch import SimConfig, simulate, observable_state
+    cfg = SimConfig(n_nodes=10, n_faulty=4, max_rounds=20)
+    rounds, final, faults = simulate(cfg, [1] * 10, [True] * 4 + [False] * 6)
+    observable_state(cfg, final, faults, 5)    # the reference's /getState
+
+    from benor_tpu_torch import launch_network   # launch / start / stop
+    net = launch_network(10, 4, [0, 0, 1, 1, 1, 0, 0, 1, 1, 1],
+                         [True] * 4 + [False] * 6)
+    net.start()
+    net.get_states()
+
+Both run on CUDA unless ``device="cpu"`` is passed.
 """
 
+from .api import launch_network
+from .backends import TpuNetwork
 from .config import SimConfig, VAL0, VAL1, VALQ
 from .sim import (resume_consensus, run_consensus, run_consensus_slice,
                   simulate)
-from .state import FaultSpec, NetState, init_state
+from .state import FaultSpec, NetState, init_state, observable_state
 
 __all__ = ["SimConfig", "VAL0", "VAL1", "VALQ", "FaultSpec", "NetState",
-           "init_state", "resume_consensus", "run_consensus",
-           "run_consensus_slice", "simulate"]
+           "TpuNetwork", "init_state", "launch_network", "observable_state",
+           "resume_consensus", "run_consensus", "run_consensus_slice",
+           "simulate"]

@@ -1,0 +1,145 @@
+"""The device-array network: the reference's observable contract over the
+port's [trials, N] tensors (port of benor_tpu/backends/tpu.py:32-310).
+
+``backend='tpu'`` is the ``SimConfig`` value that selects the device
+simulator in both packages; in this one it runs on the CUDA device (or on
+the CPU when the caller passes ``device="cpu"``).  The four HTTP routes of
+the reference's src/nodes/node.ts:
+
+  /status   -> status(i)        node.ts:33-39
+  /start    -> start()          node.ts:167-188 (+ consensus.ts:3-8 fan-out)
+  /stop     -> stop()           node.ts:191-194 (+ consensus.ts:10-15)
+  /getState -> get_state(i)     node.ts:197-199
+
+``start()`` runs the whole consensus to termination (or the round cap) in
+one call by default; ``SimConfig(poll_rounds=c)`` steps the loop in
+c-round slices instead, republishing ``self.state`` between slices, with a
+final state equal to the one-shot run's bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from .. import sim
+from ..config import VALQ, SimConfig, unported
+from ..models.benor import all_settled
+from ..state import FaultSpec, NetState, init_state, observable_state
+
+
+class TpuNetwork:
+    """One simulated network (all trials of it) behind the parity API."""
+
+    def __init__(self, cfg: SimConfig, initial_values, faulty_list,
+                 crash_rounds=None, device=None,
+                 heartbeat_path: Optional[str] = None):
+        # Validation order and messages mirror launchNodes.ts:10-13.
+        if len(initial_values) != len(faulty_list) or \
+                cfg.n_nodes != len(initial_values):
+            raise ValueError("Arrays don't match")
+        if cfg.heartbeat_rounds or heartbeat_path is not None:
+            unported("heartbeat_rounds / heartbeat_path (the live-progress "
+                     "heartbeat)", "16")
+        sim.check_supported(cfg)
+        self.cfg = cfg
+        dev = sim.resolve_device(device)
+        self.faults = FaultSpec.from_faulty_list(cfg, faulty_list,
+                                                 crash_rounds, device=dev)
+        self.state: NetState = init_state(cfg, initial_values, self.faults)
+        self._started = False
+        self.rounds_executed = 0
+
+    # -- /status (node.ts:33-39) ----------------------------------------
+    def status(self, node_id: int, trial: int = 0):
+        """Returns (body, http_code): ("faulty", 500) | ("live", 200)."""
+        killed = bool(self.state.killed[trial, node_id].item())
+        return ("faulty", 500) if killed else ("live", 200)
+
+    # -- /start (consensus.ts:3-8 -> node.ts:167-188) --------------------
+    def start(self, on_slice=None) -> None:
+        """Run consensus to termination (or the round cap).
+
+        With ``cfg.poll_rounds > 0`` the loop runs in slices of that many
+        rounds and ``self.state`` is republished after every slice (k = 1
+        visible first), so a reader observes a live, still-undecided
+        network with growing k (benorconsensus.test.ts:149-160).
+        ``on_slice`` (optional callable, no arguments) fires after each
+        publish.  Final state and ``rounds_executed`` equal the one-shot
+        run's."""
+        if self._started:
+            return
+        if on_slice is not None and not self.cfg.poll_rounds > 0:
+            raise ValueError(
+                "start(on_slice=...) requires SimConfig(poll_rounds > 0); "
+                "this config runs one uninterrupted loop")
+        if self.cfg.poll_rounds > 0:
+            state = sim.start_state(self.cfg, self.state)
+            self.state = state               # k=1 visible (node.ts:172)
+            r = 1
+            while True:
+                r_next, state = sim.run_consensus_slice(
+                    self.cfg, state, self.faults, r,
+                    r + self.cfg.poll_rounds)
+                self.state = state           # publish the live snapshot
+                if on_slice is not None:
+                    on_slice()
+                if (r_next == r or r_next > self.cfg.max_rounds
+                        or bool(all_settled(state))):
+                    break
+                r = r_next
+            self.rounds_executed = r_next - 1
+        else:
+            self.rounds_executed, self.state = sim.run_consensus(
+                self.cfg, self.state, self.faults)
+        self._started = True
+
+    # -- /stop (consensus.ts:10-15 -> node.ts:191-194) -------------------
+    def stop(self) -> None:
+        self.state = NetState(
+            x=self.state.x, decided=self.state.decided, k=self.state.k,
+            killed=torch.ones_like(self.state.killed))
+
+    def stop_node(self, node_id: int) -> None:
+        """Single node's /stop route (node.ts:191-194), all trials."""
+        killed = self.state.killed.clone()
+        killed[:, node_id] = True
+        self.state = NetState(x=self.state.x, decided=self.state.decided,
+                              k=self.state.k, killed=killed)
+
+    # -- /getState (node.ts:197-199) -------------------------------------
+    def get_state(self, node_id: int, trial: int = 0) -> dict:
+        return observable_state(self.cfg, self.state, self.faults,
+                                node_id, trial)
+
+    def get_states(self, trial: int = 0) -> List[dict]:
+        """Every node's /getState: one device-to-host copy per array, then
+        N dict builds."""
+        x = self.state.x[trial].tolist()
+        decided = self.state.decided[trial].tolist()
+        k = self.state.k[trial].tolist()
+        killed = self.state.killed[trial].tolist()
+        birth_faulty = (self.faults.faulty[trial].tolist()
+                        if self.cfg.fault_model == "crash"
+                        else [False] * self.cfg.n_nodes)
+        out = []
+        for i in range(self.cfg.n_nodes):
+            if birth_faulty[i]:
+                out.append({"killed": True, "x": None, "decided": None,
+                            "k": None})
+            else:
+                out.append({"killed": killed[i],
+                            "x": "?" if x[i] == VALQ else x[i],
+                            "decided": decided[i], "k": k[i]})
+        return out
+
+    # -- what the port does not serve yet --------------------------------
+    def get_round_history(self, since_round: Optional[int] = None):
+        unported("get_round_history (the flight recorder)", "11")
+
+    def get_witness(self):
+        unported("get_witness (the witness recorder)", "11")
+
+    def close(self) -> None:
+        pass

@@ -6,10 +6,14 @@ proposal phase (tallies -> majority, tie -> "?"), the vote phase (tallies
 -> decide when a count exceeds F, plurality-adopt under the reference
 rule, else the coin) and the commit — the reference node's ``/message``
 handler, lane-vectorised with ``torch.where``.  Every tally comes from
-``tally.receiver_counts`` (the dense path's masks and exact tally, or the
-fused samplers of ops/hist.py) and every coin from ops/hist.py or the
-``fold_in`` chain of ops/rng.py, on the streams the JAX package draws, so
-a run equals the JAX run bit for bit.
+``tally.receiver_counts`` (the broadcast histogram of ``delivery='all'``,
+the dense path's masks and exact tally, or the fused samplers of
+ops/hist.py) and every coin from ops/hist.py or the ``fold_in`` chain of
+ops/rng.py, on the streams the JAX package draws, so a run equals the JAX
+run bit for bit (the ``delivery='all'`` equivocator split up to the
+differing fraction ops/sampling.py states).  The counts are only read
+here: under ``delivery='all'`` they are an expanded view of a [T, 3]
+histogram.
 
 The slice serves fault_model ``crash``, ``byzantine`` and ``equivocate``;
 ``crash_at_round``, ``crash_recover``, the recorder, the witness and

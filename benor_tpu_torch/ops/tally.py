@@ -2,12 +2,14 @@
 benor_tpu/ops/tally.py:26-147, 150-375).
 
 The gates are kept verbatim so the port dispatches exactly where the JAX
-package does.  ``receiver_counts`` serves two regimes: the dense path under
-quorum delivery (uniform or biased scheduler) or per-edge omission — an
-explicit [T, N, N] mask from ops/scheduler.py, tallied exactly by
-ops/dense.py — and the uniform-scheduler CF regime of the histogram path,
-the fused samplers of ops/hist.py.  Every other branch raises
-``NotImplementedError`` naming its ROADMAP item.
+package does.  ``receiver_counts`` serves three regimes: ``delivery='all'``
+without omission — every receiver tallies the trial's class histogram (plus
+a Binomial(n_equiv, 1/2) split of the live equivocators), on either path —
+the dense path under quorum delivery (uniform or biased scheduler) or
+per-edge omission — an explicit [T, N, N] mask from ops/scheduler.py,
+tallied exactly by ops/dense.py — and the uniform-scheduler CF regime of
+the histogram path, the fused samplers of ops/hist.py.  Every other branch
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -109,11 +111,9 @@ def unfused_gap(cfg: SimConfig):
     if cfg.partition is not None:
         return "partition delivery", "13"
     if cfg.delivery == "all":
-        if cfg.drop_prob and cfg.resolved_path == "dense":
-            return None
-        if cfg.drop_prob:
+        if cfg.drop_prob and cfg.resolved_path != "dense":
             return "drop_prob on the histogram path (binomial thinning)", "13"
-        return "delivery='all' (the broadcast histogram)", "4"
+        return None
     if cfg.scheduler in ("adversarial", "targeted"):
         return f"scheduler={cfg.scheduler!r} (closed-form counts)", "8"
     if cfg.resolved_path == "dense":
@@ -125,6 +125,29 @@ def unfused_gap(cfg: SimConfig):
         return ("the XLA samplers (use_pallas_hist=False, or a quorum "
                 "within EXACT_TABLE_MAX)"), "4"
     return None
+
+
+def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
+                      trial_ids, recv_ids):
+    """``delivery='all'``: every receiver tallies every live sender, so its
+    counts are the trial's histogram over honest live senders — returned
+    as an expanded [T, N, 3] view of the [T, 3] histogram, never
+    materialised (callers only read it).  Live equivocators add a
+    Binomial(n_equiv, 1/2) class split per receiver: the exact shared table
+    while ``cfg.n_faulty`` is tabulable, else the normal quantile."""
+    t, n = sent.shape
+    counts = class_histogram(sent, honest)[:, None, :].expand(t, n, 3)
+    if equiv is None:
+        return counts
+    trial_ids, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
+                                                sent.device)
+    u = rng.grid_uniforms(seed, r, phase + 32, trial_ids, recv_ids)
+    if cfg.n_faulty <= sampling.EXACT_TABLE_MAX:
+        b1 = sampling.binomial_half_exact_shared(u, n_equiv, cfg.n_faulty)
+    else:
+        b1 = sampling.binomial_half(u, n_equiv[:, None])
+    b0 = n_equiv[:, None] - b1
+    return counts + torch.stack([b0, b1, torch.zeros_like(b1)], dim=-1)
 
 
 def _dense_receiver_counts(cfg, seed, r, phase, sent, alive, honest, equiv,
@@ -172,7 +195,8 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
     senders, whose slot in ``sent`` is ignored; ``n_equiv`` (int32 [T]) is
     their live count, hoisted by the caller once per round (the histogram
     path reads it).  ``trial_ids`` / ``recv_ids``: the global ids that key
-    the dense path's per-edge streams (default 0..T-1 / 0..N-1)."""
+    the dense path's per-edge streams and the equivocator split's lane
+    streams (default 0..T-1 / 0..N-1)."""
     gap = unfused_gap(cfg)
     if gap is not None:
         unported(*gap)
@@ -184,6 +208,9 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
 
     if equiv is not None and n_equiv is None:
         n_equiv = (equiv & alive).sum(-1, dtype=torch.int32)
+    if cfg.delivery == "all":
+        return _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv,
+                                 n_equiv, trial_ids, recv_ids)
     hist = class_histogram(sent, honest)
     if equiv is not None:
         return hist_ops.equiv_counts(seed, r, phase, hist, n_equiv,

@@ -4,17 +4,22 @@ Two round loops, as in the JAX package: the packed loop
 (ops/packed_round.py, the fused round kernels) when
 ``tally.pallas_round_active`` — the uniform-scheduler CF regime of the
 histogram path, private coin, crash or byzantine faults — and the unfused
-loop (models/benor.py) otherwise, in two regimes.  On the histogram path it
-serves the same CF regime with the samplers and coins of ops/hist.py; on
-the dense path (``path='dense'``, or ``'auto'`` at N <= dense_path_max_n)
-it serves quorum delivery under the uniform and biased schedulers and
-per-edge omission (``delivery='all'`` with ``drop_prob``): explicit
-[T, N, N] delivery masks (ops/scheduler.py) tallied exactly (ops/dense.py).
-Both regimes take crash, byzantine or equivocate faults, private, common or
-weak-common coins, either decision rule, freeze on or off.  Every other
-regime raises ``NotImplementedError`` naming the ROADMAP item that will
-bring it; nothing falls back to another path.  Entry points
-run on the CUDA device unless the caller passes ``device="cpu"``.
+loop (models/benor.py) otherwise, in three regimes.  ``delivery='all'``
+(the JAX package's default; on either path, omission aside) tallies the
+broadcast histogram in plain torch, no kernel, as the JAX package does in
+plain XLA: the packed loop never serves it, whatever
+``use_pallas_round`` says.  On the histogram path the unfused loop serves
+the same CF regime as the packed loop with the samplers and coins of
+ops/hist.py; on the dense path (``path='dense'``, or ``'auto'`` at
+N <= dense_path_max_n) it serves quorum delivery under the uniform and
+biased schedulers and per-edge omission (``delivery='all'`` with
+``drop_prob``): explicit [T, N, N] delivery masks (ops/scheduler.py)
+tallied exactly (ops/dense.py).  All three take crash, byzantine or
+equivocate faults, private, common or weak-common coins, either decision
+rule, freeze on or off.  Every other regime raises
+``NotImplementedError`` naming the ROADMAP item that will bring it;
+nothing falls back to another path.  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

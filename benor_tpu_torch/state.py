@@ -199,3 +199,19 @@ def init_state(cfg: SimConfig, initial_values, faults: FaultSpec) -> NetState:
         k=torch.zeros(shape, dtype=torch.int32, device=device),
         killed=killed,
     )
+
+
+def observable_state(cfg: SimConfig, state: NetState, faults: FaultSpec,
+                     node_id: int, trial: int = 0) -> dict:
+    """The reference's ``/getState`` JSON for one node (node.ts:197-199;
+    port of benor_tpu/state.py:581-598) as plain Python values.
+    Birth-faulty crash nodes project to all-null (node.ts:21-26)."""
+    if cfg.fault_model == "crash" and bool(faults.faulty[trial, node_id]):
+        return {"killed": True, "x": None, "decided": None, "k": None}
+    x = int(state.x[trial, node_id].item())
+    return {
+        "killed": bool(state.killed[trial, node_id].item()),
+        "x": "?" if x == VALQ else x,
+        "decided": bool(state.decided[trial, node_id].item()),
+        "k": int(state.k[trial, node_id].item()),
+    }

@@ -56,7 +56,19 @@ Phases (any failure ends the run non-zero; nothing is caught):
      at strength 1.0 and the equivocate regime, with the dense tally's
      launch count read around it (2 a round); use_pallas on against off;
      one run timed part by part and one profiled run;
-  8. the kernels line, the card line, and the result line.
+  8. the facade and ``delivery='all'`` (the JAX package's default), plain
+     torch with no kernel: each scenario of tests/test_scenarios.py and
+     the upstream default launch through ``launch_network`` on the card
+     and on the CPU, state for state equal, the livelock scenario again
+     with ``poll_rounds=1`` equal to its one-shot run (``[api]``); the
+     equivocator split's card-against-CPU differences; the six regimes at
+     N = 1M x 32 with ``delivery='all'`` and equivocate at F = 4096 (the
+     exact table) and 200,000 (the quantile) on balanced inputs
+     (agreement) and all-1 inputs (validity), with no kernel launched,
+     the ``init_state`` / ``run_consensus`` split and two profiled runs;
+     crash at N = 65,536 x 32 and equivocate at N = 8192 x 8 (both
+     samplers) equal on the card and the CPU (``[all]``);
+  9. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -429,6 +441,124 @@ def main_cfg():
     from benor_tpu_torch import SimConfig
     return SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 4, trials=TRIALS,
                      max_rounds=MAX_ROUNDS)
+
+
+# the scenarios of tests/test_scenarios.py (the reference's integration-test
+# contract, benorconsensus.test.ts:45-492) and the upstream default launch:
+# (name, faulty list, initial values, SimConfig overrides)
+SCENARIOS = (
+    ("status_2_healthy_1_faulty", [True, False, False], [1, 1, 1], {}),
+    ("status_8_healthy_2_faulty",
+     [True, False, False, False, False, True, False, False, False, False],
+     [1] * 10, {}),
+    ("unanimous_agreement", [False] * 5, [1] * 5, {}),
+    ("simple_majority", [False, False, False, False, True], [1, 1, 1, 0, 0],
+     {}),
+    ("fault_tolerance_threshold", [True] * 4 + [False] * 5,
+     [0, 0, 1, 1, 1, 0, 0, 1, 1], {}),
+    ("exceeding_fault_tolerance_livelock", [True] * 5 + [False] * 5,
+     [0, 0, 1, 1, 1, 0, 0, 1, 1, 0], {"max_rounds": 15}),
+    ("no_faulty_nodes", [False] * 5, [0, 1, 0, 1, 1], {}),
+    ("randomized", [False, False, True, False, True, False, False],
+     None, {}),                  # values: default_rng(42), as the test draws
+    ("one_node", [False], [1], {}),
+    ("stop_consensus_kills_all", [False] * 3, [1, 1, 1], {}),
+    ("default_config", [True] * 4 + [False] * 6,
+     [0, 0, 1, 1, 1, 0, 0, 1, 1, 1], {}),
+)
+N_ALL_CPU = 65_536        # the 'all' path's card-vs-CPU run at scale
+N_ALL_SMALL = 8192        # ... and its equivocate card-vs-CPU runs (x 8)
+F_EQUIV_TABLE = 4096      # the largest F the exact shared table serves
+F_EQUIV_QUANTILE = 200_000
+
+
+def api_phase() -> None:
+    """The facade on the card: each scenario launched, started and read
+    through ``launch_network`` / ``start_consensus`` / ``get_nodes_state``,
+    held state for state against the same launch on the CPU; the livelock
+    scenario again with ``poll_rounds=1`` against its one-shot run."""
+    import numpy as np
+    from benor_tpu_torch import launch_network
+    from benor_tpu_torch.api import (get_nodes_state, reached_finality,
+                                     start_consensus, stop_consensus)
+
+    def run(faulty, values, device, **kw):
+        net = launch_network(len(faulty), sum(faulty), values, faulty,
+                             device=device, **kw)
+        start_consensus(net)
+        return net
+
+    for name, faulty, values, kw in SCENARIOS:
+        if values is None:
+            values = [int(v) for v in
+                      np.random.default_rng(42).integers(0, 2, size=7)]
+        nets = {d: run(faulty, values, d, **kw) for d in ("cuda", "cpu")}
+        if name.startswith("stop"):
+            for net in nets.values():
+                stop_consensus(net)
+        states = {d: get_nodes_state(net) for d, net in nets.items()}
+        same = (states["cuda"] == states["cpu"]
+                and nets["cuda"].rounds_executed
+                == nets["cpu"].rounds_executed
+                and trials_differing(nets["cuda"].state,
+                                     nets["cpu"].state) == 0)
+        live = [st for st, f in zip(states["cuda"], faulty) if not f]
+        if "livelock" in name:
+            verdict = not any(st["decided"] for st in live)
+        elif name.startswith("stop"):
+            verdict = all(st["killed"] for st in live)
+        else:
+            verdict = (reached_finality(states["cuda"])
+                       and len({st["x"] for st in live}) == 1)
+        print(f"[api] {name}: N={len(faulty)} F={sum(faulty)} rounds "
+              f"{nets['cuda'].rounds_executed}, card == cpu {same}, "
+              f"verdict held {verdict}")
+        if not (same and verdict):
+            raise SystemExit(f"[api] {name}: failed")
+    name, faulty, values, kw = next(sc for sc in SCENARIOS
+                                    if "livelock" in sc[0])
+    one = run(faulty, values, "cuda", **kw)
+    slices = []
+    polled = launch_network(len(faulty), sum(faulty), values, faulty,
+                            poll_rounds=1, **kw)
+    polled.start(on_slice=lambda: slices.append(polled.get_state(9)["k"]))
+    same = (get_nodes_state(polled) == get_nodes_state(one)
+            and polled.rounds_executed == one.rounds_executed
+            and trials_differing(polled.state, one.state) == 0)
+    print(f"[api] {name} poll_rounds=1: {len(slices)} slices, k seen "
+          f"{slices[0]}..{slices[-1]}, equal to one-shot {same}")
+    if not same or len(slices) != one.rounds_executed:
+        raise SystemExit("[api] poll_rounds run differs from one-shot")
+
+
+def split_compare(dev) -> None:
+    """The equivocator split on the card against the same call on the CPU,
+    on one round's uniforms at N = 1M x 4: the normal quantile
+    (differing values and their largest ulp distance), the quantile's
+    draws at F_EQUIV_QUANTILE and the exact table's at F_EQUIV_TABLE."""
+    import torch
+    from benor_tpu_torch.ops import rng, sampling
+    tid, nid = rng.ids(4, device=dev), rng.ids(N_MAIN, device=dev)
+    u = rng.grid_uniforms(SEED, 1, rng.PHASE_PROPOSAL + 32, tid, nid)
+    u_cpu = u.cpu()
+    p = torch.clamp(u, 1e-7, 1 - 1e-7)
+    z, z_cpu = sampling.ndtri(p).cpu(), sampling.ndtri(p.cpu())
+    ulps = (z.view(torch.int32).to(torch.int64)
+            - z_cpu.view(torch.int32).to(torch.int64)).abs()
+    n_q = torch.full((4, 1), F_EQUIV_QUANTILE, dtype=torch.int32)
+    n_t = torch.full((4,), F_EQUIV_TABLE, dtype=torch.int32)
+    d_q = int((sampling.binomial_half(u, n_q.to(dev)).cpu()
+               != sampling.binomial_half(u_cpu, n_q)).sum())
+    d_t = int((sampling.binomial_half_exact_shared(
+        u, n_t.to(dev), F_EQUIV_TABLE).cpu()
+        != sampling.binomial_half_exact_shared(u_cpu, n_t,
+                                               F_EQUIV_TABLE)).sum())
+    print(f"[all] split card vs cpu over {u.numel()} uniforms: ndtri "
+          f"differing {int((ulps > 0).sum())} (max {int(ulps.max())} ulp); "
+          f"binomial_half draws at n={F_EQUIV_QUANTILE} differing {d_q}; "
+          f"exact table draws at n={F_EQUIV_TABLE} differing {d_t}")
+    if d_t:
+        raise SystemExit("the exact table's draws differ card vs cpu")
 
 
 def round_pair(tag, lib, cfg, pack, hist1, hist2=None, qok=None) -> dict:
@@ -881,9 +1011,12 @@ def trials_differing(a, b) -> int:
     return int(diff.clamp(max=1).sum())
 
 
-def breakdown(tag, name, run, t_run, ours):
+def breakdown(tag, name, run, t_run, ours, torch_ops=False):
     """Profile one call of ``run`` -> a ``[breakdown]`` line: device busy
-    time, the share of the named kernels, and the top device entries."""
+    time, the share of the named kernels, and the top device entries;
+    with ``torch_ops``, also the torch ops whose kernels took the most
+    device time (a path of plain torch, where the kernels' names say
+    little)."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -908,6 +1041,13 @@ def breakdown(tag, name, run, t_run, ours):
                     f"{dev_us(e) / e.count / 1e3:.4f} ms a launch x{e.count}"
                     for e in evs if "_kernel(" in e.key
                     and any(k in e.key for k in ours))
+    if torch_ops:
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.key.startswith("aten::") and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+        top += "; top torch ops by their kernels' device time: " + ", ".join(
+            f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in ops[:10])
     print(f"[breakdown] {tag} {name}: profiled run_consensus: device busy "
           f"{busy_ms:.3f} ms (port kernels {ours_ms:.3f} ms: {per}) = "
           f"{busy_ms / 1e3 / t_run:.4f} of the unprofiled run_consensus; "
@@ -1487,7 +1627,116 @@ def main() -> int:
     breakdown("dense", name, lambda: run_consensus(c, st, fl), t_run,
               tuple(dk.KERNELS))
 
-    # --- 8. the kernels line, the card, the result -------------------------
+    # --- 8. the facade and delivery='all', the JAX package's default ---------
+    dk.reset_launches()
+    hk.reset_launches()
+    pr.reset_launches()
+    api_phase()
+    split_compare(dev)
+
+    abase = {**MAIN_RUN, "delivery": "all"}       # kernel switches on: unused
+    # (name, config, inputs, no faults: else the first F lanes faulty)
+    all_runs = [("iid_crash_f0.20",
+                 SimConfig(n_nodes=N_MAIN, n_faulty=N_MAIN // 5, **abase),
+                 random_inputs(SEED, TRIALS, N_MAIN), False)]
+    bal = balanced_inputs(TRIALS, N_MAIN)
+    all_runs += [(f"balanced_f{frac:.2f}",
+                  SimConfig(n_nodes=N_MAIN, n_faulty=int(frac * N_MAIN),
+                            **abase), bal, True)
+                 for frac in FRACS]
+    ones = np.ones((TRIALS, N_MAIN), np.int8)
+    for f_eq in (F_EQUIV_TABLE, F_EQUIV_QUANTILE):
+        c = SimConfig(n_nodes=N_MAIN, n_faulty=f_eq,
+                      **{**abase, "fault_model": "equivocate"})
+        all_runs.append((f"equiv_balanced_F{f_eq}", c, bal, False))
+        all_runs.append((f"equiv_ones_F{f_eq}", c, ones, False))
+
+    def all_faults(c, none):
+        return (FaultSpec.none(TRIALS, N_MAIN, device=dev) if none
+                else FaultSpec.first_f(c, device=dev))
+
+    for name, c, vals, none in all_runs:
+        assert not tally.pallas_round_active(c)
+        rounds, fin = drive("all", name, c, vals, all_faults(c, none))
+        if name.startswith("equiv_ones"):
+            # validity: every honest lane starts at 1, so 1 is decided
+            if not bool((fin.decided & (fin.x != 1)).sum() == 0):
+                raise SystemExit(f"{name}: validity violated")
+            print(f"[all] {name}: validity held (every decided lane holds 1)")
+        del fin
+    launched = {k: fn.launches for k, fn in (*dk.KERNELS.items(),
+                                             *hk.KERNELS.items(),
+                                             *pr.KERNELS.items())}
+    print(f"[all] kernel launches on the facade and 'all' runs: {launched}")
+    if any(launched.values()):
+        raise SystemExit("a kernel launched on the delivery='all' path")
+
+    # where the time goes: state build vs the run, then one profiled run
+    t_all = {}
+    for name, c, vals, none in all_runs:
+        fl = all_faults(c, none)
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rounds, _ = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_all[name] = time.perf_counter() - t0
+        print(f"[all] split {name}: init_state {t_init:.4f} s, run_consensus "
+              f"{t_run:.4f} s ({rounds} rounds, {c.trials / t_run:.3f} "
+              f"trials/s over run_consensus alone)")
+    for name, c, vals, none in (all_runs[5], all_runs[-2]):
+        fl = all_faults(c, none)
+        st = init_state(c, vals, fl)
+        breakdown("all", name, lambda: run_consensus(c, st, fl), t_all[name],
+                  (), torch_ops=True)
+    del st, fl, all_runs, bal, ones
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: crash at N = 65,536 x 32 (iid inputs with
+    # F crashed from birth; balanced inputs, which tie round 1 and take the
+    # coin), and equivocate at N = 8192 x 8 by both split samplers (the
+    # exact table at F = 0.2 N, the normal quantile with EXACT_TABLE_MAX
+    # lowered below F)
+    n_c = N_ALL_CPU
+    cmp_runs = [
+        ("iid_crash_f0.20", SimConfig(n_nodes=n_c, n_faulty=n_c // 5,
+                                      **abase),
+         random_inputs(SEED, TRIALS, n_c), False, None),
+        ("balanced_f0.45", SimConfig(n_nodes=n_c, n_faulty=int(0.45 * n_c),
+                                     **abase),
+         balanced_inputs(TRIALS, n_c), True, None),
+    ]
+    ce = SimConfig(n_nodes=N_ALL_SMALL, n_faulty=N_ALL_SMALL // 5,
+                   **{**abase, "trials": 8, "fault_model": "equivocate"})
+    cmp_runs += [("equiv_table", ce, balanced_inputs(8, N_ALL_SMALL), False,
+                  None),
+                 ("equiv_quantile", ce, balanced_inputs(8, N_ALL_SMALL),
+                  False, 1000)]
+    old = sampling.EXACT_TABLE_MAX
+    for name, c, vals, none, table_max in cmp_runs:
+        sampling.EXACT_TABLE_MAX = table_max or old
+        try:
+            outs = {}
+            for d in ("cuda", "cpu"):
+                fl = (FaultSpec.none(c.trials, c.n_nodes, device=d) if none
+                      else FaultSpec.first_f(c, device=d))
+                t0 = time.perf_counter()
+                rr, fin = run_consensus(c, init_state(c, vals, fl), fl)
+                check_final(c, rr, fin)
+                outs[d] = (rr, fin, time.perf_counter() - t0)
+        finally:
+            sampling.EXACT_TABLE_MAX = old
+        (rg, fg, tg), (rc, fc, tc) = outs["cuda"], outs["cpu"]
+        diff = trials_differing(fg, fc)
+        print(f"[all] card vs cpu {name} N={c.n_nodes} F={c.n_faulty} "
+              f"T={c.trials}: rounds cuda {rg} cpu {rc}, trials differing "
+              f"{diff} of {c.trials} (cpu {tc:.2f} s, card {tg:.3f} s)")
+        if rg != rc or diff:
+            raise SystemExit(f"[all] {name}: card and CPU runs disagree")
+
+    # --- 9. the kernels line, the card, the result -------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

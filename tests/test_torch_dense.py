@@ -240,7 +240,8 @@ def test_dense_cpu_run_launches_no_kernel():
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="adversarial"), "8"),
     (dict(scheduler="targeted"), "8"),
-    (dict(delivery="all"), "4"),
+    (dict(delivery="all", committee_cap=4, committee_count=2,
+          committee_size=8), "13"),
     (dict(delivery="all", drop_prob=0.2, path="histogram"), "13"),
     (dict(scheduler="biased", adversary_strength=1.0, path="histogram"),
      "4"),

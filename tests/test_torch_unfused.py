@@ -175,7 +175,7 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     (dict(scheduler="adversarial"), "8"),
     (dict(scheduler="biased", adversary_strength=0.5), "4"),
     (dict(scheduler="biased", adversary_strength=1.0), "4"),
-    (dict(delivery="all"), "4"),
+    (dict(delivery="all", drop_prob=0.2), "13"),   # binomial thinning
     (dict(fault_model="crash_at_round"), "8"),
     (dict(use_pallas_hist=False), "4"),
     (dict(n_faulty=93), "4"),                  # quorum 3: the exact table
