@@ -5,9 +5,38 @@
 //   vote_commit_kernel   <- _vote_commit_kernel  (vote_commit_pallas)
 //   fused_round_kernel   <- _fused_round_kernel  (fused_round_pallas),
 //   fused_cluster_kernel    its cluster form (the same body)
-// in the 'sampled' counts regime with private coins, crash or byzantine
-// faults, either decision rule, freeze on or off.  Their plain torch
-// versions live beside the wrappers in ops/packed_round.py.
+// in every counts regime, coin and fault model the JAX package's packed
+// round serves but crash_at_round / crash_recover: either decision rule,
+// freeze on or off.  Their plain torch versions live beside the wrappers in
+// ops/packed_round.py.
+//
+// Modes.  Each body is a template over the modes that change its per-lane
+// work, each combination the JAX package can reach built once (the
+// ``extern "C"`` entries pick the instantiation; a combination that is not
+// built is refused):
+//  - CountsMode (tally.pallas_round_counts_mode): kSampled draws a lane's
+//    tallies in-kernel from the phase's class histogram (the CF pair, or
+//    with kEquivDraws the equivocate regime's mixed-population tally,
+//    pallas_round.py _mixed_draws); kDelivered broadcasts the adversarial
+//    scheduler's per-trial closed-form counts; kCamps picks the targeted
+//    adversary's camp triple by the lane's global node id against the
+//    camp bounds (_camp_select).  The closed forms draw nothing;
+//  - CoinMode (_decide_commit): kPrivate, bit 0 of the coin stream's
+//    threefry word 0; kCommon, the trial's shared bit (no threefry);
+//    kWeak, the private bit where the uniform of word 1 is below eps,
+//    else the shared bit;
+//  - Pop, the population the vote histograms count: kAllLive, every live
+//    lane; kHonestLive, the live lanes less the equivocators (their values
+//    are drawn receiver-side or chosen by the adversary), while the alive
+//    count keeps them; kEquivDraws, the honest live lanes plus the
+//    equivocate regime's draws (sampled counts only).  The fused kernel,
+//    sampled only, takes it as ``bool kEquiv``;
+//  - ``byz`` stays a runtime flag: it flips the byzantine lanes' sent
+//    values.
+// The fused kernel serves sampled counts only (kSampled x CoinMode x
+// kEquiv); delivered and camps rounds always take the pair.  The
+// instantiations <kSampled, kPrivate, kAllLive> and <kPrivate, false> are
+// the main path's, as they were before the modes came in.
 //
 // Layout.  The node state is a [T, P, n_w] stack of 32-bit plane words
 // (state.PACK_LAYOUT): plane base + b holds bit b of a field for the 32
@@ -98,6 +127,12 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // a thread).
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMinBlocksPerSM = 4;
+// The equivocate draws' instantiations hold the trial's EquivTrial (24
+// floats) and two threefry blocks a lane: at 64 registers they spilled,
+// so their bound is 3 blocks an SM (85 registers a thread), and the fused
+// kernel's one block of 16 warps (128).
+constexpr int kMinBlocksEquiv = 3;
+constexpr int kFusedMinBlocksEquiv = 1;
 // The fused kernel: a cluster of C blocks a trial, C in {1, 2, 4, 8, 16}
 // (16 is a non-portable cluster size), of W in {16, 8, 4} warps; a warp
 // holds at most kFusedKeep words.  Its launch bound, two blocks of 16
@@ -119,6 +154,16 @@ constexpr int kPlaneK = 7;        // P - 7 planes
 constexpr int kPropCols = 4;      // PROP_PARTIAL_LAYOUT
 constexpr int kVoteCols = 5;      // VOTE_PARTIAL_LAYOUT
 constexpr int kVal0 = 0, kVal1 = 1, kValQ = 2;
+// CountsMode and CoinMode (ops/packed_round.py COUNTS_MODES, COIN_MODES).
+constexpr int kSampled = 0, kDelivered = 1, kCamps = 2;
+constexpr int kPrivate = 0, kCommon = 1, kWeak = 2;
+// Pop: the vote histograms' population, and the equivocate draws.
+constexpr int kAllLive = 0, kHonestLive = 1, kEquivDraws = 2;
+// Count operand floats a trial, by counts mode (ops/packed_round.py
+// kernel_vecs): the class histogram (c0, c1, cq); the delivered (v0, v1);
+// the camp triples' value counts, camp-major (0-camp, 1-camp, "?"-camp).
+template <int kCounts>
+constexpr int kVecs = kCounts == kSampled ? 3 : kCounts == kDelivered ? 2 : 6;
 
 // One lane's view of its warp's word.  Lane p < P loads plane p's word
 // (one load a warp); the planes every lane reads are shuffled out of those
@@ -165,27 +210,105 @@ __device__ __forceinline__ int sent(int byz, int v, bool faulty) {
   return v;
 }
 
-// One thread of the block computes its trial's CF terms into shared
-// memory; every thread then copies them.  Holds a __syncthreads.
-__device__ __forceinline__ benor::CfTrial block_cf_trial(
-    benor::CfTrial* smem, float c0, float c1, float cq, float m) {
-  if (threadIdx.x == 0) *smem = benor::cf_trial(c0, c1, cq, m);
+// The word's lanes the vote histograms count: the live lanes, less the
+// equivocators where kHonest (pallas_round.py _honest).
+template <bool kHonest>
+__device__ __forceinline__ uint32_t honest_word(const Lane& f) {
+  if constexpr (kHonest) return ~f.kil_w & ~f.fau_w;
+  return ~f.kil_w;
+}
+
+// A phase's stream keys (the phase's, and the equivocate draws' second
+// stream at phase + 64) and the targeted adversary's camp bounds (the first
+// global node id of the 0-camp and of the 1-camp).
+struct Draw {
+  uint32_t k0, k1, k20, k21, b0, b1;
+};
+
+// A phase's per-trial terms, by counts mode: the CF pair's or the
+// equivocate tally's (sampled), else the trial's closed-form counts.
+template <int kCounts, bool kEquiv>
+struct TrialTerms {
+  float v[kVecs<kCounts>];
+};
+template <>
+struct TrialTerms<kSampled, false> {
+  benor::CfTrial ct;
+};
+template <>
+struct TrialTerms<kSampled, true> {
+  benor::EquivTrial et;
+};
+
+// The sampled terms from a phase's class histogram (c0, c1, cq), the
+// trial's live equivocators ``ne`` (read under kEquiv only) and the quorum.
+template <bool kEquiv>
+__device__ __forceinline__ TrialTerms<kSampled, kEquiv> sampled_terms(
+    float c0, float c1, float cq, const float* ne, float m) {
+  TrialTerms<kSampled, kEquiv> t;
+  if constexpr (kEquiv)
+    t.et = benor::equiv_trial(c0, c1, cq, *ne, m);
+  else
+    t.ct = benor::cf_trial(c0, c1, cq, m);
+  return t;
+}
+
+// One thread of the block computes its trial's terms from the count
+// operand into shared memory; every thread then copies them.  Holds a
+// __syncthreads.
+template <int kCounts, bool kEquiv>
+__device__ __forceinline__ TrialTerms<kCounts, kEquiv> block_terms(
+    TrialTerms<kCounts, kEquiv>* smem, const float* counts,
+    const float* n_equiv, int trial, float m) {
+  const float* c = counts + trial * kVecs<kCounts>;
+  if constexpr (kCounts == kSampled) {
+    if (threadIdx.x == 0)
+      *smem = sampled_terms<kEquiv>(c[0], c[1], c[2], n_equiv + trial, m);
+  } else {
+    if (threadIdx.x < kVecs<kCounts>) smem->v[threadIdx.x] = c[threadIdx.x];
+  }
   __syncthreads();
   return *smem;
 }
 
-// Proposal phase of one lane -> its sent vote value.  The CF pair is drawn
-// only in warps with a lane alive and not frozen: a frozen lane sends its
-// x and a dead lane is not counted, so no skipped draw is ever read.
-__device__ __forceinline__ int proposal_vote(const Lane& f, uint32_t k0,
-                                             uint32_t k1, uint32_t node,
-                                             uint32_t trial,
-                                             const benor::CfTrial& ct,
-                                             int byz) {
+// A lane's two tallies (class 0, class 1) of a phase: drawn (sampled), the
+// trial's counts (delivered), or its camp's counts by node id (camps).
+template <int kCounts, bool kEquiv>
+__device__ __forceinline__ void lane_tally(
+    const TrialTerms<kCounts, kEquiv>& tt, const Draw& d, uint32_t node,
+    uint32_t trial, float* a, float* b) {
+  if constexpr (kCounts == kDelivered) {
+    *a = tt.v[0];
+    *b = tt.v[1];
+  } else if constexpr (kCounts == kCamps) {
+    const bool in1 = node >= d.b1;
+    const bool in0 = node >= d.b0 && !in1;
+    *a = in1 ? tt.v[2] : (in0 ? tt.v[0] : tt.v[4]);
+    *b = in1 ? tt.v[3] : (in0 ? tt.v[1] : tt.v[5]);
+  } else if constexpr (kEquiv) {
+    uint32_t b0, b1, b2, b3;
+    benor::threefry2x32(d.k0, d.k1, node, trial, &b0, &b1);
+    benor::threefry2x32(d.k20, d.k21, node, trial, &b2, &b3);
+    float nq;
+    benor::equiv_draws(tt.et, benor::bits_to_uniform(b0),
+                       benor::bits_to_uniform(b1), benor::bits_to_uniform(b2),
+                       benor::bits_to_uniform(b3), a, b, &nq);
+  } else {
+    benor::cf_pair(d.k0, d.k1, node, trial, tt.ct, a, b);
+  }
+}
+
+// Proposal phase of one lane -> its sent vote value.  The tallies are
+// drawn only in warps with a lane alive and not frozen: a frozen lane sends
+// its x and a dead lane is not counted, so no skipped draw is ever read.
+template <int kCounts, bool kEquiv>
+__device__ __forceinline__ int proposal_vote(
+    const Lane& f, const Draw& d, uint32_t node, uint32_t trial,
+    const TrialTerms<kCounts, kEquiv>& tt, int byz) {
   int x1 = f.x;
   if (__any_sync(kFull, f.alive && !f.frozen)) {
     float p0, p1;
-    benor::cf_pair(k0, k1, node, trial, ct, &p0, &p1);
+    lane_tally(tt, d, node, trial, &p0, &p1);
     x1 = p0 > p1 ? kVal0 : (p1 > p0 ? kVal1 : kValQ);
   }
   return sent(byz, f.frozen ? f.x : x1, f.faulty);
@@ -197,21 +320,22 @@ struct Commit {
 };
 
 // Vote phase of one lane: tallies, coin, decide / adopt / commit
-// (pallas_round.py _decide_commit).  The CF pair is drawn only in warps
+// (pallas_round.py _decide_commit).  The tallies are drawn only in warps
 // with an active lane (alive, quorum met, not frozen), and the coin's
 // threefry block only in warps with an active lane that neither decides
 // nor adopts: every other lane keeps its fields, so no skipped value is
-// ever read.
-__device__ __forceinline__ Commit vote_lane(const Lane& f, uint32_t vk0,
-                                            uint32_t vk1, uint32_t ck0,
-                                            uint32_t ck1, uint32_t node,
-                                            uint32_t trial,
-                                            const benor::CfTrial& ct,
-                                            float nf, int qok, int textbook) {
+// ever read.  The common coin is the trial's ``shared`` bit and draws
+// nothing; the weak coin takes the private bit where word 1's uniform is
+// below ``eps``, else ``shared``.
+template <int kCounts, int kCoin, bool kEquiv>
+__device__ __forceinline__ Commit vote_lane(
+    const Lane& f, const Draw& d, uint32_t ck0, uint32_t ck1, uint32_t node,
+    uint32_t trial, const TrialTerms<kCounts, kEquiv>& tt, float nf, int qok,
+    int textbook, int shared, float eps) {
   Commit c{f.x, f.decided, false, f.alive && qok != 0 && !f.frozen};
   if (!__any_sync(kFull, c.active)) return c;
   float v0, v1;
-  benor::cf_pair(vk0, vk1, node, trial, ct, &v0, &v1);
+  lane_tally(tt, d, node, trial, &v0, &v1);
   const bool decide0 = v0 > nf;
   const bool decide1 = v1 > nf;
   bool adopt0 = false, adopt1 = false;
@@ -222,10 +346,14 @@ __device__ __forceinline__ Commit vote_lane(const Lane& f, uint32_t vk0,
   }
   c.coined = c.active && !decide0 && !decide1 && !adopt0 && !adopt1;
   int coin = 0;
-  if (__any_sync(kFull, c.coined)) {
+  if constexpr (kCoin == kCommon) {
+    coin = shared;
+  } else if (__any_sync(kFull, c.coined)) {
     uint32_t pbits, dbits;
     benor::threefry2x32(ck0, ck1, node, trial, &pbits, &dbits);
     coin = (int)(pbits & 1u);
+    if constexpr (kCoin == kWeak)
+      coin = benor::bits_to_uniform(dbits) < eps ? coin : shared;
   }
   if (c.active) {
     c.x = decide0 ? kVal0
@@ -262,32 +390,34 @@ __device__ __forceinline__ uint32_t store_planes(uint32_t* words, int P,
 }
 
 // Proposal-pass counts of one lane's warp: the sent-vote histogram over
-// live lanes and the alive count.
+// the histograms' lanes and the alive count (equivocators included).
+template <bool kHonest>
 __device__ __forceinline__ void proposal_counts(int* acc, const Lane& f,
                                                 int vote) {
-  const uint32_t live = ~f.kil_w;
-  const int n0 = __popc(__ballot_sync(kFull, vote == kVal0) & live);
-  const int n1 = __popc(__ballot_sync(kFull, vote == kVal1) & live);
-  const int alive = __popc(live);
+  const uint32_t hon = honest_word<kHonest>(f);
+  const int n0 = __popc(__ballot_sync(kFull, vote == kVal0) & hon);
+  const int n1 = __popc(__ballot_sync(kFull, vote == kVal1) & hon);
+  const int alive = __popc(~f.kil_w);
   acc[0] += n0;
   acc[1] += n1;
-  acc[2] += alive - n0 - n1;
+  acc[2] += (kHonest ? __popc(hon) : alive) - n0 - n1;
   acc[3] += alive;
 }
 
 // Vote-pass counts of one lane's warp: next round's proposal histogram over
-// live lanes, settled and unsettled.
+// the histograms' lanes, settled and unsettled.
+template <bool kHonest>
 __device__ __forceinline__ void vote_counts(int* acc, const Lane& f,
                                             const Commit& c, uint32_t dec,
                                             int byz) {
   const int s = sent(byz, c.x, f.faulty);
-  const uint32_t live = ~f.kil_w;
-  const int n0 = __popc(__ballot_sync(kFull, s == kVal0) & live);
-  const int n1 = __popc(__ballot_sync(kFull, s == kVal1) & live);
+  const uint32_t hon = honest_word<kHonest>(f);
+  const int n0 = __popc(__ballot_sync(kFull, s == kVal0) & hon);
+  const int n1 = __popc(__ballot_sync(kFull, s == kVal1) & hon);
   const int settled = __popc(dec | f.kil_w);
   acc[0] += n0;
   acc[1] += n1;
-  acc[2] += __popc(live) - n0 - n1;
+  acc[2] += __popc(hon) - n0 - n1;
   acc[3] += settled;
   acc[4] += kWarp - settled;
 }
@@ -305,21 +435,26 @@ __device__ __forceinline__ void block_sum(int (*smem)[kCols], int warps,
 }
 
 // grid (blocks, T), 8 warps a block: the blocks of a trial walk its words,
-// one warp a word, with a stride of blocks x 8 words.
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSM)
+// one warp a word, with a stride of blocks x 8 words.  ``counts``: the
+// phase's count operand, kVecs floats a trial; ``n_equiv``: live
+// equivocators a trial (kEquivDraws only).
+template <int kCounts, int kPop>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  kPop == kEquivDraws ? kMinBlocksEquiv
+                                                      : kMinBlocksPerSM)
 proposal_hist_kernel(const uint32_t* __restrict__ pack,
-                     const float* __restrict__ hist,
+                     const float* __restrict__ counts,
+                     const float* __restrict__ n_equiv,
                      int* __restrict__ partials, int T, int P, int n_w,
-                     uint32_t k0, uint32_t k1, float m, int byz,
-                     int freeze) {
-  __shared__ benor::CfTrial ct_s;
+                     Draw d, float m, int byz, int freeze) {
+  constexpr bool kEquiv = kPop == kEquivDraws;
+  __shared__ TrialTerms<kCounts, kEquiv> tt_s;
   __shared__ int smem[kWarpsPerBlock][kPropCols];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int trial = blockIdx.y;
-  const benor::CfTrial ct = block_cf_trial(
-      &ct_s, hist[trial * 3 + 0], hist[trial * 3 + 1], hist[trial * 3 + 2],
-      m);
+  const TrialTerms<kCounts, kEquiv> tt =
+      block_terms(&tt_s, counts, n_equiv, trial, m);
   const size_t stride = (size_t)n_w;
   const uint32_t* tpack = pack + (size_t)trial * P * stride;
   int acc[kPropCols] = {0, 0, 0, 0};
@@ -332,10 +467,9 @@ proposal_hist_kernel(const uint32_t* __restrict__ pack,
     const uint32_t next = load_plane(tpack + word + step, P, stride, lane,
                                      word + step < n_w);
     const Lane f = lane_from(plane, lane, freeze);
-    const int vote = proposal_vote(f, k0, k1,
-                                   (uint32_t)(word * kWarp + lane),
-                                   (uint32_t)trial, ct, byz);
-    proposal_counts(acc, f, vote);
+    const int vote = proposal_vote(f, d, (uint32_t)(word * kWarp + lane),
+                                   (uint32_t)trial, tt, byz);
+    proposal_counts<kPop != kAllLive>(acc, f, vote);
     plane = next;
   }
   if (lane == 0)
@@ -345,24 +479,31 @@ proposal_hist_kernel(const uint32_t* __restrict__ pack,
 }
 
 // grid (blocks, T), 8 warps a block, words walked as in proposal_hist.
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSM)
+// ``shared``: the trial's shared coin bit (common and weak coins only).
+template <int kCounts, int kCoin, int kPop>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  kPop == kEquivDraws ? kMinBlocksEquiv
+                                                      : kMinBlocksPerSM)
 vote_commit_kernel(const uint32_t* __restrict__ pack,
-                   const float* __restrict__ hist,
+                   const float* __restrict__ counts,
+                   const float* __restrict__ n_equiv,
                    const int* __restrict__ quorum_ok,
+                   const int* __restrict__ shared,
                    uint32_t* __restrict__ new_pack,
-                   int* __restrict__ partials, int T, int P, int n_w,
-                   uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
-                   int rk, float m, float nf, int textbook, int byz,
-                   int freeze) {
-  __shared__ benor::CfTrial ct_s;
+                   int* __restrict__ partials, int T, int P, int n_w, Draw d,
+                   uint32_t ck0, uint32_t ck1, int rk, float m, float nf,
+                   float eps, int textbook, int byz, int freeze) {
+  constexpr bool kEquiv = kPop == kEquivDraws;
+  __shared__ TrialTerms<kCounts, kEquiv> tt_s;
   __shared__ int smem[kWarpsPerBlock][kVoteCols];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int trial = blockIdx.y;
-  const benor::CfTrial ct = block_cf_trial(
-      &ct_s, hist[trial * 3 + 0], hist[trial * 3 + 1], hist[trial * 3 + 2],
-      m);
+  const TrialTerms<kCounts, kEquiv> tt =
+      block_terms(&tt_s, counts, n_equiv, trial, m);
   const int qok = quorum_ok[trial];
+  int shared_bit = 0;
+  if constexpr (kCoin != kPrivate) shared_bit = shared[trial];
   const size_t stride = (size_t)n_w;
   const size_t tbase = (size_t)trial * P * stride;
   int acc[kVoteCols] = {0, 0, 0, 0, 0};
@@ -375,12 +516,12 @@ vote_commit_kernel(const uint32_t* __restrict__ pack,
                                      lane, word + step < n_w);
     const Lane f = lane_from(plane, lane, freeze);
     plane = next;
-    const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
-                               (uint32_t)(word * kWarp + lane),
-                               (uint32_t)trial, ct, nf, qok, textbook);
+    const Commit c = vote_lane<kCounts, kCoin, kEquiv>(
+        f, d, ck0, ck1, (uint32_t)(word * kWarp + lane), (uint32_t)trial,
+        tt, nf, qok, textbook, shared_bit, eps);
     const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
                                       lane, f, c, rk);
-    vote_counts(acc, f, c, dec, byz);
+    vote_counts<kPop != kAllLive>(acc, f, c, dec, byz);
   }
   if (lane == 0)
     for (int c = 0; c < kVoteCols; ++c) smem[warp][c] = acc[c];
@@ -420,7 +561,7 @@ __device__ __forceinline__ void rotate(uint32_t (&kept)[kFusedKeep]) {
 // g + C * W, ... (at most kFusedKeep of them), loads them all before the
 // block's proposal terms are computed and keeps them in registers for both
 // phases.  Phase 1: proposal tallies.  One block (C = 1) sums its warps'
-// counts in shared memory and computes the vote phase's CF terms and
+// counts in shared memory and computes the vote phase's terms and
 // quorum gate from the sum, as a block of the pair does.  In a cluster
 // each block adds its warps' counts into its shared memory; after
 // cluster.sync() one warp of every block sums the C blocks' counts through
@@ -428,15 +569,17 @@ __device__ __forceinline__ void rotate(uint32_t (&kept)[kFusedKeep]) {
 // from the same integers (rank 0 writes partsA).  Phase 2: vote + commit,
 // the tallies summed the same way into partsB (by rank 0), and in a
 // cluster a last cluster.sync() so that no block leaves while rank 0 reads
-// its shared memory.
-template <bool kCluster>
+// its shared memory.  Sampled counts only: the histograms count the honest
+// live lanes exactly where kEquiv.
+template <bool kCluster, int kCoin, bool kEquiv>
 __device__ __forceinline__ void fused_round_body(
     const uint32_t* __restrict__ pack, const float* __restrict__ hist1,
+    const float* __restrict__ n_equiv, const int* __restrict__ shared,
     uint32_t* __restrict__ new_pack, int* __restrict__ parts_a,
-    int* __restrict__ parts_b, int P, int n_w, uint32_t pk0, uint32_t pk1,
-    uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1, int rk, float m,
-    float nf, int textbook, int byz, int freeze) {
-  __shared__ benor::CfTrial ct_s;
+    int* __restrict__ parts_b, int P, int n_w, const Draw& pd,
+    const Draw& vd, uint32_t ck0, uint32_t ck1, int rk, float m, float nf,
+    float eps, int textbook, int byz, int freeze) {
+  __shared__ TrialTerms<kSampled, kEquiv> tt_s;
   __shared__ int smem_a[kFusedMaxWarps][kPropCols];
   __shared__ int smem_b[kFusedMaxWarps][kVoteCols];
   __shared__ int tot_a[kPropCols];
@@ -462,19 +605,17 @@ __device__ __forceinline__ void fused_round_body(
   }
 
   // --- phase 1: proposal tallies -> majority -> vote values -------------
-  const benor::CfTrial ct1 = block_cf_trial(
-      &ct_s, hist1[trial * 3 + 0], hist1[trial * 3 + 1],
-      hist1[trial * 3 + 2], m);
+  const TrialTerms<kSampled, kEquiv> tt1 =
+      block_terms(&tt_s, hist1, n_equiv, trial, m);
   int acc_a[kPropCols] = {0, 0, 0, 0};
 #pragma unroll 1
   for (int k = 0; k < kFusedKeep; ++k) {
     const int word = first + k * step;
     if (word < n_w) {  // warp-uniform
       const Lane f = lane_from(kept[0], lane, freeze);
-      const int vote = proposal_vote(f, pk0, pk1,
-                                     (uint32_t)(word * kWarp + lane),
-                                     (uint32_t)trial, ct1, byz);
-      proposal_counts(acc_a, f, vote);
+      const int vote = proposal_vote(f, pd, (uint32_t)(word * kWarp + lane),
+                                     (uint32_t)trial, tt1, byz);
+      proposal_counts<kEquiv>(acc_a, f, vote);
     }
     rotate(kept);
   }
@@ -489,8 +630,8 @@ __device__ __forceinline__ void fused_round_body(
       int tot[kPropCols];
       cluster_sum<kPropCols>(cluster, tot_a, C, lane, tot);
       if (lane == 0) {
-        ct_s = benor::cf_trial((float)tot[0], (float)tot[1], (float)tot[2],
-                               m);
+        tt_s = sampled_terms<kEquiv>((float)tot[0], (float)tot[1],
+                                     (float)tot[2], n_equiv + trial, m);
         qok_s = tot[3] >= (int)m ? 1 : 0;
         if (rank == 0)
           for (int c = 0; c < kPropCols; ++c)
@@ -506,14 +647,16 @@ __device__ __forceinline__ void fused_round_body(
     if (threadIdx.x < kPropCols)
       parts_a[trial * kPropCols + threadIdx.x] = tot_a[threadIdx.x];
     if (threadIdx.x == 0) {
-      ct_s = benor::cf_trial((float)tot_a[0], (float)tot_a[1],
-                             (float)tot_a[2], m);
+      tt_s = sampled_terms<kEquiv>((float)tot_a[0], (float)tot_a[1],
+                                   (float)tot_a[2], n_equiv + trial, m);
       qok_s = tot_a[3] >= (int)m ? 1 : 0;
     }
     __syncthreads();
   }
-  const benor::CfTrial ct2 = ct_s;
+  const TrialTerms<kSampled, kEquiv> tt2 = tt_s;
   const int qok = qok_s;   // n_alive >= quorum
+  int shared_bit = 0;
+  if constexpr (kCoin != kPrivate) shared_bit = shared[trial];
 
   // --- phase 2: vote tallies -> decide/adopt/coin -> commit -------------
   int acc_b[kVoteCols] = {0, 0, 0, 0, 0};
@@ -522,12 +665,12 @@ __device__ __forceinline__ void fused_round_body(
     const int word = first + k * step;
     if (word < n_w) {  // warp-uniform
       const Lane f = lane_from(kept[0], lane, freeze);
-      const Commit c = vote_lane(f, vk0, vk1, ck0, ck1,
-                                 (uint32_t)(word * kWarp + lane),
-                                 (uint32_t)trial, ct2, nf, qok, textbook);
+      const Commit c = vote_lane<kSampled, kCoin, kEquiv>(
+          f, vd, ck0, ck1, (uint32_t)(word * kWarp + lane), (uint32_t)trial,
+          tt2, nf, qok, textbook, shared_bit, eps);
       const uint32_t dec = store_planes(new_pack + tbase + word, P, stride,
                                         lane, f, c, rk);
-      vote_counts(acc_b, f, c, dec, byz);
+      vote_counts<kEquiv>(acc_b, f, c, dec, byz);
     }
     rotate(kept);
   }
@@ -552,58 +695,184 @@ __device__ __forceinline__ void fused_round_body(
 }
 
 // grid (T) blocks of W warps: one block a trial.
-__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocks)
+template <int kCoin, bool kEquiv>
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp,
+                                  kEquiv ? kFusedMinBlocksEquiv
+                                         : kFusedMinBlocks)
 fused_round_kernel(const uint32_t* __restrict__ pack,
                    const float* __restrict__ hist1,
+                   const float* __restrict__ n_equiv,
+                   const int* __restrict__ shared,
                    uint32_t* __restrict__ new_pack,
                    int* __restrict__ parts_a, int* __restrict__ parts_b,
-                   int P, int n_w, uint32_t pk0, uint32_t pk1, uint32_t vk0,
-                   uint32_t vk1, uint32_t ck0, uint32_t ck1, int rk, float m,
-                   float nf, int textbook, int byz, int freeze) {
-  fused_round_body<false>(pack, hist1, new_pack, parts_a, parts_b, P, n_w,
-                          pk0, pk1, vk0, vk1, ck0, ck1, rk, m, nf, textbook,
-                          byz, freeze);
+                   int P, int n_w, Draw pd, Draw vd, uint32_t ck0,
+                   uint32_t ck1, int rk, float m, float nf, float eps,
+                   int textbook, int byz, int freeze) {
+  fused_round_body<false, kCoin, kEquiv>(
+      pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b, P, n_w, pd,
+      vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze);
 }
 
 // grid (C x T) blocks of W warps, launched as T clusters of C blocks.
-__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocks)
+template <int kCoin, bool kEquiv>
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp,
+                                  kEquiv ? kFusedMinBlocksEquiv
+                                         : kFusedMinBlocks)
 fused_cluster_kernel(const uint32_t* __restrict__ pack,
                      const float* __restrict__ hist1,
+                     const float* __restrict__ n_equiv,
+                     const int* __restrict__ shared,
                      uint32_t* __restrict__ new_pack,
                      int* __restrict__ parts_a, int* __restrict__ parts_b,
-                     int P, int n_w, uint32_t pk0, uint32_t pk1,
-                     uint32_t vk0, uint32_t vk1, uint32_t ck0, uint32_t ck1,
-                     int rk, float m, float nf, int textbook, int byz,
-                     int freeze) {
-  fused_round_body<true>(pack, hist1, new_pack, parts_a, parts_b, P, n_w,
-                         pk0, pk1, vk0, vk1, ck0, ck1, rk, m, nf, textbook,
-                         byz, freeze);
+                     int P, int n_w, Draw pd, Draw vd, uint32_t ck0,
+                     uint32_t ck1, int rk, float m, float nf, float eps,
+                     int textbook, int byz, int freeze) {
+  fused_round_body<true, kCoin, kEquiv>(
+      pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b, P, n_w, pd,
+      vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze);
+}
+
+// The instantiations the JAX package's dispatch can reach, by mode (nullptr
+// for any other combination).
+using ProposalFn = void (*)(const uint32_t*, const float*, const float*,
+                            int*, int, int, int, Draw, float, int, int);
+using VoteFn = void (*)(const uint32_t*, const float*, const float*,
+                        const int*, const int*, uint32_t*, int*, int, int,
+                        int, Draw, uint32_t, uint32_t, int, float, float,
+                        float, int, int, int);
+using FusedFn = void (*)(const uint32_t*, const float*, const float*,
+                         const int*, uint32_t*, int*, int*, int, int, Draw,
+                         Draw, uint32_t, uint32_t, int, float, float, float,
+                         int, int, int);
+
+// The launch's Pop from the C interface's flags (-1: none).  Sampled
+// counts under equivocate always draw (equiv), the closed forms never.
+int pop_of(int counts, int equiv, int honest) {
+  if (counts == kSampled) return equiv != honest ? -1 : equiv ? kEquivDraws
+                                                              : kAllLive;
+  return equiv ? -1 : honest ? kHonestLive : kAllLive;
+}
+
+template <int kCounts>
+ProposalFn proposal_fn_pop(int pop) {
+  switch (pop) {
+    case kAllLive: return proposal_hist_kernel<kCounts, kAllLive>;
+    case kHonestLive:
+      if constexpr (kCounts == kSampled) return nullptr;
+      else return proposal_hist_kernel<kCounts, kHonestLive>;
+    case kEquivDraws:
+      if constexpr (kCounts != kSampled) return nullptr;
+      else return proposal_hist_kernel<kCounts, kEquivDraws>;
+  }
+  return nullptr;
+}
+
+ProposalFn proposal_fn(int counts, int equiv, int honest) {
+  const int pop = pop_of(counts, equiv, honest);
+  switch (counts) {
+    case kSampled: return proposal_fn_pop<kSampled>(pop);
+    case kDelivered: return proposal_fn_pop<kDelivered>(pop);
+    case kCamps: return proposal_fn_pop<kCamps>(pop);
+  }
+  return nullptr;
+}
+
+template <int kCounts, int kPop>
+VoteFn vote_fn_coin(int coin) {
+  switch (coin) {
+    case kPrivate: return vote_commit_kernel<kCounts, kPrivate, kPop>;
+    case kCommon: return vote_commit_kernel<kCounts, kCommon, kPop>;
+    case kWeak: return vote_commit_kernel<kCounts, kWeak, kPop>;
+  }
+  return nullptr;
+}
+
+template <int kCounts>
+VoteFn vote_fn_pop(int coin, int pop) {
+  switch (pop) {
+    case kAllLive: return vote_fn_coin<kCounts, kAllLive>(coin);
+    case kHonestLive:
+      if constexpr (kCounts == kSampled) return nullptr;
+      else return vote_fn_coin<kCounts, kHonestLive>(coin);
+    case kEquivDraws:
+      if constexpr (kCounts != kSampled) return nullptr;
+      else return vote_fn_coin<kCounts, kEquivDraws>(coin);
+  }
+  return nullptr;
+}
+
+VoteFn vote_fn(int counts, int coin, int equiv, int honest) {
+  const int pop = pop_of(counts, equiv, honest);
+  switch (counts) {
+    case kSampled: return vote_fn_pop<kSampled>(coin, pop);
+    case kDelivered: return vote_fn_pop<kDelivered>(coin, pop);
+    case kCamps: return vote_fn_pop<kCamps>(coin, pop);
+  }
+  return nullptr;
+}
+
+template <bool kEquiv>
+FusedFn fused_fn_coin(bool cluster, int coin) {
+  switch (coin) {
+    case kPrivate:
+      return cluster ? fused_cluster_kernel<kPrivate, kEquiv>
+                     : fused_round_kernel<kPrivate, kEquiv>;
+    case kCommon:
+      return cluster ? fused_cluster_kernel<kCommon, kEquiv>
+                     : fused_round_kernel<kCommon, kEquiv>;
+    case kWeak:
+      return cluster ? fused_cluster_kernel<kWeak, kEquiv>
+                     : fused_round_kernel<kWeak, kEquiv>;
+  }
+  return nullptr;
+}
+
+FusedFn fused_fn(bool cluster, int coin, int equiv) {
+  return equiv ? fused_fn_coin<true>(cluster, coin)
+               : fused_fn_coin<false>(cluster, coin);
+}
+
+// A plain launch of `blocks` x T blocks of the pair's width on `stream`.
+cudaLaunchConfig_t pair_config(int blocks, int T, cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks, T);
+  config.blockDim = dim3(kWarpsPerBlock * kWarp);
+  config.stream = stream;
+  return config;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each launcher returns
-// cudaGetLastError() after its launch (0 = launched).
+// cudaGetLastError() after its launch (0 = launched); a mode combination
+// that is not built returns cudaErrorInvalidValue and launches nothing.
+// Modes: counts 0 sampled, 1 delivered, 2 camps; coin 0 private, 1 common,
+// 2 weak; equiv 1 for the equivocate draws (sampled only); honest 1 where
+// the vote histograms leave the equivocators out (fault model
+// 'equivocate': with sampled counts exactly where equiv).
 
-// Blocks a trial of proposal_hist (kernel 0) or vote_commit (kernel 1) on
-// the current device for n_w plane words and T trials -> *blocks: as many
-// as fit T times in one wave of the kernel over the card (the SMs times
-// the blocks an SM holds), at least one, and never more than a warp a
-// word.  Rounding up would put the last few blocks in a second wave of
-// their own.  The caller works it out once per shape, sizes the
-// [blocks, T, cols] partials from it and passes it to the launcher.
-// Returns the first failed query's cudaError (0 = *blocks set).
-extern "C" int benor_round_blocks(int kernel, int n_w, int T, int* blocks) {
+// Blocks a trial of proposal_hist (kernel 0) or vote_commit (kernel 1) in
+// the given modes on the current device for n_w plane words and T trials
+// -> *blocks: as many as fit T times in one wave of the kernel over the
+// card (the SMs times the blocks an SM holds), at least one, and never more
+// than a warp a word.  Rounding up would put the last few blocks in a
+// second wave of their own.  The caller works it out once per shape and
+// modes, sizes the [blocks, T, cols] partials from it and passes it to the
+// launcher.  Returns the first failed query's cudaError (0 = *blocks set).
+extern "C" int benor_round_blocks(int kernel, int counts, int coin,
+                                  int equiv, int honest, int n_w, int T,
+                                  int* blocks) {
+  const void* fn =
+      kernel == 0 ? (const void*)proposal_fn(counts, equiv, honest)
+                  : (const void*)vote_fn(counts, coin, equiv, honest);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm,
-        kernel == 0 ? (const void*)proposal_hist_kernel
-                    : (const void*)vote_commit_kernel,
-        kWarpsPerBlock * kWarp, 0);
+        &per_sm, fn, kWarpsPerBlock * kWarp, 0);
   if (e != cudaSuccess) return (int)e;
   const int word_blocks = (n_w + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int wave = sms * per_sm / T;
@@ -611,28 +880,46 @@ extern "C" int benor_round_blocks(int kernel, int n_w, int T, int* blocks) {
   return 0;
 }
 
-extern "C" int benor_proposal_hist(const uint32_t* pack, const float* hist,
-                                   int* partials, int T, int P, int n_w,
-                                   uint32_t k0, uint32_t k1, float m,
-                                   int byz, int freeze, int blocks,
-                                   cudaStream_t stream) {
-  const dim3 grid(blocks, T);
-  proposal_hist_kernel<<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(
-      pack, hist, partials, T, P, n_w, k0, k1, m, byz, freeze);
+extern "C" int benor_proposal_hist(const uint32_t* pack, const float* counts,
+                                   const float* n_equiv, int* partials,
+                                   int T, int P, int n_w, uint32_t k0,
+                                   uint32_t k1, uint32_t k20, uint32_t k21,
+                                   uint32_t camp_b0, uint32_t camp_b1,
+                                   float m, int counts_mode, int equiv,
+                                   int byz, int honest, int freeze,
+                                   int blocks, cudaStream_t stream) {
+  const ProposalFn fn = proposal_fn(counts_mode, equiv, honest);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaLaunchConfig_t config = pair_config(blocks, T, stream);
+  const Draw d{k0, k1, k20, k21, camp_b0, camp_b1};
+  const cudaError_t e = cudaLaunchKernelEx(&config, fn, pack, counts,
+                                           n_equiv, partials, T, P, n_w, d,
+                                           m, byz, freeze);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-extern "C" int benor_vote_commit(const uint32_t* pack, const float* hist,
-                                 const int* quorum_ok, uint32_t* new_pack,
+extern "C" int benor_vote_commit(const uint32_t* pack, const float* counts,
+                                 const float* n_equiv, const int* quorum_ok,
+                                 const int* shared, uint32_t* new_pack,
                                  int* partials, int T, int P, int n_w,
-                                 uint32_t vk0, uint32_t vk1, uint32_t ck0,
-                                 uint32_t ck1, int rk, float m, float nf,
-                                 int textbook, int byz, int freeze,
-                                 int blocks, cudaStream_t stream) {
-  const dim3 grid(blocks, T);
-  vote_commit_kernel<<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(
-      pack, hist, quorum_ok, new_pack, partials, T, P, n_w, vk0, vk1, ck0,
-      ck1, rk, m, nf, textbook, byz, freeze);
+                                 uint32_t vk0, uint32_t vk1, uint32_t vk20,
+                                 uint32_t vk21, uint32_t ck0, uint32_t ck1,
+                                 uint32_t camp_b0, uint32_t camp_b1, int rk,
+                                 float m, float nf, float eps,
+                                 int counts_mode, int coin_mode, int equiv,
+                                 int textbook, int byz, int honest,
+                                 int freeze, int blocks,
+                                 cudaStream_t stream) {
+  const VoteFn fn = vote_fn(counts_mode, coin_mode, equiv, honest);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaLaunchConfig_t config = pair_config(blocks, T, stream);
+  const Draw d{vk0, vk1, vk20, vk21, camp_b0, camp_b1};
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, fn, pack, counts, n_equiv, quorum_ok, shared, new_pack,
+      partials, T, P, n_w, d, ck0, ck1, rk, m, nf, eps, textbook, byz,
+      freeze);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -666,49 +953,59 @@ static bool fused_dims_ok(int n_w, int C, int warps) {
          C * warps * kFusedKeep >= n_w;
 }
 
-// Clusters of C blocks of `warps` warps of the fused kernel that the
-// current device holds at once -> *clusters (cudaOccupancyMaxActiveClusters
-// of fused_round_kernel, a cluster of one block, at C = 1, else of
-// fused_cluster_kernel).  For C > 8 it first allows the cluster kernel
-// non-portable cluster sizes, which the launch of such a grid needs: the
-// wrapper's grid rule (ops/packed_round.py fused_grid) reads these counts
-// before its first launch on a device.  Returns the cudaError (0 = set).
-extern "C" int benor_fused_fits(int C, int warps, int* clusters) {
+// Clusters of C blocks of `warps` warps of the fused kernel in the given
+// coin and equiv modes that the current device holds at once -> *clusters
+// (cudaOccupancyMaxActiveClusters of fused_round_kernel, a cluster of one
+// block, at C = 1, else of fused_cluster_kernel).  For C > 8 it first
+// allows that cluster kernel non-portable cluster sizes, which the launch
+// of such a grid needs: the wrapper's grid rule (ops/packed_round.py
+// fused_grid) reads these counts before its first launch in these modes on
+// a device.  Returns the cudaError (0 = set).
+extern "C" int benor_fused_fits(int C, int warps, int coin, int equiv,
+                                int* clusters) {
+  const FusedFn fn = fused_fn(C > 1, coin, equiv);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (C > kPortableCluster)
-    e = cudaFuncSetAttribute(fused_cluster_kernel,
+    e = cudaFuncSetAttribute(fn,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config = fused_config(C, warps, 1, 0, &attr);
   config.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(
-      clusters,
-      C > 1 ? (const void*)fused_cluster_kernel
-            : (const void*)fused_round_kernel,
-      &config);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)fn,
+                                             &config);
 }
 
 // One launch of the fused kernel as T clusters of C blocks of `warps`
 // warps (ops/packed_round.py fused_grid's choice): fused_round_kernel at
-// C = 1, else fused_cluster_kernel.  A grid it does not take, or a refused
-// cluster launch, returns its cudaError: nothing falls back.
+// C = 1, else fused_cluster_kernel.  A grid it does not take, a mode
+// combination that is not built (honest must equal equiv: sampled counts),
+// or a refused cluster launch returns its cudaError: nothing falls back.
 extern "C" int benor_fused_round(const uint32_t* pack, const float* hist1,
+                                 const float* n_equiv, const int* shared,
                                  uint32_t* new_pack, int* parts_a,
                                  int* parts_b, int T, int P, int n_w,
-                                 uint32_t pk0, uint32_t pk1, uint32_t vk0,
-                                 uint32_t vk1, uint32_t ck0, uint32_t ck1,
-                                 int rk, float m, float nf, int textbook,
-                                 int byz, int freeze, int C, int warps,
+                                 uint32_t pk0, uint32_t pk1, uint32_t pk20,
+                                 uint32_t pk21, uint32_t vk0, uint32_t vk1,
+                                 uint32_t vk20, uint32_t vk21, uint32_t ck0,
+                                 uint32_t ck1, int rk, float m, float nf,
+                                 float eps, int coin_mode, int equiv,
+                                 int textbook, int byz, int honest,
+                                 int freeze, int C, int warps,
                                  cudaStream_t stream) {
-  if (!fused_dims_ok(n_w, C, warps)) return (int)cudaErrorInvalidValue;
+  if (!fused_dims_ok(n_w, C, warps) || pop_of(kSampled, equiv, honest) < 0)
+    return (int)cudaErrorInvalidValue;
+  const FusedFn fn = fused_fn(C > 1, coin_mode, equiv);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = fused_config(C, warps, T, stream, &attr);
+  const Draw pd{pk0, pk1, pk20, pk21, 0u, 0u};
+  const Draw vd{vk0, vk1, vk20, vk21, 0u, 0u};
   const cudaError_t e = cudaLaunchKernelEx(
-      &config, C > 1 ? fused_cluster_kernel : fused_round_kernel, pack,
-      hist1, new_pack, parts_a, parts_b, P, n_w, pk0, pk1, vk0, vk1, ck0,
-      ck1, rk, m, nf, textbook, byz, freeze);
+      &config, fn, pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b,
+      P, n_w, pd, vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -262,11 +262,33 @@ __device__ __forceinline__ void fill_equiv_tables(const EquivTrial& e,
              fmaxf(rem - centre_draw(cf_terms(e.pop0, rem)), 0.0f));
 }
 
-// One lane's equivocate tally from its trial's terms, the block's two
-// tables and its four uniforms (u0, u1 of the phase stream, u_b, u_s of
-// the phase + 64 stream) -> the class-0, class-1 and "?" counts it
-// receives: h_b delivered equivocators, the honest split of the rest, and
-// a normal-quantile Binomial(h_b, 1/2) class split of the h_b.
+// One lane's equivocate tally from its trial's terms and its four uniforms
+// (u0, u1 of the phase stream, u_b, u_s of the phase + 64 stream) -> the
+// class-0, class-1 and "?" counts it receives: h_b delivered equivocators,
+// the honest split of the rest, and a normal-quantile Binomial(h_b, 1/2)
+// class split of the h_b.  ``terms0(n)`` / ``terms1(n)`` give cf_terms of
+// h0's and h1's populations at the lane's sample size n.
+template <typename Terms0, typename Terms1>
+__device__ __forceinline__ void equiv_draws_with(const EquivTrial& e,
+                                                 Terms0 terms0,
+                                                 Terms1 terms1, float u0,
+                                                 float u1, float u_b,
+                                                 float u_s, float* n0,
+                                                 float* n1, float* nq) {
+  const float h_b = cf_sample(u_b, e.db);
+  const float rem = fmaxf(e.m - h_b, 0.0f);
+  const float h0 = cf_sample(u0, terms0(rem));
+  const float h1 = cf_sample(u1, terms1(fmaxf(rem - h0, 0.0f)));
+  *nq = fmaxf(rem - h0 - h1, 0.0f);
+  const float z = ndtri_clipped(u_s);
+  const float bs =
+      fminf(fmaxf(rintf(h_b * 0.5f + z * sqrtf(h_b) * 0.5f), 0.0f), h_b);
+  *n0 = h0 + (h_b - bs);
+  *n1 = h1 + bs;
+}
+
+// The tally with the terms of h0's and h1's sample sizes read from the
+// block's two tables (equiv_counts).
 template <int W>
 __device__ __forceinline__ void equiv_draws(const EquivTrial& e,
                                             const TermsTable<W>& rem_tab,
@@ -274,17 +296,22 @@ __device__ __forceinline__ void equiv_draws(const EquivTrial& e,
                                             float u0, float u1, float u_b,
                                             float u_s, float* n0, float* n1,
                                             float* nq) {
-  const float h_b = cf_sample(u_b, e.db);
-  const float rem = fmaxf(e.m - h_b, 0.0f);
-  const float h0 = cf_sample(u0, table_terms(rem_tab, e.pop0, rem));
-  const float h1 = cf_sample(
-      u1, table_terms(rest_tab, e.pop1, fmaxf(rem - h0, 0.0f)));
-  *nq = fmaxf(rem - h0 - h1, 0.0f);
-  const float z = ndtri_clipped(u_s);
-  const float bs =
-      fminf(fmaxf(rintf(h_b * 0.5f + z * sqrtf(h_b) * 0.5f), 0.0f), h_b);
-  *n0 = h0 + (h_b - bs);
-  *n1 = h1 + bs;
+  equiv_draws_with(
+      e, [&](float n) { return table_terms(rem_tab, e.pop0, n); },
+      [&](float n) { return table_terms(rest_tab, e.pop1, n); }, u0, u1,
+      u_b, u_s, n0, n1, nq);
+}
+
+// The tally with every sample size's terms computed (the round kernels,
+// which hold no tables).
+__device__ __forceinline__ void equiv_draws(const EquivTrial& e, float u0,
+                                            float u1, float u_b, float u_s,
+                                            float* n0, float* n1,
+                                            float* nq) {
+  equiv_draws_with(
+      e, [&](float n) { return cf_terms(e.pop0, n); },
+      [&](float n) { return cf_terms(e.pop1, n); }, u0, u1, u_b, u_s, n0,
+      n1, nq);
 }
 
 }  // namespace benor

@@ -34,8 +34,8 @@ import torch
 
 from .launch import check, count_vecs, on_cpu, ptr, raise_on, stream
 from .stream import (_COIN_SALT, _EQUIV_SALT_OFFSET, bits_to_uniform,
-                     cf_pair_draws, equiv_draws, equiv_trial, lane_ids,
-                     stream_scal, threefry2x32)
+                     cf_pair_draws, equiv_pair_draws, lane_ids, stream_scal,
+                     threefry2x32)
 
 #: Threads a block of the histogram kernels (csrc/hist_kernels.cu
 #: kThreads).
@@ -77,14 +77,10 @@ def equiv_counts_plain(seed, r, phase, hist, n_equiv, m, n_nodes):
     [T, N, 3]: h_b delivered equivocators ~ CF, the honest split of the
     rest, and a Binomial(h_b, 1/2) class split of the h_b (the trial's
     terms once a trial, as the kernel computes them)."""
-    t, device = hist.shape[0], hist.device
-    node, trial = lane_ids(t, n_nodes, device)
-    k = stream_scal(seed, r, phase)
-    k2 = stream_scal(seed, r, phase + _EQUIV_SALT_OFFSET)
-    b0, b1 = threefry2x32(k[0], k[1], node, trial)
-    b2, b3 = threefry2x32(k2[0], k2[1], node, trial)
-    counts = equiv_draws(equiv_trial(count_vecs(hist), count_vecs(n_equiv), m),
-                         *(bits_to_uniform(b) for b in (b0, b1, b2, b3)))
+    counts = equiv_pair_draws(
+        m, stream_scal(seed, r, phase),
+        stream_scal(seed, r, phase + _EQUIV_SALT_OFFSET), count_vecs(hist),
+        count_vecs(n_equiv), (hist.shape[0], n_nodes), hist.device)
     return torch.stack(counts, dim=-1).to(torch.int32)
 
 

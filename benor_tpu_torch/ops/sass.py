@@ -31,6 +31,17 @@ COIN_KERNELS = ("coin_flips_kernel", "weak_coin_flips_kernel")
 # than one: the fused round walks its words once a phase.
 LOOPS = {"fused_round_kernel": 2, "fused_cluster_kernel": 2}
 FUSED_KERNELS = ("fused_round_kernel", "fused_cluster_kernel")
+# The round kernels' template parameters, in order (csrc/round_kernels.cu):
+# a report names each instantiation but the main path's (every parameter
+# 0) by them, as "vote_commit_kernel<delivered,common>".
+MODE_PARAMS = {"proposal_hist_kernel": ("counts", "pop"),
+               "vote_commit_kernel": ("counts", "coin", "pop"),
+               "fused_round_kernel": ("coin", "equiv"),
+               "fused_cluster_kernel": ("coin", "equiv")}
+_MODE_NAMES = {"counts": ("sampled", "delivered", "camps"),
+               "coin": ("private", "common", "weak_common"),
+               "pop": ("", "honest", "equiv"),
+               "equiv": ("", "equiv")}
 
 # SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
 # named here count as "uniform".
@@ -80,6 +91,27 @@ PIPES = {
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
                    r"(\S*)\s*([^;]*);")
+
+
+def template_args(mangled: str, tag: str) -> tuple:
+    """The integer and bool template arguments of the kernel whose
+    length-prefixed name ``tag`` the mangled name holds (() for a kernel
+    that is no template)."""
+    rest = mangled[mangled.index(tag) + len(tag):]
+    m = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+    if not m:
+        return ()
+    return tuple(int(v) for v in re.findall(r"L[a-z]+(\d+)E", m.group(1)))
+
+
+def mode_label(name: str, args: tuple) -> str:
+    """A kernel instantiation's report name: the kernel's name, and for an
+    instantiation with a mode other than the main path's its modes."""
+    if not any(args):
+        return name
+    parts = [_MODE_NAMES[p][v]
+             for p, v in zip(MODE_PARAMS.get(name, ()), args)]
+    return f"{name}<{','.join(p for p in parts if p)}>"
 
 
 def sass_class(op: str) -> str:
@@ -179,12 +211,12 @@ def sections(insns, loops: int = 1) -> dict:
     return out
 
 
-def resource_report(src: Path, out_dir: Path,
-                    kernels=ROUND_KERNELS) -> dict:
+def resource_report(src: Path, out_dir: Path, kernels=ROUND_KERNELS) -> dict:
     """Build one CUDA source to a cubin with the port's flags and
     ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
-    class counts}, ops: opcode counts of one pass of its loop}} for the
-    ``kernels`` it holds."""
+    class counts}, ops: opcode counts of one pass of its loop}} for every
+    instantiation of the ``kernels`` it holds, under its ``mode_label``
+    (the main path's under the kernel's name)."""
     nvcc = _build.nvcc_path()
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -205,17 +237,15 @@ def resource_report(src: Path, out_dir: Path,
         # the mangled name's length prefix keeps coin_flips_kernel apart
         # from weak_coin_flips_kernel
         tag = f"{len(name)}{name}"
-        keys = [k for k in ptxas if tag in k]
-        fkeys = [k for k in sass if tag in k]
-        if not keys or not fkeys:
-            continue
-        info = dict(ptxas[keys[0]])
-        secs = sections(sass[fkeys[0]], LOOPS.get(name, 1))
-        info["sass"] = {s: _mix(v) for s, v in secs.items()}
-        # one pass: the per-word or per-node loop where the kernel has
-        # one, else the body
-        info["ops"] = _ops(secs.get("loop", secs["body"]))
-        report[name] = info
+        for key in sorted(k for k in ptxas if tag in k and k in sass):
+            label = mode_label(name, template_args(key, tag))
+            info = dict(ptxas[key])
+            secs = sections(sass[key], LOOPS.get(name, 1))
+            info["sass"] = {s: _mix(v) for s, v in secs.items()}
+            # one pass: the per-word or per-node loop where the kernel has
+            # one, else the body
+            info["ops"] = _ops(secs.get("loop", secs["body"]))
+            report[label] = info
     return report
 
 

@@ -192,6 +192,21 @@ def equiv_trial(hist_f: torch.Tensor, ne_f: torch.Tensor, m) -> dict:
                 pop1=cf_pop(torch.clamp_min(total_h - c0, 0.0), c1), m=mf)
 
 
+def equiv_pair_draws(m, key, key2, hist_f: torch.Tensor, ne_f: torch.Tensor,
+                     shape, device):
+    """The per-lane equivocate tally (csrc/stream.cuh ``equiv_trial`` +
+    ``equiv_draws``): the phase key's threefry block gives u0 and u1, the
+    second key's (phase + 64) u_b and u_s, on the lanes' global counters
+    -> the class-0, class-1 and "?" counts, f32 [T, N] each.  ``hist_f``:
+    the f32 [T, 3] honest histogram; ``ne_f``: the f32 [T] live
+    equivocators; ``shape``: the lanes' (T, N)."""
+    node, trial = lane_ids(shape[0], shape[1], device)
+    b0, b1 = threefry2x32(key[0], key[1], node, trial)
+    b2, b3 = threefry2x32(key2[0], key2[1], node, trial)
+    return equiv_draws(equiv_trial(hist_f, ne_f, m),
+                       *(bits_to_uniform(b) for b in (b0, b1, b2, b3)))
+
+
 def equiv_draws(e: dict, u0, u1, u_b, u_s):
     """A lane's equivocate tally (csrc/stream.cuh ``equiv_draws``) from its
     trial's terms and its four uniforms -> the class-0, class-1 and "?"

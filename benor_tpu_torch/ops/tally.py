@@ -2,11 +2,14 @@
 benor_tpu/ops/tally.py:26-147, 150-375).
 
 The gates are kept verbatim so the port dispatches exactly where the JAX
-package does.  ``receiver_counts`` serves three regimes: ``delivery='all'``
+package does.  ``receiver_counts`` serves four regimes: ``delivery='all'``
 without omission — every receiver tallies the trial's class histogram (plus
 a Binomial(n_equiv, 1/2) split of the live equivocators), on either path —
-the dense path under quorum delivery (uniform or biased scheduler) or
-per-edge omission — an explicit [T, N, N] mask from ops/scheduler.py,
+the count-controlling adversaries (``scheduler='adversarial'`` and
+``'targeted'``), whose closed forms (``adversarial_counts``,
+``targeted_counts``, ported from benor_tpu/ops/tally.py:526-720) serve both
+paths, the dense path under quorum delivery (uniform or biased scheduler)
+or per-edge omission — an explicit [T, N, N] mask from ops/scheduler.py,
 tallied exactly by ops/dense.py — and the uniform-scheduler CF regime of
 the histogram path, the fused samplers of ops/hist.py.  Every other branch
 raises ``NotImplementedError`` naming its ROADMAP item.
@@ -115,7 +118,7 @@ def unfused_gap(cfg: SimConfig):
             return "drop_prob on the histogram path (binomial thinning)", "13"
         return None
     if cfg.scheduler in ("adversarial", "targeted"):
-        return f"scheduler={cfg.scheduler!r} (closed-form counts)", "8"
+        return None                       # closed form on both paths
     if cfg.resolved_path == "dense":
         return None
     if cfg.scheduler == "biased":
@@ -125,6 +128,117 @@ def unfused_gap(cfg: SimConfig):
         return ("the XLA samplers (use_pallas_hist=False, or a quorum "
                 "within EXACT_TABLE_MAX)"), "4"
     return None
+
+
+def targeted_camp_sizes(cfg: SimConfig) -> tuple:
+    """(size_per_value_camp, free_static): how many receivers the targeted
+    adversary seeds per value camp.  A camp must muster count > F of its
+    value at its own receivers; equivocators (free_static of them, each
+    able to tell every receiver a different value) substitute for honest
+    camp members one-for-one."""
+    free_static = cfg.n_faulty if cfg.fault_model == "equivocate" else 0
+    return max(cfg.n_faulty + 1 - free_static, 1), free_static
+
+
+def targeted_camp_bounds(cfg: SimConfig) -> tuple:
+    """(camp_b0, camp_b1): the first global receiver id of the 0-camp and
+    of the 1-camp (the value camps sit at the top of the id range, the
+    1-camp last); ids below camp_b0 form the "?" camp."""
+    size_v, _ = targeted_camp_sizes(cfg)
+    return (max(cfg.n_nodes - 2 * size_v, 0),
+            max(cfg.n_nodes - size_v, 0))
+
+
+def targeted_camp_triples(cfg: SimConfig, hist: torch.Tensor,
+                          n_free: torch.Tensor | None = None) -> torch.Tensor:
+    """The targeted adversary's three camp multisets as per-trial counts:
+    int32 [T, 3 camps, 3 classes], camps ordered (0-camp, 1-camp,
+    "?"-camp).  The 0-camp tallies its class first (honest and every free
+    equivocator), then "?", the starved class last; the 1-camp mirrors it;
+    the "?" camp tallies every "?" it can and fills the rest evenly, one
+    "?" dropped where that makes the remainder even (a perfect tie adopts
+    "?").  ``hist``: int32 [T, 3] global honest counts; ``n_free``: live
+    equivocators [T] or None."""
+    m = cfg.quorum
+    c0, c1, cq = hist[:, 0], hist[:, 1], hist[:, 2]
+    free = torch.zeros_like(c0) if n_free is None else n_free
+
+    def value_camp(want, other):
+        pref = torch.clamp_max(want + free, m)
+        q = torch.minimum(cq, m - pref)
+        oth = torch.minimum(other, m - pref - q)
+        return pref, oth, q
+
+    p0, o0, vq0 = value_camp(c0, c1)
+    p1, o1, vq1 = value_camp(c1, c0)
+
+    q_q = torch.clamp_max(cq + free, m)
+    rem = m - q_q
+    drop = (((rem % 2) == 1) & (q_q > 0)).to(q_q.dtype)
+    q_q = q_q - drop
+    rem = rem + drop
+    tie = rem // 2
+    q0 = torch.minimum(c0, tie)
+    q1 = torch.minimum(c1, tie)
+    left = rem - q0 - q1
+    e0 = torch.minimum(torch.clamp_min(left, 0), c0 - q0)
+    q0 = q0 + e0
+    left = left - e0
+    e1 = torch.minimum(torch.clamp_min(left, 0), c1 - q1)
+    q1 = q1 + e1
+    # if the classes could not absorb the parity drop, restore it
+    q_q = q_q + torch.minimum(torch.clamp_min(left - e1, 0), drop)
+
+    camp0 = torch.stack([p0, o0, vq0], dim=-1)
+    camp1 = torch.stack([o1, p1, vq1], dim=-1)
+    campq = torch.stack([q0, q1, q_q], dim=-1)
+    return torch.stack([camp0, camp1, campq], dim=1)
+
+
+def targeted_counts(cfg: SimConfig, hist: torch.Tensor,
+                    node_ids: torch.Tensor,
+                    n_free: torch.Tensor | None = None) -> torch.Tensor:
+    """The partitioned count-controlling adversary: each receiver tallies
+    its camp's triple (``targeted_camp_triples``), the camp chosen by its
+    global id ``node_ids`` [N] -> int32 [T, N, 3].  Realizable as an
+    explicit delivery schedule (scheduler.realize_counts_mask)."""
+    trip = targeted_camp_triples(cfg, hist, n_free)
+    size_v, _ = targeted_camp_sizes(cfg)
+    camp1 = node_ids >= cfg.n_nodes - size_v
+    camp0 = (node_ids >= cfg.n_nodes - 2 * size_v) & ~camp1
+    idx = torch.where(camp1, 1, torch.where(camp0, 0, 2))
+    return trip[:, idx, :]
+
+
+def adversarial_counts(hist: torch.Tensor, m: int,
+                       n_free: torch.Tensor | None = None) -> torch.Tensor:
+    """The worst-case count-controlling scheduler: every receiver tallies
+    the same multiset of m messages, its 0 and 1 counts as even as the
+    histogram allows, so phase 1 yields "?" and phase 2 never passes F.
+    ``n_free`` (int32 [T] or None): live equivocators, whose values the
+    adversary picks outright; they top both classes up toward the common
+    level min(m // 2, (h0 + h1 + free) // 2) and the rest send "?".
+    ``hist``: int32 [T, 3] global honest counts -> int32 [T, 3] delivered
+    counts summing to m."""
+    c0, c1, cq = hist[:, 0], hist[:, 1], hist[:, 2]
+    tgt = m // 2
+    h0h = torch.clamp_max(c0, tgt)
+    h1h = torch.clamp_max(c1, tgt)
+    if n_free is not None:
+        lvl = torch.clamp_max((h0h + h1h + n_free) // 2, tgt)
+        b0 = torch.minimum(torch.clamp_min(lvl - h0h, 0), n_free)
+        b1 = torch.minimum(torch.clamp_min(lvl - h1h, 0), n_free - b0)
+        cq = cq + (n_free - b0 - b1)
+        h0, h1 = h0h + b0, h1h + b1
+    else:
+        h0, h1 = h0h, h1h
+    hq = torch.minimum(cq, m - h0 - h1)
+    rem = m - h0 - h1 - hq
+    extra0 = torch.minimum(rem, c0 - h0h)
+    h0, rem = h0 + extra0, rem - extra0
+    extra1 = torch.minimum(rem, c1 - h1h)
+    h1 = h1 + extra1
+    return torch.stack([h0, h1, hq], dim=-1)
 
 
 def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
@@ -200,14 +314,26 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
     gap = unfused_gap(cfg)
     if gap is not None:
         unported(*gap)
-    n = sent.shape[-1]
+    t, n = sent.shape
     honest = alive if equiv is None else (alive & ~equiv)
+    if equiv is not None and n_equiv is None:
+        n_equiv = (equiv & alive).sum(-1, dtype=torch.int32)
+    # the count-controlling adversaries: closed form on both paths, so the
+    # scheduler's semantics do not flip where path='auto' crosses
+    # dense_path_max_n; equivocators are their free pool
+    if cfg.scheduler == "adversarial":
+        counts = adversarial_counts(class_histogram(sent, honest),
+                                    cfg.quorum, n_free=n_equiv)
+        return counts[:, None, :].expand(t, n, 3)
+    if cfg.scheduler == "targeted":
+        _, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
+                                            sent.device)
+        return targeted_counts(cfg, class_histogram(sent, honest), recv_ids,
+                               n_free=n_equiv)
     if dense_gather_needed(cfg):
         return _dense_receiver_counts(cfg, seed, r, phase, sent, alive,
                                       honest, equiv, trial_ids, recv_ids)
 
-    if equiv is not None and n_equiv is None:
-        n_equiv = (equiv & alive).sum(-1, dtype=torch.int32)
     if cfg.delivery == "all":
         return _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv,
                                  n_equiv, trial_ids, recv_ids)

@@ -3,8 +3,10 @@
 Two round loops, as in the JAX package: the packed loop
 (ops/packed_round.py, the fused round kernels) when
 ``tally.pallas_round_active`` — the uniform-scheduler CF regime of the
-histogram path, private coin, crash or byzantine faults — and the unfused
-loop (models/benor.py) otherwise, in three regimes.  ``delivery='all'``
+histogram path and the count-controlling adversaries (``scheduler=
+'adversarial'`` / ``'targeted'``, their closed-form counts), under every
+coin and crash, byzantine or equivocate faults — and the unfused loop
+(models/benor.py) otherwise, in four regimes.  ``delivery='all'``
 (the JAX package's default; on either path, omission aside) tallies the
 broadcast histogram in plain torch, no kernel, as the JAX package does in
 plain XLA: the packed loop never serves it, whatever
@@ -14,9 +16,10 @@ ops/hist.py; on the dense path (``path='dense'``, or ``'auto'`` at
 N <= dense_path_max_n) it serves quorum delivery under the uniform and
 biased schedulers and per-edge omission (``delivery='all'`` with
 ``drop_prob``): explicit [T, N, N] delivery masks (ops/scheduler.py)
-tallied exactly (ops/dense.py).  All three take crash, byzantine or
-equivocate faults, private, common or weak-common coins, either decision
-rule, freeze on or off.  Every other regime raises
+tallied exactly (ops/dense.py); under the count-controlling adversaries,
+on either path, the closed-form counts of ops/tally.py.  All four take
+crash, byzantine or equivocate faults, private, common or weak-common
+coins, either decision rule, freeze on or off.  Every other regime raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it;
 nothing falls back to another path.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
@@ -67,12 +70,9 @@ def check_supported(cfg: SimConfig) -> None:
         if gap is not None:
             unported(*gap)
         return
-    if tally.pallas_round_counts_mode(cfg) != "sampled":
-        unported(f"scheduler={cfg.scheduler!r} (closed-form counts)", "8")
-    if cfg.fault_model not in ("crash", "byzantine"):
-        unported(f"fault_model={cfg.fault_model!r} in the packed round", "8")
-    if cfg.coin_mode != "private":
-        unported(f"coin_mode={cfg.coin_mode!r} in the packed round", "8")
+    if cfg.fault_model in ("crash_at_round", "crash_recover"):
+        unported(f"fault_model={cfg.fault_model!r} in the packed round "
+                 "(Queue B B2)", "8")
 
 
 def start_state(cfg: SimConfig, state: NetState) -> NetState:

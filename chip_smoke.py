@@ -68,7 +68,20 @@ Phases (any failure ends the run non-zero; nothing is caught):
      the ``init_state`` / ``run_consensus`` split and two profiled runs;
      crash at N = 65,536 x 32 and equivocate at N = 8192 x 8 (both
      samplers) equal on the card and the CPU (``[all]``);
-  9. the kernels line, the card line, and the result line.
+  9. ``[item8]``: equivocation, the shared coins and the count adversaries
+     in the round kernels.  Every new mode instantiation of
+     proposal_hist / vote_commit against its plain version on N = 1M x 32
+     fixtures, and of fused_round on its shape family against its plain
+     version and the two-kernel route, each timed once beside the main
+     path's instantiation on the same kind of fixture, with its bound and
+     its registers and SASS; bench.py's nine regimes that run those
+     branches (bench.py:337-406) at N = 1M x 32 with the launch counts
+     read around them (targeted_f0.50 and equiv_3f_super must decide no
+     lane; no histogram kernel may run), their init_state / run_consensus
+     split and two profiled runs; packed against unfused on the four
+     regimes where both share every bit; every new mode at N = 8192 x 8
+     and 16,384 x 4 on the card against the CPU;
+ 10. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -284,9 +297,12 @@ def cuda_ms(fn, n: int, queued: bool = False) -> float:
     return start.elapsed_time(stop) / n
 
 
-def random_pack(cfg, device, seed):
+def random_pack(cfg, device, seed, balanced=False):
     """A plane stack of a random mid-run state (x, decided, killed, k,
-    faulty drawn on the device) -> (pack, its proposal histogram)."""
+    faulty drawn on the device; with ``balanced`` x alternates 0 and 1
+    over the nodes and nodes 2j and 2j + 1 share every other field, so
+    that the live and the frozen lanes hold as many 0s as 1s and the
+    rounds' tallies tie) -> (pack, its proposal histogram)."""
     import torch
     from benor_tpu_torch.ops.packed_round import (pack_state,
                                                   sent_hist_from_pack)
@@ -298,11 +314,16 @@ def random_pack(cfg, device, seed):
     def draw(hi):
         return torch.randint(0, hi, shape, generator=g, device=device)
 
-    state = NetState(x=draw(3).to(torch.int8),
-                     decided=draw(10) == 0,
-                     k=draw(cfg.max_rounds + 2).to(torch.int32),
-                     killed=draw(10) == 0)
-    pack = pack_state(cfg, state, draw(10) == 0)
+    x, dec, k = draw(3), draw(10) == 0, draw(cfg.max_rounds + 2)
+    killed, faulty = draw(10) == 0, draw(10) == 0
+    if balanced:
+        node = torch.arange(cfg.n_nodes, device=device)
+        x = (node % 2).expand(shape)
+        dec, k, killed, faulty = (a[:, node // 2 * 2]
+                                  for a in (dec, k, killed, faulty))
+    state = NetState(x=x.to(torch.int8), decided=dec,
+                     k=k.to(torch.int32), killed=killed)
+    pack = pack_state(cfg, state, faulty)
     return pack, sent_hist_from_pack(cfg, pack)
 
 
@@ -362,11 +383,11 @@ def pair_sizes(key, hist, m, shape, device):
             torch.clamp_min(mf - centre_draw(d1), 0.0))
 
 
-def equiv_sizes(hist, n_equiv, m, n_nodes):
-    """The sample sizes of equiv_counts' h0 and h1 draws (stream.cuh
-    equiv_draws) under the vote phase's streams of ROUND -> ((rem, its
-    window centre), (max(rem - h0, 0), its window centre)), [T, N] and
-    [T, 1] f32."""
+def equiv_sizes(hist, n_equiv, m, n_nodes, phase=None):
+    """The sample sizes of the h0 and h1 draws of the equivocate tally
+    (stream.cuh equiv_draws) under ``phase``'s streams of ROUND (default
+    the vote phase, as equiv_counts draws) -> ((rem, its window centre),
+    (max(rem - h0, 0), its window centre)), [T, N] and [T, 1] f32."""
     import torch
     from benor_tpu_torch.ops import rng
     from benor_tpu_torch.ops.launch import count_vecs
@@ -375,8 +396,9 @@ def equiv_sizes(hist, n_equiv, m, n_nodes):
                                             cf_terms, equiv_trial, lane_ids,
                                             stream_scal, threefry2x32)
     node, trial = lane_ids(hist.shape[0], n_nodes, hist.device)
+    phase = rng.PHASE_VOTE if phase is None else phase
     k, k2 = (stream_scal(SEED, ROUND, s) for s in (
-        rng.PHASE_VOTE, rng.PHASE_VOTE + _EQUIV_SALT_OFFSET))
+        phase, phase + _EQUIV_SALT_OFFSET))
     b0, _ = threefry2x32(k[0], k[1], node, trial)
     b2, _ = threefry2x32(k2[0], k2[1], node, trial)
     e = equiv_trial(count_vecs(hist), count_vecs(n_equiv), m)
@@ -1035,12 +1057,17 @@ def breakdown(tag, name, run, t_run, ours, torch_ops=False):
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
     top = ", ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in evs[:8])
-    ours_ms = sum(dev_us(e) for e in evs if "_kernel(" in e.key
-                  and any(k in e.key for k in ours)) / 1e3
-    per = ", ".join(f"{re.search(r'(\w+_kernel)\(', e.key).group(1)} "
+    # a port kernel's entry: its name, its template arguments if any
+    port = re.compile(r"(\w+_kernel)(<[^>]*>)?\(")
+
+    def ours_(e):
+        m = port.search(e.key)
+        return m if m and any(k in m.group(1) for k in ours) else None
+
+    ours_ms = sum(dev_us(e) for e in evs if ours_(e)) / 1e3
+    per = ", ".join(f"{''.join(g for g in ours_(e).groups() if g)} "
                     f"{dev_us(e) / e.count / 1e3:.4f} ms a launch x{e.count}"
-                    for e in evs if "_kernel(" in e.key
-                    and any(k in e.key for k in ours))
+                    for e in evs if ours_(e))
     if torch_ops:
         ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU
@@ -1159,6 +1186,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     round_res = sass.resource_report(_build.CSRC / "round_kernels.cu",
                                      _build.BUILD_DIR)
+    round_modes = {k: round_res.pop(k) for k in list(round_res) if "<" in k}
     fused_res = {k: round_res.pop(k) for k in sass.FUSED_KERNELS
                  if k in round_res}
     sass.print_resources("chip_smoke", round_res, lanes, sms, mhz)
@@ -1736,13 +1764,610 @@ def main() -> int:
         if rg != rc or diff:
             raise SystemExit(f"[all] {name}: card and CPU runs disagree")
 
-    # --- 9. the kernels line, the card, the result -------------------------
+    # --- 9. equivocation, the shared coins and the count adversaries -------
+    item8_phase(lib, dev, sms, round_modes)
+
+    # --- 10. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# --- the [item8] phase: equivocation, the shared coins and the count
+# adversaries in the round kernels ------------------------------------------
+
+# the regimes whose packed and unfused runs share every random bit (the
+# common coin under the count adversary, sampled equivocation with the
+# private coin), and those whose structure forbids any decision (the bar
+# m <= F; the N > 3F impossibility)
+ITEM8_EXACT = ("adv_common", "equiv_3f_sub", "equiv_3f_super",
+               "equiv_uniform_f0.20")
+ITEM8_NO_DECISION = ("targeted_f0.50", "equiv_3f_super")
+# the card-vs-CPU sizes: (N, T) whose sampled modes take the fused kernel,
+# and the two-kernel route
+ITEM8_SMALL = ((8192, 8), (16_384, 4))
+# the round kernels' new instantiations on N = 1M x 32 fixtures: (counts,
+# coin, fault model); the fused kernel's on its shape family: (coin, fault
+# model); each list led by the main path's instantiation on the same kind
+# of fixture, the control its times are read against
+ITEM8_PAIR = (("sampled", "private", "crash"),       # the main path's
+              ("sampled", "private", "equivocate"),
+              ("sampled", "common", "crash"),
+              ("sampled", "weak_common", "crash"),
+              ("sampled", "common", "equivocate"),
+              ("sampled", "weak_common", "equivocate"),
+              ("delivered", "private", "crash"),
+              ("delivered", "common", "crash"),
+              ("delivered", "weak_common", "crash"),
+              ("delivered", "private", "equivocate"),
+              ("delivered", "common", "equivocate"),
+              ("delivered", "weak_common", "equivocate"),
+              ("camps", "private", "crash"),
+              ("camps", "common", "crash"),
+              ("camps", "weak_common", "crash"),
+              ("camps", "private", "equivocate"),
+              ("camps", "common", "equivocate"),
+              ("camps", "weak_common", "equivocate"))
+ITEM8_FUSED = (("private", "crash"), ("private", "equivocate"),
+               ("common", "crash"),
+               ("weak_common", "crash"), ("common", "equivocate"),
+               ("weak_common", "equivocate"))
+ITEM8_EPS = 0.5           # the weak coin's deviation rate in the fixtures
+# a lane's work for its tallies beyond the pair's plane reads and logic:
+# the equivocate draw (two threefry blocks, four uniforms, three samples,
+# ~16 sums, clamps and the split; the terms of its two sample sizes are
+# charged once per distinct (trial, size), as equiv_counts' are); the camp
+# choice (two compares, two selects); the weak coin's deviation test
+OPS_EQUIV_LANE = (2 * OPS_THREEFRY + 4 * OPS_UNIFORM + 3 * OPS_CF_SAMPLE
+                  + 16)
+OPS_EQUIV_TRIAL = 80
+OPS_CAMP_LANE = 4
+OPS_WEAK_COIN = OPS_THREEFRY + 1 + OPS_UNIFORM + 2
+
+
+def item8_regimes(n, trials, max_rounds=MAX_ROUNDS, device="cuda"):
+    """bench.py's nine regimes that run the round kernels' new branches
+    (bench.py:337-406) at ``n`` x ``trials``, with bench.py's even-quorum
+    adjustments and round caps -> [(name, cfg, inputs, faults)]."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    base = dict(n_nodes=n, trials=trials, max_rounds=max_rounds,
+                delivery="quorum", path="histogram", fault_model="crash",
+                seed=SEED, use_pallas_hist=True, use_pallas_round=True)
+    bal = balanced_inputs(trials, n)
+    out = []
+
+    def add(name, alive_eq, **kw):
+        c = SimConfig(**{**base, **kw})
+        fl = (FaultSpec.first_f(c, device=device) if alive_eq
+              else FaultSpec.none(trials, n, device=device))
+        out.append((name, c, bal, fl))
+
+    def even(f):
+        return f + (n - f) % 2          # an even quorum N - F
+
+    cap12 = min(12, max_rounds)
+    f_adv = even(int(0.2 * n))
+    add("adv_private", False, scheduler="adversarial", coin_mode="private",
+        n_faulty=f_adv, max_rounds=cap12)
+    add("adv_common", False, scheduler="adversarial", coin_mode="common",
+        n_faulty=f_adv)
+    for eps in (0.55, 0.65):
+        add(f"weak_eps{eps}", False, scheduler="adversarial",
+            coin_mode="weak_common", adversary_strength=0.0, coin_eps=eps,
+            n_faulty=even(int(0.4 * n)), max_rounds=cap12)
+    for name, f, cap in (("targeted_f0.25", even(int(0.25 * n)), 16),
+                         ("targeted_f0.50", n // 2 + 1, 12)):
+        add(name, False, scheduler="targeted", n_faulty=f,
+            max_rounds=min(cap, max_rounds), use_pallas_hist=False)
+    f_sub = n // 3 - (1 if n % 3 == 0 else 0)
+    for name, f, cap in (("equiv_3f_sub", f_sub, max_rounds),
+                         ("equiv_3f_super", n // 3 + 1, cap12)):
+        add(name, True, scheduler="adversarial", coin_mode="common",
+            fault_model="equivocate", n_faulty=f, max_rounds=cap,
+            use_pallas_hist=False)
+    add("equiv_uniform_f0.20", True, scheduler="uniform",
+        fault_model="equivocate", n_faulty=int(0.2 * n))
+    return out
+
+
+def item8_small_extra(n, trials, device="cuda"):
+    """The sampled counts under the shared coins, for the card-vs-CPU runs
+    (the uniform scheduler at f = 0.40 under the common and the weak coin,
+    equivocate at f = 0.20 under the weak coin)."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    base = dict(n_nodes=n, trials=trials, max_rounds=MAX_ROUNDS,
+                delivery="quorum", path="histogram", scheduler="uniform",
+                seed=SEED, use_pallas_hist=True, use_pallas_round=True)
+    bal = balanced_inputs(trials, n)
+    out = []
+    for name, kw in (("uniform_common_f0.40",
+                      dict(coin_mode="common", n_faulty=int(0.4 * n))),
+                     ("uniform_weak_f0.40",
+                      dict(coin_mode="weak_common", coin_eps=ITEM8_EPS,
+                           n_faulty=int(0.4 * n))),
+                     ("equiv_uniform_weak_f0.20",
+                      dict(coin_mode="weak_common", coin_eps=ITEM8_EPS,
+                           fault_model="equivocate",
+                           n_faulty=int(0.2 * n)))):
+        c = SimConfig(**base, **kw)
+        fl = (FaultSpec.first_f(c, device=device)
+              if c.fault_model == "equivocate"
+              else FaultSpec.none(trials, n, device=device))
+        out.append((name, c, bal, fl))
+    return out
+
+
+def mode_ops(kernel, lanes, trials, words, k_planes, counts_mode, coin_mode,
+             equiv, draws, tails, sizes, coins) -> int:
+    """Operations a round kernel's instantiation needs on this run's
+    inputs (see ``ops_needed``): ``draws`` lanes that read their tallies
+    (``tails`` of their quantiles in the tail; ``sizes`` distinct (trial,
+    sample size) of the draws whose size is the lane's own: the CF pair's
+    second, the equivocate tally's h0 and h1), ``coins`` lanes that take the
+    coin."""
+    base = (OPS_READ_PLANES + 15 if kernel == "proposal_hist"
+            else OPS_READ_PLANES + 4 + 31)
+    ops = lanes * base
+    if kernel == "vote_commit":
+        ops += words * 2 * k_planes
+        ops += coins * {"private": OPS_THREEFRY + 1, "common": 0,
+                        "weak_common": OPS_WEAK_COIN}[coin_mode]
+    if counts_mode == "camps":
+        ops += draws * OPS_CAMP_LANE
+    elif counts_mode == "sampled" and equiv:
+        ops += (draws * OPS_EQUIV_LANE + sizes * OPS_CF_TERMS
+                + ops_quantiles(4 * draws, tails) + trials * OPS_EQUIV_TRIAL)
+    elif counts_mode == "sampled":
+        ops += (draws * OPS_CF_PAIR_LANE + sizes * OPS_CF_TERMS
+                + ops_quantiles(2 * draws, tails) + trials * OPS_CF_TRIAL)
+    return ops
+
+
+def mode_case(cfg, counts_mode, fault_model, device, seed, balanced=False):
+    """A plane stack of a random mid-run state for ``cfg`` in a mode
+    (``balanced``: see ``random_pack``), its
+    proposal histogram, live equivocators and camp bounds, the kernels'
+    closed form for the mode (``counts``: a histogram -> the kernels' count
+    operand) and a shared coin bit a trial."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import tally
+
+    sched = {"sampled": "uniform", "delivered": "adversarial",
+             "camps": "targeted"}[counts_mode]
+    cfg = cfg.replace(scheduler=sched, fault_model=fault_model,
+                      delivery="quorum")
+    pack, _ = random_pack(cfg, device, seed, balanced)
+    hist1 = pr.sent_hist_from_pack(cfg, pack)
+    n_equiv = pr.n_equiv_from_pack(cfg, pack)
+    camps = (tally.targeted_camp_bounds(cfg) if counts_mode == "camps"
+             else (0, 0))
+
+    def counts(h):
+        if counts_mode == "delivered":
+            return tally.adversarial_counts(h, cfg.quorum, n_free=n_equiv)
+        if counts_mode == "camps":
+            return tally.targeted_camp_triples(cfg, h, n_free=n_equiv)
+        return h
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shared = torch.randint(0, 2, (cfg.trials,), generator=g, device=device,
+                           dtype=torch.int32)
+    return dict(cfg=cfg, pack=pack, hist1=hist1, n_equiv=n_equiv,
+                camps=camps, counts=counts, shared=shared)
+
+
+def mode_needs(pack, counts_mode, equiv, m, hists, qok, new_pack,
+               n_equiv=None) -> dict:
+    """What a round's lanes need in a mode (see ``lane_needs``): the lanes
+    that read their tallies in each phase, their quantiles in the tail
+    (the equivocate draw's four uniforms, the CF pair's two) and the
+    distinct (trial, sample size) of the draws whose size is the lane's own
+    (the CF pair's second; the equivocate tally's h0 and h1, ``n_equiv``
+    its live equivocators); the lanes that coin (the vote's new coined
+    plane).  ``hists``: the two phases' counts."""
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.packed_round import plane_field
+    from benor_tpu_torch.ops.stream import _EQUIV_SALT_OFFSET, stream_scal
+    from benor_tpu_torch.state import PACK_COINED, PACK_DECIDED, PACK_KILLED
+
+    live = ((plane_field(pack, PACK_KILLED, 1) == 0)
+            & (plane_field(pack, PACK_DECIDED, 1) == 0))
+    needs = {"coins": int(plane_field(new_pack, PACK_COINED, 1).sum())}
+    for ph, need, hist in ((rng.PHASE_PROPOSAL, live, hists[0]),
+                           (rng.PHASE_VOTE, live & qok[:, None], hists[1])):
+        name = "proposal" if ph == rng.PHASE_PROPOSAL else "vote"
+        needs[f"{name}_draws"] = int(need.sum())
+        needs[f"{name}_tails"] = needs[f"{name}_sizes"] = 0
+        if counts_mode != "sampled":
+            continue
+        key = stream_scal(SEED, ROUND, ph)
+        needs[f"{name}_tails"] = tail_quantiles(key, need)
+        if equiv:
+            needs[f"{name}_tails"] += tail_quantiles(
+                stream_scal(SEED, ROUND, ph + _EQUIV_SALT_OFFSET), need)
+            needs[f"{name}_sizes"] = sum(
+                distinct_sizes(x, need) for x, _ in equiv_sizes(
+                    hist, n_equiv, m, need.shape[1], ph))
+        else:
+            needs[f"{name}_sizes"] = distinct_sizes(pair_sizes(
+                key, hist, m, need.shape, need.device)[0], need)
+    return needs
+
+
+def mode_pair(lib, cfg, counts_mode, coin_mode, fault_model, device,
+              seed) -> dict:
+    """proposal_hist and vote_commit in one mode against their plain
+    versions on a random N = 1M x 32 fixture (F = 0.4 N, so the closed
+    forms tie; the vote on the proposal's gate and on a balanced histogram
+    of its voters, so that lanes coin; a random shared bit a trial), then
+    three timed repeats of each launch ->
+    dict: res (the two compare results), ms, needs, bytes, ops."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.stream import (_COIN_SALT, _EQUIV_SALT_OFFSET,
+                                            stream_scal)
+    from benor_tpu_torch.state import PACK_K
+
+    case = mode_case(cfg, counts_mode, fault_model, device, seed)
+    cfg, pack = case["cfg"], case["pack"]
+    m, r = cfg.quorum, ROUND
+    t, planes, n_w = pack.shape
+    lanes = t * n_w * 32
+    eps = ITEM8_EPS if coin_mode == "weak_common" else 0.0
+    tag = f"{counts_mode}/{coin_mode}/{fault_model}"
+    pm = dict(fault_model=fault_model, freeze=True, n_equiv=case["n_equiv"],
+              counts_mode=counts_mode, camp_b0=case["camps"][0],
+              camp_b1=case["camps"][1])
+    vm = dict(pm, coin_mode=coin_mode, eps=eps, shared=case["shared"])
+    c1 = case["counts"](case["hist1"])
+    parts_k = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, c1, pack, m,
+                               **pm)
+    parts_p = pr.proposal_hist_plain(SEED, r, rng.PHASE_PROPOSAL, c1, pack,
+                                     m, **pm)
+    torch.cuda.synchronize()
+    res_p = compare(f"proposal_hist {tag}", lanes, [(parts_k, parts_p)])
+    qok = parts_p[:, 3] >= m
+    # a balanced vote histogram, so that the tallies tie and lanes coin
+    tot = parts_p[:, :3].sum(1)
+    c2 = case["counts"](torch.stack([tot // 2, tot - tot // 2, tot * 0],
+                                    dim=1))
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference")
+    new_k, vparts_k = pr.vote_commit(SEED, r, rng.PHASE_VOTE, c2, pack, qok,
+                                     **vote, **vm)
+    new_p, vparts_p = pr.vote_commit_plain(SEED, r, rng.PHASE_VOTE, c2,
+                                           pack, qok, **vote, **vm)
+    torch.cuda.synchronize()
+    res_v = compare(f"vote_commit {tag}", lanes, [(new_k, new_p),
+                                                  (vparts_k, vparts_p)])
+
+    equiv = counts_mode == "sampled" and fault_model == "equivocate"
+    needs = mode_needs(pack, counts_mode, equiv, m, (c1, c2), qok, new_p,
+                       case["n_equiv"])
+    keys = {s: stream_scal(SEED, r, s) for s in (
+        rng.PHASE_PROPOSAL, rng.PHASE_VOTE, _COIN_SALT,
+        rng.PHASE_PROPOSAL + _EQUIV_SALT_OFFSET,
+        rng.PHASE_VOTE + _EQUIV_SALT_OFFSET)}
+    del new_k, new_p
+    if coin_mode != "private" and not needs["coins"]:
+        raise SystemExit(f"{tag}: the fixture coined no lane")
+
+    hist_f1, hist_f2 = (pr.kernel_vecs(c, counts_mode) for c in (c1, c2))
+    ne_f = (case["n_equiv"].to(torch.float32).contiguous() if equiv
+            else None)
+    qok_i = qok.to(torch.int32).contiguous()
+    two = ((0, 0), (0, 0))
+    if equiv:
+        two = tuple(keys[p + _EQUIV_SALT_OFFSET]
+                    for p in (rng.PHASE_PROPOSAL, rng.PHASE_VOTE))
+    shared_i = None if coin_mode == "private" else case["shared"]
+    calls = {
+        "proposal_hist": lambda: pr._launch_proposal_hist(
+            lib, keys[rng.PHASE_PROPOSAL], hist_f1, pack, m, fault_model,
+            True, counts_mode, two[0], ne_f, case["camps"]),
+        "vote_commit": lambda: pr._launch_vote_commit(
+            lib, keys[rng.PHASE_VOTE], keys[_COIN_SALT], r + 1, hist_f2,
+            qok_i, pack, m, cfg.n_faulty, "reference", fault_model, True,
+            counts_mode, coin_mode, two[1], ne_f, shared_i, eps,
+            case["camps"]),
+    }
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    pack_bytes = pack.numel() * 4
+    nvec = hist_f1.shape[1]
+    bytes_ = {
+        "proposal_hist": pack_bytes + t * nvec * 4
+        + pr.round_blocks(lib, 0, n_w, t, device,
+                          pr._mode_ids(counts_mode, "private", fault_model))
+        * t * pr.PROP_COLS * 4,
+        "vote_commit": 2 * pack_bytes + t * (nvec + 2) * 4
+        + pr.round_blocks(lib, 1, n_w, t, device,
+                          pr._mode_ids(counts_mode, coin_mode, fault_model))
+        * t * pr.VOTE_COLS * 4,
+    }
+    ops = {k: mode_ops(k, lanes, t, n_w * t, planes - PACK_K, counts_mode,
+                       coin_mode, equiv,
+                       needs[f"{p}_draws"], needs[f"{p}_tails"],
+                       needs[f"{p}_sizes"], needs["coins"])
+           for k, p in (("proposal_hist", "proposal"),
+                        ("vote_commit", "vote"))}
+    print(f"[fixture] item8 {tag}: lanes {lanes}, needs {needs}; kernel ms "
+          f"{ms}")
+    return dict(res=(res_p, res_v), ms=ms, needs=needs, bytes=bytes_,
+                ops=ops, calls=calls, tag=tag)
+
+
+def mode_fused(lib, trials, n, coin_mode, fault_model, device, timed):
+    """fused_round in one mode on a balanced random_pack fixture of
+    ``trials`` x ``n`` (F = 0.4 N and the textbook rule: no tally passes F,
+    so every active lane coins; a random shared bit a trial) against its
+    plain version and
+    against the two-kernel route, bit for bit; with ``timed`` three timed
+    repeats of its launch, as every kernel is and queued -> dict."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.state import PACK_COINED, PACK_K
+
+    cfg = main_cfg().replace(n_nodes=n, n_faulty=int(0.4 * n),
+                             trials=trials)
+    case = mode_case(cfg, "sampled", fault_model, device, SEED + 3,
+                     balanced=True)
+    cfg, pack, hist = case["cfg"], case["pack"], case["hist1"]
+    m, r = cfg.quorum, ROUND
+    lanes = trials * pack.shape[2] * 32
+    eps = ITEM8_EPS if coin_mode == "weak_common" else 0.0
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="textbook",
+                fault_model=fault_model, freeze=True)
+    modes = dict(n_equiv=case["n_equiv"], coin_mode=coin_mode, eps=eps,
+                 shared=case["shared"])
+    out_k = pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+    out_p = pr.fused_round_plain(SEED, r, hist, pack, **vote, **modes)
+    parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist, pack, m,
+                               fault_model, True, n_equiv=case["n_equiv"])
+    out_2 = (*pr.vote_commit(SEED, r, rng.PHASE_VOTE, parts_a[:, :3], pack,
+                             parts_a[:, 3] >= m, **vote, **modes), parts_a)
+    out_2 = (out_2[0], out_2[2], out_2[1])
+    torch.cuda.synchronize()
+    tag = f"{coin_mode}/{fault_model} T={trials} N={n}"
+    res = compare(f"fused_round {tag}", lanes, list(zip(out_k, out_p)))
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_2))
+    print(f"[dispatch] item8 fused_round vs proposal_hist + sum + "
+          f"vote_commit at {tag}: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit(f"fused and two-kernel rounds differ at {tag}")
+    coins = int(pr.plane_field(out_p[0], PACK_COINED, 1).sum())
+    if not coins and n >= 1024:
+        raise SystemExit(f"{tag}: the fixture coined no lane")
+    out = dict(res=res, lanes=lanes, grid=pr.fused_grid(
+        lib, pack.shape[2], trials, device, coin_mode,
+        fault_model == "equivocate"))
+    if timed:
+        def fused():
+            return pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+        out["ms"] = repeats(fused)
+        out["ms_queued"] = repeats(fused, queued=True)
+        out["bytes"] = 2 * pack.numel() * 4 + trials * 3 * 4 \
+            + trials * (pr.PROP_COLS + pr.VOTE_COLS) * 4
+        equiv = fault_model == "equivocate"
+        nd = mode_needs(pack, "sampled", equiv, m, (hist, out_p[1][:, :3]),
+                        out_p[1][:, 3] >= m, out_p[0], case["n_equiv"])
+        t, planes, n_w = pack.shape
+        out["needs"] = nd
+        out["ops"] = sum(mode_ops(k, lanes, t, n_w * t, planes - PACK_K,
+                                  "sampled", coin_mode, equiv,
+                                  nd[f"{p}_draws"], nd[f"{p}_tails"],
+                                  nd[f"{p}_sizes"], nd["coins"])
+                         for k, p in (("proposal_hist", "proposal"),
+                                      ("vote_commit", "vote")))
+    return out
+
+
+def item8_phase(lib, dev, sms, round_modes) -> None:
+    """The [item8] phase (see the module docstring): the round kernels'
+    new instantiations against their plain versions and timed, their
+    resources; bench.py's nine regimes at N = 1M x 32 on the packed path
+    with the launch counts read around them; packed against unfused on the
+    four regimes where they share every bit; card against CPU at small
+    sizes.  Any differing word, count or run raises SystemExit."""
+    import torch
+    from benor_tpu_torch import simulate
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import sass
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import init_state
+
+    t_phase = time.perf_counter()
+    cfg = main_cfg().replace(n_faulty=int(0.4 * N_MAIN))
+
+    def bound(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    # 1. every new instantiation of the pair on N = 1M x 32, timed once;
+    # ``held``: the instantiations held against their plain versions
+    held = set()
+    pair_calls = {}
+    for i, (cm, coin, fm) in enumerate(ITEM8_PAIR):
+        res = mode_pair(lib, cfg, cm, coin, fm, dev, SEED + 10 + i)
+        counts, coin_id, equiv, honest = pr._mode_ids(cm, coin, fm)
+        pop = 2 if equiv else honest     # csrc/round_kernels.cu Pop
+        insts = {"proposal_hist": sass.mode_label(
+                     "proposal_hist_kernel", (counts, pop)),
+                 "vote_commit": sass.mode_label(
+                     "vote_commit_kernel", (counts, coin_id, pop))}
+        for k, inst in insts.items():
+            if inst in held:
+                continue
+            held.add(inst)
+            pair_calls[inst] = res["calls"][k]
+            b_ms, by = bound(res["bytes"][k], res["ops"][k])
+            med = median(res["ms"][k])
+            ctl = "" if "<" in inst else " control"
+            print(f"[time] item8{ctl} {inst} ({res['tag']}): kernel "
+                  f"{res['ms'][k]} ms (median {med:.4f}), bound {b_ms:.4f} "
+                  f"ms ({by}; bytes {res['bytes'][k]} B, operations "
+                  f"{res['ops'][k]} needed), share {b_ms / med:.3f}; "
+                  f"library null")
+        del res
+        torch.cuda.empty_cache()
+
+    # 2. every new instantiation of the fused kernel, on its shape family,
+    # timed at its cap N = 8192 x 32
+    for coin, fm in ITEM8_FUSED:
+        for t_f, n_f in FUSED_FAMILY:
+            f = mode_fused(lib, t_f, n_f, coin, fm, dev,
+                           (t_f, n_f) == FUSED_FAMILY[0])
+            equiv = fm == "equivocate"
+            inst = sass.mode_label("fused_cluster_kernel"
+                                   if f["grid"][0] > 1
+                                   else "fused_round_kernel",
+                                   (pr.COIN_MODES.index(coin), int(equiv)))
+            held.add(inst)
+            if "ms" not in f:
+                continue
+            b_ms, by = bound(f["bytes"], f["ops"])
+            ctl = "" if "<" in inst else " control"
+            print(f"[time] item8{ctl} {inst} ({coin}/{fm}, T={t_f} N={n_f}, "
+                  f"grid {f['grid']}, needs {f['needs']}): fused wrapper "
+                  f"{f['ms']} ms (median {median(f['ms']):.4f}), queued "
+                  f"{f['ms_queued']} ms (median "
+                  f"{median(f['ms_queued']):.4f}); bound {b_ms:.5f} ms "
+                  f"({by}; bytes {f['bytes']} B, operations {f['ops']} "
+                  f"needed), share queued "
+                  f"{b_ms / median(f['ms_queued']):.3f}; library null")
+
+    # 3. their registers, spills and SASS: the pair's at N = 1M x 32, the
+    # fused kernel's at 8192 x 32, at the clock read while the first new
+    # vote instantiation runs
+    mhz = clock_during(next(v for k, v in pair_calls.items()
+                            if k.startswith("vote_commit_kernel<")))
+    pair_res = {k: v for k, v in round_modes.items()
+                if not k.startswith("fused")}
+    fused_res = {k: v for k, v in round_modes.items()
+                 if k.startswith("fused")}
+    sass.print_resources("item8", pair_res, TRIALS * N_MAIN, sms, mhz)
+    sass.print_resources("item8", fused_res, TRIALS * N_FUSED, sms, mhz)
+    spills = {k: (v.get("spill_stores"), v.get("spill_loads"))
+              for k, v in round_modes.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    untried = sorted(set(round_modes) - held)
+    if untried:
+        raise SystemExit(f"[item8] instantiations never held against their "
+                         f"plain versions: {untried}")
+    print(f"[ptxas] item8: {len(round_modes)} new instantiations, clocks.sm "
+          f"{mhz:.0f} MHz; spilling: {spills or 'none'}")
+
+    # 4. the nine regimes at N = 1M x 32 on the packed path
+    regimes = item8_regimes(N_MAIN, TRIALS, device=dev)
+    packed = {}
+    pr.reset_launches()
+    hk.reset_launches()
+    for name, c, vals, fl in regimes:
+        before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        split = check_final(c, rounds, fin, agreement=False)
+        live = int((~fin.killed).sum())
+        dec = int(fin.decided.sum()) / max(live, 1)
+        grown = {k: fn.launches - before[k] for k, fn in pr.KERNELS.items()}
+        print(f"[item8] {name}: N={c.n_nodes} F={c.n_faulty} T={c.trials} "
+              f"max_rounds {c.max_rounds}: rounds {rounds} decided {dec:.6f} "
+              f"disagreeing trials {split} simulate {sec:.4f} s trials/s "
+              f"{c.trials / sec:.3f}; launches {grown}")
+        if name in ITEM8_NO_DECISION and bool(fin.decided.any()):
+            raise SystemExit(f"{name}: a lane decided")
+        if grown["fused_round"] or not grown["vote_commit"]:
+            raise SystemExit(f"{name}: not the two-kernel route")
+        packed[name] = (rounds, fin) if name in ITEM8_EXACT else None
+        del fin
+    launched = {k: fn.launches for k, fn in (*pr.KERNELS.items(),
+                                             *hk.KERNELS.items())}
+    print(f"[item8] launches {launched}")
+    if not (launched["proposal_hist"] and launched["vote_commit"]):
+        raise SystemExit("[item8] the pair never launched")
+    if any(fn.launches for fn in hk.KERNELS.values()):
+        raise SystemExit("[item8] a histogram kernel ran on the packed path")
+    # the init_state / run_consensus split
+    t_runs = {}
+    for name, c, vals, fl in regimes:
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rounds, _ = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_runs[name] = time.perf_counter() - t0
+        print(f"[item8] split {name}: init_state {t_init:.4f} s, "
+              f"run_consensus {t_run:.4f} s ({rounds} rounds, "
+              f"{c.trials / t_run:.3f} trials/s over run_consensus alone)")
+    # adv_common (2 rounds, a delivered round) and weak_eps0.65 (12
+    # rounds under the shared coin's host-side draw)
+    for name, c, vals, fl in (regimes[1], regimes[3]):
+        st = init_state(c, vals, fl)
+        breakdown("item8", name, lambda: run_consensus(c, st, fl),
+                  t_runs[name], tuple(pr.KERNELS))
+        del st
+
+    # 5. packed against unfused where they share every random bit
+    for name, c, vals, fl in regimes:
+        if name not in ITEM8_EXACT:
+            continue
+        p_rounds, p_fin = packed.pop(name)
+        u = c.replace(use_pallas_round=False)
+        rounds, fin, _ = simulate(u, vals, faults=fl, device="cuda")
+        diff = trials_differing(fin, p_fin)
+        print(f"[item8] {name} unfused vs packed: rounds {rounds} vs "
+              f"{p_rounds}, trials differing {diff} of {c.trials}")
+        if rounds != p_rounds or diff:
+            raise SystemExit(f"{name}: unfused and packed runs differ")
+        del fin, p_fin
+    del regimes, packed
+    torch.cuda.empty_cache()
+
+    # 6. the card against the CPU at small sizes: every new mode
+    for n_s, t_s in ITEM8_SMALL:
+        for d_runs in zip(item8_regimes(n_s, t_s, device="cuda")
+                          + item8_small_extra(n_s, t_s, "cuda"),
+                          item8_regimes(n_s, t_s, device="cpu")
+                          + item8_small_extra(n_s, t_s, "cpu")):
+            outs = {}
+            before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+            for name, c, vals, fl in d_runs:
+                t0 = time.perf_counter()
+                rr, fin = run_consensus(c, init_state(c, vals, fl), fl)
+                check_final(c, rr, fin, agreement=False)
+                outs[fl.faulty.device.type] = (rr, fin,
+                                               time.perf_counter() - t0)
+            grown = {k: fn.launches - before[k]
+                     for k, fn in pr.KERNELS.items()}
+            (rg, fg, tg), (rc, fc, tc) = outs["cuda"], outs["cpu"]
+            diff = trials_differing(fg, fc)
+            print(f"[item8] card vs cpu {name} N={n_s} T={t_s}: rounds cuda "
+                  f"{rg} cpu {rc}, trials differing {diff} of {t_s} (cpu "
+                  f"{tc:.2f} s, card {tg:.3f} s); card launches {grown}")
+            if rg != rc or diff:
+                raise SystemExit(f"[item8] {name} N={n_s}: card and CPU "
+                                 "runs disagree")
+            if pr.fused_one_pass_eligible(c, t_s, n_s) != bool(
+                    grown["fused_round"]):
+                raise SystemExit(f"[item8] {name} N={n_s}: dispatch")
+    print(f"[item8] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

@@ -22,7 +22,8 @@ card asleep ~10 ms first, so that the device's time alone is read), times ``dens
 R = S = 2048) as a control and reads ``clocks.sm`` while ``vote_commit``,
 ``cf_counts``, ``coin_flips`` and ``fused_round`` run.  Then it prints each
 checkout's registers, spills, shared memory, SASS mix and pipe floors of
-the kernel sets (benor_tpu_torch/ops/sass.py): the fused round's for the
+the kernel sets (benor_tpu_torch/ops/sass.py; every mode instantiation of
+the round kernels, where the checkout has them): the fused round's for the
 lanes of its N = 8192 x 32 shape, with the N = 10 x 1 kernel time (one
 word a warp: the latency probe) beside them.  Last, end to end, it times
 ``run_consensus`` on the packed path's runs that take the fused kernel
@@ -237,7 +238,7 @@ def main() -> int:
                                           _build.BUILD_DIR,
                                           sass.COIN_KERNELS)}
         fused = {k: v for k, v in rep["round"].items()
-                 if k in sass.FUSED_KERNELS}
+                 if k.split("<")[0] in sass.FUSED_KERNELS}
         sass.print_resources(res["tag"], {
             k: v for k, v in rep["round"].items() if k not in fused},
             res["lanes"], res["sms"], res["clocks_sm_mhz"])

@@ -238,8 +238,8 @@ def test_dense_cpu_run_launches_no_kernel():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(scheduler="adversarial"), "8"),
-    (dict(scheduler="targeted"), "8"),
+    (dict(fault_model="crash_recover"), "8"),
+    (dict(scheduler="targeted", fault_model="crash_at_round"), "8"),
     (dict(delivery="all", committee_cap=4, committee_count=2,
           committee_size=8), "13"),
     (dict(delivery="all", drop_prob=0.2, path="histogram"), "13"),
@@ -254,3 +254,25 @@ def test_dense_neighbours_still_raise(kw, item):
                        match=f"ROADMAP Queue A item {item}\\)"):
         bt.simulate(cfg, balanced_inputs(4, 96), faults=TFaults.none(4, 96),
                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="adversarial"),
+    dict(scheduler="targeted"),
+], ids=["adversarial", "targeted"])
+def test_dense_adversaries_run_and_match_jax(kw):
+    """The count-controlling adversaries at a dense-path size: closed-form
+    counts on the unfused loop, no mask drawn, equal to the JAX package's
+    run."""
+    base = {**_B96, "seed": 5, **kw}
+    jc, tc = JCfg(**base), bt.SimConfig(**base)
+    assert not ttally.dense_gather_needed(tc) or tc.scheduler == "targeted"
+    vals = balanced_inputs(4, 96)
+    jr, jst, _ = jsim.simulate(jc, vals, faults=JFaults.none(4, 96))
+    tr, tst, _ = bt.simulate(tc, vals, faults=TFaults.none(4, 96),
+                             device="cpu")
+    assert tr == int(jr) >= 1
+    for name in FIELDS:
+        np.testing.assert_array_equal(getattr(tst, name).numpy(),
+                                      np.asarray(getattr(jst, name)),
+                                      err_msg=name)

@@ -139,4 +139,18 @@ def test_wrappers_refuse_other_devices_and_modes():
                              tc.quorum, "crash", True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tround.fused_round(tc.seed, R, thist, tpack, tc.quorum, tc.n_faulty,
-                           "reference", "equivocate", True)
+                           "reference", "crash_at_round", True)
+
+
+def test_wrappers_run_equivocate():
+    """The equivocate fault model runs through the round kernels' wrappers
+    (the mixed-population draws, given the live equivocators)."""
+    _, tc, _, tpack, _, _ = _setup(2, 1000, "crash", 6)
+    ne = torch.tensor([200, 3], dtype=torch.int32)
+    hist = torch.tensor([[300, 250, 100], [10, 600, 40]], dtype=torch.int32)
+    new_pack, parts_a, parts_b = tround.fused_round(
+        tc.seed, R, hist, tpack, tc.quorum, tc.n_faulty, "reference",
+        "equivocate", True, n_equiv=ne)
+    assert new_pack.shape == tpack.shape
+    assert parts_a.shape == (2, tround.PROP_COLS)
+    assert parts_b.shape == (2, tround.VOTE_COLS)

@@ -106,14 +106,15 @@ def test_cpu_run_launches_no_kernel(cf_regime):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(coin_mode="common"),
-    dict(coin_mode="weak_common", coin_eps=0.5),
-    dict(fault_model="equivocate"),
+    dict(fault_model="crash_at_round", coin_mode="common"),
+    dict(fault_model="crash_recover", coin_mode="weak_common",
+         coin_eps=0.5),
+    dict(fault_model="crash_recover"),
     dict(fault_model="crash_at_round"),
     dict(use_pallas_round=False, use_pallas_hist=False),
     dict(use_pallas_hist=False),
-    dict(scheduler="adversarial"),
-    dict(path="dense", scheduler="targeted"),
+    dict(scheduler="adversarial", fault_model="crash_at_round"),
+    dict(path="dense", scheduler="targeted", fault_model="crash_recover"),
     dict(record=True),
     dict(trials=2, witness_trials=(0,), witness_nodes=2),
     dict(kernel_telemetry=True),
@@ -126,6 +127,43 @@ def test_unsupported_regimes_raise(cf_regime, kw):
     cfg = bt.SimConfig(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+
+
+@pytest.mark.parametrize("kw,crash,against", [
+    (dict(coin_mode="common", n_faulty=40, seed=1), False, "jax"),
+    (dict(coin_mode="weak_common", coin_eps=0.5, n_faulty=40, seed=1),
+     False, "jax"),
+    (dict(fault_model="equivocate", n_faulty=20, seed=13), True, "unfused"),
+    (dict(scheduler="adversarial", coin_mode="common", n_faulty=24,
+          seed=3), False, "unfused"),
+    (dict(path="dense", scheduler="targeted", n_faulty=24, seed=3), False,
+     "jax"),
+], ids=["common", "weak_common", "equivocate", "adversarial",
+        "dense-targeted"])
+def test_packed_modes_run_and_match_jax(cf_regime, kw, crash, against):
+    """The shared coins, equivocation and the count-controlling adversaries
+    run on the packed loop: equal to the JAX package's packed run, or, where
+    both of the port's loops share every random bit (sampled equivocation
+    with the private coin, the common coin under the count adversary), to
+    the port's unfused run; tests/test_torch_packed_modes.py holds those two
+    against the JAX package's packed run at N = 1000."""
+    n, t = 96, 4
+    args = {**_kw(n, t), **kw}
+    jc, tc = JCfg(**args), bt.SimConfig(**args)
+    vals = balanced_inputs(t, n)
+    if crash:
+        jf, tf = JFaults.first_f(jc), TFaults.first_f(tc)
+    else:
+        jf, tf = JFaults.none(t, n), TFaults.none(t, n)
+    got = bt.simulate(tc, vals, faults=tf, device="cpu")
+    if against == "jax":
+        _assert_same(jsim.simulate(jc, vals, faults=jf), got)
+        return
+    tr, tst, _ = bt.simulate(tc.replace(use_pallas_round=False), vals,
+                             faults=tf, device="cpu")
+    assert got[0] == tr >= 1
+    for name in ("x", "decided", "k", "killed"):
+        assert torch.equal(getattr(got[1], name), getattr(tst, name)), name
 
 
 def test_dense_path_runs(cf_regime):

@@ -172,7 +172,7 @@ def test_cpu_run_launches_no_kernel(cf_regime):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(scheduler="adversarial"), "8"),
+    (dict(fault_model="crash_recover"), "8"),
     (dict(scheduler="biased", adversary_strength=0.5), "4"),
     (dict(scheduler="biased", adversary_strength=1.0), "4"),
     (dict(delivery="all", drop_prob=0.2), "13"),   # binomial thinning
@@ -189,6 +189,28 @@ def test_unfused_unsupported_regimes_raise(cf_regime, kw, item):
                        match=f"ROADMAP Queue A item {item}\\)"):
         bt.simulate(cfg, balanced_inputs(T, N), faults=TFaults.none(T, N),
                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="adversarial"),
+    dict(scheduler="adversarial", coin_mode="common"),
+    dict(scheduler="targeted"),
+], ids=["adversarial", "adversarial-common", "targeted"])
+def test_unfused_adversaries_run_and_match_jax(cf_regime, kw):
+    """The count-controlling adversaries run on the unfused loop (their
+    closed-form counts), equal to the JAX package's unfused run."""
+    base = _kw(n_faulty=24)
+    base.update(kw)
+    jc, tc = JCfg(**base), bt.SimConfig(**base)
+    vals = balanced_inputs(T, N)
+    jr, jst, _ = jsim.simulate(jc, vals, faults=JFaults.none(T, N))
+    tr, tst, _ = bt.simulate(tc, vals, faults=TFaults.none(T, N),
+                             device="cpu")
+    assert tr == int(jr) >= 1
+    for name in ("x", "decided", "k", "killed"):
+        np.testing.assert_array_equal(getattr(tst, name).numpy(),
+                                      np.asarray(getattr(jst, name)),
+                                      err_msg=name)
 
 
 @pytest.mark.parametrize("kw", [
