@@ -19,10 +19,12 @@ from .config import SimConfig, unported
 def launch_network(n: int, f: int, initial_values: Sequence,
                    faulty_list: Sequence[bool], backend: Optional[str] = None,
                    cfg: Optional[SimConfig] = None, device=None,
-                   **cfg_overrides) -> TpuNetwork:
+                   crash_rounds=None, **cfg_overrides) -> TpuNetwork:
     """Launch a simulated network; returns a network with the parity API
     (status / start / stop / get_state / get_states), on the CUDA device
-    unless ``device`` names the CPU.
+    unless ``device`` names the CPU.  ``crash_rounds`` (int[N], the round
+    each faulty node dies at; <= 0: never) is required for
+    fault_model='crash_at_round'.
 
     ``backend`` defaults to ``cfg.backend`` when a config is given, else
     'tpu'.  Validation matches launchNodes.ts:10-13: array lengths must
@@ -37,7 +39,7 @@ def launch_network(n: int, f: int, initial_values: Sequence,
     if cfg.backend in ("express", "native"):
         unported(f"backend={cfg.backend!r} (the event-loop oracles)", "17")
     return TpuNetwork(cfg, list(initial_values), list(faulty_list),
-                      device=device)
+                      crash_rounds=crash_rounds, device=device)
 
 
 def start_consensus(network) -> None:

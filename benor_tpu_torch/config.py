@@ -3,9 +3,10 @@
 ``SimConfig`` matches the JAX package's dataclass field for field (names,
 defaults, validation verdicts), so one configuration drives both packages.
 It is a plain frozen dataclass: nothing here imports torch or JAX.  The
-three structured-plane spec grammars (``recovery``, ``partition``,
-``topology``) are not ported yet; a config that sets one raises
-``NotImplementedError`` where the JAX package would parse it.
+``recovery`` spec grammar is the port's copy (faults/recovery.py); the
+other two structured-plane grammars (``partition``, ``topology``) are not
+ported yet, and a config that sets one raises ``NotImplementedError``
+where the JAX package would parse it.
 """
 
 from __future__ import annotations
@@ -136,7 +137,13 @@ class SimConfig:
                                     "crash_at_round", "crash_recover"):
             raise ValueError(f"unknown fault_model: {self.fault_model}")
         if self.recovery is not None:
-            _unported_spec("recovery")
+            from .faults.recovery import parse_recovery
+            parse_recovery(self.recovery)     # ValueError if malformed
+            if self.fault_model != "crash_recover":
+                raise ValueError(
+                    "recovery schedules only apply to "
+                    "fault_model='crash_recover' (the static fault "
+                    f"models have no rejoin; got {self.fault_model!r})")
         if self.fault_model == "crash_recover" and self.backend != "tpu":
             raise ValueError(
                 "fault_model='crash_recover' needs backend='tpu'")

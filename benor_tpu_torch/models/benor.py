@@ -15,9 +15,12 @@ differing fraction ops/sampling.py states).  The counts are only read
 here: under ``delivery='all'`` they are an expanded view of a [T, 3]
 histogram.
 
-The slice serves fault_model ``crash``, ``byzantine`` and ``equivocate``;
-``crash_at_round``, ``crash_recover``, the recorder, the witness and
-committees raise ``NotImplementedError`` naming their ROADMAP item.
+Every fault model is served: ``crash`` (killed at birth), ``byzantine``,
+``equivocate``, ``crash_at_round`` (a lane dies at the start of its crash
+round) and ``crash_recover`` (down-intervals with durable or amnesia
+rejoins, faults/recovery.py), liveness re-derived from the round bounds at
+the start of every round.  The recorder, the witness and committees raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig, VAL0, VAL1, VALQ, unported
+from ..faults.recovery import rejoin_mode
 from ..ops import hist as hist_ops
 from ..ops import rng, tally
 from ..state import FaultSpec, NetState
 
-_FAULT_MODELS = ("crash", "byzantine", "equivocate")
+_FAULT_MODELS = ("crash", "byzantine", "equivocate", "crash_at_round",
+                 "crash_recover")
 
 
 def _flip(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +59,41 @@ def round_gap(cfg: SimConfig):
     if cfg.record or cfg.witness:
         return "record / witness", "11"
     return tally.unfused_gap(cfg)
+
+
+def _start_of_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
+                    r: int):
+    """The crash-at-round / crash-recover update at the start of round
+    ``r`` (benor.py:143-184) -> (killed, down or None, x).  Under
+    'crash_at_round' a faulty lane with ``crash_round`` in (0, r] latches
+    killed.  Under 'crash_recover' a lane whose interval has started
+    latches killed if it never rejoins (``recover_round <= 0``) and is
+    down this round while ``r < recover_round``; with the 'amnesia'
+    rejoin an undecided lane restarts x from "?" at ``r ==
+    recover_round``.  Liveness comes from the bounds, never from the
+    loop's history, so sliced runs equal one-shot runs."""
+    killed, x_cur = state.killed, state.x
+    if cfg.fault_model == "crash_at_round":
+        crashing = faults.faulty & (faults.crash_round > 0) & \
+            (r >= faults.crash_round)
+        return killed | crashing, None, x_cur
+    if cfg.fault_model != "crash_recover":
+        return killed, None, x_cur
+    if faults.recover_round is None:
+        raise ValueError(
+            "fault_model='crash_recover' needs FaultSpec.recover_round "
+            "(build the spec via faults.recovery.crash_recover_faults or "
+            "FaultSpec.from_faulty_list(..., recover_rounds=...))")
+    cr, rr = faults.crash_round, faults.recover_round
+    started = faults.faulty & (cr > 0) & (r >= cr)
+    killed = killed | (started & (rr <= 0))              # never rejoins
+    down = started & (rr > 0) & (r < rr)
+    if rejoin_mode(cfg.recovery) == "amnesia":
+        # cr > 0: a lane with a recover bound but no crash forgets nothing
+        rejoin_now = faults.faulty & (cr > 0) & (rr > 0) & (r == rr) & \
+            ~state.decided
+        x_cur = torch.where(rejoin_now, VALQ, x_cur)
+    return killed, down, x_cur
 
 
 def _coin(cfg: SimConfig, seed: int, r: int, t: int, n: int,
@@ -85,17 +125,17 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
 
     ``r`` is the 1-based round index (the reference's message ``k``);
     ``seed`` keys every stream as ``jax.random.key(seed)`` keys the JAX
-    package's.  Killed lanes stay killed (the slice's fault models kill
-    only at birth)."""
+    package's.  Killed lanes stay killed."""
     gap = round_gap(cfg)
     if gap is not None:
         unported(*gap)
     t, n = state.x.shape
     f, m = cfg.n_faulty, cfg.quorum
-    killed = state.killed
-    x_cur = state.x
+    killed, down, x_cur = _start_of_round(cfg, state, faults, r)
 
     alive = ~killed                                          # senders
+    if down is not None:
+        alive = alive & ~down
     n_alive = alive.sum(-1, dtype=torch.int32)               # [T]
     # Quorum gate: a tally only fires if >= N - F messages can arrive.
     quorum_ok = (n_alive >= m)[:, None]                      # [T, 1]

@@ -17,9 +17,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -36,16 +39,18 @@ _F = ctypes.c_float
 
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
-    "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "benor_proposal_hist": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U,
-                            _U, _F, _I, _I, _I, _I, _I, _I, _P],
+                            _U, _F, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                            _I, _P],
     "benor_vote_commit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                           _U, _U, _U, _U, _U, _U, _I, _F, _F, _F, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     "benor_fused_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                           _U, _U, _U, _U, _U, _U, _U, _U, _I, _F, _F, _F,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "benor_fused_fits": [_I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                          _P],
+    "benor_fused_fits": [_I, _I, _I, _I, _I, _P],
     "benor_hist_wave": [_I, _P],
     "benor_cf_counts": [_P, _P, _I, _I, _I, _U, _U, _F, _P],
     "benor_coin_flips": [_P, _I, _I, _I, _U, _U, _P],
@@ -68,18 +73,24 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _run(cmd: list[str]) -> subprocess.Popen:
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+def _run_timed(cmd: list[str]):
+    """Run one command -> (CompletedProcess, wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    return res, time.perf_counter() - t0
 
 
-def _wait(procs: list[subprocess.Popen]):
-    """Wait for every process, then raise on the first that failed."""
-    done = [(p, *p.communicate()) for p in procs]
-    for proc, out, err in done:
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(proc.args)}\n{out}\n{err}")
+def _run_all(cmds: list[list[str]]) -> list[float]:
+    """Run the commands side by side, then raise on the first that failed
+    -> each one's wall seconds."""
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        done = list(pool.map(_run_timed, cmds))
+    for res, _ in done:
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                               f"{' '.join(res.args)}\n{res.stdout}\n"
+                               f"{res.stderr}")
+    return [sec for _, sec in done]
 
 
 def compile_library(flags: list[str], out_dir: Path) -> Path:
@@ -96,15 +107,22 @@ def compile_library(flags: list[str], out_dir: Path) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
-    procs = [_run([nvcc_path(), *flags, "-c", str(src), "-o", str(obj)])
-             for src, obj in zip(sources(), objs)]
-    _wait(procs)
+    secs = _run_all([[nvcc_path(), *flags, "-c", str(src), "-o", str(obj)]
+                     for src, obj in zip(sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    _wait([_run([nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)])])
+    _run_all([[nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)]])
     for obj in objs:
         obj.unlink()
+    out.with_suffix(".json").write_text(json.dumps(
+        {src.name: round(sec, 2) for src, sec in zip(sources(), secs)}))
     os.replace(tmp, out)
     return out
+
+
+def build_seconds(path: Path) -> dict:
+    """{source: wall seconds of its nvcc} of the build that made the
+    library at ``path`` (each source compiled side by side)."""
+    return json.loads(path.with_suffix(".json").read_text())
 
 
 def build() -> Path:

@@ -1,6 +1,6 @@
 """Fused Ben-Or rounds over BIT-PLANE packed node state
 (port of benor_tpu/ops/pallas_round.py: every counts regime, coin and fault
-model of its packed round but crash_at_round / crash_recover).
+model of its packed round).
 
 One round is either ONE kernel or TWO, exactly where the JAX package
 dispatches them (``fused_one_pass_eligible``):
@@ -23,10 +23,17 @@ adversary's camp triple by global node id.  The coins: private, common (the
 trial's shared bit) and weak_common (the private bit where the lane's
 deviation uniform is below eps, else the shared bit).  Under 'equivocate'
 the vote histograms count honest live lanes only; the alive count keeps
-the equivocators.
+the equivocators.  Under 'crash_at_round' and 'crash_recover' each lane's
+crash and recover rounds (int32 [T, Np] operands, ``pad_fault_rounds``)
+are held against the round at the start of both passes: the killed plane
+latches the crashed lanes, the down plane stores this round's down lanes
+(crash_recover; alive = not killed and not down), and under the amnesia
+rejoin an undecided lane at its first round back restarts from "?".  The
+next round's proposal histogram then changes with the round, so the loop
+recomputes it from the plane stack every round (``sent_hist_from_pack``).
 
-Each wrapper launches its hand-written CUDA kernel (csrc/round_kernels.cu)
-on a CUDA tensor and counts the launch in its ``launches`` attribute; on a
+Each wrapper launches its hand-written CUDA kernel (csrc/round_body.cuh,
+built by csrc/round_kernels.cu and csrc/round_b2.cu) on a CUDA tensor and counts the launch in its ``launches`` attribute; on a
 CPU tensor it runs its plain torch version, which the tests hold against
 the JAX package's Pallas kernels and ``chip_smoke.py`` holds against the
 kernel on the card.  Any other device raises.
@@ -46,6 +53,7 @@ import functools
 import torch
 
 from ..config import VAL0, VAL1, VALQ
+from ..faults.recovery import REJOIN_MODES, rejoin_mode
 from ..state import (NetState, PACK_COINED, PACK_DECIDED, PACK_DOWN,
                      PACK_FAULTY, PACK_K, PACK_KILLED, PACK_LAYOUT,
                      PACK_NODES_PER_WORD, PACK_STATIC_WIDTH, PACK_X,
@@ -83,10 +91,13 @@ VOTE_COLS = max(b + w for b, w in VOTE_PARTIAL_LAYOUT.values())
 
 _X_BITS = PACK_LAYOUT["x"][1]
 _M32 = 0xFFFFFFFF
-_FAULT_MODELS = ("crash", "byzantine", "equivocate")
-#: The kernels' mode ids (csrc/round_kernels.cu kSampled.., kPrivate..).
+_FAULT_MODELS = ("crash", "byzantine", "equivocate", "crash_at_round",
+                 "crash_recover")
+#: The kernels' mode ids (csrc/round_kernels.cu kSampled.., kPrivate..,
+#: and FaultRounds: 0, kStatic, for the other fault models).
 COUNTS_MODES = ("sampled", "delivered", "camps")
 COIN_MODES = ("private", "common", "weak_common")
+FAULT_ROUNDS = {"crash_at_round": 1, "crash_recover": 2}
 
 
 def fused_one_pass_eligible(cfg, trials: int, n_nodes: int) -> bool:
@@ -116,9 +127,11 @@ def _words_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def _pack_planes(kbits, x, decided, killed, faulty, k, coined):
+def _pack_planes(kbits, x, decided, killed, faulty, k, coined, down=None):
     """Per-lane int64 fields [T, Np] -> the plane stack int32
-    [T, PACK_STATIC_WIDTH + kbits, Np/32]; the down plane is 0."""
+    [T, PACK_STATIC_WIDTH + kbits, Np/32]; the down plane is ``down``
+    (crash_recover: this round's down lanes, write-only evidence), else
+    0."""
     planes = [None] * (PACK_STATIC_WIDTH + kbits)
     for b in range(_X_BITS):
         planes[PACK_X + b] = (x >> b) & 1
@@ -126,7 +139,8 @@ def _pack_planes(kbits, x, decided, killed, faulty, k, coined):
     planes[PACK_KILLED] = killed
     planes[PACK_COINED] = coined
     planes[PACK_FAULTY] = faulty
-    planes[PACK_DOWN] = torch.zeros_like(decided)
+    planes[PACK_DOWN] = (torch.zeros_like(decided) if down is None
+                         else down.to(torch.int64))
     for b in range(kbits):
         planes[PACK_K + b] = (k >> b) & 1
     return torch.stack([_words_from_bits(p) for p in planes], dim=1)
@@ -182,18 +196,74 @@ def unpack_state(pack: torch.Tensor, n_nodes: int) -> NetState:
 # --------------------------------------------------------------------------
 
 
-def _load_fields(pack, freeze):
-    """Plane stack -> per-lane (x, decided, killed, faulty, k) int64 and
-    the (alive, frozen) masks, [T, Np] each."""
+def pad_fault_rounds(cfg, faults, np_total):
+    """(crash_round, recover_round) int32 [T, np_total], padded with 0 (pad
+    lanes never crash and carry the killed bit anyway): the operands the
+    kernels re-derive liveness from.  (None, None) for the static fault
+    models, (cr, None) under crash_at_round, (cr, rec) under
+    crash_recover."""
+    def pad(a):
+        a = a.to(torch.int32)
+        n_pad = np_total - a.shape[-1]
+        if n_pad:
+            a = torch.nn.functional.pad(a, (0, n_pad))
+        return a.contiguous()
+
+    if cfg.fault_model == "crash_at_round":
+        return pad(faults.crash_round), None
+    if cfg.fault_model == "crash_recover":
+        if faults.recover_round is None:
+            raise ValueError(
+                "fault_model='crash_recover' needs FaultSpec.recover_round "
+                "(faults.recovery.crash_recover_faults builds it from the "
+                "SimConfig.recovery spec)")
+        return pad(faults.crash_round), pad(faults.recover_round)
+    return None, None
+
+
+def _bounds_update(fault_model, rejoin, r, cr, rcv, x, decided, killed,
+                   faulty):
+    """The crash-at-round / crash-recover update of round ``r`` on per-lane
+    fields (JAX pallas_round.py:466-504) -> (x, killed, down or None):
+    under 'crash_at_round' a faulty lane with 0 < cr <= r latches killed;
+    under 'crash_recover' a lane whose interval started latches killed if it
+    never rejoins (rcv <= 0) and is down while r < rcv, and with the
+    'amnesia' rejoin an undecided lane at r == rcv restarts x from "?".
+    ``decided`` is read under amnesia only."""
+    down = None
+    if fault_model == "crash_at_round":
+        crashing = (faulty == 1) & (cr > 0) & (r >= cr)
+        killed = torch.where(crashing, 1, killed)
+    elif fault_model == "crash_recover":
+        started = (faulty == 1) & (cr > 0) & (r >= cr)
+        killed = torch.where(started & (rcv <= 0), 1, killed)
+        down = started & (rcv > 0) & (r < rcv)
+        if rejoin == "amnesia":
+            rj = ((faulty == 1) & (cr > 0) & (rcv > 0) & (r == rcv)
+                  & (decided == 0))
+            x = torch.where(rj, VALQ, x)
+    return x, killed, down
+
+
+def _load_fields(pack, freeze, r=0, cr=None, rcv=None, fault_model="crash",
+                 rejoin="durable"):
+    """Plane stack (and the round bounds of round ``r``) -> per-lane (x,
+    decided, killed, faulty, k) int64, the (alive, frozen) masks and this
+    round's down mask (None but under crash_recover), [T, Np] each;
+    ``killed`` is the latched word the store keeps."""
     kbits = pack.shape[1] - PACK_STATIC_WIDTH
     x = plane_field(pack, PACK_X, _X_BITS)
     decided = plane_field(pack, PACK_DECIDED, 1)
     killed = plane_field(pack, PACK_KILLED, 1)
     faulty = plane_field(pack, PACK_FAULTY, 1)
     k = plane_field(pack, PACK_K, kbits)
+    x, killed, down = _bounds_update(fault_model, rejoin, r, cr, rcv, x,
+                                     decided, killed, faulty)
     alive = killed == 0
+    if down is not None:
+        alive = alive & ~down
     frozen = (decided == 1) if freeze else torch.zeros_like(alive)
-    return x, decided, killed, faulty, k, alive, frozen
+    return x, decided, killed, faulty, k, alive, frozen, down
 
 
 def _sent(fault_model, vote, faulty):
@@ -214,16 +284,28 @@ def _honest(fault_model, alive, faulty):
     return alive
 
 
-def sent_hist_from_pack(cfg, pack: torch.Tensor) -> torch.Tensor:
+def sent_hist_from_pack(cfg, pack: torch.Tensor, cr=None, rec=None,
+                        r=1) -> torch.Tensor:
     """The proposal histogram int32 [T, 3] of the values the honest live
-    lanes send (byzantine lanes flipped) — round 1's input to the
-    kernels."""
+    lanes send in round ``r`` (byzantine lanes flipped) — the first round's
+    input to the kernels, and every round's under 'crash_at_round' /
+    'crash_recover', whose liveness (and under amnesia x) changes with the
+    round: the same update as the kernels' on the round bounds ``cr`` /
+    ``rec`` (``pad_fault_rounds``)."""
     x = plane_field(pack, PACK_X, _X_BITS)
     killed = plane_field(pack, PACK_KILLED, 1)
     faulty = plane_field(pack, PACK_FAULTY, 1)
-    return tally.class_histogram(
-        _sent(cfg.fault_model, x, faulty),
-        _honest(cfg.fault_model, killed == 0, faulty))
+    rejoin = rejoin_mode(cfg.recovery)
+    decided = (plane_field(pack, PACK_DECIDED, 1)
+               if cfg.fault_model == "crash_recover" and rejoin == "amnesia"
+               else None)
+    x, killed, down = _bounds_update(cfg.fault_model, rejoin, r, cr, rec, x,
+                                     decided, killed, faulty)
+    alive = killed == 0
+    if down is not None:
+        alive = alive & ~down
+    return tally.class_histogram(_sent(cfg.fault_model, x, faulty),
+                                 _honest(cfg.fault_model, alive, faulty))
 
 
 def _popcount32(w: torch.Tensor) -> torch.Tensor:
@@ -322,12 +404,16 @@ def _coin(seed, r, shape, device, coin_mode, eps, shared):
 
 def proposal_hist_plain(seed, r, phase, hist, pack, m, fault_model, freeze,
                         n_equiv=None, counts_mode="sampled", camp_b0=0,
-                        camp_b1=0):
+                        camp_b1=0, crash_round=None, recover_round=None,
+                        rejoin="durable"):
     """Plain version of the proposal kernel -> int32 [T, PROP_COLS]: the
     vote-class histogram over honest live lanes (cols 0-2) and the alive
     count.  ``hist`` is the phase's counts in ``counts_mode``'s layout
-    ([T, 3] histogram or delivered counts, [T, 3, 3] camp triples)."""
-    x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
+    ([T, 3] histogram or delivered counts, [T, 3, 3] camp triples);
+    ``crash_round`` / ``recover_round`` the round bounds int32 [T, Np]
+    (crash_at_round / crash_recover), held against round ``r``."""
+    x, decided, killed, faulty, k, alive, frozen, _ = _load_fields(
+        pack, freeze, r, crash_round, recover_round, fault_model, rejoin)
     p0, p1 = _tallies(seed, r, phase, kernel_vecs(hist, counts_mode),
                       x.shape, pack.device, m, counts_mode,
                       n_equiv if _has_eq(fault_model, counts_mode) else None,
@@ -343,12 +429,17 @@ def proposal_hist_plain(seed, r, phase, hist, pack, m, fault_model, freeze,
 def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
                       rule, fault_model, freeze, n_equiv=None,
                       counts_mode="sampled", camp_b0=0, camp_b1=0,
-                      coin_mode="private", eps=0.0, shared=None):
+                      coin_mode="private", eps=0.0, shared=None,
+                      crash_round=None, recover_round=None,
+                      rejoin="durable"):
     """Plain version of the vote kernel -> (new plane stack, int32
     [T, VOTE_COLS]: next round's proposal histogram over honest live lanes,
     settled, unsettled).  ``shared``: the trial's shared coin bit [T]
-    (common and weak_common coins)."""
-    x, decided, killed, faulty, k, alive, frozen = _load_fields(pack, freeze)
+    (common and weak_common coins).  The new stack keeps the latched killed
+    lanes and, under crash_recover, this round's down lanes; a down lane is
+    unsettled."""
+    x, decided, killed, faulty, k, alive, frozen, down = _load_fields(
+        pack, freeze, r, crash_round, recover_round, fault_model, rejoin)
     shape, device = x.shape, pack.device
     v0, v1 = _tallies(seed, r, phase, kernel_vecs(hist, counts_mode), shape,
                       device, m, counts_mode,
@@ -378,7 +469,7 @@ def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
     new_k = torch.where(active, r + 1, k)
     coined = (active & ~decide0 & ~decide1 & no_adopt).to(torch.int64)
     new_pack = _pack_planes(pack.shape[1] - PACK_STATIC_WIDTH, new_x,
-                            new_dec, killed, faulty, new_k, coined)
+                            new_dec, killed, faulty, new_k, coined, down)
 
     settled = (new_dec == 1) | (killed == 1)
     hon = _honest(fault_model, alive, faulty)
@@ -391,17 +482,21 @@ def vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m, n_faulty,
 
 def fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
                       freeze, n_equiv=None, coin_mode="private", eps=0.0,
-                      shared=None):
+                      shared=None, crash_round=None, recover_round=None,
+                      rejoin="durable"):
     """Plain version of the single-pass kernel (sampled counts): the
     proposal pass, the whole-axis vote histogram and quorum gate, then the
     vote pass -> (new plane stack, partsA [T, PROP_COLS], partsB
     [T, VOTE_COLS])."""
+    bounds = dict(crash_round=crash_round, recover_round=recover_round,
+                  rejoin=rejoin)
     parts_a = proposal_hist_plain(seed, r, rng.PHASE_PROPOSAL, hist1, pack,
-                                  m, fault_model, freeze, n_equiv=n_equiv)
+                                  m, fault_model, freeze, n_equiv=n_equiv,
+                                  **bounds)
     new_pack, parts_b = vote_commit_plain(
         seed, r, rng.PHASE_VOTE, parts_a[:, :3], pack, parts_a[:, 3] >= m,
         m, n_faulty, rule, fault_model, freeze, n_equiv=n_equiv,
-        coin_mode=coin_mode, eps=eps, shared=shared)
+        coin_mode=coin_mode, eps=eps, shared=shared, **bounds)
     return new_pack, parts_a, parts_b
 
 
@@ -418,11 +513,16 @@ def _check_pack(pack):
 
 
 def _check_modes(fault_model, rule="reference", counts_mode="sampled",
-                 coin_mode="private", eps=0.0, n_equiv=None, shared=None):
+                 coin_mode="private", eps=0.0, n_equiv=None, shared=None,
+                 crash_round=None, recover_round=None, rejoin="durable"):
     if fault_model not in _FAULT_MODELS:
-        raise NotImplementedError(
-            f"fault_model={fault_model!r} in the round kernels (ROADMAP "
-            "Queue A item 8, Queue B B2)")
+        raise ValueError(f"unknown fault_model: {fault_model}")
+    if rejoin not in REJOIN_MODES:
+        raise ValueError(f"unknown rejoin mode: {rejoin}")
+    if fault_model in FAULT_ROUNDS and crash_round is None:
+        raise ValueError(f"fault_model={fault_model!r} needs crash_round")
+    if fault_model == "crash_recover" and recover_round is None:
+        raise ValueError("fault_model='crash_recover' needs recover_round")
     if rule not in ("reference", "textbook"):
         raise ValueError(f"unknown rule: {rule}")
     if counts_mode not in COUNTS_MODES:
@@ -450,6 +550,24 @@ def _fault_ids(fault_model):
     return int(fault_model == "byzantine"), int(fault_model == "equivocate")
 
 
+def _bounds_operands(fault_model, crash_round, recover_round, rejoin, pack):
+    """The round bounds a launch reads, checked: (crash_round int32 [T, Np]
+    or None, recover_round or None, amnesia flag)."""
+    t, _, n_w = pack.shape
+    out = []
+    for name, a, model in (("crash_round", crash_round, FAULT_ROUNDS),
+                           ("recover_round", recover_round,
+                            ("crash_recover",))):
+        if fault_model not in model:
+            out.append(None)
+            continue
+        check(name, a, torch.int32, (t, n_w * PACK_NODES_PER_WORD),
+              pack.device)
+        out.append(a)
+    return (*out, int(fault_model == "crash_recover"
+                      and rejoin == "amnesia"))
+
+
 def _opt_ptr(t):
     """A kernel operand that the launch's modes may not read (None: a null
     pointer)."""
@@ -458,15 +576,15 @@ def _opt_ptr(t):
 
 @functools.cache
 def round_blocks(lib, kernel: int, n_w: int, t: int, device,
-                 modes=(0, 0, 0, 0)) -> int:
+                 modes=(0, 0, 0, 0), fault=0) -> int:
     """Blocks a trial of proposal_hist (``kernel`` 0) or vote_commit (1) in
-    ``modes`` (``_mode_ids``) on ``device`` for ``n_w`` plane words and
-    ``t`` trials: one wave of the kernel over the card, worked out once per
-    shape and modes.  It sizes the partials and is passed to the launch.  A
-    failed CUDA query raises."""
+    ``modes`` (``_mode_ids``) and FaultRounds mode ``fault`` on ``device``
+    for ``n_w`` plane words and ``t`` trials: one wave of the kernel over
+    the card, worked out once per shape and modes.  It sizes the partials
+    and is passed to the launch.  A failed CUDA query raises."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        raise_on(lib.benor_round_blocks(kernel, *modes, n_w, t,
+        raise_on(lib.benor_round_blocks(kernel, *modes, fault, n_w, t,
                                         ctypes.byref(blocks)),
                  "round_blocks")
     return blocks.value
@@ -474,21 +592,24 @@ def round_blocks(lib, kernel: int, n_w: int, t: int, device,
 
 def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze,
                           counts_mode="sampled", key2=(0, 0), ne_f=None,
-                          camps=(0, 0)):
+                          camps=(0, 0), r=0, bounds=(None, None, 0)):
     """One launch of the proposal kernel -> raw per-block partials int32
     [blocks, T, PROP_COLS].  ``hist_f``: the count operand
     (``kernel_vecs``); ``key2``, ``ne_f``: the equivocate draws' second
-    stream key and live equivocators f32 [T]; ``camps``: the camp
-    bounds."""
+    stream key and live equivocators f32 [T]; ``camps``: the camp bounds;
+    ``bounds``: (crash_round, recover_round, amnesia) of
+    ``_bounds_operands``, held against round ``r``."""
     t, p, n_w = pack.shape
     modes = _mode_ids(counts_mode, "private", fault_model)
-    blocks = round_blocks(lib, 0, n_w, t, pack.device, modes)
+    fault = FAULT_ROUNDS.get(fault_model, 0)
+    blocks = round_blocks(lib, 0, n_w, t, pack.device, modes, fault)
     parts = torch.empty((blocks, t, PROP_COLS), dtype=torch.int32,
                         device=pack.device)
     raise_on(lib.benor_proposal_hist(
         ptr(pack), ptr(hist_f), _opt_ptr(ne_f), ptr(parts), t, p, n_w,
         key[0], key[1], key2[0], key2[1], camps[0], camps[1], float(m),
         modes[0], modes[2], *_fault_ids(fault_model), int(bool(freeze)),
+        _opt_ptr(bounds[0]), _opt_ptr(bounds[1]), int(r), fault, bounds[2],
         blocks, stream(pack.device)), "proposal_hist")
     return parts
 
@@ -496,13 +617,15 @@ def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze,
 def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
                         rule, fault_model, freeze, counts_mode="sampled",
                         coin_mode="private", vkey2=(0, 0), ne_f=None,
-                        shared_i=None, eps=0.0, camps=(0, 0)):
+                        shared_i=None, eps=0.0, camps=(0, 0),
+                        bounds=(None, None, 0)):
     """One launch of the vote kernel -> (new plane stack, raw per-block
     partials int32 [blocks, T, VOTE_COLS]).  ``shared_i``: the trial's
-    shared coin bit, int32 [T]."""
+    shared coin bit, int32 [T]; ``bounds`` held against round rk - 1."""
     t, p, n_w = pack.shape
     modes = _mode_ids(counts_mode, coin_mode, fault_model)
-    blocks = round_blocks(lib, 1, n_w, t, pack.device, modes)
+    fault = FAULT_ROUNDS.get(fault_model, 0)
+    blocks = round_blocks(lib, 1, n_w, t, pack.device, modes, fault)
     new_pack = torch.empty_like(pack)
     parts = torch.empty((blocks, t, VOTE_COLS), dtype=torch.int32,
                         device=pack.device)
@@ -511,7 +634,8 @@ def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
         ptr(new_pack), ptr(parts), t, p, n_w, vkey[0], vkey[1], vkey2[0],
         vkey2[1], ckey[0], ckey[1], camps[0], camps[1], int(rk), float(m),
         float(n_faulty), float(eps), *modes[:3], int(rule == "textbook"),
-        *_fault_ids(fault_model), int(bool(freeze)), blocks,
+        *_fault_ids(fault_model), int(bool(freeze)), _opt_ptr(bounds[0]),
+        _opt_ptr(bounds[1]), fault, bounds[2], blocks,
         stream(pack.device)), "vote_commit")
     return new_pack, parts
 
@@ -541,19 +665,21 @@ def fused_cluster(n_w: int, trials: int, fits) -> tuple[int, int]:
 
 
 @functools.cache
-def fused_fits(lib, device, coin_mode="private", equiv=False) -> dict:
+def fused_fits(lib, device, coin_mode="private", equiv=False,
+               fault=0) -> dict:
     """{(C, W): clusters of C blocks of W warps of the fused kernel in
-    ``coin_mode`` (``equiv``: with the equivocate draws) that ``device``
-    holds at once} for every choice (``benor_fused_fits``, which also allows
-    the kernel the non-portable C = 16 there), asked once per device and
-    modes.  A failed CUDA query raises."""
+    ``coin_mode`` (``equiv``: with the equivocate draws; ``fault``: the
+    FaultRounds mode) that ``device`` holds at once} for every choice
+    (``benor_fused_fits``, which also allows the kernel the non-portable
+    C = 16 there), asked once per device and modes.  A failed CUDA query
+    raises."""
     out = {}
     with torch.cuda.device(device):
         for c in FUSED_CLUSTERS:
             for w in FUSED_WARPS:
                 n = ctypes.c_int(0)
                 raise_on(lib.benor_fused_fits(
-                    c, w, COIN_MODES.index(coin_mode), int(equiv),
+                    c, w, COIN_MODES.index(coin_mode), int(equiv), fault,
                     ctypes.byref(n)), "fused_fits")
                 out[(c, w)] = n.value
     return out
@@ -561,21 +687,22 @@ def fused_fits(lib, device, coin_mode="private", equiv=False) -> dict:
 
 @functools.cache
 def fused_grid(lib, n_w: int, t: int, device, coin_mode="private",
-               equiv=False) -> tuple[int, int]:
+               equiv=False, fault=0) -> tuple[int, int]:
     """The fused kernel's (C, W) on ``device`` for ``n_w`` words and ``t``
-    trials in ``coin_mode`` / ``equiv``: ``fused_cluster`` on the device's
-    ``fused_fits``, worked out once per shape and modes."""
-    return fused_cluster(n_w, t, fused_fits(lib, device, coin_mode, equiv))
+    trials in ``coin_mode`` / ``equiv`` / ``fault``: ``fused_cluster`` on
+    the device's ``fused_fits``, worked out once per shape and modes."""
+    return fused_cluster(n_w, t, fused_fits(lib, device, coin_mode, equiv,
+                                            fault))
 
 
 def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
                         rule, fault_model, freeze, grid, coin_mode="private",
                         pkey2=(0, 0), vkey2=(0, 0), ne_f=None, shared_i=None,
-                        eps=0.0):
+                        eps=0.0, bounds=(None, None, 0)):
     """One launch of the single-pass kernel as ``t`` clusters of C blocks
     of W warps, ``grid`` = (C, W) (``fused_grid``'s, or one a measurement
     names) -> (new plane stack, partsA int32 [T, PROP_COLS], partsB int32
-    [T, VOTE_COLS])."""
+    [T, VOTE_COLS]); ``bounds`` held against round rk - 1."""
     t, p, n_w = pack.shape
     if n_w * PACK_NODES_PER_WORD > FUSED_ONE_PASS_MAX_NODES:
         raise ValueError(f"fused_round: {n_w} words exceed the one-pass cap")
@@ -591,8 +718,9 @@ def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
         pkey[1], pkey2[0], pkey2[1], vkey[0], vkey[1], vkey2[0], vkey2[1],
         ckey[0], ckey[1], int(rk), float(m), float(n_faulty), float(eps),
         coin, equiv, int(rule == "textbook"), *_fault_ids(fault_model),
-        int(bool(freeze)), grid[0], grid[1], stream(pack.device)),
-        "fused_round")
+        int(bool(freeze)), _opt_ptr(bounds[0]), _opt_ptr(bounds[1]),
+        FAULT_ROUNDS.get(fault_model, 0), bounds[2], grid[0], grid[1],
+        stream(pack.device)), "fused_round")
     return new_pack, parts_a, parts_b
 
 
@@ -618,17 +746,24 @@ def _equiv_operands(seed, r, phase, n_equiv, fault_model, counts_mode, t,
 
 
 def proposal_hist(seed, r, phase, hist, pack, m, fault_model, freeze,
-                  n_equiv=None, counts_mode="sampled", camp_b0=0, camp_b1=0):
+                  n_equiv=None, counts_mode="sampled", camp_b0=0, camp_b1=0,
+                  crash_round=None, recover_round=None, rejoin="durable"):
     """The proposal pass -> int32 [T, PROP_COLS] summed over the node axis
     (cols 0-2 vote histogram over honest live lanes, col 3 alive count).
     ``hist``: the phase's counts in ``counts_mode``'s layout; ``n_equiv``:
     live equivocators int32 [T] (equivocate under sampled counts);
-    ``camp_b0`` / ``camp_b1``: the targeted adversary's camp bounds."""
-    _check_modes(fault_model, counts_mode=counts_mode, n_equiv=n_equiv)
+    ``camp_b0`` / ``camp_b1``: the targeted adversary's camp bounds;
+    ``crash_round`` / ``recover_round``: the round bounds int32 [T, Np]
+    (``pad_fault_rounds``; crash_at_round / crash_recover) and ``rejoin``
+    the rejoin mode (crash_recover)."""
+    bounds = dict(crash_round=crash_round, recover_round=recover_round,
+                  rejoin=rejoin)
+    _check_modes(fault_model, counts_mode=counts_mode, n_equiv=n_equiv,
+                 **bounds)
     if on_cpu(pack.device, "round kernels"):
         return proposal_hist_plain(seed, r, phase, hist, pack, m,
                                    fault_model, freeze, n_equiv, counts_mode,
-                                   camp_b0, camp_b1)
+                                   camp_b0, camp_b1, **bounds)
     from ._build import load_library
 
     _check_pack(pack)
@@ -637,10 +772,11 @@ def proposal_hist(seed, r, phase, hist, pack, m, fault_model, freeze,
     check("hist", hist_f, torch.float32, (t, hist_f.shape[1]), pack.device)
     key2, ne_f = _equiv_operands(seed, r, phase, n_equiv, fault_model,
                                  counts_mode, t, pack.device)
-    parts = _launch_proposal_hist(load_library(), stream_scal(seed, r, phase),
-                                  hist_f, pack, m, fault_model, freeze,
-                                  counts_mode, key2, ne_f,
-                                  (camp_b0, camp_b1))
+    parts = _launch_proposal_hist(
+        load_library(), stream_scal(seed, r, phase), hist_f, pack, m,
+        fault_model, freeze, counts_mode, key2, ne_f, (camp_b0, camp_b1), r,
+        _bounds_operands(fault_model, crash_round, recover_round, rejoin,
+                         pack))
     proposal_hist.launches += 1
     return parts.sum(0, dtype=torch.int32)
 
@@ -648,18 +784,21 @@ def proposal_hist(seed, r, phase, hist, pack, m, fault_model, freeze,
 def vote_commit(seed, r, phase, hist, pack, quorum_ok, m, n_faulty, rule,
                 fault_model, freeze, n_equiv=None, counts_mode="sampled",
                 camp_b0=0, camp_b1=0, coin_mode="private", eps=0.0,
-                shared=None):
+                shared=None, crash_round=None, recover_round=None,
+                rejoin="durable"):
     """The vote pass + commit -> (new plane stack, int32 [T, VOTE_COLS]
     summed over the node axis).  ``shared``: the trial's shared coin bit
     [T] (common and weak_common coins, ``eps`` the weak coin's deviation
-    rate)."""
+    rate); the round bounds as in ``proposal_hist``."""
+    bounds = dict(crash_round=crash_round, recover_round=recover_round,
+                  rejoin=rejoin)
     _check_modes(fault_model, rule, counts_mode, coin_mode, eps, n_equiv,
-                 shared)
+                 shared, **bounds)
     if on_cpu(pack.device, "round kernels"):
         return vote_commit_plain(seed, r, phase, hist, pack, quorum_ok, m,
                                  n_faulty, rule, fault_model, freeze,
                                  n_equiv, counts_mode, camp_b0, camp_b1,
-                                 coin_mode, eps, shared)
+                                 coin_mode, eps, shared, **bounds)
     from ._build import load_library
 
     _check_pack(pack)
@@ -675,22 +814,28 @@ def vote_commit(seed, r, phase, hist, pack, quorum_ok, m, n_faulty, rule,
         stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, qok, pack, m,
         n_faulty, rule, fault_model, freeze, counts_mode, coin_mode, key2,
         ne_f, _shared_i(None if coin_mode == "private" else shared, t,
-                        pack.device), eps, (camp_b0, camp_b1))
+                        pack.device), eps, (camp_b0, camp_b1),
+        _bounds_operands(fault_model, crash_round, recover_round, rejoin,
+                         pack))
     vote_commit.launches += 1
     return new_pack, parts.sum(0, dtype=torch.int32)
 
 
 def fused_round(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
                 freeze, n_equiv=None, coin_mode="private", eps=0.0,
-                shared=None):
+                shared=None, crash_round=None, recover_round=None,
+                rejoin="durable"):
     """A whole round in one kernel (sampled counts) -> (new plane stack,
-    partsA [T, PROP_COLS], partsB [T, VOTE_COLS])."""
+    partsA [T, PROP_COLS], partsB [T, VOTE_COLS]); the round bounds as in
+    ``proposal_hist``."""
+    bounds = dict(crash_round=crash_round, recover_round=recover_round,
+                  rejoin=rejoin)
     _check_modes(fault_model, rule, "sampled", coin_mode, eps, n_equiv,
-                 shared)
+                 shared, **bounds)
     if on_cpu(pack.device, "round kernels"):
         return fused_round_plain(seed, r, hist1, pack, m, n_faulty, rule,
                                  fault_model, freeze, n_equiv, coin_mode,
-                                 eps, shared)
+                                 eps, shared, **bounds)
     from ._build import load_library
 
     _check_pack(pack)
@@ -702,14 +847,17 @@ def fused_round(seed, r, hist1, pack, m, n_faulty, rule, fault_model,
     vkey2, _ = _equiv_operands(seed, r, rng.PHASE_VOTE, n_equiv,
                                fault_model, "sampled", t, pack.device)
     lib = load_library()
-    grid = fused_grid(lib, n_w, t, pack.device, coin_mode, ne_f is not None)
+    grid = fused_grid(lib, n_w, t, pack.device, coin_mode, ne_f is not None,
+                      FAULT_ROUNDS.get(fault_model, 0))
     out = _launch_fused_round(
         lib, stream_scal(seed, r, rng.PHASE_PROPOSAL),
         stream_scal(seed, r, rng.PHASE_VOTE),
         stream_scal(seed, r, _COIN_SALT), r + 1, hist_f, pack, m, n_faulty,
         rule, fault_model, freeze, grid, coin_mode, pkey2, vkey2, ne_f,
         _shared_i(None if coin_mode == "private" else shared, t,
-                  pack.device), eps)
+                  pack.device), eps,
+        _bounds_operands(fault_model, crash_round, recover_round, rejoin,
+                         pack))
     fused_round.launches += 1
     return out
 
@@ -743,7 +891,8 @@ def shared_coin(cfg, seed, r, t, device):
                           rng.ids(1, device=device), common=True)[:, 0]
 
 
-def packed_round(cfg, pack, seed, r, hist1, n_local, n_equiv=None):
+def packed_round(cfg, pack, seed, r, hist1, n_local, n_equiv=None,
+                 bounds=(None, None)):
     """One round over the plane stack -> (new_pack, next round's proposal
     histogram int32 [T, 3], unsettled int32 [T]).  The single-pass kernel
     within the caps (sampled counts), else the two-kernel path with the
@@ -751,7 +900,10 @@ def packed_round(cfg, pack, seed, r, hist1, n_local, n_equiv=None):
     Under the count-controlling adversaries the kernels get each phase's
     closed-form counts (``tally.adversarial_counts``: 'delivered';
     ``tally.targeted_camp_triples`` and the camp bounds: 'camps'), the
-    live equivocators ``n_equiv`` their free pool."""
+    live equivocators ``n_equiv`` their free pool.  ``bounds``: the round
+    bounds (``pad_fault_rounds``); under their models the returned
+    histogram is not next round's, which the caller recomputes
+    (``sent_hist_from_pack``)."""
     t = pack.shape[0]
     m = cfg.quorum
     mode = tally.pallas_round_counts_mode(cfg)
@@ -766,7 +918,9 @@ def packed_round(cfg, pack, seed, r, hist1, n_local, n_equiv=None):
         return hist
 
     modes = dict(fault_model=cfg.fault_model,
-                 freeze=bool(cfg.freeze_decided), n_equiv=n_equiv)
+                 freeze=bool(cfg.freeze_decided), n_equiv=n_equiv,
+                 crash_round=bounds[0], recover_round=bounds[1],
+                 rejoin=rejoin_mode(cfg.recovery))
     coin = dict(coin_mode=cfg.coin_mode, eps=float(cfg.coin_eps),
                 shared=shared_coin(cfg, seed, r, t, pack.device))
     if fused_one_pass_eligible(cfg, t, n_local):
@@ -794,16 +948,23 @@ def run_packed_slice(cfg, state, faults, seed, from_round, until_round):
     one synchronisation per round, with the same predicate
     ``(r <= max_rounds) & (unsettled > 0) & (r < until_round)``.  The live
     equivocators are counted once, before the loop (the killed and faulty
-    planes never change)."""
+    planes never change).  Under 'crash_at_round' / 'crash_recover' the
+    round's proposal histogram is recomputed from the plane stack at the
+    top of every round (the vote kernel's is not next round's), as the JAX
+    package's loop does (pallas_round.py:1619-1621)."""
     n_local = state.x.shape[-1]
     pack = pack_state(cfg, state, faults.faulty)
+    bounds = pad_fault_rounds(cfg, faults, pack.shape[2] * PACK_NODES_PER_WORD)
+    per_round = cfg.fault_model in FAULT_ROUNDS
     n_equiv = n_equiv_from_pack(cfg, pack)
-    hist1 = sent_hist_from_pack(cfg, pack)
+    hist1 = None if per_round else sent_hist_from_pack(cfg, pack)
     unsettled = int(unsettled_from_pack(pack))
     r = int(from_round)
     while r <= cfg.max_rounds and r < until_round and unsettled > 0:
+        if per_round:
+            hist1 = sent_hist_from_pack(cfg, pack, *bounds, r)
         pack, hist1, unsett = packed_round(cfg, pack, seed, r, hist1,
-                                           n_local, n_equiv)
+                                           n_local, n_equiv, bounds)
         unsettled = int(unsett.sum())
         r += 1
     return r, unpack_state(pack, n_local)

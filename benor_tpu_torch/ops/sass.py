@@ -31,17 +31,19 @@ COIN_KERNELS = ("coin_flips_kernel", "weak_coin_flips_kernel")
 # than one: the fused round walks its words once a phase.
 LOOPS = {"fused_round_kernel": 2, "fused_cluster_kernel": 2}
 FUSED_KERNELS = ("fused_round_kernel", "fused_cluster_kernel")
-# The round kernels' template parameters, in order (csrc/round_kernels.cu):
+# The round kernels' template parameters, in order (csrc/round_body.cuh):
 # a report names each instantiation but the main path's (every parameter
-# 0) by them, as "vote_commit_kernel<delivered,common>".
-MODE_PARAMS = {"proposal_hist_kernel": ("counts", "pop"),
-               "vote_commit_kernel": ("counts", "coin", "pop"),
-               "fused_round_kernel": ("coin", "equiv"),
-               "fused_cluster_kernel": ("coin", "equiv")}
+# 0) by them, as "vote_commit_kernel<delivered,common>" or
+# "vote_commit_kernel<sampled,private,recover>".
+MODE_PARAMS = {"proposal_hist_kernel": ("counts", "pop", "fault"),
+               "vote_commit_kernel": ("counts", "coin", "pop", "fault"),
+               "fused_round_kernel": ("coin", "equiv", "fault"),
+               "fused_cluster_kernel": ("coin", "equiv", "fault")}
 _MODE_NAMES = {"counts": ("sampled", "delivered", "camps"),
                "coin": ("private", "common", "weak_common"),
                "pop": ("", "honest", "equiv"),
-               "equiv": ("", "equiv")}
+               "equiv": ("", "equiv"),
+               "fault": ("", "crash_at", "recover")}
 
 # SASS opcodes by class.  Opcodes of the uniform datapath (U*) that are not
 # named here count as "uniform".

@@ -5,7 +5,7 @@ Two round loops, as in the JAX package: the packed loop
 ``tally.pallas_round_active`` — the uniform-scheduler CF regime of the
 histogram path and the count-controlling adversaries (``scheduler=
 'adversarial'`` / ``'targeted'``, their closed-form counts), under every
-coin and crash, byzantine or equivocate faults — and the unfused loop
+coin and fault model — and the unfused loop
 (models/benor.py) otherwise, in four regimes.  ``delivery='all'``
 (the JAX package's default; on either path, omission aside) tallies the
 broadcast histogram in plain torch, no kernel, as the JAX package does in
@@ -18,8 +18,10 @@ biased schedulers and per-edge omission (``delivery='all'`` with
 ``drop_prob``): explicit [T, N, N] delivery masks (ops/scheduler.py)
 tallied exactly (ops/dense.py); under the count-controlling adversaries,
 on either path, the closed-form counts of ops/tally.py.  All four take
-crash, byzantine or equivocate faults, private, common or weak-common
-coins, either decision rule, freeze on or off.  Every other regime raises
+every fault model — crash, byzantine, equivocate, crash_at_round and
+crash_recover (down-intervals with durable or amnesia rejoins,
+faults/recovery.py) — private, common or weak-common coins, either
+decision rule, freeze on or off.  Every other regime raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it;
 nothing falls back to another path.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
@@ -69,10 +71,6 @@ def check_supported(cfg: SimConfig) -> None:
         gap = benor.round_gap(cfg)
         if gap is not None:
             unported(*gap)
-        return
-    if cfg.fault_model in ("crash_at_round", "crash_recover"):
-        unported(f"fault_model={cfg.fault_model!r} in the packed round "
-                 "(Queue B B2)", "8")
 
 
 def start_state(cfg: SimConfig, state: NetState) -> NetState:
@@ -135,18 +133,22 @@ def resume_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec,
 
 
 def simulate(cfg: SimConfig, initial_values, faulty_list=None,
-             faults: Optional[FaultSpec] = None, device=None):
+             faults: Optional[FaultSpec] = None, crash_rounds=None,
+             device=None):
     """One-shot run: build state, run, return (rounds, state, faults).
 
-    ``faulty_list`` is the reference's launch-time fault vector; pass
-    ``faults`` for per-trial specs.  Runs on CUDA unless ``device`` names
-    the CPU."""
+    ``faulty_list`` is the reference's launch-time fault vector;
+    ``crash_rounds`` is required for fault_model='crash_at_round'; pass
+    ``faults`` for per-trial specs (``faults.crash_recover_faults`` builds
+    crash_recover's from cfg.recovery).  Runs on CUDA unless ``device``
+    names the CPU."""
     dev = resolve_device(device)
     check_supported(cfg)
     if faults is None:
         if faulty_list is None:
             faulty_list = [False] * cfg.n_nodes
-        faults = FaultSpec.from_faulty_list(cfg, faulty_list, device=dev)
+        faults = FaultSpec.from_faulty_list(cfg, faulty_list, crash_rounds,
+                                            device=dev)
     else:
         faults = faults.to(dev)
     state = init_state(cfg, initial_values, faults)

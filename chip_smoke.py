@@ -57,9 +57,10 @@ Phases (any failure ends the run non-zero; nothing is caught):
      launch count read around it (2 a round); use_pallas on against off;
      one run timed part by part and one profiled run;
   8. the facade and ``delivery='all'`` (the JAX package's default), plain
-     torch with no kernel: each scenario of tests/test_scenarios.py and
-     the upstream default launch through ``launch_network`` on the card
-     and on the CPU, state for state equal, the livelock scenario again
+     torch with no kernel: each scenario of tests/test_scenarios.py, the
+     upstream default launch and a launch whose faulty nodes die at rounds
+     2 and 3 (``crash_at_round``, ``crash_rounds``) through
+     ``launch_network`` on the card and on the CPU, state for state equal, the livelock scenario again
      with ``poll_rounds=1`` equal to its one-shot run (``[api]``); the
      equivocator split's card-against-CPU differences; the six regimes at
      N = 1M x 32 with ``delivery='all'`` and equivocate at F = 4096 (the
@@ -81,7 +82,25 @@ Phases (any failure ends the run non-zero; nothing is caught):
      split and two profiled runs; packed against unfused on the four
      regimes where both share every bit; every new mode at N = 8192 x 8
      and 16,384 x 4 on the card against the CPU;
- 10. the kernels line, the card line, and the result line.
+ 10. ``[b2]``: crash_at_round and crash_recover in the round kernels.
+     Every instantiation of their FaultRounds modes (csrc/round_b2.cu)
+     against its plain version on N = 1M x 32 fixtures with 45 % of the
+     lanes faulty and round bounds that put faulty lanes in every class
+     at round 3 (crashing, down, never rejoining, rejoining now decided
+     and undecided, back, untouched), every count and plane word (killed
+     and down included), and of fused_round on its shape family against
+     its plain version and the two-kernel route, each timed beside the
+     main path's instantiation with its bound (the bounds' bytes counted),
+     registers, spills and SASS; five regimes at N = 1M x 32 with the
+     launch counts read around them (the first F = 0.45 N lanes crash at
+     round 2; 'at:1:4' durable and amnesia; 'stagger:1:4:amnesia' at
+     F = 0.25 N; 'at:2:0', which must equal the first), the recover ones
+     to their rejoin round; two N = 8192 runs on the fused kernel alone;
+     the split, the per-round ``sent_hist_from_pack`` alone and one
+     profiled run; packed against unfused on 'at:1:4' durable and
+     amnesia; card against CPU at 8192 x 8 and 16,384 x 4 in every mode
+     combination;
+ 11. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -297,12 +316,14 @@ def cuda_ms(fn, n: int, queued: bool = False) -> float:
     return start.elapsed_time(stop) / n
 
 
-def random_pack(cfg, device, seed, balanced=False):
+def random_pack(cfg, device, seed, balanced=False, faulty_frac=None):
     """A plane stack of a random mid-run state (x, decided, killed, k,
-    faulty drawn on the device; with ``balanced`` x alternates 0 and 1
+    faulty drawn on the device, one lane in 10 faulty or, with
+    ``faulty_frac``, that fraction; with ``balanced`` x alternates 0 and 1
     over the nodes and nodes 2j and 2j + 1 share every other field, so
     that the live and the frozen lanes hold as many 0s as 1s and the
-    rounds' tallies tie) -> (pack, its proposal histogram)."""
+    rounds' tallies tie) -> (pack, its proposal histogram; None under the
+    round-bound fault models)."""
     import torch
     from benor_tpu_torch.ops.packed_round import (pack_state,
                                                   sent_hist_from_pack)
@@ -316,6 +337,8 @@ def random_pack(cfg, device, seed, balanced=False):
 
     x, dec, k = draw(3), draw(10) == 0, draw(cfg.max_rounds + 2)
     killed, faulty = draw(10) == 0, draw(10) == 0
+    if faulty_frac is not None:
+        faulty = torch.rand(shape, generator=g, device=device) < faulty_frac
     if balanced:
         node = torch.arange(cfg.n_nodes, device=device)
         x = (node % 2).expand(shape)
@@ -324,6 +347,8 @@ def random_pack(cfg, device, seed, balanced=False):
     state = NetState(x=x.to(torch.int8), decided=dec,
                      k=k.to(torch.int32), killed=killed)
     pack = pack_state(cfg, state, faulty)
+    if cfg.fault_model in ("crash_at_round", "crash_recover"):
+        return pack, None           # its histogram needs the round bounds
     return pack, sent_hist_from_pack(cfg, pack)
 
 
@@ -487,6 +512,10 @@ SCENARIOS = (
     ("stop_consensus_kills_all", [False] * 3, [1, 1, 1], {}),
     ("default_config", [True] * 4 + [False] * 6,
      [0, 0, 1, 1, 1, 0, 0, 1, 1, 1], {}),
+    # the faulty nodes die mid-run (rounds 2 and 3) instead of at birth
+    ("crash_at_round", [True] * 4 + [False] * 6, [0, 1] * 5,
+     {"fault_model": "crash_at_round", "crash_rounds": [2, 2, 3, 3]
+      + [0] * 6}),
 )
 N_ALL_CPU = 65_536        # the 'all' path's card-vs-CPU run at scale
 N_ALL_SMALL = 8192        # ... and its equivocate card-vs-CPU runs (x 8)
@@ -529,6 +558,12 @@ def api_phase() -> None:
             verdict = not any(st["decided"] for st in live)
         elif name.startswith("stop"):
             verdict = all(st["killed"] for st in live)
+        elif name == "crash_at_round":
+            rounds = nets["cuda"].rounds_executed
+            verdict = (reached_finality(live)
+                       and len({st["x"] for st in live}) == 1
+                       and [st["killed"] for st in states["cuda"]]
+                       == [0 < c <= rounds for c in kw["crash_rounds"]])
         else:
             verdict = (reached_finality(states["cuda"])
                        and len({st["x"] for st in live}) == 1)
@@ -1014,7 +1049,9 @@ def check_final(cfg, rounds, final, agreement=True):
     assert tuple(final.x.shape) == (cfg.trials, cfg.n_nodes)
     assert bool(((final.x >= 0) & (final.x <= 2)).all())
     assert bool(((final.k >= 0) & (final.k <= rounds + 1)).all())
-    assert not bool((final.decided & final.killed).any())
+    if cfg.fault_model not in ("crash_at_round", "crash_recover"):
+        # a lane of those models may decide before the round it dies in
+        assert not bool((final.decided & final.killed).any())
     dec = final.decided
     x = final.x.to(torch.int64)
     has0 = ((x == 0) & dec).any(1)
@@ -1114,7 +1151,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"[build] {len(_build.sources())} source(s) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; nvcc s by source "
+          f"{_build.build_seconds(_build.build())}")
 
     kernels = {}
 
@@ -1767,7 +1805,10 @@ def main() -> int:
     # --- 9. equivocation, the shared coins and the count adversaries -------
     item8_phase(lib, dev, sms, round_modes)
 
-    # --- 10. the kernels line, the card, the result ------------------------
+    # --- 10. crash_at_round and crash_recover in the round kernels ---------
+    b2_phase(lib, dev, sms)
+
+    # --- 11. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2368,6 +2409,601 @@ def item8_phase(lib, dev, sms, round_modes) -> None:
                     grown["fused_round"]):
                 raise SystemExit(f"[item8] {name} N={n_s}: dispatch")
     print(f"[item8] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [b2] phase: crash_at_round and crash_recover in the round kernels --
+
+# the fault models with round bounds and their rejoin modes, and the round
+# kernels' counts and coin modes they run under
+B2_MODELS = (("crash_at_round", "durable"), ("crash_recover", "durable"),
+             ("crash_recover", "amnesia"))
+B2_COUNTS = ("sampled", "delivered", "camps")
+B2_COINS = ("private", "common", "weak_common")
+# the pair's instantiations on N = 1M x 32 fixtures (counts, coin, fault
+# model, rejoin), and the fused kernel's on its family (coin, fault model,
+# rejoin); each led by the main path's on the same kind of fixture
+B2_PAIR = (("sampled", "private", "crash", "durable"),) + tuple(
+    (cm, coin, fm, rj) for fm, rj in B2_MODELS for cm in B2_COUNTS
+    for coin in B2_COINS)
+B2_FUSED = (("private", "crash", "durable"),) + tuple(
+    (coin, fm, rj) for fm, rj in B2_MODELS for coin in B2_COINS)
+# the pair instantiations whose plain versions are timed as well
+B2_PLAIN_TIMED = (("sampled", "private", "crash_at_round", "durable"),
+                  ("sampled", "private", "crash_recover", "amnesia"))
+B2_FAULTY = 0.45          # the fixtures' faulty fraction
+B2_EPS = 0.5              # the weak coin's deviation rate in the fixtures
+# the card-vs-CPU sizes (N, T): the fused kernel's, and the pair's
+B2_SMALL = ((8192, 8), (16_384, 4))
+# a lane's work on its bounds: crash_at_round's two loads' worth of
+# compares and the latch; crash_recover's interval, down and latch tests;
+# the amnesia test
+OPS_BOUNDS = {"crash_at_round": 5, "crash_recover": 12}
+OPS_AMNESIA = 7
+
+
+def b2_bounds(cfg, np_total, fault_model, device, seed):
+    """Round bounds for a fixture: crash rounds in {0, 1..6} and recover
+    rounds in {0, cr + 1 .. cr + 4} drawn a lane, so that at ROUND = 3
+    every class occurs (crashing now, down, never rejoining, rejoining
+    now decided and undecided, back, untouched), padded with 0 to the
+    plane geometry -> (cr, rcv or None), int32 [T, np_total]."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.trials, cfg.n_nodes)
+    cr = torch.randint(0, 7, shape, generator=g, device=device,
+                       dtype=torch.int32)
+    d = torch.randint(0, 5, shape, generator=g, device=device,
+                      dtype=torch.int32)
+    rcv = torch.where(d > 0, cr + d, 0).to(torch.int32)
+
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, np_total - a.shape[1]))
+
+    return pad(cr), (pad(rcv) if fault_model == "crash_recover" else None)
+
+
+def b2_classes(pack, cr, rcv, r) -> dict:
+    """Faulty lanes of a fixture by their class at round ``r``."""
+    from benor_tpu_torch.ops.packed_round import plane_field
+    from benor_tpu_torch.state import PACK_DECIDED, PACK_FAULTY
+    fau = plane_field(pack, PACK_FAULTY, 1) == 1
+    dec = plane_field(pack, PACK_DECIDED, 1) == 1
+    started = fau & (cr > 0) & (r >= cr)
+    out = {"crashing_now": int((fau & (cr == r)).sum()),
+           "started": int(started.sum()),
+           "not_yet": int((fau & (cr > r)).sum())}
+    if rcv is not None:
+        now = fau & (cr > 0) & (rcv == r)
+        out.update(never=int((started & (rcv <= 0)).sum()),
+                   down=int((started & (rcv > r)).sum()),
+                   back=int((started & (rcv > 0) & (rcv < r)).sum()),
+                   rejoin_decided=int((now & dec).sum()),
+                   rejoin_undecided=int((now & ~dec).sum()))
+    return out
+
+
+def b2_case(cfg, counts_mode, fault_model, rejoin, device, seed,
+            balanced=False):
+    """A fixture in a mode: a random mid-run pack for ``cfg`` with
+    B2_FAULTY of its lanes faulty, its round bounds (``b2_bounds``; none for
+    the static models), the proposal histogram of ROUND, the camp bounds,
+    the kernels' closed form for the mode and a shared coin bit a trial."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import tally
+
+    sched = {"sampled": "uniform", "delivered": "adversarial",
+             "camps": "targeted"}[counts_mode]
+    cfg = cfg.replace(scheduler=sched, fault_model=fault_model,
+                      delivery="quorum",
+                      recovery=(f"at:1:4:{rejoin}"
+                                if fault_model == "crash_recover" else None))
+    pack, _ = random_pack(cfg, device, seed, balanced, B2_FAULTY)
+    cr = rcv = None
+    if fault_model in pr.FAULT_ROUNDS:
+        cr, rcv = b2_bounds(cfg, pack.shape[2] * 32, fault_model, device,
+                            seed + 1)
+    hist1 = pr.sent_hist_from_pack(cfg, pack, cr, rcv, ROUND)
+    camps = (tally.targeted_camp_bounds(cfg) if counts_mode == "camps"
+             else (0, 0))
+
+    def counts(h):
+        if counts_mode == "delivered":
+            return tally.adversarial_counts(h, cfg.quorum)
+        if counts_mode == "camps":
+            return tally.targeted_camp_triples(cfg, h)
+        return h
+
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    shared = torch.randint(0, 2, (cfg.trials,), generator=g, device=device,
+                           dtype=torch.int32)
+    bounds = dict(crash_round=cr, recover_round=rcv, rejoin=rejoin)
+    return dict(cfg=cfg, pack=pack, hist1=hist1, camps=camps, counts=counts,
+                shared=shared, bounds=bounds)
+
+
+def b2_needs(pack, new_pack, counts_mode, m, hists, qok) -> dict:
+    """``mode_needs`` of a B2 fixture: the lanes the round's bounds leave
+    dead or down this round (the new stack's killed and down planes) read
+    no draw."""
+    from benor_tpu_torch.state import PACK_DOWN, PACK_KILLED
+    adj = pack.clone()
+    adj[:, PACK_KILLED] = new_pack[:, PACK_KILLED] | new_pack[:, PACK_DOWN]
+    return mode_needs(adj, counts_mode, False, m, hists, qok, new_pack)
+
+
+def b2_pair(lib, cfg, counts_mode, coin_mode, fault_model, rejoin, device,
+            seed) -> dict:
+    """proposal_hist and vote_commit in one mode against their plain
+    versions on a random N = 1M x 32 fixture (``b2_case``; the vote on the
+    proposal's gate and on a balanced histogram of its voters, so that
+    lanes coin), every count and plane word (killed and down included),
+    then three timed repeats of each launch -> dict."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+    from benor_tpu_torch.state import PACK_K
+
+    case = b2_case(cfg, counts_mode, fault_model, rejoin, device, seed)
+    cfg, pack, bnd = case["cfg"], case["pack"], case["bounds"]
+    m, r = cfg.quorum, ROUND
+    t, planes, n_w = pack.shape
+    lanes = t * n_w * 32
+    eps = B2_EPS if coin_mode == "weak_common" else 0.0
+    tag = f"{counts_mode}/{coin_mode}/{fault_model}/{rejoin}"
+    pm = dict(fault_model=fault_model, freeze=True, counts_mode=counts_mode,
+              camp_b0=case["camps"][0], camp_b1=case["camps"][1], **bnd)
+    vm = dict(pm, coin_mode=coin_mode, eps=eps, shared=case["shared"])
+    c1 = case["counts"](case["hist1"])
+    parts_k = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, c1, pack, m,
+                               **pm)
+    parts_p = pr.proposal_hist_plain(SEED, r, rng.PHASE_PROPOSAL, c1, pack,
+                                     m, **pm)
+    torch.cuda.synchronize()
+    res_p = compare(f"proposal_hist {tag}", lanes, [(parts_k, parts_p)])
+    qok = parts_p[:, 3] >= m
+    tot = parts_p[:, :3].sum(1)
+    c2 = case["counts"](torch.stack([tot // 2, tot - tot // 2, tot * 0],
+                                    dim=1))
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference")
+    new_k, vparts_k = pr.vote_commit(SEED, r, rng.PHASE_VOTE, c2, pack, qok,
+                                     **vote, **vm)
+    new_p, vparts_p = pr.vote_commit_plain(SEED, r, rng.PHASE_VOTE, c2,
+                                           pack, qok, **vote, **vm)
+    torch.cuda.synchronize()
+    res_v = compare(f"vote_commit {tag}", lanes, [(new_k, new_p),
+                                                  (vparts_k, vparts_p)])
+    needs = b2_needs(pack, new_p, counts_mode, m, (c1, c2), qok)
+    classes = (b2_classes(pack, bnd["crash_round"], bnd["recover_round"], r)
+               if bnd["crash_round"] is not None else {})
+    if classes and not all(classes.values()):
+        raise SystemExit(f"{tag}: a class of lanes is missing: {classes}")
+    if coin_mode != "private" and not needs["coins"]:
+        raise SystemExit(f"{tag}: the fixture coined no lane")
+    del new_k, new_p
+
+    hist_f1, hist_f2 = (pr.kernel_vecs(c, counts_mode) for c in (c1, c2))
+    qok_i = qok.to(torch.int32).contiguous()
+    shared_i = None if coin_mode == "private" else case["shared"]
+    ops_b = pr._bounds_operands(fault_model, bnd["crash_round"],
+                                bnd["recover_round"], rejoin, pack)
+    calls = {
+        "proposal_hist": lambda: pr._launch_proposal_hist(
+            lib, stream_scal(SEED, r, rng.PHASE_PROPOSAL), hist_f1, pack, m,
+            fault_model, True, counts_mode, (0, 0), None, case["camps"], r,
+            ops_b),
+        "vote_commit": lambda: pr._launch_vote_commit(
+            lib, stream_scal(SEED, r, rng.PHASE_VOTE),
+            stream_scal(SEED, r, _COIN_SALT), r + 1, hist_f2, qok_i, pack,
+            m, cfg.n_faulty, "reference", fault_model, True, counts_mode,
+            coin_mode, (0, 0), None, shared_i, eps, case["camps"], ops_b),
+    }
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    fault = pr.FAULT_ROUNDS.get(fault_model, 0)
+    op_bytes = sum(a.numel() * 4 for a in ops_b[:2] if a is not None)
+    nvec = hist_f1.shape[1]
+    bytes_ = {
+        "proposal_hist": pack.numel() * 4 + op_bytes + t * nvec * 4
+        + pr.round_blocks(lib, 0, n_w, t, device,
+                          pr._mode_ids(counts_mode, "private", fault_model),
+                          fault) * t * pr.PROP_COLS * 4,
+        "vote_commit": 2 * pack.numel() * 4 + op_bytes + t * (nvec + 2) * 4
+        + pr.round_blocks(lib, 1, n_w, t, device,
+                          pr._mode_ids(counts_mode, coin_mode, fault_model),
+                          fault) * t * pr.VOTE_COLS * 4,
+    }
+    per_lane = OPS_BOUNDS.get(fault_model, 0) + (
+        OPS_AMNESIA if ops_b[2] else 0)
+    ops = {k: mode_ops(k, lanes, t, n_w * t, planes - PACK_K, counts_mode,
+                       coin_mode, False, needs[f"{p}_draws"],
+                       needs[f"{p}_tails"], needs[f"{p}_sizes"],
+                       needs["coins"]) + lanes * per_lane
+           for k, p in (("proposal_hist", "proposal"),
+                        ("vote_commit", "vote"))}
+    plain = {}
+    if (counts_mode, coin_mode, fault_model, rejoin) in B2_PLAIN_TIMED:
+        plain = {
+            "proposal_hist": cuda_ms(lambda: pr.proposal_hist_plain(
+                SEED, r, rng.PHASE_PROPOSAL, c1, pack, m, **pm), 3),
+            "vote_commit": cuda_ms(lambda: pr.vote_commit_plain(
+                SEED, r, rng.PHASE_VOTE, c2, pack, qok, **vote, **vm), 3)}
+    print(f"[fixture] b2 {tag}: lanes {lanes}, faulty lanes by class at "
+          f"round {r} {classes}, needs {needs}; kernel ms {ms}; plain ms "
+          f"{plain or 'not timed'}")
+    return dict(res=(res_p, res_v), ms=ms, needs=needs, bytes=bytes_,
+                ops=ops, calls=calls, tag=tag, plain=plain)
+
+
+def b2_fused(lib, trials, n, coin_mode, fault_model, rejoin, device,
+             timed) -> dict:
+    """fused_round in one mode on a balanced B2 fixture of ``trials`` x
+    ``n`` (the textbook rule, so that the active lanes coin) against its
+    plain version and the two-kernel route, bit for bit; with ``timed``
+    three timed repeats of its launch, as every kernel is and queued."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.state import PACK_COINED, PACK_K
+
+    cfg = main_cfg().replace(n_nodes=n, n_faulty=int(0.4 * n),
+                             trials=trials)
+    case = b2_case(cfg, "sampled", fault_model, rejoin, device, SEED + 5,
+                   balanced=True)
+    cfg, pack, hist, bnd = (case["cfg"], case["pack"], case["hist1"],
+                            case["bounds"])
+    m, r = cfg.quorum, ROUND
+    lanes = trials * pack.shape[2] * 32
+    eps = B2_EPS if coin_mode == "weak_common" else 0.0
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="textbook",
+                fault_model=fault_model, freeze=True)
+    modes = dict(coin_mode=coin_mode, eps=eps, shared=case["shared"], **bnd)
+    out_k = pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+    out_p = pr.fused_round_plain(SEED, r, hist, pack, **vote, **modes)
+    parts_a = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist, pack, m,
+                               fault_model, True, **bnd)
+    new_2, parts_b = pr.vote_commit(SEED, r, rng.PHASE_VOTE, parts_a[:, :3],
+                                    pack, parts_a[:, 3] >= m, **vote,
+                                    **modes)
+    torch.cuda.synchronize()
+    tag = f"{coin_mode}/{fault_model}/{rejoin} T={trials} N={n}"
+    res = compare(f"fused_round {tag}", lanes, list(zip(out_k, out_p)))
+    same = all(torch.equal(a, b)
+               for a, b in zip(out_k, (new_2, parts_a, parts_b)))
+    print(f"[dispatch] b2 fused_round vs proposal_hist + sum + vote_commit "
+          f"at {tag}: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit(f"fused and two-kernel rounds differ at {tag}")
+    if not int(pr.plane_field(out_p[0], PACK_COINED, 1).sum()) and n >= 1024:
+        raise SystemExit(f"{tag}: the fixture coined no lane")
+    fault = pr.FAULT_ROUNDS.get(fault_model, 0)
+    out = dict(res=res, lanes=lanes, grid=pr.fused_grid(
+        lib, pack.shape[2], trials, device, coin_mode, False, fault))
+    if timed:
+        def fused():
+            return pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+        out["ms"] = repeats(fused)
+        out["ms_queued"] = repeats(fused, queued=True)
+        out["plain_ms"] = cuda_ms(lambda: pr.fused_round_plain(
+            SEED, r, hist, pack, **vote, **modes), 3)
+        op_bytes = sum(a.numel() * 4 for a in (bnd["crash_round"],
+                                               bnd["recover_round"])
+                       if a is not None)
+        out["bytes"] = 2 * pack.numel() * 4 + op_bytes + trials * 3 * 4 \
+            + trials * (pr.PROP_COLS + pr.VOTE_COLS) * 4
+        nd = b2_needs(pack, out_p[0], "sampled", m, (hist, out_p[1][:, :3]),
+                      out_p[1][:, 3] >= m)
+        t, planes, n_w = pack.shape
+        per_lane = OPS_BOUNDS.get(fault_model, 0) + (
+            OPS_AMNESIA if fault == 2 and rejoin == "amnesia" else 0)
+        out["needs"] = nd
+        out["ops"] = lanes * per_lane + sum(
+            mode_ops(k, lanes, t, n_w * t, planes - PACK_K, "sampled",
+                     coin_mode, False, nd[f"{p}_draws"], nd[f"{p}_tails"],
+                     nd[f"{p}_sizes"], nd["coins"])
+            for k, p in (("proposal_hist", "proposal"),
+                         ("vote_commit", "vote")))
+    return out
+
+
+def b2_regimes(n, trials, max_rounds=MAX_ROUNDS, device="cuda"):
+    """The [b2] regimes at ``n`` x ``trials`` on balanced inputs, the
+    uniform scheduler's quorum delivery on the histogram path ->
+    [(name, cfg, inputs, faults)]: the first F = 0.45 N lanes crash at
+    round 2 (crash_at_round, ``crash_rounds``); crash_recover's 'at:1:4'
+    durable and amnesia at F = 0.45 N; 'stagger:1:4:amnesia' at
+    F = 0.25 N (bench.py:1667-1671's schedule); 'at:2:0', which never
+    rejoins and equals the first."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.faults import crash_recover_faults
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    base = {**MAIN_RUN, "trials": trials, "max_rounds": max_rounds}
+    bal = balanced_inputs(trials, n)
+    f45 = int(0.45 * n)
+    c = SimConfig(n_nodes=n, n_faulty=f45,
+                  **{**base, "fault_model": "crash_at_round"})
+    out = [("crash_at_round_f0.45", c, bal, FaultSpec.first_f(
+        c, crash_rounds=[2] * f45 + [0] * (n - f45), device=device))]
+    for name, spec, f in (("recover_at1_4_f0.45", "at:1:4", f45),
+                          ("recover_at1_4_amnesia_f0.45", "at:1:4:amnesia",
+                           f45),
+                          ("recover_stagger1_4_amnesia_f0.25",
+                           "stagger:1:4:amnesia", int(0.25 * n)),
+                          ("recover_at2_0_f0.45", "at:2:0", f45)):
+        c = SimConfig(n_nodes=n, n_faulty=f, recovery=spec,
+                      **{**base, "fault_model": "crash_recover"})
+        out.append((name, c, bal, crash_recover_faults(c, device)))
+    return out
+
+
+def b2_small_extra(n, trials, device="cuda"):
+    """The other mode combinations for the card-vs-CPU runs: the amnesia
+    rejoin under the common and the weak coin, crash_at_round under the
+    adversarial scheduler (delivered counts, the common coin) and the
+    amnesia rejoin under the targeted adversary (camps)."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.faults import crash_recover_faults
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+
+    base = {**MAIN_RUN, "trials": trials}
+    bal = balanced_inputs(trials, n)
+    f = int(0.4 * n)
+    f += (n - f) % 2                   # an even quorum, as bench.py's
+    out = []
+    for name, kw in (("recover_amnesia_common",
+                      dict(coin_mode="common")),
+                     ("recover_amnesia_weak",
+                      dict(coin_mode="weak_common", coin_eps=B2_EPS)),
+                     ("recover_amnesia_targeted",
+                      dict(scheduler="targeted", max_rounds=16,
+                           use_pallas_hist=False))):
+        c = SimConfig(n_nodes=n, n_faulty=f, recovery="at:1:3:amnesia",
+                      **{**base, "fault_model": "crash_recover", **kw})
+        out.append((name, c, bal, crash_recover_faults(c, device)))
+    c = SimConfig(n_nodes=n, n_faulty=f, coin_mode="common",
+                  **{**base, "fault_model": "crash_at_round",
+                     "scheduler": "adversarial"})
+    out.append(("crash_at_adversarial_common", c, bal, FaultSpec.first_f(
+        c, crash_rounds=[2] * f + [0] * (n - f), device=device)))
+    return out
+
+
+def b2_phase(lib, dev, sms) -> None:
+    """The [b2] phase (see the module docstring): crash_at_round and
+    crash_recover in the round kernels.  Every new instantiation against
+    its plain version and timed, with its bound and resources; the five
+    regimes at N = 1M x 32 on the round kernels; the N = 8192 runs on the
+    fused kernel alone; the split and a profiled run; packed against
+    unfused; card against CPU.  Any differing word, count or run raises
+    SystemExit."""
+    import torch
+    from benor_tpu_torch import simulate
+    from benor_tpu_torch.ops import _build, sass
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import init_state
+
+    t_phase = time.perf_counter()
+    cfg = main_cfg().replace(n_faulty=int(0.4 * N_MAIN))
+
+    def bound(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    # 1. every new instantiation of the pair on N = 1M x 32, timed once (a
+    # proposal instantiation under each rejoin mode, whatever the coin)
+    held, timed, pair_calls = set(), set(), {}
+    for i, (cm, coin, fm, rj) in enumerate(B2_PAIR):
+        res = b2_pair(lib, cfg, cm, coin, fm, rj, dev, SEED + 40 + i)
+        counts, coin_id, _, _ = pr._mode_ids(cm, coin, fm)
+        fault = pr.FAULT_ROUNDS.get(fm, 0)
+        insts = {"proposal_hist": sass.mode_label(
+                     "proposal_hist_kernel", (counts, 0, fault)),
+                 "vote_commit": sass.mode_label(
+                     "vote_commit_kernel", (counts, coin_id, 0, fault))}
+        for k, inst in insts.items():
+            held.add(inst)
+            if (inst, rj) in timed:
+                continue
+            timed.add((inst, rj))
+            pair_calls.setdefault(inst, res["calls"][k])
+            b_ms, by = bound(res["bytes"][k], res["ops"][k])
+            med = median(res["ms"][k])
+            ctl = "" if "<" in inst else " control"
+            plain = res["plain"].get(k)
+            plain = "" if plain is None else f", plain {plain:.4f} ms"
+            print(f"[time] b2{ctl} {inst} ({res['tag']}): kernel "
+                  f"{res['ms'][k]} ms (median {med:.4f}){plain}, bound "
+                  f"{b_ms:.4f} ms ({by}; bytes {res['bytes'][k]} B, "
+                  f"operations {res['ops'][k]} needed), share "
+                  f"{b_ms / med:.3f}; library null")
+        del res
+        torch.cuda.empty_cache()
+
+    # 2. every new instantiation of the fused kernel on its shape family,
+    # timed at its cap N = 8192 x 32
+    for coin, fm, rj in B2_FUSED:
+        fault = pr.FAULT_ROUNDS.get(fm, 0)
+        for t_f, n_f in FUSED_FAMILY:
+            f = b2_fused(lib, t_f, n_f, coin, fm, rj, dev,
+                         (t_f, n_f) == FUSED_FAMILY[0])
+            inst = sass.mode_label("fused_cluster_kernel" if f["grid"][0] > 1
+                                   else "fused_round_kernel",
+                                   (pr.COIN_MODES.index(coin), 0, fault))
+            held.add(inst)
+            if "ms" not in f:
+                continue
+            b_ms, by = bound(f["bytes"], f["ops"])
+            ctl = "" if "<" in inst else " control"
+            print(f"[time] b2{ctl} {inst} ({coin}/{fm}/{rj}, T={t_f} "
+                  f"N={n_f}, grid {f['grid']}, needs {f['needs']}): fused "
+                  f"wrapper {f['ms']} ms (median {median(f['ms']):.4f}), "
+                  f"queued {f['ms_queued']} ms (median "
+                  f"{median(f['ms_queued']):.4f}), plain "
+                  f"{f['plain_ms']:.4f} ms; bound {b_ms:.5f} ms "
+                  f"({by}; bytes {f['bytes']} B, operations {f['ops']} "
+                  f"needed), share queued "
+                  f"{b_ms / median(f['ms_queued']):.3f}; library null")
+
+    # 3. their registers, spills and SASS (csrc/round_b2.cu), at the clock
+    # read while the first crash_recover vote instantiation runs
+    b2_res = sass.resource_report(_build.CSRC / "round_b2.cu",
+                                  _build.BUILD_DIR)
+    mhz = clock_during(next(v for k, v in pair_calls.items()
+                            if k.startswith("vote_commit_kernel<")
+                            and "recover" in k))
+    sass.print_resources("b2", {k: v for k, v in b2_res.items()
+                                if not k.startswith("fused")},
+                         TRIALS * N_MAIN, sms, mhz)
+    sass.print_resources("b2", {k: v for k, v in b2_res.items()
+                                if k.startswith("fused")},
+                         TRIALS * N_FUSED, sms, mhz)
+    spills = {k: (v.get("spill_stores"), v.get("spill_loads"))
+              for k, v in b2_res.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    untried = sorted(set(b2_res) - held)
+    if untried or not b2_res:
+        raise SystemExit(f"[b2] instantiations never held against their "
+                         f"plain versions: {untried or 'none built'}")
+    print(f"[ptxas] b2: {len(b2_res)} new instantiations, clocks.sm "
+          f"{mhz:.0f} MHz; spilling: {spills or 'none'}")
+
+    # 4. the regimes at N = 1M x 32 on the round kernels
+    regimes = b2_regimes(N_MAIN, TRIALS, device=dev)
+    kept = {}
+    pr.reset_launches()
+    hk.reset_launches()
+    for name, c, vals, fl in regimes:
+        before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        split = check_final(c, rounds, fin)
+        dec = float(fin.decided.float().mean())
+        grown = {k: fn.launches - before[k] for k, fn in pr.KERNELS.items()}
+        print(f"[b2] {name}: N={c.n_nodes} F={c.n_faulty} T={c.trials} "
+              f"recovery {c.recovery}: rounds {rounds} decided {dec:.6f} "
+              f"disagreeing trials {split} killed "
+              f"{int(fin.killed.sum())} simulate {sec:.4f} s trials/s "
+              f"{c.trials / sec:.3f}; launches {grown}")
+        if not grown["vote_commit"] or grown["vote_commit"] != rounds:
+            raise SystemExit(f"{name}: not one round kernel pair a round")
+        if "at1_4" in name or "stagger" in name:
+            if rounds < 5:       # a down lane is unsettled until it rejoins
+                raise SystemExit(f"{name}: ended before the rejoin round")
+        kept[name] = (rounds, fin)
+    launched = {k: fn.launches for k, fn in (*pr.KERNELS.items(),
+                                             *hk.KERNELS.items())}
+    print(f"[b2] launches {launched}")
+    if not (launched["proposal_hist"] and launched["vote_commit"]):
+        raise SystemExit("[b2] the pair never launched")
+    if any(fn.launches for fn in hk.KERNELS.values()):
+        raise SystemExit("[b2] a histogram kernel ran on the packed path")
+    (ra, fa), (rb, fb) = (kept.pop("crash_at_round_f0.45"),
+                          kept.pop("recover_at2_0_f0.45"))
+    diff = trials_differing(fa, fb)
+    print(f"[b2] recover_at2_0_f0.45 vs crash_at_round_f0.45: rounds {rb} "
+          f"vs {ra}, trials differing {diff} of {TRIALS}")
+    if ra != rb or diff:
+        raise SystemExit("[b2] 'at:2:0' differs from crash_at_round")
+    del fa, fb
+
+    # 5. N = 8192 runs: the fused kernel alone, one launch a round
+    for t_f in (TRIALS, 1):
+        (_, c, vals, fl), = [x for x in b2_regimes(N_FUSED, t_f, device=dev)
+                             if x[0] == "recover_at1_4_amnesia_f0.45"]
+        before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        check_final(c, rounds, fin)
+        grown = {k: fn.launches - before[k] for k, fn in pr.KERNELS.items()}
+        print(f"[b2] fused recover_at1_4_amnesia N={N_FUSED} T={t_f}: "
+              f"rounds {rounds}, launches {grown}")
+        if grown != {"proposal_hist": 0, "vote_commit": 0,
+                     "fused_round": rounds} or rounds < 5:
+            raise SystemExit("[b2] the N = 8192 run is not one fused_round "
+                             "launch a round to the rejoin")
+
+    # 6. where the time goes: the split, the per-round histogram alone,
+    # one profiled run
+    t_runs = {}
+    for name, c, vals, fl in regimes:
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rounds, _ = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_runs[name] = time.perf_counter() - t0
+        print(f"[b2] split {name}: init_state {t_init:.4f} s, "
+              f"run_consensus {t_run:.4f} s ({rounds} rounds, "
+              f"{c.trials / t_run:.3f} trials/s over run_consensus alone)")
+    name, c, vals, fl = regimes[2]            # at:1:4:amnesia
+    st = init_state(c, vals, fl)
+    pack = pr.pack_state(c, st, fl.faulty)
+    bnd = pr.pad_fault_rounds(c, fl, pack.shape[2] * 32)
+    ms_hist = cuda_ms(lambda: pr.sent_hist_from_pack(c, pack, *bnd, 5), 5)
+    ms_pack = cuda_ms(lambda: pr.pack_state(c, st, fl.faulty), 5)
+    ms_unpack = cuda_ms(lambda: pr.unpack_state(pack, N_MAIN), 5)
+    print(f"[parts] b2 {name}: sent_hist_from_pack {ms_hist:.3f} ms a "
+          f"round (x {kept[name][0]} rounds), pack_state {ms_pack:.3f} ms "
+          f"and unpack_state {ms_unpack:.3f} ms a run; run_consensus "
+          f"{t_runs[name] * 1e3:.3f} ms")
+    del pack, bnd
+    breakdown("b2", name, lambda: run_consensus(c, st, fl), t_runs[name],
+              tuple(pr.KERNELS), torch_ops=True)
+    del st
+
+    # 7. packed against unfused at N = 1M x 32
+    for name in ("recover_at1_4_f0.45", "recover_at1_4_amnesia_f0.45"):
+        (_, c, vals, fl), = [x for x in regimes if x[0] == name]
+        p_rounds, p_fin = kept.pop(name)
+        rounds, fin, _ = simulate(c.replace(use_pallas_round=False), vals,
+                                  faults=fl, device="cuda")
+        diff = trials_differing(fin, p_fin)
+        print(f"[b2] {name} unfused vs packed: rounds {rounds} vs "
+              f"{p_rounds}, trials differing {diff} of {c.trials}")
+        if rounds != p_rounds or diff:
+            raise SystemExit(f"{name}: unfused and packed runs differ")
+        del fin, p_fin
+    del regimes, kept
+    torch.cuda.empty_cache()
+
+    # 8. the card against the CPU at small sizes: every mode combination
+    for n_s, t_s in B2_SMALL:
+        for d_runs in zip(b2_regimes(n_s, t_s, device="cuda")
+                          + b2_small_extra(n_s, t_s, "cuda"),
+                          b2_regimes(n_s, t_s, device="cpu")
+                          + b2_small_extra(n_s, t_s, "cpu")):
+            outs = {}
+            before = {k: fn.launches for k, fn in pr.KERNELS.items()}
+            for name, c, vals, fl in d_runs:
+                t0 = time.perf_counter()
+                rr, fin = run_consensus(c, init_state(c, vals, fl), fl)
+                check_final(c, rr, fin, agreement=False)
+                outs[fl.faulty.device.type] = (rr, fin,
+                                               time.perf_counter() - t0)
+            grown = {k: fn.launches - before[k]
+                     for k, fn in pr.KERNELS.items()}
+            (rg, fg, tg), (rc, fc, tc) = outs["cuda"], outs["cpu"]
+            diff = trials_differing(fg, fc)
+            print(f"[b2] card vs cpu {name} N={n_s} T={t_s}: rounds cuda "
+                  f"{rg} cpu {rc}, trials differing {diff} of {t_s} (cpu "
+                  f"{tc:.2f} s, card {tg:.3f} s); card launches {grown}")
+            if rg != rc or diff:
+                raise SystemExit(f"[b2] {name} N={n_s}: card and CPU runs "
+                                 "disagree")
+            if not any(grown.values()) or pr.fused_one_pass_eligible(
+                    c, t_s, n_s) != bool(grown["fused_round"]):
+                raise SystemExit(f"[b2] {name} N={n_s}: dispatch")
+    print(f"[b2] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

@@ -7,7 +7,8 @@ and the coin kernels of two checkouts, on one GPU.
     python3 round_stats.py --fused-scan [DIR ...]   # the fused kernel's grids
 
 Each checkout is timed in a process of its own (with ``--base``: base,
-this, this, base), with that checkout's package first on ``sys.path``.
+this, this, base), with that checkout's package first on ``sys.path``,
+after a fresh build of each checkout's kernels is timed (``build_time``).
 There it runs chip_smoke.py's random N = 1,000,000 x 32 fixture through
 chip_smoke.py's ``round_pair`` (``proposal_hist`` and ``vote_commit``
 against their plain versions, then three repeats of the mean over 20
@@ -104,6 +105,22 @@ def worker(tree: Path) -> dict:
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def build_time(tree: Path) -> float:
+    """Wall seconds of a fresh build of ``tree``'s kernel library (every
+    source's nvcc side by side, then the link) into a new directory, in a
+    process of its own, the package import left out."""
+    out_dir = ROOT / "build" / "benor_tpu_torch" / f"timed.{time.time_ns()}"
+    code = ("import sys, time; from pathlib import Path; "
+            f"sys.path.insert(0, {str(tree)!r}); "
+            "from benor_tpu_torch.ops import _build; "
+            "t0 = time.perf_counter(); "
+            f"_build.compile_library(_build.FLAGS, Path({str(out_dir)!r})); "
+            "print(time.perf_counter() - t0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True)
+    return float(out.stdout.strip().splitlines()[-1])
+
+
 def fused_split(dev, reps: int = SPLIT_REPS) -> dict:
     """``run_consensus`` wall seconds of the packed path's runs that take
     the fused kernel (``chip_smoke.fused_run_cases``: N = 8192 at 32 trials
@@ -196,6 +213,9 @@ def main() -> int:
         trees = [("base", base), ("this", ROOT), ("this", ROOT),
                  ("base", base)]
     card = cs.smi("name,power.limit")
+    builds = {tag: build_time(tree) for tag, tree in dict(trees).items()}
+    print("[build] a fresh build, s: " + ", ".join(
+        f"{tag} {sec:.1f}" for tag, sec in builds.items()))
     results = []
     for tag, tree in trees:
         out = subprocess.run([sys.executable, str(ROOT / "round_stats.py"),
@@ -255,7 +275,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "round_stats.json").write_text(json.dumps(
-        {"card": card, "runs": results, "resources": reports}, indent=1))
+        {"card": card, "builds": builds, "runs": results,
+         "resources": reports}, indent=1))
     print(card)
     print(json.dumps({"card": card, "runs": [
         {k: res[k] for k in ("tag", "ms", "clocks_sm_mhz",

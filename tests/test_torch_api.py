@@ -16,6 +16,8 @@ import jax
 
 import benor_tpu_torch as bt
 from benor_tpu import api as japi
+from benor_tpu.backends.tpu import TpuNetwork as JTpuNetwork
+from benor_tpu.config import SimConfig as JCfg
 from benor_tpu.state import observable_state as j_observable_state
 from benor_tpu_torch import api as tapi
 
@@ -159,6 +161,33 @@ def test_default_config_facade_matches_jax():
     net.start()
     assert net.get_states() == states
     assert bt.api.reached_finality(states)
+
+
+def test_crash_at_round_facade_matches_jax():
+    """Faulty nodes that die mid-run (crash_at_round, rounds 2 and 3):
+    ``launch_network(..., crash_rounds=...)`` on the port against the JAX
+    ``TpuNetwork`` with the same crash rounds, state for state; the dead
+    nodes report killed with their last state, the live ones decide."""
+    faulty = [True] * 4 + [False] * 6
+    values = [0, 1] * 5
+    crash = [2, 2, 3, 3] + [0] * 6
+    jnet = JTpuNetwork(JCfg(n_nodes=10, n_faulty=4,
+                            fault_model="crash_at_round"), values, faulty,
+                       crash_rounds=crash)
+    tnet = _launch(tapi, faulty, values, fault_model="crash_at_round",
+                   crash_rounds=crash)
+    for net in (jnet, tnet):
+        net.start()
+    assert tnet.rounds_executed == jnet.rounds_executed >= 2
+    states = tnet.get_states()
+    assert states == jnet.get_states()
+    # a node is killed from its crash round on, and reports its state
+    assert [st["killed"] for st in states] == \
+        [0 < c <= tnet.rounds_executed for c in crash]
+    assert all(st["decided"] is not None for st in states)
+    assert bt.api.reached_finality(states[4:])
+    assert [tnet.status(i) for i in range(10)] == \
+        [jnet.status(i) for i in range(10)]
 
 
 @pytest.mark.parametrize("fault_model", ["crash", "byzantine"])

@@ -50,6 +50,11 @@ VERDICT_MATRIX = [
     dict(fault_model="byzantine"),
     dict(fault_model="meltdown"),
     dict(fault_model="crash_recover", backend="express"),
+    dict(fault_model="crash_recover", recovery="at:2:3"),
+    dict(fault_model="crash_recover", recovery="stagger:1:4:amnesia"),
+    dict(fault_model="crash_recover", recovery="at:0:3"),
+    dict(fault_model="crash_recover", recovery="bogus:1:2"),
+    dict(fault_model="crash_at_round", recovery="at:2:3"),
     dict(drop_prob=0.1),
     dict(drop_prob=1.0),
     dict(drop_prob=0.1, delivery="quorum"),
@@ -105,13 +110,13 @@ def test_validation_verdicts_match(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fault_model="crash_recover", recovery="at:2:3"),
     dict(partition="halves:5"),
     dict(topology="ring:4"),
 ])
 def test_unported_spec_grammars_raise(kw):
-    """The spec grammars are not ported: the JAX package accepts these
-    (valid) specs, the port refuses them loudly instead of guessing."""
+    """The partition and topology grammars are not ported: the JAX package
+    accepts these (valid) specs, the port refuses them loudly instead of
+    guessing."""
     jcfg.SimConfig(**{**_BASE, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcfg.SimConfig(**{**_BASE, **kw})

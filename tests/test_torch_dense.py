@@ -20,6 +20,7 @@ from benor_tpu.config import SimConfig as JCfg
 from benor_tpu.ops import tally as jtally
 from benor_tpu.state import FaultSpec as JFaults
 from benor_tpu_torch import sim as tsim
+from benor_tpu_torch.faults import crash_recover_faults
 from benor_tpu_torch.ops import dense as tdense
 from benor_tpu_torch.ops import hist as thist
 from benor_tpu_torch.ops import tally as ttally
@@ -237,15 +238,40 @@ def test_dense_cpu_run_launches_no_kernel():
     assert all(f.launches == 0 for f in thist.KERNELS.values())
 
 
+@pytest.mark.parametrize("kw", [
+    dict(fault_model="crash_recover", recovery="at:1:3:amnesia"),
+    dict(scheduler="targeted", fault_model="crash_at_round"),
+    dict(fault_model="crash_at_round"),
+])
+def test_dense_round_bound_models_run(kw):
+    """crash_at_round (the first F lanes die at round 2) and crash_recover
+    run on the dense path; the tally's kernel route (``use_pallas``, its
+    plain version here) equals the f32 matrix product run for run."""
+    outs = []
+    for use_pallas in (True, False):
+        cfg = bt.SimConfig(**{**_B96, **kw, "use_pallas": use_pallas})
+        assert cfg.resolved_path == "dense"
+        f = cfg.n_faulty
+        faults = (crash_recover_faults(cfg)
+                  if cfg.fault_model == "crash_recover"
+                  else TFaults.first_f(cfg, crash_rounds=[2] * f
+                                       + [0] * (96 - f)))
+        rounds, st, _ = bt.simulate(cfg, balanced_inputs(4, 96),
+                                    faults=faults, device="cpu")
+        assert rounds >= 2
+        outs.append((rounds, st))
+    assert outs[0][0] == outs[1][0]
+    for name in FIELDS:
+        assert torch.equal(getattr(outs[0][1], name),
+                           getattr(outs[1][1], name)), name
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(fault_model="crash_recover"), "8"),
-    (dict(scheduler="targeted", fault_model="crash_at_round"), "8"),
     (dict(delivery="all", committee_cap=4, committee_count=2,
           committee_size=8), "13"),
     (dict(delivery="all", drop_prob=0.2, path="histogram"), "13"),
     (dict(scheduler="biased", adversary_strength=1.0, path="histogram"),
      "4"),
-    (dict(fault_model="crash_at_round"), "8"),
 ])
 def test_dense_neighbours_still_raise(kw, item):
     """What the dense slice does not bring keeps raising, by ROADMAP item."""

@@ -24,7 +24,7 @@ import pytest
 from benor_tpu_torch.ops import packed_round as pr
 
 SRC = (Path(pr.__file__).resolve().parent.parent / "csrc"
-       / "round_kernels.cu")
+       / "round_body.cuh")
 
 # (name, SMs of each GPC, registers a thread): an H100 SXM (132 SMs) with
 # the kernel at its launch bound's 64 registers and at 128, and a small

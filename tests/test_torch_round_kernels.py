@@ -137,9 +137,12 @@ def test_wrappers_refuse_other_devices_and_modes():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tround.proposal_hist(tc.seed, R, 0, thist, tpack.to("meta"),
                              tc.quorum, "crash", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs crash_round"):
         tround.fused_round(tc.seed, R, thist, tpack, tc.quorum, tc.n_faulty,
                            "reference", "crash_at_round", True)
+    with pytest.raises(ValueError, match="unknown fault_model"):
+        tround.proposal_hist(tc.seed, R, 0, thist, tpack, tc.quorum,
+                             "meltdown", True)
 
 
 def test_wrappers_run_equivocate():

@@ -15,6 +15,7 @@ from benor_tpu.state import FaultSpec as JFaults
 from benor_tpu.sweep import balanced_inputs as j_balanced
 from benor_tpu_torch.ops import packed_round as tround
 from benor_tpu_torch.ops import sampling as tsampling
+from benor_tpu_torch.faults import crash_recover_faults
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs, random_inputs
 
@@ -106,15 +107,8 @@ def test_cpu_run_launches_no_kernel(cf_regime):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fault_model="crash_at_round", coin_mode="common"),
-    dict(fault_model="crash_recover", coin_mode="weak_common",
-         coin_eps=0.5),
-    dict(fault_model="crash_recover"),
-    dict(fault_model="crash_at_round"),
     dict(use_pallas_round=False, use_pallas_hist=False),
     dict(use_pallas_hist=False),
-    dict(scheduler="adversarial", fault_model="crash_at_round"),
-    dict(path="dense", scheduler="targeted", fault_model="crash_recover"),
     dict(record=True),
     dict(trials=2, witness_trials=(0,), witness_nodes=2),
     dict(kernel_telemetry=True),
@@ -127,6 +121,43 @@ def test_unsupported_regimes_raise(cf_regime, kw):
     cfg = bt.SimConfig(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+
+
+# the round-bound fault models at F = 40 (crash_at_round: the first F lanes
+# die at round 2; crash_recover: 'at:2:3', down for rounds 2-4), each run on the
+# loop that serves it and, where both loops share every random bit (the
+# uniform scheduler's CF regime, the common coin), equal to the other loop
+@pytest.mark.parametrize("kw,exact", [
+    (dict(fault_model="crash_at_round", coin_mode="common"), True),
+    (dict(fault_model="crash_recover", coin_mode="weak_common",
+          coin_eps=0.5), True),
+    (dict(fault_model="crash_recover"), True),
+    (dict(fault_model="crash_at_round"), True),
+    (dict(scheduler="adversarial", fault_model="crash_at_round"), False),
+    (dict(path="dense", scheduler="targeted", fault_model="crash_recover"),
+     False),
+])
+def test_round_bound_regimes_run(cf_regime, kw, exact):
+    base = _kw(96, 2, n_faulty=40, seed=1)
+    base.update(kw)
+    if base["fault_model"] == "crash_recover":
+        base["recovery"] = "at:2:3"
+    runs = []
+    for use_round in (True, False):
+        cfg = bt.SimConfig(**{**base, "use_pallas_round": use_round})
+        faults = (crash_recover_faults(cfg)
+                  if cfg.fault_model == "crash_recover"
+                  else TFaults.first_f(cfg, crash_rounds=[2] * 40 + [0] * 56))
+        rounds, st, _ = bt.simulate(cfg, balanced_inputs(2, 96),
+                                    faults=faults, device="cpu")
+        assert rounds >= (5 if cfg.fault_model == "crash_recover" else 2)
+        assert not bool(((st.x == bt.VALQ) & st.decided).any())
+        runs.append((rounds, st))
+    (pr_, pst), (ur, ust) = runs
+    if exact:
+        assert pr_ == ur
+        for name in ("x", "decided", "k", "killed"):
+            assert torch.equal(getattr(pst, name), getattr(ust, name)), name
 
 
 @pytest.mark.parametrize("kw,crash,against", [

@@ -15,6 +15,7 @@ from benor_tpu.config import SimConfig as JCfg
 from benor_tpu.ops import sampling as jsampling
 from benor_tpu.state import FaultSpec as JFaults
 from benor_tpu_torch import sim as tsim
+from benor_tpu_torch.faults import crash_recover_faults
 from benor_tpu_torch.models import benor as tbenor
 from benor_tpu_torch.ops import hist as thist
 from benor_tpu_torch.ops import packed_round as tround
@@ -171,12 +172,32 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     assert all(f.launches == 0 for f in tround.KERNELS.values())
 
 
+@pytest.mark.parametrize("kw", [
+    dict(fault_model="crash_recover", recovery="stagger:2:3:amnesia"),
+    dict(fault_model="crash_at_round"),
+])
+def test_unfused_round_bound_models_run(cf_regime, kw):
+    """crash_recover and crash_at_round (the first F = 40 lanes die at
+    round 2) on the unfused loop equal the packed loop run for run."""
+    outs = []
+    for use_round in (False, True):
+        cfg = bt.SimConfig(**_kw(use_round, n_faulty=40, seed=1, **kw))
+        faults = (crash_recover_faults(cfg)
+                  if cfg.fault_model == "crash_recover"
+                  else TFaults.first_f(cfg, crash_rounds=[2] * 40
+                                       + [0] * (N - 40)))
+        outs.append(bt.simulate(cfg, balanced_inputs(T, N), faults=faults,
+                                device="cpu"))
+    (ur, ust, _), (pr_, pst, _) = outs
+    assert ur == pr_ >= 2
+    for name in ("x", "decided", "k", "killed"):
+        assert torch.equal(getattr(ust, name), getattr(pst, name)), name
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(fault_model="crash_recover"), "8"),
     (dict(scheduler="biased", adversary_strength=0.5), "4"),
     (dict(scheduler="biased", adversary_strength=1.0), "4"),
     (dict(delivery="all", drop_prob=0.2), "13"),   # binomial thinning
-    (dict(fault_model="crash_at_round"), "8"),
     (dict(use_pallas_hist=False), "4"),
     (dict(n_faulty=93), "4"),                  # quorum 3: the exact table
 ])
