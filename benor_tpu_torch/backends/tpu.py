@@ -50,6 +50,8 @@ class TpuNetwork:
         self.state: NetState = init_state(cfg, initial_values, self.faults)
         self._started = False
         self.rounds_executed = 0
+        self._recorder = None            # cfg.record: the round history
+        self._witness = None             # cfg.witness: the witness buffer
 
     # -- /status (node.ts:33-39) ----------------------------------------
     def status(self, node_id: int, trial: int = 0):
@@ -67,7 +69,10 @@ class TpuNetwork:
         network with growing k (benorconsensus.test.ts:149-160).
         ``on_slice`` (optional callable, no arguments) fires after each
         publish.  Final state and ``rounds_executed`` equal the one-shot
-        run's."""
+        run's.  Under cfg.record / cfg.witness the recorder and the witness
+        buffer are carried from slice to slice and kept after the run, for
+        ``get_round_history`` / ``get_witness`` (between slices they hold
+        the rounds run so far)."""
         if self._started:
             return
         if on_slice is not None and not self.cfg.poll_rounds > 0:
@@ -79,9 +84,11 @@ class TpuNetwork:
             self.state = state               # k=1 visible (node.ts:172)
             r = 1
             while True:
-                r_next, state = sim.run_consensus_slice(
+                out = sim.run_consensus_slice(
                     self.cfg, state, self.faults, r,
-                    r + self.cfg.poll_rounds)
+                    r + self.cfg.poll_rounds, self._recorder, self._witness)
+                r_next, state = out[0], out[1]
+                self._keep(out)
                 self.state = state           # publish the live snapshot
                 if on_slice is not None:
                     on_slice()
@@ -91,9 +98,20 @@ class TpuNetwork:
                 r = r_next
             self.rounds_executed = r_next - 1
         else:
-            self.rounds_executed, self.state = sim.run_consensus(
-                self.cfg, self.state, self.faults)
+            out = sim.run_consensus(self.cfg, self.state, self.faults)
+            self.rounds_executed, self.state = out[0], out[1]
+            self._keep(out)
         self._started = True
+
+    def _keep(self, out) -> None:
+        """Keep the recorder and witness buffer of a loop's return (they
+        follow the round and the state, in that order)."""
+        i = 2
+        if self.cfg.record:
+            self._recorder = out[i]
+            i += 1
+        if self.cfg.witness:
+            self._witness = out[i]
 
     # -- /stop (consensus.ts:10-15 -> node.ts:191-194) -------------------
     def stop(self) -> None:
@@ -134,12 +152,44 @@ class TpuNetwork:
                             "decided": decided[i], "k": k[i]})
         return out
 
-    # -- what the port does not serve yet --------------------------------
-    def get_round_history(self, since_round: Optional[int] = None):
-        unported("get_round_history (the flight recorder)", "11")
+    # -- flight recorder (cfg.record) -------------------------------------
+    def get_round_history(self,
+                          since_round: Optional[int] = None) -> List[dict]:
+        """The recorder's rows, one dict a written round (state.REC_COLUMNS
+        keys and "round"; utils.metrics.round_history_rows): empty before
+        start(), growing between slices under poll_rounds.  ``since_round``
+        is a cursor: only rows of a strictly greater round are returned.
+        Needs SimConfig(record=True)."""
+        if not self.cfg.record:
+            raise ValueError(
+                "get_round_history() requires SimConfig(record=True): "
+                "the flight recorder is off and no round history was "
+                "captured (cfg.debug streams host callbacks instead, but "
+                "demotes the fused-pallas regime — see README "
+                "Observability)")
+        from ..utils.metrics import round_history_rows
+        if self._recorder is None:
+            return []
+        return round_history_rows(self._recorder, since_round=since_round)
 
-    def get_witness(self):
-        unported("get_witness (the witness recorder)", "11")
+    # -- witness trace (cfg.witness) ---------------------------------------
+    def get_witness(self) -> List[dict]:
+        """The witness rows, one dict a watched (round, trial, node)
+        (state.WIT_COLUMNS keys and the global "round" / "trial" / "node"
+        ids; audit.witness_rows): empty before start(), growing between
+        slices under poll_rounds.  Needs SimConfig(witness_trials=...,
+        witness_nodes=k)."""
+        if not self.cfg.witness:
+            raise ValueError(
+                "get_witness() requires SimConfig(witness_trials=..., "
+                "witness_nodes=k): the witness recorder is off and no "
+                "per-node trace was captured (see README Observability)")
+        from ..audit import witness_rows
+        from ..state import witness_node_ids
+        if self._witness is None:
+            return []
+        return witness_rows(self._witness, self.cfg.witness_trials,
+                            witness_node_ids(self.cfg))
 
     def close(self) -> None:
         pass

@@ -68,6 +68,46 @@ constexpr int kStatic = 0, kCrashAt = 1, kRecover = 2;
 template <int kCounts>
 constexpr int kVecs = kCounts == kSampled ? 3 : kCounts == kDelivered ? 2 : 6;
 
+// The armed twins (the observability planes of ops/packed_round.py: the
+// flight recorder's columns, the witness and the stage counters).  The vote
+// pass's partials gain the recorder's columns (VOTE_RECORD_LAYOUT: six sums
+// and the margin, a max); a watched lane writes its witness fields straight
+// into [T, k, fields] int32; the stage counters are added per 512-lane tile
+// (kTileWords plane words) into [tiles, kTelemWidth] int32 blocks.
+constexpr int kVoteObsCols = 12;  // VOTE_PARTIAL_LAYOUT + VOTE_RECORD_LAYOUT
+constexpr int kMarginCol = 11;    // tally_margin: combined by max
+constexpr int kWitPropFields = 2;  // WITNESS_PROP_FIELDS
+constexpr int kWitVoteFields = 6;  // WITNESS_VOTE_FIELDS
+constexpr int kTelemWidth = 7;    // TELEM_COLS
+constexpr int kTelemHist = 3, kTelemQuorum = 4, kTelemCoin = 5;
+constexpr int kTileWords = 16;    // TILE_N / 32
+// The armed twins' launch bounds: three blocks of 8 warps an SM on the pair
+// (85 registers a thread), one block of 16 warps on the fused kernel.
+constexpr int kMinBlocksObs = 3;
+constexpr int kFusedMinBlocksObs = 1;
+
+// An armed launch's operands.  The watched global node ids are [0, lo) and
+// [hs, hs + k - lo) (state.witness_node_ids), k = 0 for none; a lane past
+// n_local (a pad lane) is never watched.  A null pointer leaves its plane
+// off: wit_a the proposal fields [T, k, 2], wit_b the vote fields
+// [T, k, 6], telem the counters ([tiles, 7] on the pair; [2, 1, 7], one
+// stage after the other, on the fused kernel).
+struct Obs {
+  int* wit_a;
+  int* wit_b;
+  int* telem;
+  int lo, hs, k, n_local;
+};
+
+// The witness row of global node `node`, or -1 for a lane nobody watches.
+__device__ __forceinline__ int watch_index(const Obs& o, uint32_t node) {
+  const int n = (int)node;
+  if (n >= o.n_local) return -1;
+  if (n < o.lo) return n;
+  const int j = n - o.hs;
+  return (j >= 0 && j < o.k - o.lo) ? o.lo + j : -1;
+}
+
 // One lane's view of its warp's word.  Lane p < P loads plane p's word
 // (one load a warp); the planes every lane reads are shuffled out of those
 // lanes.  The k planes stay in their lanes: no kernel needs a lane's k.
@@ -275,15 +315,27 @@ __device__ __forceinline__ void lane_tally(
 // Proposal phase of one lane -> its sent vote value.  The tallies are
 // drawn only in warps with a lane alive and not frozen: a frozen lane sends
 // its x and a dead lane is not counted, so no skipped draw is ever read.
-template <int kCounts, bool kEquiv>
+// The armed twin (kObs) also draws in warps with a watched lane and hands
+// the tallies out through ``p0o`` / ``p1o``.  The unarmed branch stays
+// apart: one ``|| watch`` path with the tallies written out moves the SASS
+// of the unarmed proposal and fused instantiations (vote_lane likewise).
+template <int kCounts, bool kEquiv, bool kObs = false>
 __device__ __forceinline__ int proposal_vote(
     const Lane& f, const Draw& d, uint32_t node, uint32_t trial,
-    const TrialTerms<kCounts, kEquiv>& tt, int byz) {
+    const TrialTerms<kCounts, kEquiv>& tt, int byz, bool watch = false,
+    float* p0o = nullptr, float* p1o = nullptr) {
   int x1 = f.x;
-  if (__any_sync(kFull, f.alive && !f.frozen)) {
-    float p0, p1;
-    lane_tally(tt, d, node, trial, &p0, &p1);
-    x1 = p0 > p1 ? kVal0 : (p1 > p0 ? kVal1 : kValQ);
+  if constexpr (kObs) {
+    if (__any_sync(kFull, (f.alive && !f.frozen) || watch)) {
+      lane_tally(tt, d, node, trial, p0o, p1o);
+      x1 = *p0o > *p1o ? kVal0 : (*p1o > *p0o ? kVal1 : kValQ);
+    }
+  } else {
+    if (__any_sync(kFull, f.alive && !f.frozen)) {
+      float p0, p1;
+      lane_tally(tt, d, node, trial, &p0, &p1);
+      x1 = p0 > p1 ? kVal0 : (p1 > p0 ? kVal1 : kValQ);
+    }
   }
   return sent(byz, f.frozen ? f.x : x1, f.faulty);
 }
@@ -301,15 +353,27 @@ struct Commit {
 // ever read.  The common coin is the trial's ``shared`` bit and draws
 // nothing; the weak coin takes the private bit where word 1's uniform is
 // below ``eps``, else ``shared``.
-template <int kCounts, int kCoin, bool kEquiv>
+// The armed twin (kObs) also draws in warps with a watched lane (whose
+// commit is unchanged: only active lanes commit) and hands the tallies out
+// through ``v0o`` / ``v1o``.
+template <int kCounts, int kCoin, bool kEquiv, bool kObs = false>
 __device__ __forceinline__ Commit vote_lane(
     const Lane& f, const Draw& d, uint32_t ck0, uint32_t ck1, uint32_t node,
     uint32_t trial, const TrialTerms<kCounts, kEquiv>& tt, float nf, int qok,
-    int textbook, int shared, float eps) {
+    int textbook, int shared, float eps, bool watch = false,
+    float* v0o = nullptr, float* v1o = nullptr) {
   Commit c{f.x, f.decided, false, f.alive && qok != 0 && !f.frozen};
-  if (!__any_sync(kFull, c.active)) return c;
+  if constexpr (kObs) {
+    if (!__any_sync(kFull, c.active || watch)) return c;
+  } else {
+    if (!__any_sync(kFull, c.active)) return c;
+  }
   float v0, v1;
   lane_tally(tt, d, node, trial, &v0, &v1);
+  if constexpr (kObs) {
+    *v0o = v0;
+    *v1o = v1;
+  }
   const bool decide0 = v0 > nf;
   const bool decide1 = v1 > nf;
   bool adopt0 = false, adopt1 = false;
@@ -413,24 +477,100 @@ __device__ __forceinline__ void block_sum(int (*smem)[kCols], int warps,
   }
 }
 
+// The recorder's columns of one lane's warp (VOTE_RECORD_LAYOUT, from
+// column 5): decided, killed (the latched word, pad lanes included), the
+// undecided lanes that are not killed (a down lane among them) by x, the
+// coin commits, and the largest |v0 - v1| over the active lanes.
+__device__ __forceinline__ void record_counts(int* acc, const Lane& f,
+                                              const Commit& c, uint32_t dec,
+                                              float v0, float v1) {
+  const uint32_t undec = ~dec & ~f.kil_w;
+  const int u0 = __popc(__ballot_sync(kFull, c.x == kVal0) & undec);
+  const int u1 = __popc(__ballot_sync(kFull, c.x == kVal1) & undec);
+  acc[5] += __popc(dec);
+  acc[6] += __popc(f.kil_w);
+  acc[7] += u0;
+  acc[8] += u1;
+  acc[9] += __popc(undec) - u0 - u1;
+  acc[10] += __popc(__ballot_sync(kFull, c.coined));
+  const int margin = c.active ? (int)fabsf(v0 - v1) : 0;
+  acc[kMarginCol] = max(acc[kMarginCol], __reduce_max_sync(kFull, margin));
+}
+
+// The witness fields of a watched lane (row ``wj`` of its trial), written
+// straight to the [T, k, fields] output: nothing else writes them.
+__device__ __forceinline__ void witness_prop(const Obs& o, int trial, int wj,
+                                             float p0, float p1) {
+  int* w = o.wit_a + ((size_t)trial * o.k + wj) * kWitPropFields;
+  w[0] = (int)p0;
+  w[1] = (int)p1;
+}
+
+__device__ __forceinline__ void witness_vote(const Obs& o, int trial, int wj,
+                                             const Lane& f, const Commit& c,
+                                             int lane, float v0, float v1) {
+  int* w = o.wit_b + ((size_t)trial * o.k + wj) * kWitVoteFields;
+  w[0] = c.x;
+  w[1] = c.decided;
+  w[2] = lane_bit(f.kil_w, lane);
+  w[3] = c.coined;
+  w[4] = (int)v0;
+  w[5] = (int)v1;
+}
+
+// A stage's counters of one lane's warp, added by lane 0 to its tile's row
+// ``tel``: the histograms' lanes and, in the vote stage (``c`` given), the
+// lanes past the quorum gate and the coin commits.  Integer atomics: exact
+// whatever their order.
+template <bool kHonest>
+__device__ __forceinline__ void telem_counts(int* tel, const Lane& f,
+                                             int lane,
+                                             const Commit* c = nullptr) {
+  const int hon = __popc(honest_word<kHonest>(f));
+  int act = 0, coi = 0;
+  if (c != nullptr) {
+    act = __popc(__ballot_sync(kFull, c->active));
+    coi = __popc(__ballot_sync(kFull, c->coined));
+  }
+  if (lane == 0) {
+    atomicAdd(tel + kTelemHist, hon);
+    if (c != nullptr) {
+      atomicAdd(tel + kTelemQuorum, act);
+      atomicAdd(tel + kTelemCoin, coi);
+    }
+  }
+}
+
+// Reduce per-warp counts over the block, summing every column but
+// kMarginCol, whose maximum is taken: smem[warp][cols] -> out[cols].
+template <int kCols>
+__device__ __forceinline__ void block_sum_max(int (*smem)[kCols], int warps,
+                                              int* out) {
+  __syncthreads();
+  if (threadIdx.x < kCols) {
+    int s = 0;
+    for (int w = 0; w < warps; ++w)
+      s = threadIdx.x == kMarginCol ? max(s, smem[w][threadIdx.x])
+                                    : s + smem[w][threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+}
+
 // grid (blocks, T), 8 warps a block: the blocks of a trial walk its words,
 // one warp a word, with a stride of blocks x 8 words.  ``counts``: the
 // phase's count operand, kVecs floats a trial; ``n_equiv``: live
 // equivocators a trial (kEquivDraws only); ``cr`` / ``rcv``: the lanes'
 // crash and recover rounds, int32 [T, n_w x 32] (read under kCrashAt /
 // kRecover), ``r`` the round they are held against and ``amnesia`` the
-// rejoin mode (kRecover).
-template <int kCounts, int kPop, int kFault>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
-                                  kPop == kEquivDraws ? kMinBlocksEquiv
-                                                      : kMinBlocksPerSM)
-proposal_hist_kernel(const uint32_t* __restrict__ pack,
-                     const float* __restrict__ counts,
-                     const float* __restrict__ n_equiv,
-                     int* __restrict__ partials, int T, int P, int n_w,
-                     Draw d, float m, int byz, int freeze,
-                     const int* __restrict__ cr, const int* __restrict__ rcv,
-                     int r, int amnesia) {
+// rejoin mode (kRecover).  The armed twin (kObs) writes the watched lanes'
+// p0 / p1 and adds its stage counters (``o``).
+template <int kCounts, int kPop, int kFault, bool kObs>
+__device__ __forceinline__ void proposal_hist_body(
+    const uint32_t* __restrict__ pack, const float* __restrict__ counts,
+    const float* __restrict__ n_equiv, int* __restrict__ partials, int T,
+    int P, int n_w, const Draw& d, float m, int byz, int freeze,
+    const int* __restrict__ cr, const int* __restrict__ rcv, int r,
+    int amnesia, const Obs& o) {
   constexpr bool kEquiv = kPop == kEquivDraws;
   __shared__ TrialTerms<kCounts, kEquiv> tt_s;
   __shared__ int smem[kWarpsPerBlock][kPropCols];
@@ -457,9 +597,18 @@ proposal_hist_kernel(const uint32_t* __restrict__ pack,
         cr + trow, rcv + trow, word + step, lane, word + step < n_w);
     const Lane f = lane_from<kFault>(
         apply_bounds<kFault>(plane, lane, bnd, r, amnesia), lane, freeze);
-    const int vote = proposal_vote(f, d, (uint32_t)(word * kWarp + lane),
-                                   (uint32_t)trial, tt, byz);
+    const uint32_t node = (uint32_t)(word * kWarp + lane);
+    const int wj = kObs ? watch_index(o, node) : -1;
+    float p0 = 0.0f, p1 = 0.0f;
+    const int vote = proposal_vote<kCounts, kEquiv, kObs>(
+        f, d, node, (uint32_t)trial, tt, byz, wj >= 0, &p0, &p1);
     proposal_counts<kPop != kAllLive>(acc, f, vote);
+    if constexpr (kObs) {
+      if (wj >= 0 && o.wit_a != nullptr) witness_prop(o, trial, wj, p0, p1);
+      if (o.telem != nullptr)  // warp-uniform
+        telem_counts<kPop != kAllLive>(
+            o.telem + (word / kTileWords) * kTelemWidth, f, lane);
+    }
     plane = next;
     bnd = next_bnd;
   }
@@ -467,6 +616,38 @@ proposal_hist_kernel(const uint32_t* __restrict__ pack,
     for (int c = 0; c < kPropCols; ++c) smem[warp][c] = acc[c];
   block_sum<kPropCols>(smem, kWarpsPerBlock,
                        partials + ((size_t)blockIdx.x * T + trial) * kPropCols);
+}
+
+template <int kCounts, int kPop, int kFault>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  kPop == kEquivDraws ? kMinBlocksEquiv
+                                                      : kMinBlocksPerSM)
+proposal_hist_kernel(const uint32_t* __restrict__ pack,
+                     const float* __restrict__ counts,
+                     const float* __restrict__ n_equiv,
+                     int* __restrict__ partials, int T, int P, int n_w,
+                     Draw d, float m, int byz, int freeze,
+                     const int* __restrict__ cr, const int* __restrict__ rcv,
+                     int r, int amnesia) {
+  proposal_hist_body<kCounts, kPop, kFault, false>(
+      pack, counts, n_equiv, partials, T, P, n_w, d, m, byz, freeze, cr, rcv,
+      r, amnesia, Obs{});
+}
+
+// The armed twin: the same pass, with the witness and the stage counters.
+template <int kCounts, int kPop, int kFault>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksObs)
+proposal_hist_obs_kernel(const uint32_t* __restrict__ pack,
+                         const float* __restrict__ counts,
+                         const float* __restrict__ n_equiv,
+                         int* __restrict__ partials, int T, int P, int n_w,
+                         Draw d, float m, int byz, int freeze,
+                         const int* __restrict__ cr,
+                         const int* __restrict__ rcv, int r, int amnesia,
+                         Obs o) {
+  proposal_hist_body<kCounts, kPop, kFault, true>(
+      pack, counts, n_equiv, partials, T, P, n_w, d, m, byz, freeze, cr, rcv,
+      r, amnesia, o);
 }
 
 // grid (blocks, T), 8 warps a block, words walked as in proposal_hist.
@@ -531,6 +712,79 @@ vote_commit_kernel(const uint32_t* __restrict__ pack,
                        partials + ((size_t)blockIdx.x * T + trial) * kVoteCols);
 }
 
+// The armed twin of vote_commit_kernel: the same pass, with the recorder's
+// columns in its partials (kVoteObsCols a block, the margin a max), the
+// watched lanes' vote fields and the vote stage's counters (``o``).  Its
+// loop is vote_commit_kernel's, written out again: inlined from a shared
+// body, the unarmed kernel's pointers lose their __restrict__ scope and its
+// code changes.
+template <int kCounts, int kCoin, int kPop, int kFault>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksObs)
+vote_commit_obs_kernel(const uint32_t* __restrict__ pack,
+                       const float* __restrict__ counts,
+                       const float* __restrict__ n_equiv,
+                       const int* __restrict__ quorum_ok,
+                       const int* __restrict__ shared,
+                       uint32_t* __restrict__ new_pack,
+                       int* __restrict__ partials, int T, int P, int n_w,
+                       Draw d, uint32_t ck0, uint32_t ck1, int rk, float m,
+                       float nf, float eps, int textbook, int byz,
+                       int freeze, const int* __restrict__ cr,
+                       const int* __restrict__ rcv, int amnesia, Obs o) {
+  constexpr bool kEquiv = kPop == kEquivDraws;
+  __shared__ TrialTerms<kCounts, kEquiv> tt_s;
+  __shared__ int smem[kWarpsPerBlock][kVoteObsCols];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int trial = blockIdx.y;
+  const TrialTerms<kCounts, kEquiv> tt =
+      block_terms(&tt_s, counts, n_equiv, trial, m);
+  const int qok = quorum_ok[trial];
+  int shared_bit = 0;
+  if constexpr (kCoin != kPrivate) shared_bit = shared[trial];
+  const size_t stride = (size_t)n_w;
+  const size_t tbase = (size_t)trial * P * stride;
+  const size_t trow = (size_t)trial * n_w * kWarp;
+  int acc[kVoteObsCols] = {0, 0, 0, 0, 0};
+  const int step = gridDim.x * kWarpsPerBlock;   // loads one word ahead
+  int word = blockIdx.x * kWarpsPerBlock + warp;
+  uint32_t plane = load_plane(pack + tbase + word, P, stride, lane,
+                              word < n_w);
+  Bounds bnd = load_bounds<kFault>(cr + trow, rcv + trow, word, lane,
+                                   word < n_w);
+  for (; word < n_w; word += step) {  // warp-uniform
+    const uint32_t next = load_plane(pack + tbase + word + step, P, stride,
+                                     lane, word + step < n_w);
+    const Bounds next_bnd = load_bounds<kFault>(
+        cr + trow, rcv + trow, word + step, lane, word + step < n_w);
+    const Lane f = lane_from<kFault>(
+        apply_bounds<kFault>(plane, lane, bnd, rk - 1, amnesia), lane,
+        freeze);
+    plane = next;
+    bnd = next_bnd;
+    const uint32_t node = (uint32_t)(word * kWarp + lane);
+    const int wj = watch_index(o, node);
+    float v0 = 0.0f, v1 = 0.0f;
+    const Commit c = vote_lane<kCounts, kCoin, kEquiv, true>(
+        f, d, ck0, ck1, node, (uint32_t)trial, tt, nf, qok, textbook,
+        shared_bit, eps, wj >= 0, &v0, &v1);
+    const uint32_t dec = store_planes<kFault>(new_pack + tbase + word, P,
+                                              stride, lane, f, c, rk);
+    vote_counts<kPop != kAllLive>(acc, f, c, dec, byz);
+    record_counts(acc, f, c, dec, v0, v1);
+    if (wj >= 0 && o.wit_b != nullptr)
+      witness_vote(o, trial, wj, f, c, lane, v0, v1);
+    if (o.telem != nullptr)  // warp-uniform
+      telem_counts<kPop != kAllLive>(
+          o.telem + (word / kTileWords) * kTelemWidth, f, lane, &c);
+  }
+  if (lane == 0)
+    for (int c = 0; c < kVoteObsCols; ++c) smem[warp][c] = acc[c];
+  block_sum_max<kVoteObsCols>(
+      smem, kWarpsPerBlock,
+      partials + ((size_t)blockIdx.x * T + trial) * kVoteObsCols);
+}
+
 // Sum kCols ints over the blocks of the cluster: `blk` is the same
 // shared array in each block.  Called by a whole warp after a
 // cluster.sync(): lane r < C reads rank r's columns through distributed
@@ -546,6 +800,34 @@ __device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
   for (int c = 0; c < kCols; ++c) v[c] = lane < C ? src[c] : 0;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) tot[c] = __reduce_add_sync(kFull, v[c]);
+}
+
+// cluster_sum of the armed vote columns: column kMarginCol takes the max.
+template <int kCols>
+__device__ __forceinline__ void cluster_sum_max(cg::cluster_group& cluster,
+                                                int* blk, int C, int lane,
+                                                int* tot) {
+  int v[kCols];
+  const int* src = cluster.map_shared_rank(blk, lane < C ? lane : 0);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) v[c] = lane < C ? src[c] : 0;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    tot[c] = c == kMarginCol ? __reduce_max_sync(kFull, v[c])
+                             : __reduce_add_sync(kFull, v[c]);
+}
+
+// The fused kernel's stage counters of one trial, added once a trial from
+// its totals: the histograms' lanes are the sum of a stage's three class
+// columns, the coin commits the recorder's column, the lanes past the gate
+// the armed vote columns' last (kQuorumCol).  ``tel``: the [2, 1, 7] block.
+constexpr int kQuorumCol = kVoteObsCols;
+__device__ __forceinline__ void fused_telem(int* tel, const int* tot_a,
+                                            const int* tot_b) {
+  atomicAdd(tel + kTelemHist, tot_a[0] + tot_a[1] + tot_a[2]);
+  atomicAdd(tel + kTelemWidth + kTelemHist, tot_b[0] + tot_b[1] + tot_b[2]);
+  atomicAdd(tel + kTelemWidth + kTelemQuorum, tot_b[kQuorumCol]);
+  atomicAdd(tel + kTelemWidth + kTelemCoin, tot_b[10]);
 }
 
 // The warp's kept words, one place on: kept[0] is the next word's.
@@ -575,7 +857,13 @@ __device__ __forceinline__ void rotate(uint32_t (&kept)[kFusedKeep]) {
 // live lanes exactly where kEquiv.  Under kCrashAt / kRecover each kept
 // word has the bounds of round rk - 1 (both phases' round) applied once, as
 // it is loaded, so both phases and the store read the update.
-template <bool kCluster, int kCoin, bool kEquiv, int kFault>
+// The armed twin (kObs) writes partsB with the recorder's columns
+// (kVoteObsCols a trial, the margin a max over the cluster), the watched
+// lanes' fields, and both stages' counters into ``o.telem`` (one tile),
+// added once a trial from the trial's totals (one more column, kQuorumCol,
+// counts the lanes past the gate): a trial's words all land in one tile, so
+// per-word atomics would queue on one address.
+template <bool kCluster, int kCoin, bool kEquiv, int kFault, bool kObs = false>
 __device__ __forceinline__ void fused_round_body(
     const uint32_t* __restrict__ pack, const float* __restrict__ hist1,
     const float* __restrict__ n_equiv, const int* __restrict__ shared,
@@ -583,12 +871,15 @@ __device__ __forceinline__ void fused_round_body(
     int* __restrict__ parts_b, int P, int n_w, const Draw& pd,
     const Draw& vd, uint32_t ck0, uint32_t ck1, int rk, float m, float nf,
     float eps, int textbook, int byz, int freeze, const int* __restrict__ cr,
-    const int* __restrict__ rcv, int amnesia) {
+    const int* __restrict__ rcv, int amnesia, const Obs& o = Obs{}) {
+  // the vote columns reduced (kColsB) and written to partsB (kOutB)
+  constexpr int kColsB = kObs ? kVoteObsCols + 1 : kVoteCols;
+  constexpr int kOutB = kObs ? kVoteObsCols : kVoteCols;
   __shared__ TrialTerms<kSampled, kEquiv> tt_s;
   __shared__ int smem_a[kFusedMaxWarps][kPropCols];
-  __shared__ int smem_b[kFusedMaxWarps][kVoteCols];
+  __shared__ int smem_b[kFusedMaxWarps][kColsB];
   __shared__ int tot_a[kPropCols];
-  __shared__ int tot_b[kVoteCols];
+  __shared__ int tot_b[kColsB];
   __shared__ int qok_s;
   const int C = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
   const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
@@ -601,7 +892,7 @@ __device__ __forceinline__ void fused_round_body(
   const size_t stride = (size_t)n_w;
   const size_t tbase = (size_t)trial * P * stride;
   if (kCluster && threadIdx.x < kPropCols) tot_a[threadIdx.x] = 0;
-  if (kCluster && threadIdx.x < kVoteCols) tot_b[threadIdx.x] = 0;
+  if (kCluster && threadIdx.x < kColsB) tot_b[threadIdx.x] = 0;
   uint32_t kept[kFusedKeep];
 #pragma unroll
   for (int k = 0; k < kFusedKeep; ++k) {
@@ -629,9 +920,16 @@ __device__ __forceinline__ void fused_round_body(
     const int word = first + k * step;
     if (word < n_w) {  // warp-uniform
       const Lane f = lane_from<kFault>(kept[0], lane, freeze);
-      const int vote = proposal_vote(f, pd, (uint32_t)(word * kWarp + lane),
-                                     (uint32_t)trial, tt1, byz);
+      const uint32_t node = (uint32_t)(word * kWarp + lane);
+      const int wj = kObs ? watch_index(o, node) : -1;
+      float p0 = 0.0f, p1 = 0.0f;
+      const int vote = proposal_vote<kSampled, kEquiv, kObs>(
+          f, pd, node, (uint32_t)trial, tt1, byz, wj >= 0, &p0, &p1);
       proposal_counts<kEquiv>(acc_a, f, vote);
+      if constexpr (kObs) {
+        if (wj >= 0 && o.wit_a != nullptr)
+          witness_prop(o, trial, wj, p0, p1);
+      }
     }
     rotate(kept);
   }
@@ -675,38 +973,74 @@ __device__ __forceinline__ void fused_round_body(
   if constexpr (kCoin != kPrivate) shared_bit = shared[trial];
 
   // --- phase 2: vote tallies -> decide/adopt/coin -> commit -------------
-  int acc_b[kVoteCols] = {0, 0, 0, 0, 0};
+  int acc_b[kColsB] = {0, 0, 0, 0, 0};
 #pragma unroll 1
   for (int k = 0; k < kFusedKeep; ++k) {
     const int word = first + k * step;
     if (word < n_w) {  // warp-uniform
       const Lane f = lane_from<kFault>(kept[0], lane, freeze);
-      const Commit c = vote_lane<kSampled, kCoin, kEquiv>(
-          f, vd, ck0, ck1, (uint32_t)(word * kWarp + lane), (uint32_t)trial,
-          tt2, nf, qok, textbook, shared_bit, eps);
+      const uint32_t node = (uint32_t)(word * kWarp + lane);
+      const int wj = kObs ? watch_index(o, node) : -1;
+      float v0 = 0.0f, v1 = 0.0f;
+      const Commit c = vote_lane<kSampled, kCoin, kEquiv, kObs>(
+          f, vd, ck0, ck1, node, (uint32_t)trial, tt2, nf, qok, textbook,
+          shared_bit, eps, wj >= 0, &v0, &v1);
       const uint32_t dec = store_planes<kFault>(new_pack + tbase + word, P,
                                                 stride, lane, f, c, rk);
       vote_counts<kEquiv>(acc_b, f, c, dec, byz);
+      if constexpr (kObs) {
+        record_counts(acc_b, f, c, dec, v0, v1);
+        acc_b[kQuorumCol] += __popc(__ballot_sync(kFull, c.active));
+        if (wj >= 0 && o.wit_b != nullptr)
+          witness_vote(o, trial, wj, f, c, lane, v0, v1);
+      }
     }
     rotate(kept);
   }
   if constexpr (kCluster) {
     cg::cluster_group cluster = cg::this_cluster();
-    if (lane == 0)
+    if (lane == 0) {
       for (int c = 0; c < kVoteCols; ++c) atomicAdd(&tot_b[c], acc_b[c]);
+      if constexpr (kObs) {
+        for (int c = kVoteCols; c < kColsB; ++c)
+          if (c == kMarginCol)
+            atomicMax(&tot_b[c], acc_b[c]);
+          else
+            atomicAdd(&tot_b[c], acc_b[c]);
+      }
+    }
     cluster.sync();
     if (rank == 0 && warp == 0) {
-      int tot[kVoteCols];
-      cluster_sum<kVoteCols>(cluster, tot_b, C, lane, tot);
-      if (lane == 0)
-        for (int c = 0; c < kVoteCols; ++c)
-          parts_b[trial * kVoteCols + c] = tot[c];
+      int tot[kColsB];
+      if constexpr (kObs)
+        cluster_sum_max<kColsB>(cluster, tot_b, C, lane, tot);
+      else
+        cluster_sum<kColsB>(cluster, tot_b, C, lane, tot);
+      if (lane == 0) {
+        for (int c = 0; c < kOutB; ++c) parts_b[trial * kOutB + c] = tot[c];
+        if constexpr (kObs) {
+          if (o.telem != nullptr) {
+            // tot_a of rank 0 holds this block's proposal counts only:
+            // the trial's are in parts_a, which this lane wrote
+            fused_telem(o.telem, parts_a + trial * kPropCols, tot);
+          }
+        }
+      }
     }
     cluster.sync();
   } else {
     if (lane == 0)
-      for (int c = 0; c < kVoteCols; ++c) smem_b[warp][c] = acc_b[c];
-    block_sum<kVoteCols>(smem_b, warps, parts_b + trial * kVoteCols);
+      for (int c = 0; c < kColsB; ++c) smem_b[warp][c] = acc_b[c];
+    if constexpr (kObs) {
+      block_sum_max<kColsB>(smem_b, warps, tot_b);
+      __syncthreads();
+      if (threadIdx.x < kOutB)
+        parts_b[trial * kOutB + threadIdx.x] = tot_b[threadIdx.x];
+      if (threadIdx.x == 0 && o.telem != nullptr)
+        fused_telem(o.telem, tot_a, tot_b);
+    } else {
+      block_sum<kColsB>(smem_b, warps, parts_b + trial * kColsB);
+    }
   }
 }
 
@@ -750,6 +1084,119 @@ fused_cluster_kernel(const uint32_t* __restrict__ pack,
   fused_round_body<true, kCoin, kEquiv, kFault>(
       pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b, P, n_w, pd,
       vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze, cr, rcv, amnesia);
+}
+
+// The armed twins of the two forms: the same body with the observability
+// planes (``o``), under a launch bound of one block an SM.
+template <int kCoin, bool kEquiv, int kFault>
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocksObs)
+fused_round_obs_kernel(const uint32_t* __restrict__ pack,
+                       const float* __restrict__ hist1,
+                       const float* __restrict__ n_equiv,
+                       const int* __restrict__ shared,
+                       uint32_t* __restrict__ new_pack,
+                       int* __restrict__ parts_a, int* __restrict__ parts_b,
+                       int P, int n_w, Draw pd, Draw vd, uint32_t ck0,
+                       uint32_t ck1, int rk, float m, float nf, float eps,
+                       int textbook, int byz, int freeze, const int* cr,
+                       const int* rcv, int amnesia, Obs o) {
+  fused_round_body<false, kCoin, kEquiv, kFault, true>(
+      pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b, P, n_w, pd,
+      vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze, cr, rcv, amnesia,
+      o);
+}
+
+template <int kCoin, bool kEquiv, int kFault>
+__global__ void __launch_bounds__(kFusedMaxWarps * kWarp, kFusedMinBlocksObs)
+fused_cluster_obs_kernel(const uint32_t* __restrict__ pack,
+                         const float* __restrict__ hist1,
+                         const float* __restrict__ n_equiv,
+                         const int* __restrict__ shared,
+                         uint32_t* __restrict__ new_pack,
+                         int* __restrict__ parts_a,
+                         int* __restrict__ parts_b, int P, int n_w, Draw pd,
+                         Draw vd, uint32_t ck0, uint32_t ck1, int rk, float m,
+                         float nf, float eps, int textbook, int byz,
+                         int freeze, const int* cr, const int* rcv,
+                         int amnesia, Obs o) {
+  fused_round_body<true, kCoin, kEquiv, kFault, true>(
+      pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b, P, n_w, pd,
+      vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze, cr, rcv, amnesia,
+      o);
+}
+
+// The armed twin of kernel ``kernel`` (0 proposal_hist, 1 vote_commit, 2
+// fused_round, 3 fused_cluster) in the counts, coin and Pop modes under
+// FaultRounds kFault -> its address, nullptr for a combination the unarmed
+// kernels are not built in either (the round-bound models take Pop all
+// live only; the fused kernel sampled counts only, all live or the
+// equivocate draws).  csrc/round_obs.cu and csrc/round_obs_b2.cu
+// instantiate it.
+template <int kFault, int kCounts, int kPop>
+const void* obs_pair_kernel(int kernel, int coin) {
+  if (kernel == 0)
+    return (const void*)proposal_hist_obs_kernel<kCounts, kPop, kFault>;
+  switch (coin) {
+    case kPrivate:
+      return (const void*)
+          vote_commit_obs_kernel<kCounts, kPrivate, kPop, kFault>;
+    case kCommon:
+      return (const void*)
+          vote_commit_obs_kernel<kCounts, kCommon, kPop, kFault>;
+    case kWeak:
+      return (const void*)vote_commit_obs_kernel<kCounts, kWeak, kPop, kFault>;
+  }
+  return nullptr;
+}
+
+template <int kFault, int kCoin, bool kEquiv>
+const void* obs_fused_form(bool cluster) {
+  return cluster ? (const void*)fused_cluster_obs_kernel<kCoin, kEquiv, kFault>
+                 : (const void*)fused_round_obs_kernel<kCoin, kEquiv, kFault>;
+}
+
+template <int kFault, bool kEquiv>
+const void* obs_fused_kernel(bool cluster, int coin) {
+  switch (coin) {
+    case kPrivate: return obs_fused_form<kFault, kPrivate, kEquiv>(cluster);
+    case kCommon: return obs_fused_form<kFault, kCommon, kEquiv>(cluster);
+    case kWeak: return obs_fused_form<kFault, kWeak, kEquiv>(cluster);
+  }
+  return nullptr;
+}
+
+template <int kFault>
+const void* obs_kernel(int kernel, int counts, int coin, int pop) {
+  if (kernel == 2 || kernel == 3) {
+    if (counts != kSampled) return nullptr;
+    if (pop == kAllLive) return obs_fused_kernel<kFault, false>(kernel == 3,
+                                                               coin);
+    if constexpr (kFault == kStatic)
+      if (pop == kEquivDraws)
+        return obs_fused_kernel<kFault, true>(kernel == 3, coin);
+    return nullptr;
+  }
+  if (kernel != 0 && kernel != 1) return nullptr;
+  if (pop == kAllLive) {
+    switch (counts) {
+      case kSampled:
+        return obs_pair_kernel<kFault, kSampled, kAllLive>(kernel, coin);
+      case kDelivered:
+        return obs_pair_kernel<kFault, kDelivered, kAllLive>(kernel, coin);
+      case kCamps:
+        return obs_pair_kernel<kFault, kCamps, kAllLive>(kernel, coin);
+    }
+    return nullptr;
+  }
+  if constexpr (kFault == kStatic) {
+    if (pop == kEquivDraws && counts == kSampled)
+      return obs_pair_kernel<kFault, kSampled, kEquivDraws>(kernel, coin);
+    if (pop == kHonestLive && counts == kDelivered)
+      return obs_pair_kernel<kFault, kDelivered, kHonestLive>(kernel, coin);
+    if (pop == kHonestLive && counts == kCamps)
+      return obs_pair_kernel<kFault, kCamps, kHonestLive>(kernel, coin);
+  }
+  return nullptr;
 }
 
 }  // namespace

@@ -131,6 +131,10 @@
 // counts, coin and fault (kCrashAt or kRecover) modes -> its address, or
 // nullptr for a combination that is not built.
 const void* b2_round_kernel(int kernel, int counts, int coin, int fault);
+// The armed twins (csrc/round_obs.cu, csrc/round_obs_b2.cu): kernel 0-3 as
+// above in the counts, coin, Pop and fault modes -> its address, or nullptr.
+const void* obs_round_kernel(int kernel, int counts, int coin, int pop,
+                             int fault);
 
 namespace {
 
@@ -149,6 +153,21 @@ using FusedFn = void (*)(const uint32_t*, const float*, const float*,
                          Draw, uint32_t, uint32_t, int, float, float, float,
                          int, int, int, const int*, const int*, int);
 
+// The armed twins' types: the unarmed parameter lists and the Obs.
+using ProposalObsFn = void (*)(const uint32_t*, const float*, const float*,
+                               int*, int, int, int, Draw, float, int, int,
+                               const int*, const int*, int, int, Obs);
+using VoteObsFn = void (*)(const uint32_t*, const float*, const float*,
+                           const int*, const int*, uint32_t*, int*, int, int,
+                           int, Draw, uint32_t, uint32_t, int, float, float,
+                           float, int, int, int, const int*, const int*, int,
+                           Obs);
+using FusedObsFn = void (*)(const uint32_t*, const float*, const float*,
+                            const int*, uint32_t*, int*, int*, int, int, Draw,
+                            Draw, uint32_t, uint32_t, int, float, float,
+                            float, int, int, int, const int*, const int*, int,
+                            Obs);
+
 // A round-bound instantiation of round_b2.cu (b2_round_kernel) as this
 // source's function type: both sources build the same body, so the
 // parameter lists agree.
@@ -164,6 +183,19 @@ int pop_of(int counts, int equiv, int honest) {
   if (counts == kSampled) return equiv != honest ? -1 : equiv ? kEquivDraws
                                                               : kAllLive;
   return equiv ? -1 : honest ? kHonestLive : kAllLive;
+}
+
+// The armed twin of kernel 0-3 in the launch's modes (pop -1: none), as
+// an address or as type Fn (nullptr: not built).
+const void* obs_ptr(int kernel, int counts, int coin, int pop, int fault) {
+  return pop < 0 ? nullptr
+                 : obs_round_kernel(kernel, counts, coin, pop, fault);
+}
+
+template <typename Fn>
+Fn obs_fn(int kernel, int counts, int coin, int pop, int fault) {
+  return reinterpret_cast<Fn>(
+      const_cast<void*>(obs_ptr(kernel, counts, coin, pop, fault)));
 }
 
 template <int kCounts>
@@ -268,6 +300,9 @@ cudaLaunchConfig_t pair_config(int blocks, int T, cudaStream_t stream) {
 // Plain C interface, loaded with ctypes.  Each launcher returns
 // cudaGetLastError() after its launch (0 = launched); a mode combination
 // that is not built returns cudaErrorInvalidValue and launches nothing.
+// Each launcher's last argument ``obs`` (the address of an Obs,
+// csrc/round_body.cuh; null for none) launches the armed twin instead, with
+// the observability planes' operands.
 // Modes: counts 0 sampled, 1 delivered, 2 camps; coin 0 private, 1 common,
 // 2 weak; equiv 1 for the equivocate draws (sampled only); honest 1 where
 // the vote histograms leave the equivocators out (fault model
@@ -276,20 +311,22 @@ cudaLaunchConfig_t pair_config(int blocks, int T, cudaStream_t stream) {
 // read the int32 [T, n_w x 32] rounds ``cr`` (and ``rcv`` under 2) and,
 // under 2, ``amnesia`` (1: the amnesia rejoin).
 
-// Blocks a trial of proposal_hist (kernel 0) or vote_commit (kernel 1) in
-// the given modes on the current device for n_w plane words and T trials
-// -> *blocks: as many as fit T times in one wave of the kernel over the
-// card (the SMs times the blocks an SM holds), at least one, and never more
-// than a warp a word.  Rounding up would put the last few blocks in a
+// Blocks a trial of proposal_hist (kernel 0) or vote_commit (kernel 1), or
+// with ``obs`` of its armed twin, in the given modes on the current device
+// for n_w plane words and T trials -> *blocks: as many as fit T times in
+// one wave of the kernel over the card (the SMs times the blocks an SM
+// holds), at least one, and never more than a warp a word.  Rounding up would put the last few blocks in a
 // second wave of their own.  The caller works it out once per shape and
 // modes, sizes the [blocks, T, cols] partials from it and passes it to the
 // launcher.  Returns the first failed query's cudaError (0 = *blocks set).
 extern "C" int benor_round_blocks(int kernel, int counts, int coin,
-                                  int equiv, int honest, int fault, int n_w,
-                                  int T, int* blocks) {
+                                  int equiv, int honest, int fault, int obs,
+                                  int n_w, int T, int* blocks) {
   const void* fn =
-      kernel == 0 ? (const void*)proposal_fn(counts, equiv, honest, fault)
-                  : (const void*)vote_fn(counts, coin, equiv, honest, fault);
+      obs ? obs_ptr(kernel, counts, kernel == 0 ? kPrivate : coin,
+                    pop_of(counts, equiv, honest), fault)
+      : kernel == 0 ? (const void*)proposal_fn(counts, equiv, honest, fault)
+                    : (const void*)vote_fn(counts, coin, equiv, honest, fault);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -314,15 +351,23 @@ extern "C" int benor_proposal_hist(const uint32_t* pack, const float* counts,
                                    int byz, int honest, int freeze,
                                    const int* cr, const int* rcv, int r,
                                    int fault, int amnesia, int blocks,
-                                   cudaStream_t stream) {
-  const ProposalFn fn = proposal_fn(counts_mode, equiv, honest, fault);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+                                   cudaStream_t stream, const void* obs) {
   const cudaLaunchConfig_t config = pair_config(blocks, T, stream);
   const Draw d{k0, k1, k20, k21, camp_b0, camp_b1};
-  const cudaError_t e = cudaLaunchKernelEx(&config, fn, pack, counts,
-                                           n_equiv, partials, T, P, n_w, d,
-                                           m, byz, freeze, cr, rcv, r,
-                                           amnesia);
+  cudaError_t e;
+  if (obs != nullptr) {
+    const ProposalObsFn fn = obs_fn<ProposalObsFn>(
+        0, counts_mode, kPrivate, pop_of(counts_mode, equiv, honest), fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, counts, n_equiv, partials, T, P,
+                           n_w, d, m, byz, freeze, cr, rcv, r, amnesia,
+                           *static_cast<const Obs*>(obs));
+  } else {
+    const ProposalFn fn = proposal_fn(counts_mode, equiv, honest, fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, counts, n_equiv, partials, T, P,
+                           n_w, d, m, byz, freeze, cr, rcv, r, amnesia);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -339,15 +384,26 @@ extern "C" int benor_vote_commit(const uint32_t* pack, const float* counts,
                                  int textbook, int byz, int honest,
                                  int freeze, const int* cr, const int* rcv,
                                  int fault, int amnesia, int blocks,
-                                 cudaStream_t stream) {
-  const VoteFn fn = vote_fn(counts_mode, coin_mode, equiv, honest, fault);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+                                 cudaStream_t stream, const void* obs) {
   const cudaLaunchConfig_t config = pair_config(blocks, T, stream);
   const Draw d{vk0, vk1, vk20, vk21, camp_b0, camp_b1};
-  const cudaError_t e = cudaLaunchKernelEx(
-      &config, fn, pack, counts, n_equiv, quorum_ok, shared, new_pack,
-      partials, T, P, n_w, d, ck0, ck1, rk, m, nf, eps, textbook, byz,
-      freeze, cr, rcv, amnesia);
+  cudaError_t e;
+  if (obs != nullptr) {
+    const VoteObsFn fn = obs_fn<VoteObsFn>(
+        1, counts_mode, coin_mode, pop_of(counts_mode, equiv, honest), fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, counts, n_equiv, quorum_ok,
+                           shared, new_pack, partials, T, P, n_w, d, ck0, ck1,
+                           rk, m, nf, eps, textbook, byz, freeze, cr, rcv,
+                           amnesia, *static_cast<const Obs*>(obs));
+  } else {
+    const VoteFn fn = vote_fn(counts_mode, coin_mode, equiv, honest, fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, counts, n_equiv, quorum_ok,
+                           shared, new_pack, partials, T, P, n_w, d, ck0, ck1,
+                           rk, m, nf, eps, textbook, byz, freeze, cr, rcv,
+                           amnesia);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -389,10 +445,13 @@ static bool fused_dims_ok(int n_w, int C, int warps) {
 // allows that cluster kernel non-portable cluster sizes, which the launch
 // of such a grid needs: the wrapper's grid rule (ops/packed_round.py
 // fused_grid) reads these counts before its first launch in these modes on
-// a device.  Returns the cudaError (0 = set).
+// a device; ``obs``: the armed twin's.  Returns the cudaError (0 = set).
 extern "C" int benor_fused_fits(int C, int warps, int coin, int equiv,
-                                int fault, int* clusters) {
-  const FusedFn fn = fused_fn(C > 1, coin, equiv, fault);
+                                int fault, int obs, int* clusters) {
+  const void* fn =
+      obs ? obs_ptr(C > 1 ? 3 : 2, kSampled, coin,
+                    equiv ? kEquivDraws : kAllLive, fault)
+          : (const void*)fused_fn(C > 1, coin, equiv, fault);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (C > kPortableCluster)
@@ -403,8 +462,7 @@ extern "C" int benor_fused_fits(int C, int warps, int coin, int equiv,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config = fused_config(C, warps, 1, 0, &attr);
   config.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)fn,
-                                             &config);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &config);
 }
 
 // One launch of the fused kernel as T clusters of C blocks of `warps`
@@ -424,19 +482,31 @@ extern "C" int benor_fused_round(const uint32_t* pack, const float* hist1,
                                  int textbook, int byz, int honest,
                                  int freeze, const int* cr, const int* rcv,
                                  int fault, int amnesia, int C, int warps,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, const void* obs) {
   if (!fused_dims_ok(n_w, C, warps) || pop_of(kSampled, equiv, honest) < 0)
     return (int)cudaErrorInvalidValue;
-  const FusedFn fn = fused_fn(C > 1, coin_mode, equiv, fault);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = fused_config(C, warps, T, stream, &attr);
   const Draw pd{pk0, pk1, pk20, pk21, 0u, 0u};
   const Draw vd{vk0, vk1, vk20, vk21, 0u, 0u};
-  const cudaError_t e = cudaLaunchKernelEx(
-      &config, fn, pack, hist1, n_equiv, shared, new_pack, parts_a, parts_b,
-      P, n_w, pd, vd, ck0, ck1, rk, m, nf, eps, textbook, byz, freeze, cr,
-      rcv, amnesia);
+  cudaError_t e;
+  if (obs != nullptr) {
+    const FusedObsFn fn = obs_fn<FusedObsFn>(
+        C > 1 ? 3 : 2, kSampled, coin_mode, equiv ? kEquivDraws : kAllLive,
+        fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, hist1, n_equiv, shared,
+                           new_pack, parts_a, parts_b, P, n_w, pd, vd, ck0,
+                           ck1, rk, m, nf, eps, textbook, byz, freeze, cr,
+                           rcv, amnesia, *static_cast<const Obs*>(obs));
+  } else {
+    const FusedFn fn = fused_fn(C > 1, coin_mode, equiv, fault);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernelEx(&config, fn, pack, hist1, n_equiv, shared,
+                           new_pack, parts_a, parts_b, P, n_w, pd, vd, ck0,
+                           ck1, rk, m, nf, eps, textbook, byz, freeze, cr,
+                           rcv, amnesia);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,15 @@ Every fault model is served: ``crash`` (killed at birth), ``byzantine``,
 ``equivocate``, ``crash_at_round`` (a lane dies at the start of its crash
 round) and ``crash_recover`` (down-intervals with durable or amnesia
 rejoins, faults/recovery.py), liveness re-derived from the round bounds at
-the start of every round.  The recorder, the witness and committees raise
-``NotImplementedError`` naming their ROADMAP item.
+the start of every round.  A round writes the flight recorder's row and
+the witness row when it is handed their buffers (benor.py:349-370); the
+regimes the port does not serve yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,7 +35,8 @@ from ..config import SimConfig, VAL0, VAL1, VALQ, unported
 from ..faults.recovery import rejoin_mode
 from ..ops import hist as hist_ops
 from ..ops import rng, tally
-from ..state import FaultSpec, NetState
+from ..state import (FaultSpec, NetState, recorder_round_row,
+                     recorder_write, witness_select, witness_write)
 
 _FAULT_MODELS = ("crash", "byzantine", "equivocate", "crash_at_round",
                  "crash_recover")
@@ -56,8 +61,6 @@ def round_gap(cfg: SimConfig):
     lacks for ``cfg``, or None."""
     if cfg.fault_model not in _FAULT_MODELS:
         return f"fault_model={cfg.fault_model!r}", "8"
-    if cfg.record or cfg.witness:
-        return "record / witness", "11"
     return tally.unfused_gap(cfg)
 
 
@@ -120,12 +123,17 @@ def _coin(cfg: SimConfig, seed: int, r: int, t: int, n: int,
 
 
 def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
-                seed: int, r: int) -> NetState:
+                seed: int, r: int, recorder: Optional[torch.Tensor] = None,
+                witness: Optional[torch.Tensor] = None):
     """Advance every lane by one full Ben-Or round (proposal + vote).
 
     ``r`` is the 1-based round index (the reference's message ``k``);
     ``seed`` keys every stream as ``jax.random.key(seed)`` keys the JAX
-    package's.  Killed lanes stay killed."""
+    package's.  Killed lanes stay killed.  With a ``recorder`` (state.
+    new_recorder) the round writes its row at index ``r`` and the return
+    is ``(new_state, recorder)``; a ``witness`` buffer (state.new_witness)
+    is written the same way and returned after it.  Both only reduce what
+    the round computes: no stream moves."""
     gap = round_gap(cfg)
     if gap is not None:
         unported(*gap)
@@ -158,6 +166,9 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     # omission makes the delivered count per-receiver random: keep each
     # lane's phase-1 total for the per-lane quorum gate below
     got1 = cnt1.sum(-1) if cfg.drop_prob else None
+    # the witness keeps the watched lanes' proposal tallies
+    wit_p = ((witness_select(cfg, p0), witness_select(cfg, p1))
+             if witness is not None else None)
     del cnt1, p0, p1           # free the [T, N, 3] counts before phase 2
 
     # --- phase 2: vote -----------------------------------------------------
@@ -192,7 +203,28 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     new_decided = state.decided | (active & (decide0 | decide1))
     # k <- r + 1 for every lane that ran the round, deciding ones included
     new_k = torch.where(active, r + 1, state.k)
-    return NetState(x=new_x, decided=new_decided, k=new_k, killed=killed)
+    new_state = NetState(x=new_x, decided=new_decided, k=new_k,
+                         killed=killed)
+    if recorder is None and witness is None:
+        return new_state
+    # the lanes that committed a coin flip: ran the round, no decide and
+    # (reference rule) no plurality-adopt, as the x2 selection above
+    coined = active & ~decide0 & ~decide1
+    if cfg.rule == "reference":
+        coined = coined & ~adopt0 & ~adopt1
+    extras = []
+    if recorder is not None:
+        margin = torch.where(active, (v0 - v1).abs(), 0).to(torch.int32)
+        extras.append(recorder_write(recorder, r, recorder_round_row(
+            new_x, new_decided, killed, coined, margin)))
+    if witness is not None:
+        fields = [witness_select(cfg, f)
+                  for f in (new_x, new_decided, killed, coined)]
+        wv = [witness_select(cfg, v) for v in (v0, v1)]
+        extras.append(witness_write(witness, r, torch.stack(
+            fields + list(wit_p) + wv + [torch.ones_like(fields[0])],
+            dim=-1)))
+    return (new_state, *extras)
 
 
 def all_settled(state: NetState) -> torch.Tensor:

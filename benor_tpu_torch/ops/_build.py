@@ -39,18 +39,18 @@ _F = ctypes.c_float
 
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
-    "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "benor_proposal_hist": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U,
                             _U, _F, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
-                            _I, _P],
+                            _I, _P, _P],
     "benor_vote_commit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                           _U, _U, _U, _U, _U, _U, _I, _F, _F, _F, _I, _I,
-                          _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     "benor_fused_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                           _U, _U, _U, _U, _U, _U, _U, _U, _I, _F, _F, _F,
                           _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-                          _P],
-    "benor_fused_fits": [_I, _I, _I, _I, _I, _P],
+                          _P, _P],
+    "benor_fused_fits": [_I, _I, _I, _I, _I, _I, _P],
     "benor_hist_wave": [_I, _P],
     "benor_cf_counts": [_P, _P, _I, _I, _I, _U, _U, _F, _P],
     "benor_coin_flips": [_P, _I, _I, _I, _U, _U, _P],

@@ -25,11 +25,15 @@ from . import _build
 
 ROUND_KERNELS = ("proposal_hist_kernel", "vote_commit_kernel",
                  "fused_round_kernel", "fused_cluster_kernel")
+# Their armed twins (csrc/round_obs.cu, csrc/round_obs_b2.cu).
+OBS_KERNELS = ("proposal_hist_obs_kernel", "vote_commit_obs_kernel",
+               "fused_round_obs_kernel", "fused_cluster_obs_kernel")
 HIST_KERNELS = ("cf_counts_kernel", "equiv_counts_kernel")
 COIN_KERNELS = ("coin_flips_kernel", "weak_coin_flips_kernel")
 # Per-word loops that make up one pass of a kernel, where there is more
 # than one: the fused round walks its words once a phase.
-LOOPS = {"fused_round_kernel": 2, "fused_cluster_kernel": 2}
+LOOPS = {"fused_round_kernel": 2, "fused_cluster_kernel": 2,
+         "fused_round_obs_kernel": 2, "fused_cluster_obs_kernel": 2}
 FUSED_KERNELS = ("fused_round_kernel", "fused_cluster_kernel")
 # The round kernels' template parameters, in order (csrc/round_body.cuh):
 # a report names each instantiation but the main path's (every parameter
@@ -39,6 +43,8 @@ MODE_PARAMS = {"proposal_hist_kernel": ("counts", "pop", "fault"),
                "vote_commit_kernel": ("counts", "coin", "pop", "fault"),
                "fused_round_kernel": ("coin", "equiv", "fault"),
                "fused_cluster_kernel": ("coin", "equiv", "fault")}
+MODE_PARAMS.update({k.replace("_kernel", "_obs_kernel"): v
+                    for k, v in list(MODE_PARAMS.items())})
 _MODE_NAMES = {"counts": ("sampled", "delivered", "camps"),
                "coin": ("private", "common", "weak_common"),
                "pop": ("", "honest", "equiv"),
@@ -213,12 +219,9 @@ def sections(insns, loops: int = 1) -> dict:
     return out
 
 
-def resource_report(src: Path, out_dir: Path, kernels=ROUND_KERNELS) -> dict:
+def _compile(src: Path, out_dir: Path) -> tuple[str, str]:
     """Build one CUDA source to a cubin with the port's flags and
-    ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
-    class counts}, ops: opcode counts of one pass of its loop}} for every
-    instantiation of the ``kernels`` it holds, under its ``mode_label``
-    (the main path's under the kernel's name)."""
+    ``-Xptxas -v`` -> (ptxas's report, ``cuobjdump -sass`` listing)."""
     nvcc = _build.nvcc_path()
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -229,25 +232,64 @@ def resource_report(src: Path, out_dir: Path, kernels=ROUND_KERNELS) -> dict:
                          text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc -cubin failed:\n{res.stdout}\n{res.stderr}")
-    ptxas = parse_ptxas(res.stdout + res.stderr)
-    sass = parse_sass(subprocess.run([cuobjdump, "-sass", str(cubin)],
-                                     capture_output=True, text=True,
-                                     check=True).stdout)
+    listing = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                             capture_output=True, text=True,
+                             check=True).stdout
     cubin.unlink()
-    report = {}
+    return res.stdout + res.stderr, listing
+
+
+def _labels(names, kernels):
+    """{mangled name: mode_label} of the instantiations of ``kernels``."""
+    out = {}
     for name in kernels:
         # the mangled name's length prefix keeps coin_flips_kernel apart
         # from weak_coin_flips_kernel
         tag = f"{len(name)}{name}"
-        for key in sorted(k for k in ptxas if tag in k and k in sass):
-            label = mode_label(name, template_args(key, tag))
-            info = dict(ptxas[key])
-            secs = sections(sass[key], LOOPS.get(name, 1))
-            info["sass"] = {s: _mix(v) for s, v in secs.items()}
-            # one pass: the per-word or per-node loop where the kernel has
-            # one, else the body
-            info["ops"] = _ops(secs.get("loop", secs["body"]))
-            report[label] = info
+        for key in names:
+            if tag in key:
+                out[key] = mode_label(name, template_args(key, tag))
+    return out
+
+
+def listings(src: Path, out_dir: Path, kernels=ROUND_KERNELS) -> dict:
+    """Build one CUDA source as ``resource_report`` does -> {mode_label:
+    its SASS, one instruction a line, every hexadecimal constant (address,
+    offset, immediate) masked}: two checkouts' lists are equal where they
+    compile a kernel to the same code."""
+    _, text = _compile(src, out_dir)
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append(re.sub(r"0x[0-9a-f]+", "0x?", m.group(1)))
+    return {label: funcs[key]
+            for key, label in _labels(funcs, kernels).items()}
+
+
+def resource_report(src: Path, out_dir: Path, kernels=ROUND_KERNELS) -> dict:
+    """Build one CUDA source to a cubin with the port's flags and
+    ``-Xptxas -v`` -> {kernel: {registers, spills, smem, sass: {section:
+    class counts}, ops: opcode counts of one pass of its loop}} for every
+    instantiation of the ``kernels`` it holds, under its ``mode_label``
+    (the main path's under the kernel's name)."""
+    ptxas_text, listing = _compile(src, out_dir)
+    ptxas = parse_ptxas(ptxas_text)
+    sass = parse_sass(listing)
+    report = {}
+    for key, label in _labels(sorted(k for k in ptxas if k in sass),
+                              kernels).items():
+        info = dict(ptxas[key])
+        secs = sections(sass[key], LOOPS.get(label.split("<")[0], 1))
+        info["sass"] = {s: _mix(v) for s, v in secs.items()}
+        # one pass: the per-word or per-node loop where the kernel has one,
+        # else the body
+        info["ops"] = _ops(secs.get("loop", secs["body"]))
+        report[label] = info
     return report
 
 

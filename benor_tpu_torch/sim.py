@@ -36,7 +36,8 @@ import torch
 from .config import SimConfig, unported
 from .models import benor
 from .ops import packed_round, tally
-from .state import FaultSpec, NetState, init_state
+from .state import (FaultSpec, NetState, init_state, new_recorder,
+                    new_witness)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,8 +64,6 @@ def check_supported(cfg: SimConfig) -> None:
     cfg."""
     if cfg.mesh_shape is not None:
         unported("mesh_shape (sharded runs)", "15")
-    if cfg.record or cfg.witness or cfg.kernel_telemetry:
-        unported("record / witness / kernel_telemetry", "11")
     if cfg.debug:
         unported("debug=True (the per-round host callback)", "5")
     if not tally.pallas_round_active(cfg):
@@ -80,56 +79,81 @@ def start_state(cfg: SimConfig, state: NetState) -> NetState:
                     killed=state.killed)
 
 
-def _unfused_slice(cfg, state, faults, seed, from_round, until_round):
-    """The unfused round loop -> (next_round, state).  The JAX package runs
+def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
+                   recorder=None, witness=None):
+    """The unfused round loop -> (next_round, state, then the filled
+    recorder and witness buffer where cfg arms them).  The JAX package runs
     it on the device (lax.while_loop); here it runs on the host and reads
     the settled predicate once per round, with the same condition
-    ``(r <= max_rounds) & ~all_settled & (r < until_round)``."""
+    ``(r <= max_rounds) & ~all_settled & (r < until_round)``.  The buffers
+    of an earlier slice are continued (copied); None starts fresh ones
+    from ``state``.  kernel_telemetry counts work inside the round kernels,
+    which this loop does not run: it adds nothing here, as in the JAX
+    package."""
+    rec = wit = None
+    if cfg.record:
+        rec = (new_recorder(cfg, state) if recorder is None
+               else recorder.clone())
+    if cfg.witness:
+        wit = new_witness(cfg, state) if witness is None else witness.clone()
     r = int(from_round)
     while r <= cfg.max_rounds and r < until_round and \
             not bool(benor.all_settled(state)):
-        state = benor.benor_round(cfg, state, faults, seed, r)
+        out = benor.benor_round(cfg, state, faults, seed, r, rec, wit)
+        state = out if rec is None and wit is None else out[0]
         r += 1
-    return r, state
+    return (r, state, *(b for b in (rec, wit) if b is not None))
 
 
-def _slice(cfg, state, faults, from_round, until_round):
+def _slice(cfg, state, faults, from_round, until_round, recorder=None,
+           witness=None):
     """The loop that serves cfg, from ``from_round`` up to (not including)
-    ``until_round`` -> (next_round, state)."""
+    ``until_round`` -> (next_round, state, *the armed buffers)."""
     check_supported(cfg)
     run = (packed_round.run_packed_slice if tally.pallas_round_active(cfg)
            else _unfused_slice)
-    return run(cfg, state, faults, cfg.seed, from_round, until_round)
+    return run(cfg, state, faults, cfg.seed, from_round, until_round,
+               recorder, witness)
 
 
 def run_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec):
     """Run from /start to termination or the round cap on the device the
-    state lives on -> (rounds_executed, final_state).  cfg.seed keys every
-    stream exactly as ``jax.random.key(cfg.seed)`` keys the JAX package's."""
-    r, final = _slice(cfg, start_state(cfg, state), faults, 1,
+    state lives on -> (rounds_executed, final_state), then the filled
+    flight recorder (cfg.record), witness buffer (cfg.witness) and, on the
+    packed loop, the stage-counter accumulator (cfg.kernel_telemetry), in
+    that order.  cfg.seed keys every stream exactly as
+    ``jax.random.key(cfg.seed)`` keys the JAX package's."""
+    r, *rest = _slice(cfg, start_state(cfg, state), faults, 1,
                       cfg.max_rounds + 2)
-    return r - 1, final
+    return (r - 1, *rest)
 
 
 def run_consensus_slice(cfg: SimConfig, state: NetState, faults: FaultSpec,
-                        from_round: int, until_round: int):
+                        from_round: int, until_round: int, recorder=None,
+                        witness=None):
     """At most ``until_round - from_round`` rounds of the loop ->
-    (next_round, state); ``next_round == from_round`` means no progress was
-    possible (already settled or past the round cap).  Randomness keys on
-    (seed, round, phase, trial, node), never on how the loop was entered,
-    so a run in slices equals the one-shot run bit for bit.  ``state`` is
-    taken as given: the first slice of a run starts from
-    ``start_state(cfg, state)``."""
-    return _slice(cfg, state, faults, from_round, until_round)
+    (next_round, state, *the armed buffers, as run_consensus);
+    ``next_round == from_round`` means no progress was possible (already
+    settled or past the round cap).  Randomness keys on (seed, round,
+    phase, trial, node), never on how the loop was entered, so a run in
+    slices equals the one-shot run bit for bit, the recorder and witness
+    passed from slice to slice included.  ``state`` is taken as given: the
+    first slice of a run starts from ``start_state(cfg, state)``."""
+    return _slice(cfg, state, faults, from_round, until_round, recorder,
+                  witness)
 
 
 def resume_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec,
-                     from_round: int):
+                     from_round: int, recorder=None, witness=None):
     """Re-enter the loop from a checkpointed round index -> (rounds_executed,
-    final_state), rounds counted from round 1 as ``run_consensus`` counts
-    them."""
-    r, final = _slice(cfg, state, faults, from_round, cfg.max_rounds + 2)
-    return r - 1, final
+    final_state, *the armed buffers), rounds counted from round 1 as
+    ``run_consensus`` counts them.  ``recorder`` / ``witness`` continue a
+    checkpointed run's buffers; None starts fresh ones, whose row 0
+    snapshots the re-entry state and whose rows before ``from_round`` stay
+    zero."""
+    r, *rest = _slice(cfg, state, faults, from_round, cfg.max_rounds + 2,
+                      recorder, witness)
+    return (r - 1, *rest)
 
 
 def simulate(cfg: SimConfig, initial_values, faulty_list=None,
@@ -137,6 +161,8 @@ def simulate(cfg: SimConfig, initial_values, faulty_list=None,
              device=None):
     """One-shot run: build state, run, return (rounds, state, faults).
 
+    With the observability flags set, the filled recorder, witness buffer
+    and (packed loop) stage counters follow, as from ``run_consensus``.
     ``faulty_list`` is the reference's launch-time fault vector;
     ``crash_rounds`` is required for fault_model='crash_at_round'; pass
     ``faults`` for per-trial specs (``faults.crash_recover_faults`` builds
@@ -152,5 +178,5 @@ def simulate(cfg: SimConfig, initial_values, faulty_list=None,
     else:
         faults = faults.to(dev)
     state = init_state(cfg, initial_values, faults)
-    rounds, final = run_consensus(cfg, state, faults)
-    return rounds, final, faults
+    rounds, final, *extras = run_consensus(cfg, state, faults)
+    return (rounds, final, faults, *extras)

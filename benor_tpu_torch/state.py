@@ -215,3 +215,171 @@ def observable_state(cfg: SimConfig, state: NetState, faults: FaultSpec,
         "decided": bool(state.decided[trial, node_id].item()),
         "k": int(state.k[trial, node_id].item()),
     }
+
+
+# --------------------------------------------------------------------------
+# Flight recorder (SimConfig.record): one int32 row a round.
+#
+# Row 0 is the post-/start snapshot; row r (1-based) the network at the end
+# of round r; unwritten rows stay all zero (a written row's decided + killed
+# + undecided classes sum to T * N >= 1).  Port of benor_tpu/state.py:
+# 302-415, single-device: the loops write a row in place at round r.
+# --------------------------------------------------------------------------
+
+#: Recorder column layout — name -> (base, width), the JAX package's table.
+#: Every column is a count over trials and nodes except tally_margin: the
+#: sum over trials of each trial's largest |v0 - v1| over the lanes that ran
+#: the vote phase (0 on row 0).
+REC_LAYOUT = {
+    "decided": (0, 1),      # decided lanes (cumulative)
+    "killed": (1, 1),       # killed lanes
+    "undecided_0": (2, 1),  # live undecided lanes holding x=0
+    "undecided_1": (3, 1),  # live undecided lanes holding x=1
+    "undecided_q": (4, 1),  # live undecided lanes holding "?"
+    "coin_flips": (5, 1),   # lanes that committed a coin flip this round
+    "tally_margin": (6, 1),  # tally-margin summary (see above)
+}
+
+REC_DECIDED = REC_LAYOUT["decided"][0]
+REC_KILLED = REC_LAYOUT["killed"][0]
+REC_UNDEC0 = REC_LAYOUT["undecided_0"][0]
+REC_UNDEC1 = REC_LAYOUT["undecided_1"][0]
+REC_UNDECQ = REC_LAYOUT["undecided_q"][0]
+REC_COINS = REC_LAYOUT["coin_flips"][0]
+REC_MARGIN = REC_LAYOUT["tally_margin"][0]
+REC_WIDTH = max(b + w for b, w in REC_LAYOUT.values())
+#: Column names, index-aligned with the REC_* constants.
+REC_COLUMNS = tuple(sorted(REC_LAYOUT, key=lambda c: REC_LAYOUT[c][0]))
+
+
+def recorder_snapshot_row(x: torch.Tensor, decided: torch.Tensor,
+                          killed: torch.Tensor) -> torch.Tensor:
+    """Recorder row from state fields [T, N] -> int32 [REC_WIDTH]: the
+    class counts, with no coin flips and no margin (row 0)."""
+    undec = ~decided & ~killed
+    cols = [decided, killed, undec & (x == VAL0), undec & (x == VAL1),
+            undec & (x == VALQ)]
+    counts = [c.sum(dtype=torch.int32) for c in cols]
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    return torch.stack(counts + [zero, zero])
+
+
+def recorder_round_row(x: torch.Tensor, decided: torch.Tensor,
+                       killed: torch.Tensor, coined: torch.Tensor,
+                       margin: torch.Tensor) -> torch.Tensor:
+    """End-of-round recorder row -> int32 [REC_WIDTH]: the committed fields,
+    ``coined`` bool [T, N] (the lanes that committed a coin flip) and
+    ``margin`` int32 [T, N] (each vote-phase lane's |v0 - v1|, else 0),
+    whose per-trial max is summed over trials."""
+    row = recorder_snapshot_row(x, decided, killed)
+    row[REC_COINS] = coined.sum(dtype=torch.int32)
+    row[REC_MARGIN] = margin.amax(-1).sum(dtype=torch.int32)
+    return row
+
+
+def recorder_write(recorder: torch.Tensor, r: int,
+                   row: torch.Tensor) -> torch.Tensor:
+    """Write ``row`` at round index ``r`` in place -> the buffer."""
+    recorder[int(r)] = row
+    return recorder
+
+
+def new_recorder(cfg: SimConfig, state: NetState) -> torch.Tensor:
+    """Fresh int32 [max_rounds + 1, REC_WIDTH] buffer on the state's device
+    with row 0 the snapshot of ``state``."""
+    rec = torch.zeros((cfg.max_rounds + 1, REC_WIDTH), dtype=torch.int32,
+                      device=state.x.device)
+    rec[0] = recorder_snapshot_row(state.x, state.decided, state.killed)
+    return rec
+
+
+# --------------------------------------------------------------------------
+# Witness recorder (SimConfig.witness_trials / witness_nodes): for every
+# watched (trial, node) a row a round of the lane's committed value, its
+# decided / killed / coin bits and the tallies that justified them (port of
+# benor_tpu/state.py:417-560).  Row 0 is the post-/start snapshot.
+# --------------------------------------------------------------------------
+
+#: Witness column layout — name -> (base, width), the JAX package's table.
+WIT_LAYOUT = {
+    "x": (0, 1),        # committed protocol value (VAL0 | VAL1 | VALQ)
+    "decided": (1, 1),  # decided bit
+    "killed": (2, 1),   # killed bit
+    "coined": (3, 1),   # lane committed a coin flip this round
+    "p0": (4, 1),       # proposal-phase tally for 0
+    "p1": (5, 1),       # proposal-phase tally for 1
+    "v0": (6, 1),       # vote-phase tally for 0
+    "v1": (7, 1),       # vote-phase tally for 1
+    "written": (8, 1),  # 1 on every written row (unwritten-row sentinel)
+}
+
+WIT_X = WIT_LAYOUT["x"][0]
+WIT_DECIDED = WIT_LAYOUT["decided"][0]
+WIT_KILLED = WIT_LAYOUT["killed"][0]
+WIT_COINED = WIT_LAYOUT["coined"][0]
+WIT_P0 = WIT_LAYOUT["p0"][0]
+WIT_P1 = WIT_LAYOUT["p1"][0]
+WIT_V0 = WIT_LAYOUT["v0"][0]
+WIT_V1 = WIT_LAYOUT["v1"][0]
+WIT_WRITTEN = WIT_LAYOUT["written"][0]
+WIT_WIDTH = max(b + w for b, w in WIT_LAYOUT.values())
+#: Column names, index-aligned with the WIT_* constants.
+WIT_COLUMNS = tuple(sorted(WIT_LAYOUT, key=lambda c: WIT_LAYOUT[c][0]))
+
+
+def witness_node_ids(cfg: SimConfig) -> np.ndarray:
+    """The k watched global node ids, int32 [witness_nodes], sorted: the
+    first ceil(k/2) and the last floor(k/2) ids (the faulty lanes of the
+    canonical masks sit at the bottom of the range, the targeted
+    adversary's camps at the top)."""
+    k, n = cfg.witness_nodes, cfg.n_nodes
+    lo = (k + 1) // 2
+    hi = k - lo
+    return np.asarray(list(range(lo)) + list(range(n - hi, n)), np.int32)
+
+
+def witness_select(cfg: SimConfig, arr: torch.Tensor) -> torch.Tensor:
+    """The watched (trial, node) entries of a [T, N] field -> int32 [W, k]
+    (a float tally is cast as the JAX package casts it)."""
+    dev = arr.device
+    wt = torch.as_tensor(cfg.witness_trials, dtype=torch.int64, device=dev)
+    wn = torch.as_tensor(witness_node_ids(cfg), dtype=torch.int64,
+                         device=dev)
+    return arr.to(torch.int32)[wt][:, wn]
+
+
+def witness_snapshot_row(cfg: SimConfig, x: torch.Tensor,
+                         decided: torch.Tensor,
+                         killed: torch.Tensor) -> torch.Tensor:
+    """Row 0: the state fields only -> int32 [W, k, WIT_WIDTH], the written
+    sentinel set."""
+    fields = [witness_select(cfg, f) for f in (x, decided, killed)]
+    zero = torch.zeros_like(fields[0])
+    return torch.stack(fields + [zero] * 5 + [torch.ones_like(zero)], dim=-1)
+
+
+def witness_round_row(cfg: SimConfig, x, decided, killed, coined, p0, p1,
+                      v0, v1) -> torch.Tensor:
+    """End-of-round witness row -> int32 [W, k, WIT_WIDTH]: the committed
+    fields, the coin-commit mask and the lanes' proposal / vote tallies."""
+    fields = [witness_select(cfg, f)
+              for f in (x, decided, killed, coined, p0, p1, v0, v1)]
+    return torch.stack(fields + [torch.ones_like(fields[0])], dim=-1)
+
+
+def witness_write(witness: torch.Tensor, r: int,
+                  row: torch.Tensor) -> torch.Tensor:
+    """Write one [W, k, WIT_WIDTH] row at round index ``r`` in place -> the
+    buffer."""
+    witness[int(r)] = row
+    return witness
+
+
+def new_witness(cfg: SimConfig, state: NetState) -> torch.Tensor:
+    """Fresh int32 [max_rounds + 1, W, k, WIT_WIDTH] buffer on the state's
+    device with row 0 the snapshot of ``state``."""
+    wit = torch.zeros((cfg.max_rounds + 1, len(cfg.witness_trials),
+                       cfg.witness_nodes, WIT_WIDTH), dtype=torch.int32,
+                      device=state.x.device)
+    wit[0] = witness_snapshot_row(cfg, state.x, state.decided, state.killed)
+    return wit

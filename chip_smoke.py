@@ -100,7 +100,24 @@ Phases (any failure ends the run non-zero; nothing is caught):
      profiled run; packed against unfused on 'at:1:4' durable and
      amnesia; card against CPU at 8192 x 8 and 16,384 x 4 in every mode
      combination;
- 11. the kernels line, the card line, and the result line.
+ 11. ``[obs]``: the flight recorder, the witness and the stage counters in
+     the round kernels' armed twins (csrc/round_obs.cu,
+     csrc/round_obs_b2.cu).  Every armed instantiation against its plain
+     version (every plane word, partial column, witness field and counter)
+     and against the unarmed kernel, on N = 1M x 32 fixtures in every
+     counts, coin and fault mode and on the fused family, the fused one
+     also against the armed two-kernel route; the main path's mode timed
+     armed beside unarmed, with its bound, registers, spills and SASS;
+     bench.py's flight-recorder regime (balanced f = 0.40, N = 1M x 32,
+     max_rounds 64) with the recorder off, on, and with the witness and the
+     counters: final states equal, the recorders equal, the recorder and
+     witness consistent with the final state, the counters' lanes summing
+     to T x N and T x (Np - N) a round, round_history_summary and
+     record_overhead_x; packed against unfused; the fused kernel armed at
+     N = 8192 x 32 and on an 'at:1:4:amnesia' run; card against CPU at
+     8192 x 8 and 16,384 x 4; get_round_history / get_witness through
+     ``launch_network`` with poll_rounds, card against CPU;
+ 12. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1808,7 +1825,10 @@ def main() -> int:
     # --- 10. crash_at_round and crash_recover in the round kernels ---------
     b2_phase(lib, dev, sms)
 
-    # --- 11. the kernels line, the card, the result ------------------------
+    # --- 11. the flight recorder, the witness and the stage counters -------
+    kernels.update(obs_phase(lib, dev, sms))
+
+    # --- 12. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3004,6 +3024,682 @@ def b2_phase(lib, dev, sms) -> None:
                     c, t_s, n_s) != bool(grown["fused_round"]):
                 raise SystemExit(f"[b2] {name} N={n_s}: dispatch")
     print(f"[b2] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [obs] phase: the flight recorder, the witness and the stage
+# counters in the round kernels' armed twins ---------------------------------
+
+# the fault models the armed twins are held under (with their rejoin), and
+# the fixtures that cover every armed instantiation: the pair's on
+# N = 1M x 32 (counts, coin, fault model, rejoin), the fused kernel's on its
+# shape family (coin, fault model, rejoin); each list led by the main
+# path's mode
+OBS_MODELS = (("crash", "durable"), ("equivocate", "durable"),
+              ("crash_at_round", "durable"), ("crash_recover", "amnesia"))
+OBS_PAIR = tuple((cm, coin, fm, rj) for fm, rj in OBS_MODELS
+                 for cm in B2_COUNTS for coin in B2_COINS)
+OBS_FUSED = tuple((coin, fm, rj) for fm, rj in OBS_MODELS
+                  for coin in B2_COINS)
+OBS_WITNESS = 16          # watched nodes: WITNESS_MAX_NODES
+OBS_TRIALS = (0, 1, 2, 3)  # bench.py's default_witness_overrides
+OBS_SMALL = ((8192, 8), (16_384, 4))
+# the card-vs-CPU regimes (item8_regimes / b2_regimes by name)
+OBS_SMALL_RUNS = ("adv_common", "targeted_f0.25", "weak_eps0.55",
+                  "equiv_uniform_f0.20", "crash_at_round_f0.45",
+                  "recover_at1_4_amnesia_f0.45")
+# The armed twins' work beyond the unarmed pass, as this run's data needs
+# it: a witness field of a watched lane (T x k of them) its cast and store
+# (1); the margin on an active lane (the vote's tally lanes of ``needs``)
+# subtract, abs, cast and max (4); a plane word's recorder sums (six) and
+# stage counters (one in the proposal pass, three in the vote pass) a mask
+# of its planes, a popcount and an add (3 each).
+OPS_WITNESS_FIELD = 1
+OPS_MARGIN = 4
+OPS_WORD_COUNT = 3
+OBS_FIELDS = {"proposal_hist": 2, "vote_commit": 6}
+OBS_WORD_COUNTS = {"proposal_hist": 1, "vote_commit": 6 + 3}
+
+
+def obs_ops(kernel, trials, k, words, active) -> int:
+    """Operations an armed pass needs beyond its unarmed pass (record, ``k``
+    watched nodes and the stage counters) on ``words`` plane words with
+    ``active`` active lanes, ``trials`` trials."""
+    ops = (trials * k * OBS_FIELDS[kernel] * OPS_WITNESS_FIELD
+           + words * OBS_WORD_COUNTS[kernel] * OPS_WORD_COUNT)
+    if kernel == "vote_commit":
+        ops += active * OPS_MARGIN
+    return ops
+
+
+def obs_ids(n, k=OBS_WITNESS):
+    """The watched global node ids of ``k`` nodes out of ``n``
+    (state.witness_node_ids)."""
+    k = min(k, n)
+    lo = (k + 1) // 2
+    return tuple(range(lo)) + tuple(range(n - (k - lo), n))
+
+
+def obs_case(cfg, counts_mode, fault_model, rejoin, device, seed,
+             balanced=False):
+    """A fixture in a mode for the armed twins: ``b2_case``'s under the
+    round-bound models, ``mode_case``'s (live equivocators counted) under
+    the static ones, with the bounds and n_equiv keys both give."""
+    if fault_model in ("crash_at_round", "crash_recover"):
+        case = b2_case(cfg, counts_mode, fault_model, rejoin, device, seed,
+                       balanced)
+        case["n_equiv"] = None
+        return case
+    case = mode_case(cfg, counts_mode, fault_model, device, seed, balanced)
+    case["bounds"] = dict(crash_round=None, recover_round=None,
+                          rejoin="durable")
+    return case
+
+
+def obs_pair(lib, cfg, counts_mode, coin_mode, fault_model, rejoin, device,
+             seed, timed=False) -> dict:
+    """proposal_hist and vote_commit's armed twins in one mode (the
+    recorder's columns, 16 watched nodes, the stage counters) against their
+    plain versions on a random N = 1M x 32 fixture, every count, plane
+    word, witness field and counter, and against the unarmed kernels on the
+    outputs both give; with ``timed``, three timed repeats of each armed
+    launch and of the unarmed one beside it -> dict."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.ops.stream import _COIN_SALT, stream_scal
+    from benor_tpu_torch.state import PACK_K
+
+    case = obs_case(cfg, counts_mode, fault_model, rejoin, device, seed)
+    cfg, pack, bnd = case["cfg"], case["pack"], case["bounds"]
+    m, r, n = cfg.quorum, ROUND, cfg.n_nodes
+    t, planes, n_w = pack.shape
+    lanes = t * n_w * 32
+    eps = B2_EPS if coin_mode == "weak_common" else 0.0
+    tag = f"{counts_mode}/{coin_mode}/{fault_model}/{rejoin}"
+    wids = obs_ids(n)
+    obs = dict(witness_ids=wids, n_local=n)
+    tiles = n_w * 32 // pr.TILE_N
+
+    def acc():
+        """A stage's counter accumulator, zeroed."""
+        return torch.zeros((tiles, pr.TELEM_WIDTH), dtype=torch.int32,
+                           device=device)
+
+    pm = dict(fault_model=fault_model, freeze=True,
+              n_equiv=case["n_equiv"], counts_mode=counts_mode,
+              camp_b0=case["camps"][0], camp_b1=case["camps"][1], **bnd)
+    vm = dict(pm, coin_mode=coin_mode, eps=eps, shared=case["shared"])
+    c1 = case["counts"](case["hist1"])
+    args_p = (SEED, r, rng.PHASE_PROPOSAL, c1, pack, m)
+    tel_k, tel_p = acc(), acc()
+    out_k = pr.proposal_hist(*args_p, **pm, **obs, telemetry=tel_k)
+    out_p = pr.proposal_hist_plain(*args_p, **pm, **obs, telemetry=tel_p)
+    unarmed = pr.proposal_hist(*args_p, **pm)
+    torch.cuda.synchronize()
+    res_p = compare(f"proposal_hist armed {tag}", lanes,
+                    [(out_k, out_p), (tel_k, tel_p),
+                     (out_k[:, :pr.PROP_COLS], unarmed)])
+    qok = out_p[:, 3] >= m
+    tot = out_p[:, :3].sum(1)
+    c2 = case["counts"](torch.stack([tot // 2, tot - tot // 2, tot * 0],
+                                    dim=1))
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="reference")
+    args_v = (SEED, r, rng.PHASE_VOTE, c2, pack, qok)
+    tel_k, tel_p = acc(), acc()
+    vout_k = pr.vote_commit(*args_v, **vote, **vm, record=True, **obs,
+                            telemetry=tel_k)
+    vout_p = pr.vote_commit_plain(*args_v, **vote, **vm, record=True, **obs,
+                                  telemetry=tel_p)
+    vun = pr.vote_commit(*args_v, **vote, **vm)
+    torch.cuda.synchronize()
+    res_v = compare(f"vote_commit armed {tag}", lanes,
+                    list(zip(vout_k, vout_p)) + [(tel_k, tel_p)]
+                    + [(vout_k[0], vun[0]),
+                       (vout_k[1][:, :pr.VOTE_COLS], vun[1])])
+    witnessed = int((vout_p[1][:, pr.VOTE_OBS_COLS:] != 0).sum())
+    out = dict(res=(res_p, res_v), tag=tag, witnessed=witnessed,
+               margin=vout_p[1][:, 11].tolist()[:4])
+    if not timed:
+        return out
+
+    # the launches alone, armed and unarmed, on the same operands
+    hist_f1, hist_f2 = (pr.kernel_vecs(c, counts_mode) for c in (c1, c2))
+    qok_i = qok.to(torch.int32).contiguous()
+    shared_i = None if coin_mode == "private" else case["shared"]
+    ops_b = pr._bounds_operands(fault_model, bnd["crash_round"],
+                                bnd["recover_round"], rejoin, pack)
+    key2, ne_f = pr._equiv_operands(SEED, r, rng.PHASE_PROPOSAL,
+                                    case["n_equiv"], fault_model,
+                                    counts_mode, t, device)
+    vkey2, _ = pr._equiv_operands(SEED, r, rng.PHASE_VOTE, case["n_equiv"],
+                                  fault_model, counts_mode, t, device)
+    # each Obs points into the tensors beside it, which the calls keep alive
+    tel_p, tel_v = acc(), acc()
+    ops_p = (*pr._obs_operands(t, device, wids, n, tel_p), tel_p)
+    ops_v = (*pr._obs_operands(t, device, wids, n, tel_v), tel_v)
+    ops_r = pr._obs_operands(t, device, (), n)      # the recorder alone
+
+    def prop(o=None):
+        return pr._launch_proposal_hist(
+            lib, stream_scal(SEED, r, rng.PHASE_PROPOSAL), hist_f1, pack, m,
+            fault_model, True, counts_mode, key2, ne_f, case["camps"], r,
+            ops_b, obs=o)
+
+    def vote_(o=None):
+        return pr._launch_vote_commit(
+            lib, stream_scal(SEED, r, rng.PHASE_VOTE),
+            stream_scal(SEED, r, _COIN_SALT), r + 1, hist_f2, qok_i, pack, m,
+            cfg.n_faulty, "reference", fault_model, True, counts_mode,
+            coin_mode, vkey2, ne_f, shared_i, eps, case["camps"], ops_b,
+            obs=o)
+
+    calls = {"proposal_hist": lambda: (prop(ops_p[0]), ops_p),
+             "vote_commit": lambda: (vote_(ops_v[0]), ops_v)}
+    ms = {k: repeats(fn) for k, fn in calls.items()}
+    ms_unarmed = {"proposal_hist": repeats(prop), "vote_commit": repeats(vote_)}
+    ms_record = repeats(lambda: (vote_(ops_r[0]), ops_r))
+    plain = {
+        "proposal_hist": cuda_ms(lambda: pr.proposal_hist_plain(
+            *args_p, **pm, **obs, telemetry=tel_p), 3),
+        "vote_commit": cuda_ms(lambda: pr.vote_commit_plain(
+            *args_v, **vote, **vm, record=True, **obs, telemetry=tel_v), 3)}
+    if fault_model in pr.FAULT_ROUNDS:
+        needs = b2_needs(pack, vout_p[0], counts_mode, m, (c1, c2), qok)
+    else:
+        needs = mode_needs(pack, counts_mode, ne_f is not None, m,
+                           (c1, c2), qok, vout_p[0], case["n_equiv"])
+    fault = pr.FAULT_ROUNDS.get(fault_model, 0)
+    modes_p = pr._mode_ids(counts_mode, "private", fault_model)
+    modes_v = pr._mode_ids(counts_mode, coin_mode, fault_model)
+    op_bytes = sum(a.numel() * 4 for a in ops_b[:2] if a is not None)
+    nvec = hist_f1.shape[1]
+    k = len(wids)
+    bytes_ = {
+        "proposal_hist": pack.numel() * 4 + op_bytes + t * nvec * 4
+        + pr.round_blocks(lib, 0, n_w, t, device, modes_p, fault, True)
+        * t * pr.PROP_COLS * 4 + t * k * 2 * 4 + tiles * pr.TELEM_WIDTH * 4,
+        "vote_commit": 2 * pack.numel() * 4 + op_bytes + t * (nvec + 2) * 4
+        + pr.round_blocks(lib, 1, n_w, t, device, modes_v, fault, True)
+        * t * pr.VOTE_OBS_COLS * 4 + t * k * 6 * 4
+        + tiles * pr.TELEM_WIDTH * 4,
+    }
+    per_lane = OPS_BOUNDS.get(fault_model, 0) + (
+        OPS_AMNESIA if ops_b[2] else 0)
+    ops = {kk: mode_ops(kk, lanes, t, n_w * t, planes - PACK_K, counts_mode,
+                        coin_mode, ne_f is not None, needs[f"{p}_draws"],
+                        needs[f"{p}_tails"], needs[f"{p}_sizes"],
+                        needs["coins"])
+           + lanes * per_lane
+           + obs_ops(kk, t, k, n_w * t, needs["vote_draws"])
+           for kk, p in (("proposal_hist", "proposal"),
+                         ("vote_commit", "vote"))}
+    print(f"[fixture] obs {tag}: lanes {lanes}, needs {needs}; armed ms "
+          f"{ms}; unarmed ms {ms_unarmed}; vote_commit armed with the "
+          f"recorder alone (no witness, no counters) {ms_record} ms (median "
+          f"{median(ms_record):.4f}); plain armed ms {plain}")
+    out.update(ms=ms, ms_unarmed=ms_unarmed, plain=plain, bytes=bytes_,
+               ops=ops, calls=calls, needs=needs)
+    return out
+
+
+def obs_fused(lib, trials, n, coin_mode, fault_model, rejoin, device,
+              timed) -> dict:
+    """fused_round's armed twin in one mode on a balanced fixture of
+    ``trials`` x ``n`` (the textbook rule, so that active lanes coin)
+    against its plain version, the unarmed kernel and the armed two-kernel
+    route, bit for bit; with ``timed`` three timed repeats of the armed and
+    the unarmed launch, queued as well."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import rng
+    from benor_tpu_torch.state import PACK_K
+
+    cfg = main_cfg().replace(n_nodes=n, n_faulty=int(0.4 * n),
+                             trials=trials)
+    case = obs_case(cfg, "sampled", fault_model, rejoin, device, SEED + 7,
+                    balanced=True)
+    cfg, pack, hist, bnd = (case["cfg"], case["pack"], case["hist1"],
+                            case["bounds"])
+    m, r = cfg.quorum, ROUND
+    t, planes, n_w = pack.shape
+    lanes = trials * n_w * 32
+    eps = B2_EPS if coin_mode == "weak_common" else 0.0
+    wids = obs_ids(n)
+    vote = dict(m=m, n_faulty=cfg.n_faulty, rule="textbook",
+                fault_model=fault_model, freeze=True)
+    modes = dict(n_equiv=case["n_equiv"], coin_mode=coin_mode, eps=eps,
+                 shared=case["shared"], **bnd)
+    obs = dict(witness_ids=wids, n_local=n)
+
+    def acc():
+        """Both stages' counter accumulator, zeroed."""
+        return torch.zeros((2, 1, pr.TELEM_WIDTH), dtype=torch.int32,
+                           device=device)
+
+    tel_k, tel_p = acc(), acc()
+    out_k = pr.fused_round(SEED, r, hist, pack, **vote, **modes,
+                           record=True, **obs, telemetry=tel_k)
+    out_p = pr.fused_round_plain(SEED, r, hist, pack, **vote, **modes,
+                                 record=True, **obs, telemetry=tel_p)
+    out_u = pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+    pa = pr.proposal_hist(SEED, r, rng.PHASE_PROPOSAL, hist, pack, m,
+                          fault_model, True, n_equiv=case["n_equiv"],
+                          witness_ids=wids, n_local=n, **bnd)
+    new_2, pb = pr.vote_commit(SEED, r, rng.PHASE_VOTE, pa[:, :3], pack,
+                               pa[:, 3] >= m, **vote, **modes, record=True,
+                               witness_ids=wids, n_local=n)
+    torch.cuda.synchronize()
+    tag = f"{coin_mode}/{fault_model}/{rejoin} T={trials} N={n}"
+    res = compare(f"fused_round armed {tag}", lanes,
+                  list(zip(out_k, out_p)) + [(tel_k, tel_p)]
+                  + [(out_k[0], out_u[0]),
+                     (out_k[1][:, :pr.PROP_COLS], out_u[1]),
+                     (out_k[2][:, :pr.VOTE_COLS], out_u[2])])
+    same = all(torch.equal(a, b)
+               for a, b in zip(out_k[:3], (new_2, pa, pb)))
+    print(f"[dispatch] obs fused_round armed vs the armed proposal_hist + "
+          f"sum + vote_commit at {tag}: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit(f"armed fused and two-kernel rounds differ at {tag}")
+    fault = pr.FAULT_ROUNDS.get(fault_model, 0)
+    equiv = case["n_equiv"] is not None
+    out = dict(res=res, lanes=lanes, grid=pr.fused_grid(
+        lib, n_w, trials, device, coin_mode, equiv, fault, True),
+        grid_unarmed=pr.fused_grid(lib, n_w, trials, device, coin_mode,
+                                   equiv, fault))
+    if timed:
+        tel = acc()
+
+        def armed():
+            return pr.fused_round(SEED, r, hist, pack, **vote, **modes,
+                                  record=True, **obs, telemetry=tel)
+
+        def unarmed():
+            return pr.fused_round(SEED, r, hist, pack, **vote, **modes)
+
+        out["ms"] = repeats(armed)
+        out["ms_queued"] = repeats(armed, queued=True)
+        out["ms_unarmed"] = repeats(unarmed)
+        out["ms_unarmed_queued"] = repeats(unarmed, queued=True)
+        out["plain_ms"] = cuda_ms(lambda: pr.fused_round_plain(
+            SEED, r, hist, pack, **vote, **modes, record=True, **obs,
+            telemetry=tel), 3)
+        op_bytes = sum(a.numel() * 4 for a in (bnd["crash_round"],
+                                               bnd["recover_round"])
+                       if a is not None)
+        k = len(wids)
+        out["bytes"] = (2 * pack.numel() * 4 + op_bytes + trials * 3 * 4
+                        + trials * (pr.PROP_COLS + pr.VOTE_OBS_COLS) * 4
+                        + trials * k * 8 * 4 + 2 * pr.TELEM_WIDTH * 4)
+        if fault:
+            nd = b2_needs(pack, out_p[0], "sampled", m,
+                          (hist, out_p[1][:, :3]), out_p[1][:, 3] >= m)
+        else:
+            nd = mode_needs(pack, "sampled", equiv, m,
+                            (hist, out_p[1][:, :3]), out_p[1][:, 3] >= m,
+                            out_p[0], case["n_equiv"])
+        per_lane = OPS_BOUNDS.get(fault_model, 0) + (
+            OPS_AMNESIA if fault == 2 and rejoin == "amnesia" else 0)
+        out["needs"] = nd
+        out["ops"] = lanes * per_lane + sum(
+            mode_ops(kk, lanes, t, n_w * t, planes - PACK_K, "sampled",
+                     coin_mode, equiv, nd[f"{p}_draws"], nd[f"{p}_tails"],
+                     nd[f"{p}_sizes"], nd["coins"])
+            + obs_ops(kk, t, k, n_w * t, nd["vote_draws"])
+            for kk, p in (("proposal_hist", "proposal"),
+                          ("vote_commit", "vote")))
+    return out
+
+
+def obs_run(cfg, vals, fl):
+    """run_consensus on fresh state -> (seconds, its return)."""
+    import torch
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import init_state
+    st = init_state(cfg, vals, fl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_consensus(cfg, st, fl)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def obs_check_run(tag, cfg, out, np_total):
+    """The planes of an armed run against its final state: the last written
+    recorder row equals the counts of the final state, every written row's
+    classes sum to T x N, the last witness row's x / decided / killed are
+    the final state's at the watched lanes, and the stage counters' real
+    and pad lanes add up to T x N and T x (Np - N) a round and stage."""
+    import torch
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.state import (WIT_DECIDED, WIT_KILLED, WIT_X,
+                                       recorder_snapshot_row,
+                                       witness_select)
+    from benor_tpu_torch.utils.metrics import written_round_indices
+    rounds, fin = out[0], out[1]
+    rec = out[2]
+    rows = written_round_indices(rec)
+    last = rec[int(rows[-1])]
+    want = recorder_snapshot_row(fin.x, fin.decided, fin.killed)
+    classes = rec[torch.as_tensor(rows, device=rec.device), :5].sum(1)
+    tn = cfg.trials * cfg.n_nodes
+    ok = (int(rows[-1]) == rounds and torch.equal(last[:5], want[:5])
+          and bool((classes == tn).all()))
+    msg = f"last row {last.tolist()}, final-state counts {want[:5].tolist()}"
+    if cfg.witness:
+        wit = out[3]
+        sel = [witness_select(cfg, f) for f in (fin.x, fin.decided,
+                                                fin.killed)]
+        got = [wit[rounds, :, :, c] for c in (WIT_X, WIT_DECIDED,
+                                                WIT_KILLED)]
+        ok = ok and all(torch.equal(a, b) for a, b in zip(got, sel))
+        msg += f", witness rows {int((wit[:, 0, 0, -1] > 0).sum())}"
+    if cfg.kernel_telemetry:
+        tel = out[-1]
+        act = tel[:, :, pr.TELEM_COLS["active_lanes"][0]].sum(1)
+        pad = tel[:, :, pr.TELEM_COLS["pad_lanes"][0]].sum(1)
+        ok = ok and (act.tolist() == [tn * rounds] * 2
+                     and pad.tolist() == [cfg.trials * (np_total
+                                                        - cfg.n_nodes)
+                                          * rounds] * 2)
+        msg += (f", telemetry active {act.tolist()} pad {pad.tolist()} "
+                f"over {tel.shape[1]} tiles: "
+                + ", ".join(f"{c} {tel[:, :, i].sum(1).tolist()}"
+                            for i, c in enumerate(pr.TELEM_COLUMNS)))
+    print(f"[obs] {tag}: rounds {rounds}, {len(rows)} written rows, {msg}: "
+          f"{'consistent' if ok else 'INCONSISTENT'}")
+    if not ok:
+        raise SystemExit(f"[obs] {tag}: the planes disagree with the run")
+
+
+def obs_phase(lib, dev, sms) -> dict:
+    """The [obs] phase (see the module docstring): the armed twins of the
+    round kernels.  Every armed instantiation against its plain version and
+    the unarmed kernel; their times beside the unarmed ones; bench.py's
+    flight-recorder regime at N = 1M x 32 three ways; packed against
+    unfused; the fused kernel armed; card against CPU; the facade.  Any
+    differing word, count or run raises SystemExit.  -> the kernels line's
+    rows of the armed twins."""
+    import torch
+    from benor_tpu_torch import SimConfig, launch_network
+    from benor_tpu_torch.ops import _build, sass
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import balanced_inputs
+    from benor_tpu_torch.utils.metrics import round_history_summary
+
+    t_phase = time.perf_counter()
+    cfg = main_cfg().replace(n_faulty=int(0.4 * N_MAIN))
+    rows = {}
+
+    def bound(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    # 1. every armed instantiation of the pair on N = 1M x 32; the main
+    # path's mode timed beside its unarmed kernel
+    held, vote_call = set(), None
+    for i, (cm, coin, fm, rj) in enumerate(OBS_PAIR):
+        timed = i == 0
+        res = obs_pair(lib, cfg, cm, coin, fm, rj, dev, SEED + 80 + i, timed)
+        counts, coin_id, equiv, honest = pr._mode_ids(cm, coin, fm)
+        pop = 2 if equiv else int(honest)
+        fault = pr.FAULT_ROUNDS.get(fm, 0)
+        held.add(sass.mode_label("proposal_hist_obs_kernel",
+                                 (counts, pop, fault)))
+        held.add(sass.mode_label("vote_commit_obs_kernel",
+                                 (counts, coin_id, pop, fault)))
+        print(f"[obs] pair {res['tag']}: witness entries written "
+              f"{res['witnessed']}, margins of trials 0-3 {res['margin']}")
+        if not res["witnessed"]:
+            raise SystemExit(f"[obs] {res['tag']}: no witness field written")
+        if not timed:
+            continue
+        vote_call = res["calls"]["vote_commit"]
+        for k in ("proposal_hist", "vote_commit"):
+            b_ms, by = bound(res["bytes"][k], res["ops"][k])
+            med, med_u = median(res["ms"][k]), median(res["ms_unarmed"][k])
+            print(f"[time] obs {k} armed ({res['tag']}, record + 16 watched "
+                  f"nodes + telemetry): kernel {res['ms'][k]} ms (median "
+                  f"{med:.4f}), unarmed {res['ms_unarmed'][k]} ms (median "
+                  f"{med_u:.4f}), armed / unarmed {med / med_u:.3f}; plain "
+                  f"armed {res['plain'][k]:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({by}; bytes {res['bytes'][k]} B, operations "
+                  f"{res['ops'][k]} needed), share {b_ms / med:.3f}; "
+                  f"library null")
+            rows[f"{k}_obs"] = dict(
+                name=f"{k}_obs", route="cuda",
+                source="benor_tpu_torch/csrc/round_obs.cu",
+                replaces=REPLACES[k], launches=0,
+                max_abs_err=max(r_[1] for r_ in res["res"]), ms=med,
+                plain_ms=res["plain"][k], bound_ms=b_ms, bound_by=by,
+                library_ms=None, match="exact", differing=0,
+                ms_repeats=res["ms"][k], unarmed_ms=med_u)
+        del res
+        torch.cuda.empty_cache()
+
+    # 2. every armed instantiation of the fused kernel on its shape family,
+    # timed at its cap N = 8192 x 32
+    for coin, fm, rj in OBS_FUSED:
+        fault = pr.FAULT_ROUNDS.get(fm, 0)
+        for t_f, n_f in FUSED_FAMILY:
+            timed = (coin, fm, t_f, n_f) == ("private", "crash",
+                                             *FUSED_FAMILY[0])
+            f = obs_fused(lib, t_f, n_f, coin, fm, rj, dev, timed)
+            inst = sass.mode_label(
+                "fused_cluster_obs_kernel" if f["grid"][0] > 1
+                else "fused_round_obs_kernel",
+                (pr.COIN_MODES.index(coin), int(fm == "equivocate"), fault))
+            held.add(inst)
+            if (t_f, n_f) == FUSED_FAMILY[0]:
+                print(f"[grid] obs fused_round {coin}/{fm}/{rj} T={t_f} "
+                      f"N={n_f}: armed (C, W) {f['grid']}, unarmed "
+                      f"{f['grid_unarmed']}")
+            if not timed:
+                continue
+            b_ms, by = bound(f["bytes"], f["ops"])
+            med_q = median(f["ms_queued"])
+            print(f"[time] obs fused_round armed ({coin}/{fm}, T={t_f} "
+                  f"N={n_f}, grid {f['grid']}): wrapper {f['ms']} ms "
+                  f"(median {median(f['ms']):.4f}), queued "
+                  f"{f['ms_queued']} ms (median {med_q:.4f}); unarmed "
+                  f"{f['ms_unarmed']} ms (median "
+                  f"{median(f['ms_unarmed']):.4f}), queued "
+                  f"{f['ms_unarmed_queued']} (median "
+                  f"{median(f['ms_unarmed_queued']):.4f}); armed / unarmed "
+                  f"queued {med_q / median(f['ms_unarmed_queued']):.3f}; "
+                  f"plain armed {f['plain_ms']:.4f} ms; bound {b_ms:.5f} ms "
+                  f"({by}; bytes {f['bytes']} B, operations {f['ops']} "
+                  f"needed), share queued {b_ms / med_q:.3f}; library null")
+            rows["fused_round_obs"] = dict(
+                name="fused_round_obs", route="cuda",
+                source="benor_tpu_torch/csrc/round_obs.cu",
+                replaces=REPLACES["fused_round"], launches=0,
+                max_abs_err=f["res"][1], ms=median(f["ms"]),
+                plain_ms=f["plain_ms"], bound_ms=b_ms, bound_by=by,
+                library_ms=None, match="exact", differing=0,
+                ms_repeats=f["ms"], queued_ms=med_q,
+                unarmed_ms=median(f["ms_unarmed"]),
+                unarmed_queued_ms=median(f["ms_unarmed_queued"]))
+
+    # 3. their registers, spills and SASS; every built one must have been
+    # held
+    res_all = {}
+    for src in ("round_obs.cu", "round_obs_b2.cu"):
+        res_all.update(sass.resource_report(_build.CSRC / src,
+                                            _build.BUILD_DIR,
+                                            sass.OBS_KERNELS))
+    mhz = clock_during(vote_call)
+    print(f"[clock] clocks.sm {mhz:.0f} MHz while the armed vote_commit ran")
+    sass.print_resources("obs", {k: v for k, v in res_all.items()
+                                 if not k.startswith("fused")},
+                         TRIALS * N_MAIN, sms, mhz)
+    sass.print_resources("obs", {k: v for k, v in res_all.items()
+                                 if k.startswith("fused")},
+                         TRIALS * N_FUSED, sms, mhz)
+    spills = {k: (v.get("spill_stores"), v.get("spill_loads"))
+              for k, v in res_all.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    untried = sorted(set(res_all) - held)
+    if untried or not res_all:
+        raise SystemExit(f"[obs] armed instantiations never held against "
+                         f"their plain versions: {untried or 'none built'}")
+    print(f"[ptxas] obs: {len(res_all)} armed instantiations; spilling: "
+          f"{spills or 'none'}")
+
+    # 4. bench.py's flight-recorder regime (bench.py:815-913) at
+    # N = 1M x 32: record off, record on, record + witness + telemetry
+    n = N_MAIN
+    c_off = SimConfig(n_nodes=n, n_faulty=int(0.40 * n), **MAIN_RUN)
+    c_on = c_off.replace(record=True)
+    c_wit = c_off.replace(record=True, witness_trials=OBS_TRIALS,
+                          witness_nodes=OBS_WITNESS, kernel_telemetry=True)
+    fl = FaultSpec.none(TRIALS, n, device=dev)
+    bal = balanced_inputs(TRIALS, n)
+    np_total = n + (-n) % pr.TILE_N
+    t_off, out0 = obs_run(c_off, bal, fl)
+    pr.reset_launches()
+    hk.reset_launches()
+    t_on, out1 = obs_run(c_on, bal, fl)
+    t_wit, out2 = obs_run(c_wit, bal, fl)
+    armed = pr.obs_launch_counts()
+    plain_launches = {k: fn.launches for k, fn in pr.KERNELS.items()}
+    print(f"[obs] recorder regime launches: armed {armed}, unarmed "
+          f"{plain_launches}")
+    # record alone arms the vote pass (the proposal pass records nothing);
+    # the witness and the counters arm both
+    if (armed != {"proposal_hist_obs": out2[0],
+                  "vote_commit_obs": out1[0] + out2[0],
+                  "fused_round_obs": 0}
+            or plain_launches != {"proposal_hist": out1[0],
+                                  "vote_commit": 0, "fused_round": 0}):
+        raise SystemExit("[obs] the armed runs did not take the armed "
+                         "kernels once a round")
+    for k in ("proposal_hist_obs", "vote_commit_obs"):
+        rows[k]["launches"] = armed[k]
+    same = (out0[0] == out1[0] == out2[0]
+            and trials_differing(out0[1], out1[1]) == 0
+            and trials_differing(out0[1], out2[1]) == 0
+            and bool((out0[1].killed == out2[1].killed).all()))
+    same_rec = torch.equal(out1[2], out2[2])
+    print(f"[obs] balanced_f0.40 N={n} T={TRIALS}: rounds {out0[0]}, record "
+          f"off == on == witness run {same}, record-only recorder == "
+          f"witness run's {same_rec}")
+    if not (same and same_rec):
+        raise SystemExit("[obs] recorded and unrecorded runs differ")
+    obs_check_run("balanced_f0.40 armed", c_wit, out2, np_total)
+    times = {}
+    for name, c in (("off", c_off), ("on", c_on)):
+        ts = []
+        for _ in range(3):
+            ts.append(obs_run(c, bal, fl)[0])
+        times[name] = ts
+    summary = round_history_summary(out1[2])
+    print(f"[obs] round_history_summary {json.dumps(summary)}")
+    print(f"[obs] run_consensus seconds (3 runs each): unrecorded "
+          f"{times['off']}, recorded {times['on']}; record_overhead_x "
+          f"{median(times['on']) / median(times['off']):.3f} (first runs: "
+          f"off {t_off:.4f}, on {t_on:.4f}, record + witness + telemetry "
+          f"{t_wit:.4f})")
+
+    # 5. packed against unfused, where both share every bit (the CF regime,
+    # the private coin): the recorder and the witness
+    c_unf = c_wit.replace(use_pallas_round=False, kernel_telemetry=False)
+    _, out_u = obs_run(c_unf, bal, fl)
+    same = (out_u[0] == out2[0] and trials_differing(out_u[1], out2[1]) == 0
+            and torch.equal(out_u[2], out2[2])
+            and torch.equal(out_u[3], out2[3]))
+    print(f"[obs] balanced_f0.40 unfused vs packed: rounds {out_u[0]} vs "
+          f"{out2[0]}, recorder and witness equal {same}")
+    if not same:
+        raise SystemExit("[obs] unfused and packed planes differ")
+    del out0, out1, out2, out_u
+    torch.cuda.empty_cache()
+
+    # 6. the fused kernel armed: N = 8192 x 32 on balanced inputs, and the
+    # 'at:1:4:amnesia' run; one armed fused launch a round
+    c8 = SimConfig(n_nodes=N_FUSED, n_faulty=int(0.4 * N_FUSED),
+                   **MAIN_RUN)
+    (_, c_am, vals_am, fl_am), = [
+        x for x in b2_regimes(N_FUSED, TRIALS, device=dev)
+        if x[0] == "recover_at1_4_amnesia_f0.45"]
+    pr.reset_launches()
+    fused_launches = 0
+    for tag, c, vals, fl8 in (
+            ("fused balanced_f0.40", c8, balanced_inputs(TRIALS, N_FUSED),
+             FaultSpec.none(TRIALS, N_FUSED, device=dev)),
+            ("fused recover_at1_4_amnesia", c_am, vals_am, fl_am)):
+        armed_c = c.replace(record=True, witness_trials=OBS_TRIALS,
+                            witness_nodes=OBS_WITNESS, kernel_telemetry=True)
+        before = pr.obs_launch_counts()
+        _, off = obs_run(c, vals, fl8)
+        _, on = obs_run(armed_c, vals, fl8)
+        grown = {k: v - before[k] for k, v in pr.obs_launch_counts().items()}
+        fused_launches += grown["fused_round_obs"]
+        same = (off[0] == on[0] and trials_differing(off[1], on[1]) == 0)
+        print(f"[obs] {tag} N={N_FUSED} T={TRIALS}: rounds {on[0]}, record "
+              f"off == armed {same}, armed launches {grown}")
+        if not same or grown != {"proposal_hist_obs": 0,
+                                 "vote_commit_obs": 0,
+                                 "fused_round_obs": on[0]}:
+            raise SystemExit(f"[obs] {tag}: not one armed fused launch a "
+                             "round, or the armed run differs")
+        obs_check_run(tag, armed_c, on, N_FUSED)
+    rows["fused_round_obs"]["launches"] = fused_launches
+
+    # 7. the card against the CPU at small sizes: recorder, witness and
+    # stage counters
+    for n_s, t_s in OBS_SMALL:
+        pick = {d: [x for x in item8_regimes(n_s, t_s, device=d)
+                    + b2_regimes(n_s, t_s, device=d)
+                    if x[0] in OBS_SMALL_RUNS] for d in ("cuda", "cpu")}
+        for (name, c, vals, fg), (_, _, _, fc) in zip(pick["cuda"],
+                                                       pick["cpu"]):
+            c = c.replace(record=True,
+                          witness_trials=tuple(range(min(4, t_s))),
+                          witness_nodes=OBS_WITNESS, kernel_telemetry=True)
+            tg, og = obs_run(c, vals, fg)
+            t0 = time.perf_counter()
+            oc = run_consensus(c, init_state(c, vals, fc), fc)
+            tc = time.perf_counter() - t0
+            same = (og[0] == oc[0] and trials_differing(og[1], oc[1]) == 0
+                    and all(torch.equal(a.cpu(), b)
+                            for a, b in zip(og[2:], oc[2:])))
+            print(f"[obs] card vs cpu {name} N={n_s} T={t_s}: rounds "
+                  f"{og[0]} / {oc[0]}, state, recorder, witness and "
+                  f"telemetry equal {same} (cpu {tc:.2f} s, card {tg:.3f} s)")
+            if not same:
+                raise SystemExit(f"[obs] {name} N={n_s}: card and CPU "
+                                 "differ")
+
+    # 8. the facade: the round history and the witness through
+    # launch_network with poll_rounds, card == cpu
+    name, faulty, values, kw = next(sc for sc in SCENARIOS
+                                    if "livelock" in sc[0])
+    got = {}
+    for d in ("cuda", "cpu"):
+        net = launch_network(len(faulty), sum(faulty), values, faulty,
+                             device=d, poll_rounds=2, record=True,
+                             witness_trials=(0,), witness_nodes=4, **kw)
+        seen = []
+        net.start(on_slice=lambda: seen.append(
+            len(net.get_round_history())))
+        got[d] = (net.get_round_history(since_round=3), net.get_witness(),
+                  seen)
+    same = got["cuda"] == got["cpu"]
+    print(f"[api] {name} poll_rounds=2 record + witness: history rows seen "
+          f"after each slice {got['cuda'][2]}, rows past round 3 "
+          f"{len(got['cuda'][0])}, witness rows {len(got['cuda'][1])}, card "
+          f"== cpu {same}")
+    if not same or not got["cuda"][1]:
+        raise SystemExit("[api] the facade's round history or witness "
+                         "differs between card and CPU")
+    print(f"[obs] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 REPLACES = {

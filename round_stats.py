@@ -5,6 +5,7 @@ and the coin kernels of two checkouts, on one GPU.
     python3 round_stats.py                 # this checkout
     python3 round_stats.py --base DIR      # and the checkout at DIR, in turns
     python3 round_stats.py --fused-scan [DIR ...]   # the fused kernel's grids
+    python3 round_stats.py --sass-diff DIR          # the round kernels' SASS
 
 Each checkout is timed in a process of its own (with ``--base``: base,
 this, this, base), with that checkout's package first on ``sys.path``,
@@ -31,6 +32,13 @@ word a warp: the latency probe) beside them.  Last, end to end, it times
 (N = 8192 at 32 trials and at one; ``fused_split``).
 Prints one JSON line last and writes the whole result to
 chiprun_out/round_stats.json.
+
+``--sass-diff DIR`` compares instead, instruction by instruction, the SASS
+of every round kernel instantiation that csrc/round_kernels.cu and
+csrc/round_b2.cu build in the checkout at DIR with this checkout's (every
+hexadecimal constant masked, so that moved addresses do not count), and
+prints the number identical and differing, the first differences, and
+the instantiations only one checkout has.
 
 ``--fused-scan DIR ...`` times instead the fused kernel of each checkout
 (this one if none is named; in turns, each in a process of its own) on
@@ -205,6 +213,9 @@ def main() -> int:
         return scan_main([Path(a).resolve() for a in
                           sys.argv[sys.argv.index("--fused-scan") + 1:]]
                          or [ROOT])
+    if "--sass-diff" in sys.argv:
+        return sass_diff(Path(sys.argv[sys.argv.index("--sass-diff") + 1])
+                         .resolve())
     from benor_tpu_torch.ops import _build, sass
 
     trees = [("this", ROOT)]
@@ -285,6 +296,37 @@ def main() -> int:
                              "fused_split")}
         for res in results]}))
     return 0
+
+
+def sass_diff(base: Path) -> int:
+    """``--sass-diff DIR``: the round kernels' SASS of the checkout at
+    ``base`` against this one's, source by source (see the module
+    docstring)."""
+    import difflib
+
+    from benor_tpu_torch.ops import _build, sass
+
+    same = differ = only = 0
+    for src in ("round_kernels.cu", "round_b2.cu"):
+        a, b = (sass.listings(tree / "benor_tpu_torch" / "csrc" / src,
+                              _build.BUILD_DIR)
+                for tree in (base, ROOT))
+        for label in sorted(set(a) & set(b)):
+            if a[label] == b[label]:
+                same += 1
+                continue
+            differ += 1
+            lines = list(difflib.unified_diff(a[label], b[label],
+                                              lineterm="", n=1))
+            print(f"[sass-diff] {src} {label}: base {len(a[label])} this "
+                  f"{len(b[label])} instructions; " + " | ".join(lines[:24]))
+        only += len(set(a) ^ set(b))
+        print(f"[sass-diff] {src}: only in the base "
+              f"{sorted(set(a) - set(b))}, only in this checkout "
+              f"{sorted(set(b) - set(a))}")
+    print(f"[sass-diff] {base} against this checkout: {same} identical, "
+          f"{differ} differing, {only} in one checkout only")
+    return 1 if differ or only else 0
 
 
 def scan_main(trees: list[Path]) -> int:

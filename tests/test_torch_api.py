@@ -262,15 +262,31 @@ def test_launch_needs_cuda_unless_cpu_is_named(monkeypatch):
         tapi.launch_network(3, 0, [1, 1, 1], [False] * 3)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda net: net.get_round_history(), "11"),
-    (lambda net: net.get_witness(), "11"),
+@pytest.mark.parametrize("call,flags,match", [
+    (lambda net, **kw: net.get_round_history(**kw), dict(record=True),
+     "record=True"),
+    (lambda net, **kw: net.get_witness(), dict(witness_trials=(0,),
+                                               witness_nodes=2),
+     "witness_trials"),
 ], ids=["get_round_history", "get_witness"])
-def test_unported_methods_raise(call, item):
+def test_history_and_witness_methods(call, flags, match):
+    """Off, they raise the JAX facade's ValueError; on, they are empty before
+    start() and hold a row a round (and the snapshot) after it, the
+    ``since_round`` cursor keeping the later rows."""
     net = _launch(tapi, [False] * 3, [1, 1, 1])
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
+    with pytest.raises(ValueError, match=match):
         call(net)
+    net = _launch(tapi, [True] + [False] * 4, [0, 0, 1, 1, 1],
+                  max_rounds=6, **flags)
+    assert call(net) == []
+    net.start()
+    rows = call(net)
+    per_round = 1 if "record" in flags else 2
+    assert len(rows) == (net.rounds_executed + 1) * per_round
+    assert [r["round"] for r in rows][::per_round] == \
+        list(range(net.rounds_executed + 1))
+    if "record" in flags:
+        assert call(net, since_round=0) == rows[1:]
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -278,15 +294,26 @@ def test_unported_methods_raise(call, item):
     (dict(backend="native"), "17"),
     (dict(heartbeat_rounds=2), "16"),
     (dict(mesh_shape=(1, 1)), "15"),
-    (dict(record=True), "11"),
     (dict(drop_prob=0.2, path="histogram"), "13"),
-], ids=["express", "native", "heartbeat", "mesh", "record",
-        "omission-histogram"])
+], ids=["express", "native", "heartbeat", "mesh", "omission-histogram"])
 def test_unported_launches_raise(kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A item {item}\\)"):
         tapi.launch_network(4, 1, [1, 1, 0, 0], [True, False, False, False],
                             device="cpu", **kw)
+
+
+def test_recorded_launch_runs():
+    """record=True launches and runs: the states equal the unrecorded
+    launch's, the history ends at the last round run."""
+    args = (4, 1, [1, 1, 0, 0], [True, False, False, False])
+    nets = [tapi.launch_network(*args, device="cpu", record=rec)
+            for rec in (True, False)]
+    for net in nets:
+        net.start()
+    assert nets[0].get_states() == nets[1].get_states()
+    assert nets[0].get_round_history()[-1]["round"] == \
+        nets[0].rounds_executed
 
 
 def test_heartbeat_path_raises():

@@ -109,9 +109,6 @@ def test_cpu_run_launches_no_kernel(cf_regime):
 @pytest.mark.parametrize("kw", [
     dict(use_pallas_round=False, use_pallas_hist=False),
     dict(use_pallas_hist=False),
-    dict(record=True),
-    dict(trials=2, witness_trials=(0,), witness_nodes=2),
-    dict(kernel_telemetry=True),
     dict(mesh_shape=(1, 2)),
     dict(debug=True),
 ])
@@ -121,6 +118,31 @@ def test_unsupported_regimes_raise(cf_regime, kw):
     cfg = bt.SimConfig(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+
+
+# the observability planes on the packed loop: the armed run's final state
+# equals the unarmed run's, and the tails
+# come in the JAX package's order (recorder, witness, stage counters);
+# tests/test_torch_observability.py holds them against the JAX package
+@pytest.mark.parametrize("kw,tails", [
+    (dict(record=True), ((25, 7),)),
+    (dict(trials=2, witness_trials=(0,), witness_nodes=2), ((25, 1, 2, 9),)),
+    (dict(kernel_telemetry=True), ((2, 1, 7),)),
+], ids=["record", "witness", "kernel_telemetry"])
+def test_observability_regimes_run(cf_regime, kw, tails):
+    base = _kw(96, 2, n_faulty=40, seed=1)
+    base.update(kw)
+    cfg = bt.SimConfig(**base)
+    vals, faults = balanced_inputs(2, 96), TFaults.none(2, 96)
+    rounds, st, _, *extras = bt.simulate(cfg, vals, faults=faults,
+                                         device="cpu")
+    plain = bt.SimConfig(**_kw(96, 2, n_faulty=40, seed=1))
+    r0, st0, _ = bt.simulate(plain, vals, faults=faults, device="cpu")
+    assert rounds == r0 >= 2
+    for name in ("x", "decided", "k", "killed"):
+        assert torch.equal(getattr(st, name), getattr(st0, name)), name
+    assert [tuple(e.shape) for e in extras] == list(tails)
+    assert all(e.dtype == torch.int32 for e in extras)
 
 
 # the round-bound fault models at F = 40 (crash_at_round: the first F lanes
