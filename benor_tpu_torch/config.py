@@ -3,10 +3,11 @@
 ``SimConfig`` matches the JAX package's dataclass field for field (names,
 defaults, validation verdicts), so one configuration drives both packages.
 It is a plain frozen dataclass: nothing here imports torch or JAX.  The
-``recovery`` spec grammar is the port's copy (faults/recovery.py); the
-other two structured-plane grammars (``partition``, ``topology``) are not
-ported yet, and a config that sets one raises ``NotImplementedError``
-where the JAX package would parse it.
+``recovery`` and ``partition`` spec grammars are the port's copies
+(faults/recovery.py, faults/partitions.py), validated with the JAX
+package's messages; the ``topology`` grammar is not ported yet, and a
+config that sets one raises ``NotImplementedError`` where the JAX package
+would parse it.
 """
 
 from __future__ import annotations
@@ -163,7 +164,31 @@ class SimConfig:
                 raise ValueError(
                     "drop_prob does not compose with topology/committee_*")
         if self.partition is not None:
-            _unported_spec("partition")
+            from .faults.partitions import parse_partition
+            pspec = parse_partition(self.partition)   # ValueError if bad
+            pspec.validate(self.n_nodes)
+            if self.delivery != "all":
+                raise ValueError(
+                    "partition replaces full delivery with per-epoch "
+                    "group masks; the quorum-subset delivery model has "
+                    "no meaning on it — use delivery='all'")
+            if self.backend != "tpu":
+                raise ValueError(
+                    "partition runs the device delivery plane "
+                    "(benor_tpu/faults); the event-loop oracles only "
+                    "implement the whole network — a silent no-op "
+                    "would fake the split, so use backend='tpu'")
+            if self.fault_model == "equivocate":
+                raise ValueError(
+                    "partition is not supported with "
+                    "fault_model='equivocate' (per-edge equivocator "
+                    "bits are complete-graph / topology machinery and "
+                    "do not compose with group masks)")
+            if self.committee_cap:
+                raise ValueError(
+                    "partition and committee delivery are mutually "
+                    "exclusive planes (committees already sample WHO "
+                    "tallies whom per round); arm one")
         if self.fault_model == "equivocate" and self.scheduler == "biased":
             raise ValueError(
                 "fault_model='equivocate' is not supported with "

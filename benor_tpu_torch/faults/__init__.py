@@ -2,12 +2,18 @@
 churn, ``SimConfig(fault_model='crash_recover', recovery='stagger:2:3:
 amnesia')`` — per-node down-intervals with durable or amnesia rejoins
 (``recovery.py``; the round kernels re-derive liveness from the round
-bounds every round).  Message omission (``drop_prob``) lives in the
-delivery masks and tallies; partitions are not ported yet (ROADMAP Queue
-A item 13)."""
+bounds every round); healing partitions, ``SimConfig(partition=
+'halves:<heal_round>')`` — G contiguous groups cut apart until the heal
+round (``partitions.py``; group histograms, never an N x N array).
+Message omission (``drop_prob``) lives in the delivery masks and tallies:
+the per-edge mask on the dense path, binomial thinning of the counts on
+the histogram path."""
 
+from .partitions import (PartitionSpec, group_of, group_size_of,
+                         parse_partition)
 from .recovery import (REJOIN_MODES, RecoverySpec, crash_recover_faults,
                        parse_recovery, rejoin_mode)
 
-__all__ = ["REJOIN_MODES", "RecoverySpec", "crash_recover_faults",
-           "parse_recovery", "rejoin_mode"]
+__all__ = ["PartitionSpec", "group_of", "group_size_of",
+           "parse_partition", "REJOIN_MODES", "RecoverySpec",
+           "crash_recover_faults", "parse_recovery", "rejoin_mode"]

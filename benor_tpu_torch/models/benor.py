@@ -6,14 +6,17 @@ proposal phase (tallies -> majority, tie -> "?"), the vote phase (tallies
 -> decide when a count exceeds F, plurality-adopt under the reference
 rule, else the coin) and the commit — the reference node's ``/message``
 handler, lane-vectorised with ``torch.where``.  Every tally comes from
-``tally.receiver_counts`` (the broadcast histogram of ``delivery='all'``,
-the dense path's masks and exact tally, or the fused samplers of
-ops/hist.py) and every coin from ops/hist.py or the ``fold_in`` chain of
-ops/rng.py, on the streams the JAX package draws, so a run equals the JAX
-run bit for bit (the ``delivery='all'`` equivocator split up to the
-differing fraction ops/sampling.py states).  The counts are only read
-here: under ``delivery='all'`` they are an expanded view of a [T, 3]
-histogram.
+``tally.receiver_counts`` (the broadcast or group histograms of
+``delivery='all'`` and their omission thinning, the dense path's masks and
+exact tally, the fused samplers of ops/hist.py or the plain samplers of
+ops/sampling.py) and every coin from ops/hist.py or the ``fold_in`` chain
+of ops/rng.py, on the streams the JAX package draws, so a run equals the
+JAX run bit for bit (the shared tables and the quantile up to the
+differing fractions ops/sampling.py states).  The counts are only read
+here: under ``delivery='all'`` they may be an expanded view of a [T, 3]
+histogram.  Under ``drop_prob`` or a partition a receiver that cleared
+fewer than N - F messages in either phase stalls for the round (the
+per-lane quorum gate).
 
 Every fault model is served: ``crash`` (killed at birth), ``byzantine``,
 ``equivocate``, ``crash_at_round`` (a lane dies at the start of its crash
@@ -163,9 +166,11 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     # majority -> value, tie -> "?"
     x1 = torch.where(p0 > p1, VAL0,
                      torch.where(p1 > p0, VAL1, VALQ)).to(torch.int8)
-    # omission makes the delivered count per-receiver random: keep each
-    # lane's phase-1 total for the per-lane quorum gate below
-    got1 = cnt1.sum(-1) if cfg.drop_prob else None
+    # omission and partitions make the delivered count per-receiver
+    # random or group-bounded: keep each lane's phase-1 total for the
+    # per-lane quorum gate below
+    got1 = (cnt1.sum(-1) if cfg.drop_prob or cfg.partition is not None
+            else None)
     # the witness keeps the watched lanes' proposal tallies
     wit_p = ((witness_select(cfg, p0), witness_select(cfg, p1))
              if witness is not None else None)

@@ -1,5 +1,8 @@
 """The seeded message scheduler's delivery masks
-(port of benor_tpu/ops/scheduler.py; the dense path only, N x N masks).
+(port of benor_tpu/ops/scheduler.py; the dense path only, N x N masks):
+the quorum schedulers' arrival masks and the omission mask of
+``delivery='all'`` with ``drop_prob``, cut by a partition epoch where one
+is armed.
 
     uniform  every (receiver, sender) edge draws an iid delay; the N - F
              smallest delays per receiver define the tallied multiset.
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import SimConfig, VAL0, VAL1, VALQ, unported
+from ..config import SimConfig, VAL0, VAL1, VALQ
+from ..faults.partitions import group_of
 from . import rng
 
 
@@ -80,17 +84,22 @@ def omission_delivery_mask(cfg: SimConfig, seed: int, r: int, phase: int,
     """Full delivery minus per-edge iid omission (SimConfig.drop_prob) ->
     bool [T, N_recv, N_send]: each (receiver, live sender) edge, self
     included, survives with probability 1 - drop_p, from a per-edge stream
-    of its own (salt ``phase + 8``).  A partition epoch (``part``) is not
-    ported."""
-    if part is not None:
-        unported("partition epochs on the omission mask", "13")
+    of its own (salt ``phase + 8``).  ``part`` (faults.partitions.
+    PartitionSpec or None): during the epoch (r < heal_round) cross-group
+    edges are lost too, deterministically."""
     t, n = alive.shape
     trial_ids, recv_ids = default_ids(trial_ids, recv_ids, t, n,
                                       alive.device)
     u = rng.edge_uniforms(seed, r, phase + 8, trial_ids, recv_ids,
                           rng.ids(n, device=alive.device))
     keep = u >= torch.tensor(drop_p, dtype=torch.float32, device=u.device)
-    return keep.logical_and_(alive[:, None, :])
+    keep.logical_and_(alive[:, None, :])
+    if part is not None and r < part.heal_round:
+        g_recv = group_of(recv_ids, cfg.n_nodes, part.groups)
+        g_send = group_of(rng.ids(n, device=alive.device), cfg.n_nodes,
+                          part.groups)
+        keep.logical_and_((g_recv[:, None] == g_send[None, :])[None])
+    return keep
 
 
 def _top_m_mask(delays: torch.Tensor, m: int) -> torch.Tensor:

@@ -1,18 +1,31 @@
 """Gate predicates and the per-receiver tally (port of
-benor_tpu/ops/tally.py:26-147, 150-375).
+benor_tpu/ops/tally.py).
 
 The gates are kept verbatim so the port dispatches exactly where the JAX
-package does.  ``receiver_counts`` serves four regimes: ``delivery='all'``
-without omission — every receiver tallies the trial's class histogram (plus
-a Binomial(n_equiv, 1/2) split of the live equivocators), on either path —
-the count-controlling adversaries (``scheduler='adversarial'`` and
-``'targeted'``), whose closed forms (``adversarial_counts``,
-``targeted_counts``, ported from benor_tpu/ops/tally.py:526-720) serve both
-paths, the dense path under quorum delivery (uniform or biased scheduler)
-or per-edge omission — an explicit [T, N, N] mask from ops/scheduler.py,
-tallied exactly by ops/dense.py — and the uniform-scheduler CF regime of
-the histogram path, the fused samplers of ops/hist.py.  Every other branch
-raises ``NotImplementedError`` naming its ROADMAP item.
+package does.  ``receiver_counts`` serves every regime of the JAX
+function but adjacency topologies and committees (ROADMAP Queue A item
+13's remainder):
+
+- ``delivery='all'``, on either path: every receiver tallies the trial's
+  class histogram, or under a partition epoch its group's
+  (``partition_counts``: [T, G, 3] sums over the sender groups); live
+  equivocators add a Binomial(n_equiv, 1/2) split; ``drop_prob`` thins
+  the counts by closed-form binomial draws on the histogram path
+  (``omission_thin_counts``) and drops edges of an explicit mask on the
+  dense path (partition epoch included);
+- the count-controlling adversaries (``scheduler='adversarial'`` and
+  ``'targeted'``), whose closed forms serve both paths;
+- the dense path under quorum delivery (uniform or biased scheduler): an
+  explicit [T, N, N] mask from ops/scheduler.py, tallied exactly by
+  ops/dense.py;
+- the histogram path under quorum delivery: the fused samplers of
+  ops/hist.py in the uniform-scheduler CF regime, else the plain samplers
+  of ops/sampling.py (the exact shared tables within EXACT_TABLE_MAX, the
+  CF draws above), the biased scheduler's strict-priority
+  (``biased_priority_counts``) and fractional (``biased_fractional_counts``)
+  forms included.
+
+No kernel lies on the plain samplers' branches, in either package.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ from ..config import SimConfig, VAL0, VAL1, VALQ, unported
 from . import dense as dense_ops
 from . import hist as hist_ops
 from . import rng, sampling, scheduler
+from ..faults.partitions import group_of, parse_partition
 
 
 def pallas_stream_active(cfg: SimConfig) -> bool:
@@ -107,26 +121,10 @@ def dense_counts(mask: torch.Tensor, sent: torch.Tensor,
 
 def unfused_gap(cfg: SimConfig):
     """(what, ROADMAP item) of the first branch of the unfused round's
-    tally that the port lacks for ``cfg``, or None when the dense masks or
-    the fused samplers serve every tally."""
+    tally that the port lacks for ``cfg``, or None when the port serves
+    every tally: only adjacency topologies and committees are left."""
     if cfg.topology is not None or cfg.committee_cap:
         return "topology / committee delivery", "13"
-    if cfg.partition is not None:
-        return "partition delivery", "13"
-    if cfg.delivery == "all":
-        if cfg.drop_prob and cfg.resolved_path != "dense":
-            return "drop_prob on the histogram path (binomial thinning)", "13"
-        return None
-    if cfg.scheduler in ("adversarial", "targeted"):
-        return None                       # closed form on both paths
-    if cfg.resolved_path == "dense":
-        return None
-    if cfg.scheduler == "biased":
-        return ("scheduler='biased' on the histogram path (the biased "
-                "samplers)"), "4"
-    if not pallas_stream_active(cfg):
-        return ("the XLA samplers (use_pallas_hist=False, or a quorum "
-                "within EXACT_TABLE_MAX)"), "4"
     return None
 
 
@@ -241,20 +239,137 @@ def adversarial_counts(hist: torch.Tensor, m: int,
     return torch.stack([h0, h1, hq], dim=-1)
 
 
+def partition_counts(cfg: SimConfig, part, sent: torch.Tensor,
+                     honest: torch.Tensor, node_ids: torch.Tensor,
+                     r: int) -> torch.Tensor:
+    """Per-receiver counts under an epoch-structured partition
+    (faults/partitions.py) -> int32 [T, N, 3] (tally.py:378-407).
+
+    During the epoch (r < heal_round) each receiver tallies its own
+    group's class histogram: [T, G, 3] integer sums over the sender
+    groups (one ``index_add_``, never an N x N array), gathered by each
+    receiver's group; from the heal round on, the whole network's
+    histogram as an expanded view.  ``node_ids``: the global ids of the
+    receivers, which are also the senders."""
+    t, n = sent.shape
+    grp = group_of(node_ids, cfg.n_nodes, part.groups)          # [N]
+    cls = torch.stack([((sent == v) & honest).to(torch.int32)
+                       for v in (VAL0, VAL1, VALQ)], dim=-1)    # [T, N, 3]
+    ghist = torch.zeros((t, part.groups, 3), dtype=torch.int32,
+                        device=sent.device).index_add_(1, grp, cls)
+    if r < part.heal_round:
+        return ghist[:, grp, :]
+    return ghist.sum(dim=1, dtype=torch.int32)[:, None, :].expand(t, n, 3)
+
+
+def omission_thin_counts(seed: int, r: int, phase: int,
+                         counts: torch.Tensor, drop_p: float,
+                         trial_ids: torch.Tensor,
+                         node_ids: torch.Tensor) -> torch.Tensor:
+    """Per-edge iid omission as closed-form binomial thinning, the
+    histogram path of ``SimConfig.drop_prob`` -> int32 [T, N, 3]
+    (tally.py:410-433): a receiver facing a class-v population of c_v
+    tallies Binomial(c_v, 1 - p) of them, three independent draws a
+    (trial, receiver, phase) on the salts phase + 8, + 24 and + 40."""
+    keep = sampling._c(1.0, counts) - sampling._c(drop_p, counts)
+    cols = []
+    for i, salt in enumerate((8, 24, 40)):
+        u = rng.grid_uniforms(seed, r, phase + salt, trial_ids, node_ids)
+        cols.append(sampling.binomial_keep(u, counts[..., i], keep))
+    return torch.stack(cols, dim=-1)
+
+
+def _parity_split(hist: torch.Tensor, node_ids: torch.Tensor):
+    """(even, favored value count, starved count) per lane [T, N] of the
+    split-bias scheduler: even receivers are starved of 1s, odd ones of
+    0s."""
+    c0, c1 = hist[:, 0:1], hist[:, 1:2]
+    even = (node_ids % 2 == 0)[None, :]
+    return even, torch.where(even, c0, c1), torch.where(even, c1, c0)
+
+
+def biased_priority_counts(u0: torch.Tensor, hist: torch.Tensor, m: int,
+                           node_ids: torch.Tensor) -> torch.Tensor:
+    """The biased scheduler at strength >= 1 (strict priority) on the
+    histogram path -> int32 [T, N, 3] (tally.py:436-488): every favored
+    message (the favored value and "?") arrives before every starved one,
+    so a lane tallies min(favored, m) of them, split between the favored
+    value and "?" by a hypergeometric draw, and fills the rest from the
+    starved class.  In the exact regime the split of a lane whose favored
+    population covers m comes from one exact table per parity class.
+
+    ``u0``: f32 [T, N]; ``hist``: int32 [T, 3]; ``node_ids``: the global
+    receiver ids (parity picks the starved class)."""
+    ms = sampling.static_m(m)
+    c0, c1, cq = hist[:, 0:1], hist[:, 1:2], hist[:, 2:3]       # [T, 1]
+    even, fav_val, starved_c = _parity_split(hist, node_ids)
+    fav_total = fav_val + cq
+    n_fav = torch.clamp(fav_total, max=m)                       # favored
+    n_starved = torch.minimum(m - n_fav, starved_c)             # the fill
+    exact = ms is not None and ms <= sampling.EXACT_TABLE_MAX
+    h_favval = sampling.hypergeom_normal_approx(
+        u0, fav_total, fav_val, n_fav, skew_correct=not exact)
+    if exact:
+        h_even = sampling.hypergeom_exact_shared(
+            u0, (c0 + cq)[:, 0], c0[:, 0], ms)
+        h_odd = sampling.hypergeom_exact_shared(
+            u0, (c1 + cq)[:, 0], c1[:, 0], ms)
+        # the tables draw m; a lane whose favored population is short of
+        # m draws all of it, so it keeps the per-lane draw
+        h_exact = torch.where(even, h_even, h_odd)
+        h_favval = torch.where(fav_total >= m, h_exact, h_favval)
+    hq = n_fav - h_favval
+    h0 = torch.where(even, h_favval, n_starved)
+    h1 = torch.where(even, n_starved, h_favval)
+    return torch.stack([h0, h1, hq], dim=-1)
+
+
+def biased_fractional_counts(s: float, u_race: torch.Tensor,
+                             u_split: torch.Tensor, hist: torch.Tensor,
+                             m: int, node_ids: torch.Tensor) -> torch.Tensor:
+    """The biased scheduler at fractional strength 0 < s < 1 on the
+    histogram path -> int32 [T, N, 3] (tally.py:491-520): the favored
+    count of a lane from the two-population delay race
+    (``sampling.uniform_race_favored_count``), the rest from the starved
+    class, the favored count split between the favored value and "?" by
+    a plain hypergeometric draw.
+
+    ``u_race`` / ``u_split``: f32 [T, N]; ``hist``: int32 [T, 3]."""
+    cq = hist[:, 2:3]
+    even, fav_val, starved_c = _parity_split(hist, node_ids)
+    n_fav = fav_val + cq
+    j = sampling.uniform_race_favored_count(u_race, n_fav, starved_c, m, s)
+    k_starved = torch.minimum(m - j, starved_c)
+    h_favval = sampling.hypergeom_normal_approx(u_split, n_fav, fav_val, j)
+    hq = j - h_favval
+    h0 = torch.where(even, h_favval, k_starved)
+    h1 = torch.where(even, k_starved, h_favval)
+    return torch.stack([h0, h1, hq], dim=-1)
+
+
 def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
                       trial_ids, recv_ids):
-    """``delivery='all'``: every receiver tallies every live sender, so its
-    counts are the trial's histogram over honest live senders — returned
-    as an expanded [T, N, 3] view of the [T, 3] histogram, never
-    materialised (callers only read it).  Live equivocators add a
-    Binomial(n_equiv, 1/2) class split per receiver: the exact shared table
-    while ``cfg.n_faulty`` is tabulable, else the normal quantile."""
+    """``delivery='all'`` off the dense omission mask: every receiver
+    tallies every live sender, so its counts are the trial's histogram over
+    honest live senders — or, inside a partition epoch, its group's —
+    returned as an expanded [T, N, 3] view, never materialised (callers
+    only read it).  ``drop_prob`` thins them by binomial draws; live
+    equivocators (never with a partition or omission) add a
+    Binomial(n_equiv, 1/2) class split per receiver: the exact shared
+    table while ``cfg.n_faulty`` is tabulable, else the normal quantile."""
     t, n = sent.shape
-    counts = class_histogram(sent, honest)[:, None, :].expand(t, n, 3)
-    if equiv is None:
-        return counts
     trial_ids, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
                                                 sent.device)
+    part = parse_partition(cfg.partition)
+    if part is not None:
+        counts = partition_counts(cfg, part, sent, honest, recv_ids, r)
+    else:
+        counts = class_histogram(sent, honest)[:, None, :].expand(t, n, 3)
+    if cfg.drop_prob:
+        return omission_thin_counts(seed, r, phase, counts, cfg.drop_prob,
+                                    trial_ids, recv_ids)
+    if equiv is None:
+        return counts
     u = rng.grid_uniforms(seed, r, phase + 32, trial_ids, recv_ids)
     if cfg.n_faulty <= sampling.EXACT_TABLE_MAX:
         b1 = sampling.binomial_half_exact_shared(u, n_equiv, cfg.n_faulty)
@@ -262,6 +377,41 @@ def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
         b1 = sampling.binomial_half(u, n_equiv[:, None])
     b0 = n_equiv[:, None] - b1
     return counts + torch.stack([b0, b1, torch.zeros_like(b1)], dim=-1)
+
+
+def _histogram_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
+                      trial_ids, recv_ids):
+    """The histogram path under quorum delivery (tally.py:320-375): the
+    fused samplers of ops/hist.py where they serve, else the plain
+    samplers — the mixed-population draw under equivocation, the biased
+    scheduler's strict or fractional form, the two-class draw."""
+    t, n = sent.shape
+    hist = class_histogram(sent, honest)
+    if equiv is not None and pallas_equiv_active(cfg):
+        return hist_ops.equiv_counts(seed, r, phase, hist, n_equiv,
+                                     cfg.quorum, n)
+    if pallas_hist_active(cfg):
+        return hist_ops.cf_counts(seed, r, phase, hist, cfg.quorum, n)
+    trial_ids, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
+                                                sent.device)
+    m = cfg.quorum
+
+    def uniforms(salt):
+        return rng.grid_uniforms(seed, r, phase + salt, trial_ids, recv_ids)
+
+    if equiv is not None:
+        u_b, u0, u1, u_s = (uniforms(salt) for salt in (32, 0, 16, 48))
+        return sampling.equivocate_hypergeom_counts(u_b, u0, u1, u_s, hist,
+                                                    n_equiv, m)
+    u0, u1 = uniforms(0), uniforms(16)
+    if cfg.scheduler == "biased":
+        if cfg.adversary_strength >= 1.0:
+            return biased_priority_counts(u0, hist, m, recv_ids)
+        if cfg.adversary_strength > 0.0:
+            return biased_fractional_counts(cfg.adversary_strength, u0, u1,
+                                            hist, m, recv_ids)
+        # strength 0: the dense scheduler adds no delay — plain uniform
+    return sampling.multivariate_hypergeom_counts(u0, u1, hist, m)
 
 
 def _dense_receiver_counts(cfg, seed, r, phase, sent, alive, honest, equiv,
@@ -276,10 +426,12 @@ def _dense_receiver_counts(cfg, seed, r, phase, sent, alive, honest, equiv,
                                                 sent.device)
     if cfg.delivery == "all":
         # omission: every (receiver, live sender) edge survives with
-        # probability 1 - drop_prob; the survivors are tallied exactly.
+        # probability 1 - drop_prob, and inside a partition epoch only
+        # within the receiver's group; the survivors are tallied exactly.
         # equivocate is rejected with drop_prob, so honest == alive.
         mask = scheduler.omission_delivery_mask(
-            cfg, seed, r, phase, alive, cfg.drop_prob, trial_ids, recv_ids)
+            cfg, seed, r, phase, alive, cfg.drop_prob, trial_ids, recv_ids,
+            part=parse_partition(cfg.partition))
         return tallied(mask, sent, alive)
     mask = scheduler.quorum_delivery_mask(cfg, seed, r, phase, sent, alive,
                                           trial_ids, recv_ids)
@@ -337,8 +489,5 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
     if cfg.delivery == "all":
         return _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv,
                                  n_equiv, trial_ids, recv_ids)
-    hist = class_histogram(sent, honest)
-    if equiv is not None:
-        return hist_ops.equiv_counts(seed, r, phase, hist, n_equiv,
-                                     cfg.quorum, n)
-    return hist_ops.cf_counts(seed, r, phase, hist, cfg.quorum, n)
+    return _histogram_counts(cfg, seed, r, phase, sent, honest, equiv,
+                             n_equiv, trial_ids, recv_ids)

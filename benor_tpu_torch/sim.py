@@ -5,26 +5,37 @@ Two round loops, as in the JAX package: the packed loop
 ``tally.pallas_round_active`` — the uniform-scheduler CF regime of the
 histogram path and the count-controlling adversaries (``scheduler=
 'adversarial'`` / ``'targeted'``, their closed-form counts), under every
-coin and fault model — and the unfused loop
-(models/benor.py) otherwise, in four regimes.  ``delivery='all'``
-(the JAX package's default; on either path, omission aside) tallies the
-broadcast histogram in plain torch, no kernel, as the JAX package does in
-plain XLA: the packed loop never serves it, whatever
-``use_pallas_round`` says.  On the histogram path the unfused loop serves
-the same CF regime as the packed loop with the samplers and coins of
-ops/hist.py; on the dense path (``path='dense'``, or ``'auto'`` at
-N <= dense_path_max_n) it serves quorum delivery under the uniform and
-biased schedulers and per-edge omission (``delivery='all'`` with
-``drop_prob``): explicit [T, N, N] delivery masks (ops/scheduler.py)
-tallied exactly (ops/dense.py); under the count-controlling adversaries,
-on either path, the closed-form counts of ops/tally.py.  All four take
-every fault model — crash, byzantine, equivocate, crash_at_round and
-crash_recover (down-intervals with durable or amnesia rejoins,
+coin and fault model — and the unfused loop (models/benor.py) otherwise,
+which serves every regime of the JAX package's ``receiver_counts`` but
+adjacency topologies and committees:
+
+- ``delivery='all'`` (the JAX package's default; on either path) tallies
+  the broadcast histogram in plain torch, no kernel, as the JAX package
+  does in plain XLA — under a partition epoch each group's histogram,
+  with ``drop_prob`` the binomially thinned counts (on the dense path an
+  explicit per-edge omission mask); the packed loop never serves it,
+  whatever ``use_pallas_round`` says;
+- on the histogram path under quorum delivery, the CF regime's samplers
+  and coins of ops/hist.py (the kernels) where ``use_pallas_hist`` asks
+  for them under the uniform scheduler, else the plain samplers of
+  ops/sampling.py: the exact shared CDF tables for quorums within
+  ``EXACT_TABLE_MAX``, the CF draws above, the biased scheduler's
+  strict-priority and fractional forms, equivocation's mixed-population
+  draw;
+- on the dense path (``path='dense'``, or ``'auto'`` at N <=
+  dense_path_max_n), quorum delivery under the uniform and biased
+  schedulers: explicit [T, N, N] delivery masks (ops/scheduler.py) tallied
+  exactly (ops/dense.py);
+- under the count-controlling adversaries, on either path, the
+  closed-form counts of ops/tally.py.
+
+All take every fault model — crash, byzantine, equivocate, crash_at_round
+and crash_recover (down-intervals with durable or amnesia rejoins,
 faults/recovery.py) — private, common or weak-common coins, either
-decision rule, freeze on or off.  Every other regime raises
-``NotImplementedError`` naming the ROADMAP item that will bring it;
-nothing falls back to another path.  Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+decision rule, freeze on or off.  Topologies, committees, ``mesh_shape``
+and ``debug`` raise ``NotImplementedError`` naming the ROADMAP item that
+will bring them; nothing falls back to another path.  Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -61,7 +72,9 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError unless one of the port's loops serves
-    cfg."""
+    cfg: the packed loop where ``tally.pallas_round_active``, else the
+    unfused loop, which lacks only topology and committee delivery
+    (``tally.unfused_gap``)."""
     if cfg.mesh_shape is not None:
         unported("mesh_shape (sharded runs)", "15")
     if cfg.debug:

@@ -117,7 +117,24 @@ Phases (any failure ends the run non-zero; nothing is caught):
      N = 8192 x 32 and on an 'at:1:4:amnesia' run; card against CPU at
      8192 x 8 and 16,384 x 4; get_round_history / get_witness through
      ``launch_network`` with poll_rounds, card against CPU;
- 12. the kernels line, the card line, and the result line.
+ 12. ``[samplers]``: the histogram path's plain samplers and the omission
+     and partition planes, plain torch with no kernel.  Six regimes at
+     N = 1M x 32 (max_rounds 64, balanced inputs): bench.py's biased_s0.5
+     and biased_s1.5 (f = 0.25; agreement counted, not asserted), the
+     uniform scheduler with use_pallas_hist=False, delivery='all' with
+     drop_prob 0.05 (F = N/4, no crashes), 'halves:4' (F = N/8, the first
+     F crashed) and 'halves:4' with drop_prob 0.05 (no crashes), each with
+     its trials/s over simulate, init_state / run_consensus split, rounds,
+     decided and disagree fractions, peak memory and the card's line; the
+     partition regimes must stall until round 4 and then decide; one
+     profiled run of biased_s1.5; the draws on the card against the CPU
+     (tables, exact draws and group counts must be equal, the
+     normal-quantile draws' differences printed); whole runs at 8192 x 8
+     and 16,384 x 4 (every regime, equivocation on the plain sampler,
+     strength 1.0), 4096 x 8 (the exact tables) and 1024 x 4 (the dense
+     path's partition epoch with omission), card against CPU with the
+     first differing round; no kernel may launch in the phase;
+ 13. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1828,7 +1845,10 @@ def main() -> int:
     # --- 11. the flight recorder, the witness and the stage counters -------
     kernels.update(obs_phase(lib, dev, sms))
 
-    # --- 12. the kernels line, the card, the result ------------------------
+    # --- 12. the plain samplers, omission and partitions (no kernel) -------
+    samplers_phase(dev)
+
+    # --- 13. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3700,6 +3720,305 @@ def obs_phase(lib, dev, sms) -> dict:
                          "differs between card and CPU")
     print(f"[obs] phase {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+# --- the [samplers] phase: the histogram path's plain samplers and the
+# omission and partition planes, plain torch with no kernel -------------------
+
+SAMPLERS_F = 0.25         # bench.py:331-336's biased regimes' fault fraction
+SAMPLERS_SMALL = ((8192, 8), (16_384, 4))
+SAMPLERS_EXACT = (4096, 8)  # quorums within EXACT_TABLE_MAX: the exact tables
+SAMPLERS_DENSE = (1024, 4)  # the dense path's partition epoch on the mask
+SAMPLERS_HEAL = 4         # bench.py:1677's 'halves:4'
+SAMPLERS_DROP = 0.05      # bench.py:1687-1692's omission point
+
+
+def sampler_regimes(n, trials, max_rounds=MAX_ROUNDS, device="cuda"):
+    """(name, config, inputs, faults) of the six regimes at N = n: the
+    biased scheduler at strengths 0.5 and 1.5, built as bench.py:305-336
+    builds them (f = 0.25, use_pallas_* on: the unfused loop takes them, no
+    fused sampler serves the biased scheduler); the uniform scheduler with
+    use_pallas_hist=False (the JAX package's default, the plain CF draws);
+    delivery='all' with drop_prob 0.05, F = N/4 and no crashes
+    (bench.py:1687-1692); 'halves:4' with F = N/8, the first F lanes
+    crashed (bench.py:1677, audit_point's default faults); 'halves:4' with
+    drop_prob 0.05, F = N/8 and no crashes (crashes would pin the live
+    population to the quorum and thinning would stall every lane for
+    good).  Balanced inputs."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+    q = dict(trials=trials, max_rounds=max_rounds, delivery="quorum",
+             path="histogram", fault_model="crash", seed=SEED,
+             use_pallas_hist=True, use_pallas_round=True)
+    a = dict(trials=trials, max_rounds=max_rounds, delivery="all",
+             path="histogram", fault_model="crash", seed=SEED)
+    bal = balanced_inputs(trials, n)
+    none = FaultSpec.none(trials, n, device=device)
+    f = int(SAMPLERS_F * n)
+    out = [(f"biased_s{s}", SimConfig(n_nodes=n, n_faulty=f,
+                                      scheduler="biased",
+                                      adversary_strength=s, **q), bal, none)
+           for s in (0.5, 1.5)]
+    out.append(("uniform_xla_f0.25",
+                SimConfig(n_nodes=n, n_faulty=f, **{
+                    **q, "use_pallas_hist": False,
+                    "use_pallas_round": False}), bal, none))
+    out.append((f"omission_p{SAMPLERS_DROP}",
+                SimConfig(n_nodes=n, n_faulty=n // 4,
+                          drop_prob=SAMPLERS_DROP, **a), bal, none))
+    c = SimConfig(n_nodes=n, n_faulty=n // 8,
+                  partition=f"halves:{SAMPLERS_HEAL}", **a)
+    out.append((f"halves{SAMPLERS_HEAL}", c, bal,
+                FaultSpec.first_f(c, device=device)))
+    out.append((f"halves{SAMPLERS_HEAL}_p{SAMPLERS_DROP}",
+                SimConfig(n_nodes=n, n_faulty=n // 8,
+                          partition=f"halves:{SAMPLERS_HEAL}",
+                          drop_prob=SAMPLERS_DROP, **a), bal, none))
+    return out
+
+
+def sampler_small_extra(n, trials, device="cuda"):
+    """The branches the six do not reach, for the card-against-CPU runs:
+    equivocation on the plain sampler (CF above the bound, the exact
+    h_b table within it), the biased scheduler at strength 1.0, and at the
+    exact-table size the uniform and strict biased samplers' tables."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs
+    q = dict(trials=trials, max_rounds=MAX_ROUNDS, delivery="quorum",
+             path="histogram", seed=SEED, use_pallas_hist=False)
+    bal = balanced_inputs(trials, n)
+    none = FaultSpec.none(trials, n, device=device)
+    c = SimConfig(n_nodes=n, n_faulty=n // 5, fault_model="equivocate", **q)
+    out = [("equiv_xla_f0.20", c, bal, FaultSpec.first_f(c, device=device)),
+           ("biased_s1.0", SimConfig(n_nodes=n, n_faulty=n // 4,
+                                     scheduler="biased",
+                                     adversary_strength=1.0, **q), bal,
+            none)]
+    if (n, trials) == SAMPLERS_EXACT:
+        out += [("uniform_exact", SimConfig(n_nodes=n, n_faulty=n // 4, **q),
+                 bal, none),
+                ("biased_s1.5_exact", SimConfig(
+                    n_nodes=n, n_faulty=n // 4, scheduler="biased",
+                    adversary_strength=1.5, **q), bal, none)]
+    return out
+
+
+def first_round_differing(a, b):
+    """The first round whose recorder rows differ, or None."""
+    rows = (a.cpu() != b.cpu()).any(dim=1).nonzero()
+    return int(rows[0]) if rows.numel() else None
+
+
+def sampler_split(dev) -> None:
+    """The samplers' draws on the card against the same calls on the CPU,
+    on one round's uniforms at N = 1M x 4 (bench.py's f = 0.25 histograms):
+    the CDF tables and their exact draws, the partition's group counts
+    (integers: any difference fails), and the normal-quantile draws (the
+    two-class CF sampler, the mixed-population sampler, the biased
+    scheduler's strict and fractional forms, the thinning draw; their
+    differing counts printed)."""
+    import torch
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.faults import parse_partition
+    from benor_tpu_torch.ops import rng, sampling, tally
+    t, n = 4, N_MAIN
+    tid, nid = rng.ids(t, device=dev), rng.ids(n, device=dev)
+    u = [rng.grid_uniforms(SEED, 1, salt, tid, nid) for salt in (0, 16, 32, 48)]
+    m = n - int(SAMPLERS_F * n)
+    hist = torch.tensor([[375_000, 375_000, 0], [400_000, 300_000, 50_000],
+                         [0, 750_000, 0], [250_000, 250_000, 250_000]],
+                        dtype=torch.int32, device=dev)
+    n_equiv = torch.tensor([0, 1000, 250_000, 37], dtype=torch.int32,
+                           device=dev)
+    cpu = torch.device("cpu")
+
+    def both(fn, *args):
+        moved = [a.to(cpu) if torch.is_tensor(a) else a for a in args]
+        return fn(*args).cpu(), fn(*moved)
+
+    # the tables (host-built) and their exact draws, at the largest quorum
+    # the tables serve
+    m_t = sampling.EXACT_TABLE_MAX
+    total = torch.tensor([4096, 5000, 8192, 65_536], dtype=torch.int32,
+                         device=dev)
+    good = torch.tensor([2048, 1000, 8000, 30_000], dtype=torch.int32,
+                        device=dev)
+    tab_g, tab_c = both(sampling.hypergeom_cdf_table, total, good, m_t)
+    ex_g, ex_c = both(sampling.hypergeom_exact_shared, u[0], total, good,
+                      m_t)
+    node_ids = rng.ids(n, device=dev)
+    # favored populations above and below the tables' m, both parities
+    hist_t = torch.tensor([[5000, 3000, 500], [3000, 5000, 0],
+                           [4096, 4096, 0], [2000, 2000, 3000]],
+                          dtype=torch.int32, device=dev)
+    cfg = SimConfig(n_nodes=n, n_faulty=n // 8, trials=t, delivery="all",
+                    partition="groups:3:4")
+    part = parse_partition(cfg.partition)
+    sent = (u[1] * 3).to(torch.int8)
+    honest = u[2] < 0.9
+    integer = {
+        "cdf tables": (tab_g, tab_c),
+        "exact table draws": (ex_g, ex_c),
+        "partition_counts r=1": both(tally.partition_counts, cfg, part,
+                                     sent, honest, node_ids, 1),
+        "partition_counts r=4": both(tally.partition_counts, cfg, part,
+                                     sent, honest, node_ids, 4),
+    }
+    quantile = {
+        "multivariate CF": both(sampling.multivariate_hypergeom_counts,
+                                u[0], u[1], hist, m),
+        "equivocate CF": both(sampling.equivocate_hypergeom_counts,
+                              u[2], u[0], u[1], u[3], hist, n_equiv, m),
+        "biased strict CF": both(tally.biased_priority_counts, u[0], hist,
+                                 m, node_ids),
+        "biased strict, exact tables": both(tally.biased_priority_counts,
+                                            u[0], hist_t, m_t, node_ids),
+        "biased fractional s=0.5": both(tally.biased_fractional_counts, 0.5,
+                                        u[0], u[1], hist, m, node_ids),
+        "binomial_keep p=0.05": both(
+            sampling.binomial_keep, u[3], hist.sum(-1, keepdim=True),
+            torch.tensor(0.95, dtype=torch.float32, device=dev)),
+    }
+    bad = [k for k, (g, c) in integer.items() if not torch.equal(g, c)]
+    print(f"[samplers] split card vs cpu over {t} x {n} lanes: "
+          + ", ".join(f"{k} equal {k not in bad}" for k in integer)
+          + "; normal-quantile draws differing: "
+          + ", ".join(f"{k} {int((g != c).sum())} of {g.numel()}"
+                      for k, (g, c) in quantile.items()))
+    if bad:
+        raise SystemExit(f"[samplers] card and CPU differ on {bad}")
+
+
+def samplers_phase(dev) -> None:
+    """Phase 12: the histogram path's remaining count sources and the
+    omission and partition planes at N = 1M x 32, card against CPU, the
+    draws card against CPU, one profiled run; no kernel may launch."""
+    import torch
+    from benor_tpu_torch import SimConfig, simulate
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import tally
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import balanced_inputs
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+    obs_before = pr.obs_launch_counts()
+
+    # (a) the six regimes at N = 1M x 32
+    runs = sampler_regimes(N_MAIN, TRIALS, device=dev)
+    t_runs = {}
+    for name, c, vals, fl in runs:
+        assert not tally.pallas_round_active(c) and \
+            tally.unfused_gap(c) is None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        biased = c.scheduler == "biased"
+        split = check_final(c, rounds, fin, agreement=not biased)
+        live = ~fin.killed
+        dec = int(fin.decided.sum()) / max(int(live.sum()), 1)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r2, fin2 = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_runs[name] = time.perf_counter() - t0
+        if r2 != rounds or trials_differing(fin, fin2):
+            raise SystemExit(f"[samplers] {name}: a rerun differs")
+        print(f"[samplers] {name}: N={c.n_nodes} T={c.trials} "
+              f"F={c.n_faulty} rounds {rounds} decided {dec:.6f} disagree "
+              f"{split / c.trials:.6f} ({split} trials decided both) "
+              f"simulate {sec:.4f} s trials/s {c.trials / sec:.3f}; "
+              f"init_state {t_init:.4f} s, run_consensus {t_run:.4f} s "
+              f"({c.trials / t_run:.3f} trials/s); peak_mem {peak:.1f} MiB; "
+              f"{card}")
+        if c.partition is not None:
+            # the verdict of test_partition_stalls_until_heal: every live
+            # lane decides, none before the heal (k = r + 1 > heal)
+            stalled = bool(fin.decided[live].all()) and bool(
+                (fin.k[fin.decided] > SAMPLERS_HEAL).all()) and \
+                rounds >= SAMPLERS_HEAL
+            k_min = int(fin.k[fin.decided].min())
+            print(f"[samplers] {name}: stalled until the heal at round "
+                  f"{SAMPLERS_HEAL}, then decided: {stalled} (smallest "
+                  f"decided k {k_min})")
+            if not stalled:
+                raise SystemExit(f"[samplers] {name}: did not stall until "
+                                 "the heal and then decide")
+        del fin, fin2, st
+    name, c, vals, fl = runs[1]                          # biased_s1.5
+    st = init_state(c, vals, fl)
+    breakdown("samplers", name, lambda: run_consensus(c, st, fl),
+              t_runs[name], (), torch_ops=True)
+    del st, runs
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU: the draws, then whole runs with the
+    # recorder armed (the first round whose row differs)
+    sampler_split(dev)
+    n_d, t_d = SAMPLERS_DENSE
+    dense = ("halves4_p0.05_dense", SimConfig(
+        n_nodes=n_d, n_faulty=n_d // 8, trials=t_d, max_rounds=MAX_ROUNDS,
+        delivery="all", path="dense", seed=SEED,
+        partition=f"halves:{SAMPLERS_HEAL}", drop_prob=SAMPLERS_DROP),
+        balanced_inputs(t_d, n_d))
+    shapes = SAMPLERS_SMALL + (SAMPLERS_EXACT, SAMPLERS_DENSE)
+    for n_s, t_s in shapes:
+        pick = {}
+        for d in ("cuda", "cpu"):
+            if (n_s, t_s) == SAMPLERS_DENSE:
+                name, c, vals = dense
+                pick[d] = [(name, c, vals,
+                            FaultSpec.none(t_s, n_s, device=d))]
+            elif (n_s, t_s) == SAMPLERS_EXACT:
+                pick[d] = sampler_small_extra(n_s, t_s, device=d)
+            else:
+                pick[d] = (sampler_regimes(n_s, t_s, device=d)
+                           + sampler_small_extra(n_s, t_s, device=d))
+        for (name, c, vals, fg), (_, _, _, fc) in zip(pick["cuda"],
+                                                       pick["cpu"]):
+            c = c.replace(record=True)
+            outs = {}
+            for d, fl in (("cuda", fg), ("cpu", fc)):
+                t0 = time.perf_counter()
+                outs[d] = run_consensus(c, init_state(c, vals, fl), fl)
+                outs[d] = (*outs[d], time.perf_counter() - t0)
+            (rg, fing, recg, tg), (rc, finc, recc, tcpu) = (outs["cuda"],
+                                                           outs["cpu"])
+            diff = trials_differing(fing, finc)
+            first = first_round_differing(recg, recc)
+            print(f"[samplers] card vs cpu {name} N={n_s} T={t_s} "
+                  f"F={c.n_faulty}: rounds cuda {rg} cpu {rc}, trials "
+                  f"differing {diff} of {t_s}, first round differing "
+                  f"{first} (cpu {tcpu:.2f} s, card {tg:.3f} s)")
+            if c.partition is not None and not c.drop_prob and (
+                    diff or rg != rc or first is not None):
+                # integer group histograms and threefry coins only
+                raise SystemExit(f"[samplers] {name}: card and CPU differ")
+
+    # (d) no kernel ran in this phase
+    launched = {k: fn.launches for table in tables
+                for k, fn in table.items()}
+    obs = {k: v - obs_before[k] for k, v in pr.obs_launch_counts().items()}
+    print(f"[samplers] kernel launches in the phase: {launched}, armed "
+          f"{obs}")
+    if any(launched.values()) or any(obs.values()):
+        raise SystemExit("[samplers] a kernel launched on the plain "
+                         "samplers' path")
+    print(f"[samplers] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

@@ -282,19 +282,44 @@ def test_all_cpu_run_launches_no_kernel():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(drop_prob=0.2, path="histogram"), "13"),
+    (dict(drop_prob=0.2, path="histogram"), None),
     (dict(committee_cap=4, committee_count=2, committee_size=8), "13"),
 ], ids=["omission-histogram", "committees"])
 def test_all_neighbours_still_raise(kw, item):
-    """What this slice does not bring keeps raising, by ROADMAP item."""
+    """What the port does not bring yet keeps raising, by ROADMAP item
+    (committees, item 13); omission on the histogram path (``item`` None)
+    runs now, by binomial thinning with no kernel launched
+    (tests/test_torch_hist_regimes.py holds it against JAX)."""
     cfg = bt.SimConfig(**{**_B, **kw})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
-        bt.simulate(cfg, balanced_inputs(4, 96), faults=TFaults.none(4, 96),
-                    device="cpu")
+    args = (cfg, balanced_inputs(4, 96))
+    kw = dict(faults=TFaults.none(4, 96), device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A item {item}\\)"):
+            bt.simulate(*args, **kw)
+        return
+    for ops in (thist, tround, tdense):
+        ops.reset_launches()
+    rounds, st, _ = bt.simulate(*args, **kw)
+    assert 1 <= rounds <= cfg.max_rounds
+    assert bool(st.decided.all())
+    for table in (thist.KERNELS, tround.KERNELS, tdense.KERNELS):
+        assert all(fn.launches == 0 for fn in table.values())
 
 
 def test_all_partition_raises_at_config():
-    """Partitions (item 13) raise where the JAX package parses the spec."""
-    with pytest.raises(NotImplementedError, match="item 13\\)"):
-        bt.SimConfig(**{**_B, "partition": "0-47|48-95@1-3"})
+    """A malformed partition spec raises the JAX package's ValueError, word
+    for word, where the JAX package parses it; a valid spec runs, stalling
+    every lane until the heal (k above the heal round)."""
+    bad = {**_B, "partition": "0-47|48-95@1-3"}
+    with pytest.raises(ValueError) as want:
+        JCfg(**bad)
+    with pytest.raises(ValueError) as got:
+        bt.SimConfig(**bad)
+    assert str(got.value) == str(want.value)
+    cfg = bt.SimConfig(**{**_B, "partition": "halves:3"})
+    rounds, st, _ = bt.simulate(cfg, balanced_inputs(4, 96),
+                                faulty_list=_FIRST40, device="cpu")
+    assert rounds >= 3
+    assert bool(st.decided[~st.killed].all())
+    assert bool((st.k[st.decided] > 3).all())

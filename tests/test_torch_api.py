@@ -294,13 +294,23 @@ def test_history_and_witness_methods(call, flags, match):
     (dict(backend="native"), "17"),
     (dict(heartbeat_rounds=2), "16"),
     (dict(mesh_shape=(1, 1)), "15"),
-    (dict(drop_prob=0.2, path="histogram"), "13"),
+    (dict(drop_prob=0.2, path="histogram"), None),
 ], ids=["express", "native", "heartbeat", "mesh", "omission-histogram"])
 def test_unported_launches_raise(kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
-        tapi.launch_network(4, 1, [1, 1, 0, 0], [True, False, False, False],
-                            device="cpu", **kw)
+    """The launches the port does not serve raise, naming their ROADMAP
+    item; omission on the histogram path (``item`` None) launches and runs
+    now."""
+    args = (4, 1, [1, 1, 0, 0], [True, False, False, False])
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A item {item}\\)"):
+            tapi.launch_network(*args, device="cpu", **kw)
+        return
+    net = tapi.launch_network(*args, device="cpu", **kw)
+    net.start()
+    assert net.rounds_executed >= 1
+    states = net.get_states()
+    assert len(states) == 4 and states[0]["killed"]
 
 
 def test_recorded_launch_runs():

@@ -269,17 +269,27 @@ def test_dense_round_bound_models_run(kw):
 @pytest.mark.parametrize("kw,item", [
     (dict(delivery="all", committee_cap=4, committee_count=2,
           committee_size=8), "13"),
-    (dict(delivery="all", drop_prob=0.2, path="histogram"), "13"),
+    (dict(delivery="all", drop_prob=0.2, path="histogram"), None),
     (dict(scheduler="biased", adversary_strength=1.0, path="histogram"),
-     "4"),
+     None),
 ])
 def test_dense_neighbours_still_raise(kw, item):
-    """What the dense slice does not bring keeps raising, by ROADMAP item."""
+    """What the dense slice does not bring keeps raising, by ROADMAP item
+    (committees, item 13); omission and the biased scheduler on the
+    histogram path run now (``item`` None: binomial thinning and the
+    strict-priority sampler, held against JAX in
+    tests/test_torch_hist_regimes.py)."""
     cfg = bt.SimConfig(**{**_B96, **kw})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
-        bt.simulate(cfg, balanced_inputs(4, 96), faults=TFaults.none(4, 96),
-                    device="cpu")
+    args = (cfg, balanced_inputs(4, 96))
+    kw = dict(faults=TFaults.none(4, 96), device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A item {item}\\)"):
+            bt.simulate(*args, **kw)
+        return
+    rounds, st, _ = bt.simulate(*args, **kw)
+    assert 1 <= rounds <= cfg.max_rounds
+    assert not bool((st.decided & (st.x == 2)).any())
 
 
 @pytest.mark.parametrize("kw", [

@@ -13,10 +13,13 @@ import torch
 import jax
 
 from benor_tpu.config import SimConfig as JCfg
+from benor_tpu.faults.partitions import parse_partition as jparse_partition
 from benor_tpu.ops import rng as jrng
 from benor_tpu.ops import scheduler as jsched
 from benor_tpu.ops.tally import dense_counts as j_dense_counts
 from benor_tpu_torch.config import SimConfig as TCfg
+from benor_tpu_torch.faults.partitions import (
+    parse_partition as tparse_partition)
 from benor_tpu_torch.ops import dense as tdense
 from benor_tpu_torch.ops import rng as trng
 from benor_tpu_torch.ops import scheduler as tsched
@@ -25,7 +28,8 @@ from benor_tpu_torch.ops import scheduler as tsched
 J_EDGE_UNIFORMS = jax.jit(jrng.edge_uniforms)
 J_TOP_M_MASK = jax.jit(jsched._top_m_mask, static_argnums=1)
 J_QUORUM_MASK = jax.jit(jsched.quorum_delivery_mask, static_argnums=0)
-J_OMISSION_MASK = jax.jit(jsched.omission_delivery_mask, static_argnums=0)
+J_OMISSION_MASK = jax.jit(jsched.omission_delivery_mask, static_argnums=0,
+                          static_argnames="part")
 J_FULL_MASK = jax.jit(jsched.full_delivery_mask)
 J_REALIZE_MASK = jax.jit(jsched.realize_counts_mask)
 J_DENSE_COUNTS = jax.jit(j_dense_counts)
@@ -152,12 +156,26 @@ def test_omission_delivery_mask_matches_jax(drop_p):
         assert (got == alive[:, None, :]).all()
 
 
-def test_omission_partition_epoch_is_not_ported():
-    cfg = TCfg(n_nodes=8, n_faulty=2, drop_prob=0.1, path="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13"):
-        tsched.omission_delivery_mask(cfg, 0, 1, 0,
-                                      torch.ones((1, 8), dtype=torch.bool),
-                                      0.1, part=object())
+@pytest.mark.parametrize("r", [1, 2, 3, 5])
+def test_omission_partition_epoch_is_not_ported(r):
+    """The partition epoch on the omission mask, now ported: cross-group
+    edges are lost while r < heal_round ('groups:3:3' at N = 24), as in
+    the JAX package's ``omission_delivery_mask(part=...)``."""
+    n, t = 24, 3
+    kw = dict(n_nodes=n, n_faulty=6, trials=t, delivery="all",
+              drop_prob=0.1, path="dense", partition="groups:3:3")
+    _, alive = _senders(5, t, n, 0.9)
+    jpart = jparse_partition(kw["partition"])
+    tpart = tparse_partition(kw["partition"])
+    want = np.asarray(J_OMISSION_MASK(JCfg(**kw), jax.random.key(6), r, 1,
+                                      alive, 0.1, part=jpart))
+    got = tsched.omission_delivery_mask(
+        TCfg(**kw), 6, r, 1, torch.from_numpy(alive), 0.1,
+        part=tpart).numpy()
+    np.testing.assert_array_equal(got, want)
+    grp = np.arange(n) * 3 // n
+    cross = grp[:, None] != grp[None, :]
+    assert got[:, cross].any() == (r >= tpart.heal_round)
 
 
 def test_realize_counts_mask_matches_jax_and_gives_the_counts_back():

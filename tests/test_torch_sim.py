@@ -113,11 +113,23 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     dict(debug=True),
 ])
 def test_unsupported_regimes_raise(cf_regime, kw):
+    """mesh_shape and debug raise, naming their ROADMAP item; the JAX
+    package's default sampler (use_pallas_hist=False, the plain CF draws
+    on the unfused loop) runs now."""
     base = _kw(96, 2, n_faulty=24)
     base.update(kw)
     cfg = bt.SimConfig(**base)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+    if "use_pallas_hist" not in kw:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item"):
+            bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
+        return
+    tround.reset_launches()
+    rounds, st, _ = bt.simulate(cfg, balanced_inputs(2, 96),
+                                faults=TFaults.none(2, 96), device="cpu")
+    assert 1 <= rounds <= cfg.max_rounds
+    assert all(fn.launches == 0 for fn in tround.KERNELS.values())
+    assert not bool((st.decided & (st.x == 2)).any())
 
 
 # the observability planes on the packed loop: the armed run's final state

@@ -202,14 +202,22 @@ def test_unfused_round_bound_models_run(cf_regime, kw):
     (dict(n_faulty=93), "4"),                  # quorum 3: the exact table
 ])
 def test_unfused_unsupported_regimes_raise(cf_regime, kw, item):
-    """Outside the slice the unfused loop raises, naming the ROADMAP item."""
+    """The regimes that once raised here, naming ROADMAP item ``item``, now
+    run on the unfused loop (the plain samplers of ops/sampling.py, the
+    biased scheduler's forms, binomial thinning): no gap is left, no
+    kernel is reached, and the run ends in a valid state
+    (tests/test_torch_hist_regimes.py holds such runs against JAX)."""
     base = _kw(n_faulty=24)
     base.update(kw)
     cfg = bt.SimConfig(**base)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
-        bt.simulate(cfg, balanced_inputs(T, N), faults=TFaults.none(T, N),
-                    device="cpu")
+    assert tbenor.round_gap(cfg) is None
+    thist.reset_launches()
+    rounds, st, _ = bt.simulate(cfg, balanced_inputs(T, N),
+                                faults=TFaults.none(T, N), device="cpu")
+    assert 1 <= rounds <= cfg.max_rounds
+    assert all(fn.launches == 0 for fn in thist.KERNELS.values())
+    assert not bool((st.decided & (st.x == 2)).any())
+    assert bool(((st.k >= 1) & (st.k <= rounds + 1)).all())
 
 
 @pytest.mark.parametrize("kw", [
