@@ -3,11 +3,9 @@
 ``SimConfig`` matches the JAX package's dataclass field for field (names,
 defaults, validation verdicts), so one configuration drives both packages.
 It is a plain frozen dataclass: nothing here imports torch or JAX.  The
-``recovery`` and ``partition`` spec grammars are the port's copies
-(faults/recovery.py, faults/partitions.py), validated with the JAX
-package's messages; the ``topology`` grammar is not ported yet, and a
-config that sets one raises ``NotImplementedError`` where the JAX package
-would parse it.
+``recovery``, ``partition`` and ``topology`` spec grammars are the port's
+copies (faults/recovery.py, faults/partitions.py, topo/graphs.py),
+validated with the JAX package's messages.
 """
 
 from __future__ import annotations
@@ -35,11 +33,6 @@ def unported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to benor_tpu_torch yet (ROADMAP Queue A "
         f"item {item})")
-
-
-def _unported_spec(name: str):
-    unported(f"SimConfig.{name} spec strings (the fault and structure "
-             "planes)", "13")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +155,10 @@ class SimConfig:
                     "fault_model='equivocate'")
             if self.topology is not None or self.committee_cap:
                 raise ValueError(
-                    "drop_prob does not compose with topology/committee_*")
+                    "drop_prob composes with the complete graph (and "
+                    "the partition plane) only; the structured "
+                    "delivery planes carry their own edge semantics — "
+                    "drop topology/committee_* or drop_prob")
         if self.partition is not None:
             from .faults.partitions import parse_partition
             pspec = parse_partition(self.partition)   # ValueError if bad
@@ -202,30 +198,65 @@ class SimConfig:
             # the identity spec normalizes to None, as in the JAX package
             object.__setattr__(self, "topology", None)
         if self.topology is not None:
-            _unported_spec("topology")
+            from .topo.graphs import parse_topology
+            spec = parse_topology(self.topology)   # ValueError if malformed
+            spec.validate(self.n_nodes)
+            if self.delivery != "all":
+                raise ValueError(
+                    "topology replaces the complete graph with a "
+                    "deterministic neighbor fan-in — the quorum-subset "
+                    "delivery model has no meaning on it; use "
+                    "delivery='all'")
+            if self.backend != "tpu":
+                raise ValueError(
+                    "topology runs the device delivery plane "
+                    "(benor_tpu/topo); the event-loop oracles only "
+                    "implement the complete graph — a silent no-op "
+                    "would fake the structured semantics, so use "
+                    "backend='tpu'")
+            if self.committee_cap:
+                raise ValueError(
+                    "topology and committee_cap are mutually exclusive "
+                    "delivery planes; arm one")
         if self.committee_cap < 0 or self.committee_count < 0 or \
                 self.committee_size < 0:
             raise ValueError("committee knobs must be >= 0")
         if self.committee_cap:
             if not (1 <= self.committee_count <= self.committee_cap):
                 raise ValueError(
-                    "committee_count must be in [1, committee_cap]")
+                    "committee_count must be in [1, committee_cap] "
+                    f"(got {self.committee_count} with "
+                    f"cap={self.committee_cap}): the cap is the static "
+                    "per-committee histogram bound the traced count "
+                    "must fit under")
             if self.committee_cap > self.n_nodes:
-                raise ValueError("committee_cap must be <= n_nodes")
+                raise ValueError(
+                    "committee_cap must be <= n_nodes (more committees "
+                    "than nodes cannot all be populated)")
             if self.committee_size < 1:
                 raise ValueError(
-                    "committee_size must be >= 1 when committee_cap is set")
+                    "committee_size must be >= 1 when committee_cap "
+                    "arms committee delivery")
             if self.delivery != "all":
-                raise ValueError("committee delivery needs delivery='all'")
+                raise ValueError(
+                    "committee delivery samples its own membership — "
+                    "the quorum-subset delivery model has no meaning "
+                    "on it; use delivery='all'")
             if self.backend != "tpu":
-                raise ValueError("committee delivery needs backend='tpu'")
+                raise ValueError(
+                    "committee delivery runs the device delivery plane "
+                    "(benor_tpu/topo); the event-loop oracles only "
+                    "implement the complete graph, so use backend='tpu'")
             if self.fault_model == "equivocate":
                 raise ValueError(
                     "fault_model='equivocate' is not supported with "
-                    "committee delivery")
+                    "committee delivery (per-edge equivocation is "
+                    "complete-graph / topology machinery); use crash, "
+                    "crash_at_round or byzantine")
         elif self.committee_count or self.committee_size:
             raise ValueError(
-                "committee_count/committee_size require committee_cap")
+                "committee_count/committee_size require committee_cap "
+                "(the static histogram bound); set all three or none")
         if self.poll_rounds < 0:
             raise ValueError("poll_rounds must be >= 0")
         if self.heartbeat_rounds < 0:

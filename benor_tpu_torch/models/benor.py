@@ -16,16 +16,21 @@ differing fractions ops/sampling.py states).  The counts are only read
 here: under ``delivery='all'`` they may be an expanded view of a [T, 3]
 histogram.  Under ``drop_prob`` or a partition a receiver that cleared
 fewer than N - F messages in either phase stalls for the round (the
-per-lane quorum gate).
+per-lane quorum gate; d + 1 - F of its neighbourhood under a topology).
+
+Structured delivery (topo/): under ``cfg.topology`` the tallies come from
+each receiver's d + 1 graph neighbourhood (``receiver_counts`` dispatches
+to topo/deliver.py); under ``cfg.committee_cap`` from this round's sampled
+committee, whose membership is drawn once a round and masks ``active``,
+so non-participants sit the round out with frozen state.  The decide rule
+is unchanged: count > F, read against the neighbourhood or committee.
 
 Every fault model is served: ``crash`` (killed at birth), ``byzantine``,
 ``equivocate``, ``crash_at_round`` (a lane dies at the start of its crash
 round) and ``crash_recover`` (down-intervals with durable or amnesia
 rejoins, faults/recovery.py), liveness re-derived from the round bounds at
 the start of every round.  A round writes the flight recorder's row and
-the witness row when it is handed their buffers (benor.py:349-370); the
-regimes the port does not serve yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+the witness row when it is handed their buffers (benor.py:349-370).
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from ..ops import hist as hist_ops
 from ..ops import rng, tally
 from ..state import (FaultSpec, NetState, recorder_round_row,
                      recorder_write, witness_select, witness_write)
+from ..topo import committees
+from ..topo.graphs import parse_topology
 
 _FAULT_MODELS = ("crash", "byzantine", "equivocate", "crash_at_round",
                  "crash_recover")
@@ -61,10 +68,10 @@ def _sent_values(cfg: SimConfig, x: torch.Tensor,
 
 def round_gap(cfg: SimConfig):
     """(what, ROADMAP item) of the first part of ``benor_round`` the port
-    lacks for ``cfg``, or None."""
+    lacks for ``cfg``, or None: only a fault model it does not know."""
     if cfg.fault_model not in _FAULT_MODELS:
         return f"fault_model={cfg.fault_model!r}", "8"
-    return tally.unfused_gap(cfg)
+    return None
 
 
 def _start_of_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
@@ -154,14 +161,30 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
         torch.zeros_like(state.decided)
     active = alive & quorum_ok & ~frozen
 
+    # committee delivery: this round's membership, drawn once for both
+    # phases; non-participants sit the round out and go silent
+    member = com_id = None
+    if cfg.committee_cap:
+        member, com_id = committees.membership(
+            cfg, seed, r, rng.ids(t, device=x_cur.device),
+            rng.ids(n, device=x_cur.device), cfg.committee_count,
+            cfg.committee_size)
+        active = active & member
+
     equiv = faults.faulty if cfg.fault_model == "equivocate" else None
     n_equiv = (equiv & alive).sum(-1, dtype=torch.int32) \
         if equiv is not None else None
 
+    def counts(phase, sent):
+        if member is not None:
+            return committees.committee_counts(cfg, sent, alive & member,
+                                               com_id)
+        return tally.receiver_counts(cfg, seed, r, phase, sent, alive,
+                                     equiv, n_equiv)
+
     # --- phase 1: proposal -----------------------------------------------
     sent1 = _sent_values(cfg, x_cur, faults)
-    cnt1 = tally.receiver_counts(cfg, seed, r, rng.PHASE_PROPOSAL, sent1,
-                                 alive, equiv, n_equiv)      # [T, N, 3]
+    cnt1 = counts(rng.PHASE_PROPOSAL, sent1)                 # [T, N, 3]
     p0, p1 = cnt1[..., 0], cnt1[..., 1]
     # majority -> value, tie -> "?"
     x1 = torch.where(p0 > p1, VAL0,
@@ -180,13 +203,15 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     # a frozen decided lane keeps vouching for its decided value
     vote_val = torch.where(frozen, x_cur, x1)
     sent2 = _sent_values(cfg, vote_val, faults)
-    cnt2 = tally.receiver_counts(cfg, seed, r, rng.PHASE_VOTE, sent2, alive,
-                                 equiv, n_equiv)
+    cnt2 = counts(rng.PHASE_VOTE, sent2)
     v0, v1 = cnt2[..., 0], cnt2[..., 1]
     if got1 is not None:
         # per-lane quorum gate: a receiver that cleared fewer than N - F
-        # messages in either phase stalls this round (commits only)
-        active = active & (got1 >= m) & (cnt2.sum(-1) >= m)
+        # messages in either phase stalls this round (commits only); under
+        # a topology the bar is d + 1 - F of the d + 1 neighbourhood
+        bar = (parse_topology(cfg.topology).degree + 1 - f
+               if cfg.topology is not None else m)
+        active = active & (got1 >= bar) & (cnt2.sum(-1) >= bar)
 
     decide0 = v0 > f
     decide1 = v1 > f

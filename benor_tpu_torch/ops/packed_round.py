@@ -1379,9 +1379,12 @@ def run_packed_slice(cfg, state, faults, seed, from_round, until_round,
     ``witness`` continue the buffers of an earlier slice (copied, then
     written a row a round); None starts fresh ones from ``state``.  The
     accumulator int32 [2, telemetry_tiles, TELEM_WIDTH] is this call's
-    rounds only, so a sliced run's add up to the one-shot run's."""
+    rounds only, so a sliced run's add up to the one-shot run's.  Under
+    cfg.debug every round emits its event (utils/tracing.py) from the
+    unpacked state after it, in order."""
     from ..state import (new_recorder, new_witness, recorder_write,
                          witness_write)
+    from ..utils.tracing import emit_round_event
 
     n_local = state.x.shape[-1]
     if cfg.record:
@@ -1412,6 +1415,8 @@ def run_packed_slice(cfg, state, faults, seed, from_round, until_round,
             recorder_write(recorder, r, row)
         if cfg.witness:
             witness_write(witness, r, wrow)
+        if cfg.debug:
+            emit_round_event(unpack_state(pack, n_local))
         unsettled = int(unsett.sum())
         r += 1
     extras = tuple(b for b, on in ((recorder, cfg.record),

@@ -3,9 +3,11 @@ benor_tpu/ops/tally.py).
 
 The gates are kept verbatim so the port dispatches exactly where the JAX
 package does.  ``receiver_counts`` serves every regime of the JAX
-function but adjacency topologies and committees (ROADMAP Queue A item
-13's remainder):
+function:
 
+- an adjacency topology (``cfg.topology``), before every other branch:
+  each receiver's d + 1 neighbourhood, gathered by topo/deliver.py
+  (committees tally in models/benor.py, through topo/committees.py);
 - ``delivery='all'``, on either path: every receiver tallies the trial's
   class histogram, or under a partition epoch its group's
   (``partition_counts``: [T, G, 3] sums over the sender groups); live
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import SimConfig, VAL0, VAL1, VALQ, unported
+from ..config import SimConfig, VAL0, VAL1, VALQ
 from . import dense as dense_ops
 from . import hist as hist_ops
 from . import rng, sampling, scheduler
@@ -117,15 +119,6 @@ def dense_counts(mask: torch.Tensor, sent: torch.Tensor,
     onehot = torch.stack([((sent == v) & alive).to(torch.float32)
                           for v in (VAL0, VAL1, VALQ)], dim=-1)  # [T, S, 3]
     return torch.bmm(mask.to(torch.float32), onehot).to(torch.int32)
-
-
-def unfused_gap(cfg: SimConfig):
-    """(what, ROADMAP item) of the first branch of the unfused round's
-    tally that the port lacks for ``cfg``, or None when the port serves
-    every tally: only adjacency topologies and committees are left."""
-    if cfg.topology is not None or cfg.committee_cap:
-        return "topology / committee delivery", "13"
-    return None
 
 
 def targeted_camp_sizes(cfg: SimConfig) -> tuple:
@@ -463,9 +456,13 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
     path reads it).  ``trial_ids`` / ``recv_ids``: the global ids that key
     the dense path's per-edge streams and the equivocator split's lane
     streams (default 0..T-1 / 0..N-1)."""
-    gap = unfused_gap(cfg)
-    if gap is not None:
-        unported(*gap)
+    if cfg.topology is not None:
+        # each receiver tallies its d graph neighbours and itself (an
+        # O(N * d) gather); delivery='all' is required, so no scheduler
+        # below composes with it
+        from ..topo.deliver import neighborhood_counts
+        return neighborhood_counts(cfg, seed, r, phase, sent, alive, equiv,
+                                   trial_ids, recv_ids)
     t, n = sent.shape
     honest = alive if equiv is None else (alive & ~equiv)
     if equiv is not None and n_equiv is None:

@@ -1,4 +1,4 @@
-"""Simulation entry points (port of benor_tpu/sim.py:189-192, 245-457).
+"""Simulation entry points (port of benor_tpu/sim.py:28-192, 245-457).
 
 Two round loops, as in the JAX package: the packed loop
 (ops/packed_round.py, the fused round kernels) when
@@ -6,8 +6,7 @@ Two round loops, as in the JAX package: the packed loop
 histogram path and the count-controlling adversaries (``scheduler=
 'adversarial'`` / ``'targeted'``, their closed-form counts), under every
 coin and fault model — and the unfused loop (models/benor.py) otherwise,
-which serves every regime of the JAX package's ``receiver_counts`` but
-adjacency topologies and committees:
+which serves every regime of the JAX package's round:
 
 - ``delivery='all'`` (the JAX package's default; on either path) tallies
   the broadcast histogram in plain torch, no kernel, as the JAX package
@@ -27,19 +26,29 @@ adjacency topologies and committees:
   schedulers: explicit [T, N, N] delivery masks (ops/scheduler.py) tallied
   exactly (ops/dense.py);
 - under the count-controlling adversaries, on either path, the
-  closed-form counts of ops/tally.py.
+  closed-form counts of ops/tally.py;
+- the structured delivery planes (``delivery='all'``): an adjacency
+  topology's d + 1 neighbourhood gathers (topo/deliver.py) and per-round
+  sampled committees (topo/committees.py).
 
 All take every fault model — crash, byzantine, equivocate, crash_at_round
 and crash_recover (down-intervals with durable or amnesia rejoins,
 faults/recovery.py) — private, common or weak-common coins, either
-decision rule, freeze on or off.  Topologies, committees, ``mesh_shape``
-and ``debug`` raise ``NotImplementedError`` naming the ROADMAP item that
-will bring them; nothing falls back to another path.  Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.
+decision rule, freeze on or off.  ``debug=True`` emits one event a round
+to the sinks of utils/tracing.py after every round of either loop; on a
+packed-eligible config the round kernels still run, and the packed loop
+unpacks its plane stack after every round to read the event, as the JAX
+package's debug loop calls the same kernels between a pack and an unpack
+every round; that is announced once per process, as the JAX package
+announces its own demotions (``warn_*``).  ``mesh_shape`` raises
+``NotImplementedError`` naming ROADMAP Queue A item 15; nothing falls back
+to another path.  Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -49,6 +58,103 @@ from .models import benor
 from .ops import packed_round, tally
 from .state import (FaultSpec, NetState, init_state, new_recorder,
                     new_witness)
+from .utils.tracing import emit_round_event
+
+#: One warning per process for each demotion the announcers below name.
+_debug_demotion_warned = False
+_structured_demotion_warned = False
+_faults_demotion_warned = False
+
+
+def delivery_plane(cfg: SimConfig) -> str:
+    """Which delivery plane serves this config: 'topology' (adjacency
+    neighbour fan-in, topo/deliver.py), 'committee' (per-round sampled
+    committees, topo/committees.py) or 'complete' (all-to-all).  The
+    round kernels only ever serve 'complete'."""
+    if cfg.topology is not None:
+        return "topology"
+    if cfg.committee_cap:
+        return "committee"
+    return "complete"
+
+
+def injection_plane(cfg: SimConfig) -> tuple:
+    """Which dynamic fault families this config arms, in fixed order:
+    'crash_recover' (per-node down-intervals), 'omission' (per-edge iid
+    drops, cfg.drop_prob) and 'partition' (epoch group masks,
+    cfg.partition).  crash_recover runs on the round kernels; omission
+    and partitions live on the delivery='all' plane, which they never
+    serve."""
+    fams = []
+    if cfg.fault_model == "crash_recover" or cfg.recovery is not None:
+        fams.append("crash_recover")
+    if cfg.drop_prob:
+        fams.append("omission")
+    if cfg.partition is not None:
+        fams.append("partition")
+    return tuple(fams)
+
+
+def warn_faults_demote_pallas(cfg: SimConfig) -> None:
+    """Omission and partitions require delivery='all', which every
+    fused-kernel gate rejects, so a use_pallas_round / use_pallas_hist
+    config with either armed runs the unfused loop: announced once per
+    process, with the JAX package's text."""
+    global _faults_demotion_warned
+    if _faults_demotion_warned:
+        return
+    _faults_demotion_warned = True
+    warnings.warn(
+        "SimConfig(use_pallas_round/use_pallas_hist) has no effect with "
+        f"the {'/'.join(injection_plane(cfg))} fault plane armed: the "
+        "fused kernels implement lossless complete-graph delivery only, "
+        "so this run takes the per-round XLA loop.  Results are exactly "
+        "the armed plane's semantics; only the kernel-speed expectation "
+        "is off.  (crash_recover alone does NOT demote — the kernels "
+        "re-derive down-intervals in-register.)",
+        stacklevel=3)
+
+
+def warn_structured_demotes_pallas(cfg: SimConfig) -> None:
+    """A structured delivery plane (cfg.topology / cfg.committee_cap)
+    requires delivery='all', which every fused-kernel gate rejects, so a
+    use_pallas_round / use_pallas_hist config runs the unfused loop:
+    announced once per process, with the JAX package's text."""
+    global _structured_demotion_warned
+    if _structured_demotion_warned:
+        return
+    _structured_demotion_warned = True
+    warnings.warn(
+        "SimConfig(use_pallas_round/use_pallas_hist) has no effect under "
+        f"the {delivery_plane(cfg)!r} delivery plane: the fused kernels "
+        "implement the complete graph only, so this run takes the "
+        "per-round XLA loop (the topo gather/scatter tallies).  Results "
+        "are exactly the structured plane's semantics; only the "
+        "kernel-speed expectation is off.",
+        stacklevel=3)
+
+
+def warn_debug_demotes_pallas(cfg: SimConfig) -> None:
+    """cfg.debug on a packed-eligible config: the round kernels carry no
+    host callback, so the packed loop unpacks its plane stack and reads
+    the event's three sums after every round, where it otherwise reads
+    one count (the JAX package packs and unpacks around the same kernels
+    every round).  The results are the packed run's; the run is slower.
+    Announced once per process, with the JAX package's text; cfg.record
+    observes without that cost."""
+    global _debug_demotion_warned
+    if _debug_demotion_warned:
+        return
+    _debug_demotion_warned = True
+    warnings.warn(
+        "SimConfig(debug=True) demotes this fused-pallas-eligible config "
+        "to the per-round XLA loop (host debug callbacks cannot run "
+        "inside the packed kernels): results are bit-identical via the "
+        "XLA samplers' own streams only where the paths share streams, "
+        "and the run is substantially slower.  For non-perturbing "
+        "per-round telemetry use SimConfig(record=True) — the flight "
+        "recorder fills on-device inside the fused loop.",
+        stacklevel=3)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,13 +178,9 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError unless one of the port's loops serves
-    cfg: the packed loop where ``tally.pallas_round_active``, else the
-    unfused loop, which lacks only topology and committee delivery
-    (``tally.unfused_gap``)."""
+    cfg: only ``mesh_shape`` (sharded runs) is left."""
     if cfg.mesh_shape is not None:
         unported("mesh_shape (sharded runs)", "15")
-    if cfg.debug:
-        unported("debug=True (the per-round host callback)", "5")
     if not tally.pallas_round_active(cfg):
         gap = benor.round_gap(cfg)
         if gap is not None:
@@ -102,7 +204,8 @@ def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
     of an earlier slice are continued (copied); None starts fresh ones
     from ``state``.  kernel_telemetry counts work inside the round kernels,
     which this loop does not run: it adds nothing here, as in the JAX
-    package."""
+    package.  Under cfg.debug every round emits its event after it
+    (utils/tracing.py), in order."""
     rec = wit = None
     if cfg.record:
         rec = (new_recorder(cfg, state) if recorder is None
@@ -114,6 +217,8 @@ def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
             not bool(benor.all_settled(state)):
         out = benor.benor_round(cfg, state, faults, seed, r, rec, wit)
         state = out if rec is None and wit is None else out[0]
+        if cfg.debug:
+            emit_round_event(state)
         r += 1
     return (r, state, *(b for b in (rec, wit) if b is not None))
 
@@ -121,10 +226,14 @@ def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
 def _slice(cfg, state, faults, from_round, until_round, recorder=None,
            witness=None):
     """The loop that serves cfg, from ``from_round`` up to (not including)
-    ``until_round`` -> (next_round, state, *the armed buffers)."""
+    ``until_round`` -> (next_round, state, *the armed buffers).  A
+    packed-eligible config under cfg.debug is announced where every JAX
+    entry point announces it, and runs the packed loop."""
     check_supported(cfg)
-    run = (packed_round.run_packed_slice if tally.pallas_round_active(cfg)
-           else _unfused_slice)
+    packed = tally.pallas_round_active(cfg)
+    if cfg.debug and packed:
+        warn_debug_demotes_pallas(cfg)
+    run = packed_round.run_packed_slice if packed else _unfused_slice
     return run(cfg, state, faults, cfg.seed, from_round, until_round,
                recorder, witness)
 
@@ -135,7 +244,17 @@ def run_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec):
     flight recorder (cfg.record), witness buffer (cfg.witness) and, on the
     packed loop, the stage-counter accumulator (cfg.kernel_telemetry), in
     that order.  cfg.seed keys every stream exactly as
-    ``jax.random.key(cfg.seed)`` keys the JAX package's."""
+    ``jax.random.key(cfg.seed)`` keys the JAX package's.  A config that
+    asks for the fused kernels (use_pallas_round / use_pallas_hist) on a
+    plane they never serve — a structured delivery plane, omission or a
+    partition — is announced once per process, as the JAX package's
+    ``run_consensus_traced`` does."""
+    if tally.pallas_requested(cfg):
+        if delivery_plane(cfg) != "complete":
+            warn_structured_demotes_pallas(cfg)
+        if not tally.pallas_round_active(cfg) and \
+                (cfg.drop_prob or cfg.partition is not None):
+            warn_faults_demote_pallas(cfg)
     r, *rest = _slice(cfg, start_state(cfg, state), faults, 1,
                       cfg.max_rounds + 2)
     return (r - 1, *rest)

@@ -134,7 +134,24 @@ Phases (any failure ends the run non-zero; nothing is caught):
      strength 1.0), 4096 x 8 (the exact tables) and 1024 x 4 (the dense
      path's partition epoch with omission), card against CPU with the
      first differing round; no kernel may launch in the phase;
- 13. the kernels line, the card line, and the result line.
+ 13. ``[topo]``: adjacency topologies, sampled committees and the
+     debug callback; no kernel on the structured planes.  The degree ladder of
+     the JAX package's science harness (ring:2, ring:4, ring:8,
+     torus2d:1000x1000, random_regular:6:1; F = d, zero crashes,
+     per-trial random inputs, max_rounds 32), the committee ladder
+     (count = cap = 4, sizes N/16, N/8, N/4, F = 1) and the fault mixes
+     on ring:8 with F = 8 (byzantine and equivocate with the first 5 %
+     faulty, 'halves:4', crash_at_round with the first 5 % dying at round
+     2) and a byzantine committee mix, at N = 1M x 32: rounds, decided and
+     disagree fractions, the smallest decided k, trials/s over simulate
+     and over run_consensus, peak memory; ``[breakdown] topo`` of ring:8
+     and of the N/8 committee; the same runs at 8192 x 8 (torus2d:64x128)
+     card against CPU, every trial and every recorder row equal;
+     'complete' equal to no topology; no kernel may launch; then
+     debug=True on a packed-eligible config at 8192 x 32: the demotion
+     warning, one event a round, the final state and the round kernel
+     launches equal to the packed run's;
+ 14. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1848,7 +1865,10 @@ def main() -> int:
     # --- 12. the plain samplers, omission and partitions (no kernel) -------
     samplers_phase(dev)
 
-    # --- 13. the kernels line, the card, the result ------------------------
+    # --- 13. topologies, committees and the debug callback ---------------
+    topo_phase(dev)
+
+    # --- 14. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3916,8 +3936,7 @@ def samplers_phase(dev) -> None:
     runs = sampler_regimes(N_MAIN, TRIALS, device=dev)
     t_runs = {}
     for name, c, vals, fl in runs:
-        assert not tally.pallas_round_active(c) and \
-            tally.unfused_gap(c) is None
+        assert not tally.pallas_round_active(c)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
@@ -4019,6 +4038,261 @@ def samplers_phase(dev) -> None:
         raise SystemExit("[samplers] a kernel launched on the plain "
                          "samplers' path")
     print(f"[samplers] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [topo] phase: topologies, committees and the debug callback ------
+
+TOPO_MAX_ROUNDS = 32      # results.topo_curves' round cap
+TOPO_FAULTY = 0.05        # the fault mixes' faulty share (the first lanes)
+TOPO_MIX_SPEC = "ring:8"
+TOPO_SMALL = (8192, 8)    # card against CPU (torus2d:64x128 for the torus)
+TOPO_DEBUG = (8192, 32)   # the debug run's north-star shape
+TOPO_EQUIV_CPU_ROUNDS = 6  # the equivocate mix's rounds held card vs CPU
+
+
+def topo_degree_specs(n):
+    """The degree ladder of the JAX package's science harness
+    (benor_tpu/topo/curves.py default_degree_specs): rings of degree 2, 4
+    and 8, the square torus where N is a square (64 x 128 at N = 8192),
+    random_regular:6:1.  F = d on each (curves.unanimity_fault)."""
+    import math
+    side = math.isqrt(n)
+    specs = ["ring:2", "ring:4", "ring:8"]
+    if side * side == n and side >= 3:
+        specs.append(f"torus2d:{side}x{side}")
+    elif n == 8192:
+        specs.append("torus2d:64x128")
+    specs.append("random_regular:6:1")
+    return specs
+
+
+def topo_runs(n, trials, device="cuda"):
+    """(name, config, inputs, faults) of the [topo] runs at N = n: the
+    degree ladder (F = d, zero crashes, per-trial random inputs); the
+    committee ladder of results.topo_curves (count = cap = 4, sizes N/16,
+    N/8 and N/4, F = 1, zero crashes); the fault mixes on ring:8 with
+    F = 8 (byzantine and equivocate with the first 5 % of the lanes faulty,
+    'halves:4' with no crashes, crash_at_round with the first 5 % dying
+    at round 2) and the committee mix (size N/8, byzantine 5 %)."""
+    import torch
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import random_inputs
+    base = dict(trials=trials, max_rounds=TOPO_MAX_ROUNDS, seed=SEED)
+    vals = random_inputs(SEED, trials, n)
+    none = FaultSpec.none(trials, n, device=device)
+    first = torch.zeros((trials, n), dtype=torch.bool, device=device)
+    first[:, :int(TOPO_FAULTY * n)] = True
+
+    def mix(crash_round=0):
+        return FaultSpec(first, torch.where(
+            first, crash_round, 0).to(torch.int32))
+
+    out = []
+    for spec in topo_degree_specs(n):
+        d = int(spec.split(":")[1]) if not spec.startswith("torus") else 4
+        out.append((f"degree_{spec}", SimConfig(
+            n_nodes=n, n_faulty=d, topology=spec, **base), vals, none))
+    for size in (n // 16, n // 8, n // 4):
+        out.append((f"committee_c{size}", SimConfig(
+            n_nodes=n, n_faulty=1, committee_cap=4, committee_count=4,
+            committee_size=size, **base), vals, none))
+    ring = dict(n_nodes=n, n_faulty=8, topology=TOPO_MIX_SPEC, **base)
+    out += [
+        ("ring8_byzantine", SimConfig(fault_model="byzantine", **ring),
+         vals, mix()),
+        ("ring8_equivocate", SimConfig(fault_model="equivocate", **ring),
+         vals, mix()),
+        ("ring8_halves4", SimConfig(partition="halves:4", **ring), vals,
+         none),
+        ("ring8_crash_at_2", SimConfig(fault_model="crash_at_round", **ring),
+         vals, mix(2)),
+        ("committee_byzantine", SimConfig(
+            n_nodes=n, n_faulty=1, committee_cap=4, committee_count=4,
+            committee_size=n // 8, fault_model="byzantine", **base), vals,
+         mix()),
+    ]
+    return out
+
+
+def topo_phase(dev) -> None:
+    """Phase 13: topologies, committees and the debug callback.  The
+    degree ladder, the committee ladder and the fault mixes at N = 1M x 32
+    (rounds, decided and disagree fractions, the smallest decided k,
+    trials/s over simulate and over run_consensus, peak memory), two
+    profiled runs, card against CPU at 8192 x 8 (every trial and every
+    recorder row equal), 'complete' against no topology, zero kernel
+    launches; then debug=True on a packed-eligible config at 8192 x 32:
+    the demotion warning, one event a round, the final state and the
+    round kernel launches equal to the packed run's."""
+    import warnings
+    import torch
+    from benor_tpu_torch import SimConfig, simulate
+    from benor_tpu_torch import sim as tsim
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import tally
+    from benor_tpu_torch.sim import run_consensus
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import balanced_inputs, random_inputs
+    from benor_tpu_torch.utils import tracing
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+    obs_before = pr.obs_launch_counts()
+
+    # (a) the ladders and the mixes at N = 1M x 32
+    runs = topo_runs(N_MAIN, TRIALS, device=dev)
+    t_runs = {}
+    for name, c, vals, fl in runs:
+        assert not tally.pallas_round_active(c)
+        assert tsim.delivery_plane(c) != "complete"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rounds, fin, _ = simulate(c, vals, faults=fl, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        # agreement is counted, not asserted: two regions of a sparse
+        # graph, or two committees, may each decide their own value
+        split = check_final(c, rounds, fin, agreement=False)
+        live = ~fin.killed
+        dec = int(fin.decided.sum()) / max(int(live.sum()), 1)
+        k_min = (int(fin.k[fin.decided].min()) if bool(fin.decided.any())
+                 else None)
+        t0 = time.perf_counter()
+        st = init_state(c, vals, fl)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r2, fin2 = run_consensus(c, st, fl)
+        torch.cuda.synchronize()
+        t_run = t_runs[name] = time.perf_counter() - t0
+        if r2 != rounds or trials_differing(fin, fin2):
+            raise SystemExit(f"[topo] {name}: a rerun differs")
+        print(f"[topo] {name}: N={c.n_nodes} T={c.trials} F={c.n_faulty} "
+              f"plane {tsim.delivery_plane(c)} rounds {rounds} decided "
+              f"{dec:.6f} disagree {split / c.trials:.6f} ({split} trials "
+              f"decided both) smallest decided k {k_min}; simulate "
+              f"{sec:.4f} s trials/s {c.trials / sec:.3f}; init_state "
+              f"{t_init:.4f} s, run_consensus {t_run:.4f} s "
+              f"({c.trials / t_run:.3f} trials/s); peak_mem {peak:.1f} MiB; "
+              f"{card}")
+        del fin, fin2, st
+    for name in ("degree_ring:8", f"committee_c{N_MAIN // 8}"):
+        _, c, vals, fl = next(r for r in runs if r[0] == name)
+        st = init_state(c, vals, fl)
+        breakdown("topo", name, lambda: run_consensus(c, st, fl),
+                  t_runs[name], (), torch_ops=True)
+    del st, runs
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU at 8192 x 8, the recorder armed: integer
+    # gathers and threefry streams only, so any difference fails.  The
+    # equivocate mix draws 8192 x 8 x 9 edge bits a phase in int64 threefry,
+    # seconds a round on the host: its first TOPO_EQUIV_CPU_ROUNDS rounds
+    n_s, t_s = TOPO_SMALL
+    for (name, c, vals, fg), (_, _, _, fc) in zip(
+            topo_runs(n_s, t_s, device="cuda"),
+            topo_runs(n_s, t_s, device="cpu")):
+        c = c.replace(record=True)
+        if c.fault_model == "equivocate":
+            c = c.replace(max_rounds=TOPO_EQUIV_CPU_ROUNDS)
+        outs = {}
+        for d, fl in (("cuda", fg), ("cpu", fc)):
+            t0 = time.perf_counter()
+            outs[d] = (*run_consensus(c, init_state(c, vals, fl), fl),
+                       time.perf_counter() - t0)
+        (rg, fing, recg, tg), (rc, finc, recc, tcpu) = (outs["cuda"],
+                                                       outs["cpu"])
+        diff = trials_differing(fing, finc)
+        first = first_round_differing(recg, recc)
+        print(f"[topo] card vs cpu {name} N={n_s} T={t_s} F={c.n_faulty}: "
+              f"rounds cuda {rg} cpu {rc}, trials differing {diff} of "
+              f"{t_s}, first recorder row differing {first} (cpu "
+              f"{tcpu:.2f} s, card {tg:.3f} s)")
+        if rg != rc or diff or first is not None:
+            raise SystemExit(f"[topo] {name}: card and CPU differ")
+
+    # (c) 'complete' is the run without a topology
+    fin = {}
+    for topo in ("complete", None):
+        c = SimConfig(n_nodes=n_s, n_faulty=n_s // 5, trials=t_s,
+                      max_rounds=TOPO_MAX_ROUNDS, seed=SEED, topology=topo)
+        fin[topo] = simulate(c, random_inputs(SEED, t_s, n_s),
+                             [i < c.n_faulty for i in range(n_s)],
+                             device="cuda")
+    same = (fin["complete"][0] == fin[None][0]
+            and not trials_differing(fin["complete"][1], fin[None][1]))
+    print(f"[topo] 'complete' at N={n_s} T={t_s}: rounds "
+          f"{fin['complete'][0]}, equal to the run without a topology: "
+          f"{same}")
+    if not same:
+        raise SystemExit("[topo] 'complete' differs from no topology")
+
+    # (d) no kernel ran on the structured planes
+    launched = {k: fn.launches for table in tables
+                for k, fn in table.items()}
+    obs = {k: v - obs_before[k] for k, v in pr.obs_launch_counts().items()}
+    print(f"[topo] kernel launches on the structured planes: {launched}, "
+          f"armed {obs}")
+    if any(launched.values()) or any(obs.values()):
+        raise SystemExit("[topo] a kernel launched on a structured plane")
+
+    # (e) debug=True on a packed-eligible config: the packed loop,
+    # announced, one event a round, the packed run's final state and its
+    # round kernel launches
+    n_d, t_d = TOPO_DEBUG
+    c = SimConfig(n_nodes=n_d, n_faulty=int(0.40 * n_d),
+                  **{**MAIN_RUN, "trials": t_d})
+    vals = balanced_inputs(t_d, n_d)
+    fl = FaultSpec.none(t_d, n_d, device=dev)
+    pr.reset_launches()
+    packed = simulate(c, vals, faults=fl, device="cuda")
+    packed_launches = {k: fn.launches for k, fn in pr.KERNELS.items()}
+    events = []
+
+    def sink(*row):
+        events.append(row)
+    pr.reset_launches()
+    tsim._debug_demotion_warned = False
+    tracing.add_sink(sink)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            rounds, st, _ = simulate(c.replace(debug=True), vals, faults=fl,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+    finally:
+        tracing.remove_sink(sink)
+    debug_launches = {k: fn.launches for k, fn in pr.KERNELS.items()}
+    round_launches = sum(debug_launches.values())
+    warned = [str(w.message) for w in caught
+              if "debug=True" in str(w.message)]
+    print(f"[topo] debug warning: {warned[0] if warned else None}")
+    ok = (bool(warned) and len(events) == rounds == packed[0]
+          and [e[0] for e in events] == list(range(2, rounds + 2))
+          and events[-1][1] == int(st.decided.sum())
+          and not trials_differing(st, packed[1])
+          and debug_launches == packed_launches
+          and round_launches > 0 and round_launches % len(events) == 0)
+    print(f"[topo] debug N={n_d} T={t_d} F={c.n_faulty}: {len(events)} "
+          f"events over {rounds} rounds, last {events[-1] if events else None}"
+          f", final decided {int(st.decided.sum())}, equal to the packed "
+          f"run: {not trials_differing(st, packed[1])}, round kernel "
+          f"launches {debug_launches} (packed run {packed_launches}), "
+          f"histogram kernel launches "
+          f"{sum(fn.launches for fn in hk.KERNELS.values())}; simulate "
+          f"{sec:.4f} s: {ok}")
+    if not ok:
+        raise SystemExit("[topo] the debug run failed its checks")
+    print(f"[topo] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

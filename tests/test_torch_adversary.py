@@ -25,15 +25,17 @@ from benor_tpu_torch.ops import scheduler as tsched
 from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 J_ADV = jax.jit(jtally.adversarial_counts, static_argnums=1)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -132,17 +134,25 @@ def _faults(cfg, pkg):
     return pkg.none(cfg.trials, cfg.n_nodes)
 
 
-def _same_unfused_run(kw):
-    jc, tc = JCfg(**kw), bt.SimConfig(**kw)
-    vals = balanced_inputs(tc.trials, tc.n_nodes)
+def _jax_unfused_run(kw):
+    """The JAX package's run (a worker's call, see torch_ref_pool)."""
+    jc = JCfg(**kw)
+    vals = balanced_inputs(jc.trials, jc.n_nodes)
     jr, jst, _ = jsim.simulate(jc, vals, faults=_faults(jc, JFaults))
+    return int(jr), {name: np.asarray(getattr(jst, name))
+                     for name in ("x", "decided", "k", "killed")}
+
+
+def _same_unfused_run(kw):
+    tc = bt.SimConfig(**kw)
+    vals = balanced_inputs(tc.trials, tc.n_nodes)
+    jr, jfields = ref(_jax_unfused_run, kw)
     tr, tst, _ = bt.simulate(tc, vals, faults=_faults(tc, TFaults),
                              device="cpu")
-    assert tr == int(jr)
+    assert tr == jr
     for name in ("x", "decided", "k", "killed"):
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
     return tr, tst
 
 
@@ -160,6 +170,7 @@ def _same_unfused_run(kw):
 ], ids=["adv-private", "adv-common", "adv-weak", "adv-byzantine",
         "adv-equiv-sub3f", "adv-equiv-super3f", "targeted",
         "targeted-half", "targeted-one-equivocator", "targeted-dense"])
+@prefetch(lambda kw: [(_jax_unfused_run, _kw(**kw))])
 def test_unfused_adversaries_match_jax(kw):
     """The unfused loop's adversarial and targeted branches (closed form on
     either path) equal the JAX package's unfused run."""

@@ -28,6 +28,7 @@ from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 FIELDS = ("x", "decided", "k", "killed")
 J_RECEIVER_COUNTS = jax.jit(jtally.receiver_counts, static_argnums=0)
@@ -38,10 +39,11 @@ J_NDTRI = jax.jit(jax.scipy.special.ndtri)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -137,6 +139,29 @@ def test_binomial_half_exact_shared_differing_fraction(n_equiv, bound):
 # --- receiver_counts, one tally ----------------------------------------------
 
 
+def _rc_inputs(kw):
+    t, n = 3, 48
+    base = dict(n_nodes=n, n_faulty=12, trials=t, delivery="all", seed=6)
+    base.update(kw)
+    rs = np.random.default_rng(17)
+    sent = rs.integers(0, 3, (t, n)).astype(np.int8)
+    alive = rs.random((t, n)) < 0.8
+    equiv = (rs.random((t, n)) < 0.3) \
+        if base.get("fault_model") == "equivocate" else None
+    return base, sent, alive, equiv
+
+
+def _jax_receiver_counts(base, sent, alive, equiv):
+    """The JAX tally at (r, phase) = (1, 0) and (3, 1) with
+    EXACT_TABLE_MAX = 16, under ``jax.jit`` (a worker's call, see
+    torch_ref_pool)."""
+    jc = JCfg(**base)
+    with _table_max(16):
+        return [np.asarray(J_RECEIVER_COUNTS(
+            jc, jax.random.key(jc.seed), r, phase, sent, alive,
+            equiv=equiv)) for r, phase in ((1, 0), (3, 1))]
+
+
 @pytest.mark.parametrize("kw", [
     dict(fault_model="crash"),
     dict(fault_model="byzantine"),
@@ -145,25 +170,18 @@ def test_binomial_half_exact_shared_differing_fraction(n_equiv, bound):
     dict(fault_model="equivocate", n_faulty=20, seed=7),
 ], ids=["crash", "byzantine", "crash-histogram", "equivocate-table",
         "equivocate-quantile"])
+@prefetch(lambda kw: [(_jax_receiver_counts, *_rc_inputs(kw))])
 def test_all_receiver_counts_match_jax(kw):
     """Every receiver tallies the honest live histogram (plus the
     equivocator split): exact against JAX with dead lanes.  The split
     takes the exact table at F = 12 and the normal quantile at F = 20,
     above a lowered EXACT_TABLE_MAX."""
-    t, n = 3, 48
-    base = dict(n_nodes=n, n_faulty=12, trials=t, delivery="all", seed=6)
-    base.update(kw)
-    jc, tc = JCfg(**base), bt.SimConfig(**base)
-    rs = np.random.default_rng(17)
-    sent = rs.integers(0, 3, (t, n)).astype(np.int8)
-    alive = rs.random((t, n)) < 0.8
-    equiv = (rs.random((t, n)) < 0.3) \
-        if tc.fault_model == "equivocate" else None
+    base, sent, alive, equiv = _rc_inputs(kw)
+    tc = bt.SimConfig(**base)
+    t, n = tc.trials, tc.n_nodes
+    wants = ref(_jax_receiver_counts, base, sent, alive, equiv)
     with _table_max(16):
-        for r, phase in ((1, 0), (3, 1)):
-            want = np.asarray(J_RECEIVER_COUNTS(
-                jc, jax.random.key(tc.seed), r, phase, sent, alive,
-                equiv=equiv))
+        for (r, phase), want in zip(((1, 0), (3, 1)), wants):
             got = ttally.receiver_counts(
                 tc, tc.seed, r, phase, torch.from_numpy(sent),
                 torch.from_numpy(alive),
@@ -178,43 +196,61 @@ def test_all_receiver_counts_match_jax(kw):
 # --- simulate -----------------------------------------------------------------
 
 
+def _jax_run(kw, vals, faulty_list, table_max, as_list=False):
+    """The JAX package's run with EXACT_TABLE_MAX = ``table_max`` (unchanged
+    for None); the faulty list passed as ``simulate``'s third argument
+    where ``as_list`` (a worker's call, see torch_ref_pool)."""
+    jc = JCfg(**kw)
+    t, n = jc.trials, jc.n_nodes
+    if as_list:
+        jf = faulty_list
+    elif faulty_list is None:
+        jf = JFaults.none(t, n)
+    else:
+        jf = JFaults.from_faulty_list(jc, faulty_list)
+    with _table_max(table_max):
+        jr, jst, _ = (jsim.simulate(jc, vals, jf) if as_list
+                      else jsim.simulate(jc, vals, faults=jf))
+    return int(jr), {name: np.asarray(getattr(jst, name)) for name in FIELDS}
+
+
 def _assert_same_run(kw, vals, faulty_list=None, table_max=None,
                      min_rounds=1):
-    jc, tc = JCfg(**kw), bt.SimConfig(**kw)
+    tc = bt.SimConfig(**kw)
     assert not ttally.pallas_round_active(tc)
     t, n = tc.trials, tc.n_nodes
     if faulty_list is None:
-        jf, tf = JFaults.none(t, n), TFaults.none(t, n)
+        tf = TFaults.none(t, n)
     else:
-        jf = JFaults.from_faulty_list(jc, faulty_list)
         tf = TFaults.from_faulty_list(tc, faulty_list)
+    jr, jfields = ref(_jax_run, kw, vals, faulty_list, table_max)
     with _table_max(table_max):
-        jr, jst, _ = jsim.simulate(jc, vals, faults=jf)
         tr, tst, _ = bt.simulate(tc, vals, faults=tf, device="cpu")
-    assert tr == int(jr)
+    assert tr == jr
     assert tr >= min_rounds
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
 
 
+_DEFAULT = (dict(n_nodes=10, n_faulty=4, max_rounds=20),
+            [0, 0, 1, 1, 1, 0, 0, 1, 1, 1], [True] * 4 + [False] * 6)
+
+
+@prefetch(lambda: [(_jax_run, *_DEFAULT, None, True)])
 def test_default_config_matches_jax():
     """The JAX package's default SimConfig — N = 10, F = 4, delivery='all',
     path='auto' — on the upstream repo's inputs, through the public
     ``simulate`` with a faulty list, as its README calls it."""
-    cfg = dict(n_nodes=10, n_faulty=4, max_rounds=20)
-    vals = [0, 0, 1, 1, 1, 0, 0, 1, 1, 1]
-    faulty = [True] * 4 + [False] * 6
-    jr, jst, _ = jsim.simulate(JCfg(**cfg), vals, faulty)
+    cfg, vals, faulty = _DEFAULT
+    jr, jfields = ref(_jax_run, cfg, vals, faulty, None, True)
     tr, tst, _ = bt.simulate(bt.SimConfig(**cfg), vals, faulty,
                              device="cpu")
     assert bt.SimConfig(**cfg).delivery == "all"
-    assert tr == int(jr) >= 1
+    assert tr == jr >= 1
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
     assert bool(tst.decided[0, 4:].all())
 
 
@@ -236,6 +272,8 @@ _FIRST40 = [True] * 40 + [False] * 56
 ], ids=["crash", "byzantine-textbook", "equivocate-table-common",
         "equivocate-quantile-weak-nofreeze", "histogram-round-flags",
         "weak-textbook-nofreeze"])
+@prefetch(lambda kw, faulty, table_max: [
+    (_jax_run, {**_B, **kw}, balanced_inputs(4, 96), faulty, table_max)])
 def test_all_simulate_matches_jax(kw, faulty, table_max):
     """Balanced inputs tie every round-1 tally under broadcast delivery,
     so every lane takes the coin before it can decide: each coin and rule
@@ -283,26 +321,28 @@ def test_all_cpu_run_launches_no_kernel():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(drop_prob=0.2, path="histogram"), None),
-    (dict(committee_cap=4, committee_count=2, committee_size=8), "13"),
+    (dict(committee_cap=4, committee_count=2, committee_size=8), None),
 ], ids=["omission-histogram", "committees"])
 def test_all_neighbours_still_raise(kw, item):
-    """What the port does not bring yet keeps raising, by ROADMAP item
-    (committees, item 13); omission on the histogram path (``item`` None)
-    runs now, by binomial thinning with no kernel launched
-    (tests/test_torch_hist_regimes.py holds it against JAX)."""
+    """The neighbours of the broadcast path that once raised here run now
+    (``item`` None), with no kernel launched: omission on the histogram
+    path by binomial thinning (tests/test_torch_hist_regimes.py holds it
+    against JAX) and committees (tests/test_torch_topo.py), whose ~8
+    members can never muster count > F = 40: no lane decides, the run
+    takes every round."""
+    assert item is None
     cfg = bt.SimConfig(**{**_B, **kw})
     args = (cfg, balanced_inputs(4, 96))
     kw = dict(faults=TFaults.none(4, 96), device="cpu")
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A item {item}\\)"):
-            bt.simulate(*args, **kw)
-        return
     for ops in (thist, tround, tdense):
         ops.reset_launches()
     rounds, st, _ = bt.simulate(*args, **kw)
     assert 1 <= rounds <= cfg.max_rounds
-    assert bool(st.decided.all())
+    if cfg.committee_cap:
+        assert rounds == cfg.max_rounds and not bool(st.decided.any())
+        assert bool((st.k >= 1).all() & (st.k <= rounds + 1).all())
+    else:
+        assert bool(st.decided.all())
     for table in (thist.KERNELS, tround.KERNELS, tdense.KERNELS):
         assert all(fn.launches == 0 for fn in table.values())
 

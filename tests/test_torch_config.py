@@ -114,16 +114,12 @@ def test_validation_verdicts_match(kw):
     dict(topology="ring:4"),
 ])
 def test_unported_spec_grammars_raise(kw):
-    """The topology grammar is not ported: the JAX package accepts this
-    (valid) spec, the port refuses it loudly instead of guessing.  The
-    partition grammar is ported: the port accepts what the JAX package
-    accepts and keeps the spec."""
+    """The spec grammars that once raised here are ported: the partition
+    grammar and the topology grammar, whose valid specs the port accepts
+    as the JAX package does, keeping the spec."""
     jc = jcfg.SimConfig(**{**_BASE, **kw})
-    if "partition" in kw:
-        assert tcfg.SimConfig(**{**_BASE, **kw}).partition == jc.partition
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.SimConfig(**{**_BASE, **kw})
+    tc = tcfg.SimConfig(**{**_BASE, **kw})
+    assert (tc.partition, tc.topology) == (jc.partition, jc.topology)
 
 
 @pytest.mark.parametrize("kw", [

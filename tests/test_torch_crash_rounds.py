@@ -43,15 +43,17 @@ from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.state import PACK_DOWN, PACK_KILLED, PACK_X
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 FIELDS = ("x", "decided", "k", "killed")
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -111,11 +113,10 @@ NP = 1024
 EPS = 0.5
 
 
-@pytest.fixture(scope="module")
-def fixture():
-    """A random mid-run state packed by both packages (0.45 of the lanes
-    faulty) and the round bounds: crash rounds in {0, 1..6}, recover rounds
-    in {0, cr + 1 .. cr + 4}, pad lanes 0."""
+def _draws():
+    """A random mid-run state (0.45 of the lanes faulty), the round bounds
+    (crash rounds in {0, 1..6}, recover rounds in {0, cr + 1 .. cr + 4},
+    pad lanes 0), shared coins and a vote histogram."""
     rs = np.random.default_rng(21)
     leaves = dict(x=rs.integers(0, 3, size=(T, N)).astype(np.int8),
                   decided=rs.random((T, N)) < 0.2,
@@ -127,15 +128,36 @@ def fixture():
     d = rs.integers(0, 5, size=(T, NP))
     rcv = np.where(d > 0, cr + d, 0).astype(np.int32)
     rcv[:, N:] = 0
+    shared = rs.integers(0, 2, size=T).astype(np.int32)
+    hist2 = rs.integers(0, N // 2, size=(T, 3)).astype(np.int32)
+    return leaves, faulty, cr, rcv, shared, hist2
+
+
+def _jax_fixture():
+    """The draws with the state packed by the JAX package."""
+    leaves, faulty, cr, rcv, shared, hist2 = _draws()
     jc = JCfg(n_nodes=N, n_faulty=400, trials=T, max_rounds=12)
     jst = jstate.NetState(**{k: jnp.asarray(v) for k, v in leaves.items()})
     jpack = jround.pack_state(jc, jst, jnp.asarray(faulty))
+    return dict(jpack=jpack, cr=cr, rcv=rcv, shared=shared, hist2=hist2)
+
+
+def _jax_pack_np():
+    """The JAX package's pack (a worker's call, see torch_ref_pool)."""
+    return np.asarray(_jax_fixture()["jpack"])
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    """The draws with the state packed by the port, equal to the JAX
+    package's pack; every class of faulty lane occurs at round R."""
+    leaves, faulty, cr, rcv, shared, hist2 = _draws()
     tpack = tround.pack_state(bt.SimConfig(n_nodes=N, n_faulty=400,
                                            trials=T, max_rounds=12),
                               convert.state_from_numpy(**leaves),
                               torch.from_numpy(faulty))
     np.testing.assert_array_equal(convert.pack_to_numpy(tpack),
-                                  np.asarray(jpack))
+                                  ref(_jax_pack_np))
     # every class of faulty lane occurs at round R
     fau = np.zeros((T, NP), bool)
     fau[:, :N] = faulty
@@ -147,10 +169,7 @@ def fixture():
                 started & (rcv > 0) & (rcv < R), now & dec, now & ~dec,
                 fau & (cr == 0), fau & (cr > R)):
         assert cls.any()
-    shared = rs.integers(0, 2, size=T).astype(np.int32)
-    hist2 = rs.integers(0, N // 2, size=(T, 3)).astype(np.int32)
-    return dict(jpack=jpack, tpack=tpack, cr=cr, rcv=rcv, shared=shared,
-                hist2=hist2)
+    return dict(tpack=tpack, cr=cr, rcv=rcv, shared=shared, hist2=hist2)
 
 
 def _cfgs(fault_model, rejoin, counts_mode="sampled"):
@@ -164,38 +183,58 @@ def _cfgs(fault_model, rejoin, counts_mode="sampled"):
 
 
 def _bounds(fx, fault_model):
-    """The round bounds as (JAX arrays, port tensors)."""
+    """The round bounds as JAX arrays or port tensors."""
     rcv = fault_model == "crash_recover"
-    j = (jnp.asarray(fx["cr"]), jnp.asarray(fx["rcv"]) if rcv else None)
-    t = (torch.from_numpy(fx["cr"]),
-         torch.from_numpy(fx["rcv"]) if rcv else None)
-    return j, t
+    if "jpack" in fx:
+        return (jnp.asarray(fx["cr"]),
+                jnp.asarray(fx["rcv"]) if rcv else None)
+    return (torch.from_numpy(fx["cr"]),
+            torch.from_numpy(fx["rcv"]) if rcv else None)
 
 
-def _counts(jc, tc, hist, counts_mode):
-    """A phase's counts in counts_mode's layout by both packages' closed
-    forms (numpy in)."""
+def _jax_counts(jc, hist, counts_mode):
+    """A phase's counts in counts_mode's layout by the JAX package's
+    closed forms (numpy in)."""
+    if counts_mode == "delivered":
+        return jtally.adversarial_counts(jnp.asarray(hist), jc.quorum)
+    if counts_mode == "camps":
+        return jtally.targeted_camp_triples(jc, jnp.asarray(hist))
+    return jnp.asarray(hist)
+
+
+def _counts(tc, hist, counts_mode):
+    """The same counts by the port's closed forms."""
     th = torch.from_numpy(np.array(hist))
     if counts_mode == "delivered":
-        return (jtally.adversarial_counts(jnp.asarray(hist), jc.quorum),
-                ttally.adversarial_counts(th, tc.quorum))
+        return ttally.adversarial_counts(th, tc.quorum)
     if counts_mode == "camps":
-        return (jtally.targeted_camp_triples(jc, jnp.asarray(hist)),
-                ttally.targeted_camp_triples(tc, th))
-    return jnp.asarray(hist), th
+        return ttally.targeted_camp_triples(tc, th)
+    return th
+
+
+def _jax_sent_hist(fault_model, rejoin):
+    """The JAX package's histograms at rounds 1, R and 6 (a worker's call,
+    see torch_ref_pool)."""
+    jc, _ = _cfgs(fault_model, rejoin)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    return [np.asarray(jround.sent_hist_from_pack(jc, fx["jpack"], jcr,
+                                                  jrcv, r, SINGLE))
+            for r in (1, R, 6)]
 
 
 @pytest.mark.parametrize("fault_model,rejoin", [
     ("crash_at_round", "durable"), ("crash_recover", "durable"),
     ("crash_recover", "amnesia")])
+@prefetch(lambda fault_model, rejoin: [(_jax_pack_np,),
+                                       (_jax_sent_hist, fault_model, rejoin)])
 def test_sent_hist_with_the_round_matches_jax(fixture, fault_model, rejoin):
-    jc, tc = _cfgs(fault_model, rejoin)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
-    for r in (1, R, 6):
-        want = jround.sent_hist_from_pack(jc, fixture["jpack"], jcr, jrcv, r,
-                                          SINGLE)
+    _, tc = _cfgs(fault_model, rejoin)
+    tcr, trcv = _bounds(fixture, fault_model)
+    wants = ref(_jax_sent_hist, fault_model, rejoin)
+    for r, want in zip((1, R, 6), wants):
         got = tround.sent_hist_from_pack(tc, fixture["tpack"], tcr, trcv, r)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 # (fault model, rejoin, counts mode, coin)
@@ -224,46 +263,74 @@ def _camps(tc, counts_mode):
             else (0, 0))
 
 
-@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
-                         PROPOSAL_CASES, ids=_ids(PROPOSAL_CASES))
-def test_proposal_matches_pallas(fixture, fault_model, rejoin, counts_mode,
-                                 coin_mode):
+def _jax_proposal(fault_model, rejoin, counts_mode):
+    """The JAX package's proposal kernel in interpret mode, with the
+    histogram it is fed (a worker's call, see torch_ref_pool)."""
     jc, tc = _cfgs(fault_model, rejoin, counts_mode)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
-    hist = np.asarray(jround.sent_hist_from_pack(jc, fixture["jpack"], jcr,
-                                                 jrcv, R, SINGLE))
-    jcounts, tcounts = _counts(jc, tc, hist, counts_mode)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    hist = np.asarray(jround.sent_hist_from_pack(jc, fx["jpack"], jcr, jrcv,
+                                                 R, SINGLE))
     b0, b1 = _camps(tc, counts_mode)
     want = jround.proposal_hist_pallas(
-        jax.random.key(jc.seed), R, jrng.PHASE_PROPOSAL, jcounts,
-        fixture["jpack"], jcr, jc.quorum, fault_model, True, interpret=True,
-        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, recover_round=jrcv,
-        rejoin=rejoin)
+        jax.random.key(jc.seed), R, jrng.PHASE_PROPOSAL,
+        _jax_counts(jc, hist, counts_mode), fx["jpack"], jcr, jc.quorum,
+        fault_model, True, interpret=True, counts_mode=counts_mode,
+        camp_b0=b0, camp_b1=b1, recover_round=jrcv, rejoin=rejoin)
+    return hist, np.asarray(want)
+
+
+@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
+                         PROPOSAL_CASES, ids=_ids(PROPOSAL_CASES))
+@prefetch(lambda fault_model, rejoin, counts_mode, coin_mode: [
+    (_jax_proposal, fault_model, rejoin, counts_mode)])
+def test_proposal_matches_pallas(fixture, fault_model, rejoin, counts_mode,
+                                 coin_mode):
+    _, tc = _cfgs(fault_model, rejoin, counts_mode)
+    tcr, trcv = _bounds(fixture, fault_model)
+    hist, want = ref(_jax_proposal, fault_model, rejoin, counts_mode)
+    tcounts = _counts(tc, hist, counts_mode)
+    b0, b1 = _camps(tc, counts_mode)
     got = tround.proposal_hist(
         tc.seed, R, trng.PHASE_PROPOSAL, tcounts, fixture["tpack"],
         tc.quorum, fault_model, True, counts_mode=counts_mode, camp_b0=b0,
         camp_b1=b1, crash_round=tcr, recover_round=trcv, rejoin=rejoin)
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(want)[:, :tround.PROP_COLS])
+    np.testing.assert_array_equal(got.numpy(), want[:, :tround.PROP_COLS])
 
 
-@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
-                         VOTE_CASES, ids=_ids(VOTE_CASES))
-def test_vote_matches_pallas(fixture, fault_model, rejoin, counts_mode,
-                             coin_mode):
+def _jax_vote(fault_model, rejoin, counts_mode, coin_mode):
+    """The JAX package's vote kernel in interpret mode (a worker's call,
+    see torch_ref_pool)."""
     jc, tc = _cfgs(fault_model, rejoin, counts_mode)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
-    jcounts, tcounts = _counts(jc, tc, fixture["hist2"], counts_mode)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
     b0, b1 = _camps(tc, counts_mode)
     qok = np.arange(T) % 3 != 2
     eps = EPS if coin_mode == "weak_common" else 0.0
     jpack2, jparts = jround.vote_commit_pallas(
-        jax.random.key(jc.seed), R, jrng.PHASE_VOTE, jcounts,
-        fixture["jpack"], jcr, jnp.asarray(qok),
-        jnp.asarray(fixture["shared"]), jc.quorum, jc.n_faulty, "reference",
-        coin_mode, eps, True, fault_model, interpret=True,
+        jax.random.key(jc.seed), R, jrng.PHASE_VOTE,
+        _jax_counts(jc, fx["hist2"], counts_mode), fx["jpack"], jcr,
+        jnp.asarray(qok), jnp.asarray(fx["shared"]), jc.quorum, jc.n_faulty,
+        "reference", coin_mode, eps, True, fault_model, interpret=True,
         counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, recover_round=jrcv,
         rejoin=rejoin)
+    return np.asarray(jpack2), np.asarray(jparts)
+
+
+@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
+                         VOTE_CASES, ids=_ids(VOTE_CASES))
+@prefetch(lambda fault_model, rejoin, counts_mode, coin_mode: [
+    (_jax_vote, fault_model, rejoin, counts_mode, coin_mode)])
+def test_vote_matches_pallas(fixture, fault_model, rejoin, counts_mode,
+                             coin_mode):
+    _, tc = _cfgs(fault_model, rejoin, counts_mode)
+    tcr, trcv = _bounds(fixture, fault_model)
+    tcounts = _counts(tc, fixture["hist2"], counts_mode)
+    b0, b1 = _camps(tc, counts_mode)
+    qok = np.arange(T) % 3 != 2
+    eps = EPS if coin_mode == "weak_common" else 0.0
+    jpack2, jparts = ref(_jax_vote, fault_model, rejoin, counts_mode,
+                         coin_mode)
     tpack2, tparts = tround.vote_commit(
         tc.seed, R, trng.PHASE_VOTE, tcounts, fixture["tpack"],
         torch.from_numpy(qok), tc.quorum, tc.n_faulty, "reference",
@@ -271,10 +338,9 @@ def test_vote_matches_pallas(fixture, fault_model, rejoin, counts_mode,
         coin_mode=coin_mode, eps=eps,
         shared=torch.from_numpy(fixture["shared"]), crash_round=tcr,
         recover_round=trcv, rejoin=rejoin)
-    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2),
-                                  np.asarray(jpack2))
+    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2), jpack2)
     np.testing.assert_array_equal(tparts.numpy(),
-                                  np.asarray(jparts)[:, :tround.VOTE_COLS])
+                                  jparts[:, :tround.VOTE_COLS])
     # the round's update reached the stack: latched killed lanes and, under
     # crash_recover, a down plane
     assert (tpack2[:, PACK_KILLED] != fixture["tpack"][:, PACK_KILLED]).any()
@@ -282,31 +348,41 @@ def test_vote_matches_pallas(fixture, fault_model, rejoin, counts_mode,
         fault_model == "crash_recover")
 
 
-@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
-                         FUSED_CASES, ids=_ids(FUSED_CASES))
-def test_fused_matches_pallas_and_two_kernel(fixture, fault_model, rejoin,
-                                            counts_mode, coin_mode):
-    jc, tc = _cfgs(fault_model, rejoin)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
-    hist = jround.sent_hist_from_pack(jc, fixture["jpack"], jcr, jrcv, R,
-                                      SINGLE)
+def _jax_fused(fault_model, rejoin, coin_mode):
+    """The JAX package's fused kernel in interpret mode, with the
+    histogram it is fed (a worker's call, see torch_ref_pool)."""
+    jc, _ = _cfgs(fault_model, rejoin)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    hist = jround.sent_hist_from_pack(jc, fx["jpack"], jcr, jrcv, R, SINGLE)
     jout = jround.fused_round_pallas(
-        jax.random.key(jc.seed), R, hist, fixture["jpack"], jcr,
-        jnp.asarray(fixture["shared"]), jc.quorum, jc.n_faulty, "reference",
+        jax.random.key(jc.seed), R, hist, fx["jpack"], jcr,
+        jnp.asarray(fx["shared"]), jc.quorum, jc.n_faulty, "reference",
         coin_mode, 0.0, True, fault_model, interpret=True,
         recover_round=jrcv, rejoin=rejoin)
+    return np.asarray(hist), [np.asarray(o) for o in jout[:3]]
+
+
+@pytest.mark.parametrize("fault_model,rejoin,counts_mode,coin_mode",
+                         FUSED_CASES, ids=_ids(FUSED_CASES))
+@prefetch(lambda fault_model, rejoin, counts_mode, coin_mode: [
+    (_jax_fused, fault_model, rejoin, coin_mode)])
+def test_fused_matches_pallas_and_two_kernel(fixture, fault_model, rejoin,
+                                            counts_mode, coin_mode):
+    _, tc = _cfgs(fault_model, rejoin)
+    tcr, trcv = _bounds(fixture, fault_model)
+    hist, jout = ref(_jax_fused, fault_model, rejoin, coin_mode)
     thist = torch.from_numpy(np.array(hist))
     bounds = dict(crash_round=tcr, recover_round=trcv, rejoin=rejoin)
     shared = torch.from_numpy(fixture["shared"])
     tout = tround.fused_round(tc.seed, R, thist, fixture["tpack"], tc.quorum,
                               tc.n_faulty, "reference", fault_model, True,
                               coin_mode=coin_mode, shared=shared, **bounds)
-    np.testing.assert_array_equal(convert.pack_to_numpy(tout[0]),
-                                  np.asarray(jout[0]))
+    np.testing.assert_array_equal(convert.pack_to_numpy(tout[0]), jout[0])
     np.testing.assert_array_equal(tout[1].numpy(),
-                                  np.asarray(jout[1])[:, :tround.PROP_COLS])
+                                  jout[1][:, :tround.PROP_COLS])
     np.testing.assert_array_equal(tout[2].numpy(),
-                                  np.asarray(jout[2])[:, :tround.VOTE_COLS])
+                                  jout[2][:, :tround.VOTE_COLS])
     # inside the port: fused == proposal + sum + vote, bit for bit
     parts_a = tround.proposal_hist(tc.seed, R, trng.PHASE_PROPOSAL, thist,
                                    fixture["tpack"], tc.quorum, fault_model,
@@ -326,7 +402,7 @@ def test_amnesia_resets_only_undecided_rejoiners(fixture):
     exactly where an undecided faulty lane rejoins this round (and an
     inactive one stores "?")."""
     tc = _cfgs("crash_recover", "durable")[1]
-    _, (tcr, trcv) = _bounds(fixture, "crash_recover")
+    tcr, trcv = _bounds(fixture, "crash_recover")
     qok = torch.zeros(T, dtype=torch.bool)          # no lane is active
     outs = [tround.vote_commit(
         tc.seed, R, trng.PHASE_VOTE, torch.from_numpy(fixture["hist2"]),
@@ -373,24 +449,38 @@ def _fields(st):
     return {k: getattr(st, k).numpy() for k in FIELDS}
 
 
+def _jax_loop(kw):
+    """The JAX package's packed run in the CF regime (EXACT_TABLE_MAX = 4,
+    as ``cf_regime``; a worker's call, see torch_ref_pool)."""
+    old = jsampling.EXACT_TABLE_MAX
+    jsampling.EXACT_TABLE_MAX = 4
+    try:
+        jc = JCfg(**kw)
+        jf = (jrec.crash_recover_faults(jc)
+              if jc.fault_model == "crash_recover"
+              else JFaults.first_f(jc, crash_rounds=CRASH))
+        jr, jst, _ = jsim.simulate(jc, balanced_inputs(LT, LN), faults=jf)
+        return int(jr), {k: np.asarray(getattr(jst, k)) for k in FIELDS}
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+
+
 @pytest.mark.parametrize("kw,min_rounds", [
     (dict(fault_model="crash_recover", recovery="at:2:4"), 6),
     (dict(fault_model="crash_recover", recovery="at:2:4:amnesia"), 6),
     (dict(fault_model="crash_at_round"), 3),
 ], ids=["at2_4", "at2_4_amnesia", "crash_at_round"])
+@prefetch(lambda kw, min_rounds: [(_jax_loop, _loop_kw(**kw))])
 def test_loops_match_jax(cf_regime, kw, min_rounds):
     """The JAX package's packed run against the port's packed AND unfused
     runs (the JAX package pins its own packed == unfused identity)."""
     kw = _loop_kw(**kw)
-    jc = JCfg(**kw)
-    jf = (jrec.crash_recover_faults(jc) if jc.fault_model == "crash_recover"
-          else JFaults.first_f(jc, crash_rounds=CRASH))
-    jr, jst, _ = jsim.simulate(jc, balanced_inputs(LT, LN), faults=jf)
+    jr, jfields = ref(_jax_loop, kw)
     for use_round in (True, False):
         tr, tst, _ = _port_run(kw, use_round)
-        assert tr == int(jr) >= min_rounds
+        assert tr == jr >= min_rounds
         for k, v in _fields(tst).items():
-            np.testing.assert_array_equal(v, np.asarray(getattr(jst, k)),
+            np.testing.assert_array_equal(v, jfields[k],
                                           err_msg=f"{k} {use_round}")
 
 
@@ -430,20 +520,31 @@ def test_stagger_slices_match_one_shot(cf_regime, use_round):
         assert torch.equal(getattr(st, k), getattr(final, k)), k
 
 
+_DENSE_CR = dict(n_nodes=LN, n_faulty=30, trials=4, delivery="quorum",
+                 path="dense", use_pallas=True, max_rounds=24, seed=5,
+                 fault_model="crash_recover", recovery="at:1:3:amnesia")
+
+
+def _jax_dense_cr():
+    """The JAX package's dense crash_recover run (a worker's call, see
+    torch_ref_pool)."""
+    jc = JCfg(**_DENSE_CR)
+    jr, jst, _ = jsim.simulate(jc, balanced_inputs(4, LN),
+                               faults=jrec.crash_recover_faults(jc))
+    return int(jr), {k: np.asarray(getattr(jst, k)) for k in FIELDS}
+
+
+@prefetch(lambda: [(_jax_dense_cr,)])
 def test_dense_crash_recover_matches_jax():
-    kw = dict(n_nodes=LN, n_faulty=30, trials=4, delivery="quorum",
-              path="dense", use_pallas=True, max_rounds=24, seed=5,
-              fault_model="crash_recover", recovery="at:1:3:amnesia")
-    jc, tc = JCfg(**kw), bt.SimConfig(**kw)
+    tc = bt.SimConfig(**_DENSE_CR)
     assert tc.resolved_path == "dense" and not ttally.pallas_round_active(tc)
     vals = balanced_inputs(4, LN)
-    jr, jst, _ = jsim.simulate(jc, vals, faults=jrec.crash_recover_faults(jc))
+    jr, jfields = ref(_jax_dense_cr)
     tr, tst, _ = bt.simulate(tc, vals, faults=trec.crash_recover_faults(tc),
                              device="cpu")
-    assert tr == int(jr) >= 4
+    assert tr == jr >= 4
     for k, v in _fields(tst).items():
-        np.testing.assert_array_equal(v, np.asarray(getattr(jst, k)),
-                                      err_msg=k)
+        np.testing.assert_array_equal(v, jfields[k], err_msg=k)
 
 
 # --- the C interface -----------------------------------------------------

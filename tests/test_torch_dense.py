@@ -26,6 +26,7 @@ from benor_tpu_torch.ops import hist as thist
 from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 FIELDS = ("x", "decided", "k", "killed")
 
@@ -33,12 +34,29 @@ J_RECEIVER_COUNTS = jax.jit(jtally.receiver_counts, static_argnums=0)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
+
+
+def _jax_run(kw, faults, vals):
+    """The JAX package's run: rounds and the final fields (a worker's
+    call, see torch_ref_pool)."""
+    jc = JCfg(**kw)
+    t, n = jc.trials, jc.n_nodes
+    jf = JFaults.first_f(jc) if faults == "first_f" else JFaults.none(t, n)
+    jr, jst, _ = jsim.simulate(jc, vals, faults=jf)
+    return int(jr), {name: np.asarray(getattr(jst, name)) for name in FIELDS}
+
+
+def _run_call(kw, faults="first_f", vals=None):
+    if vals is None:
+        vals = balanced_inputs(kw["trials"], kw["n_nodes"])
+    return (_jax_run, kw, faults, vals)
 
 
 def _assert_same_run(kw, faults="first_f", vals=None, min_rounds=1):
@@ -47,46 +65,65 @@ def _assert_same_run(kw, faults="first_f", vals=None, min_rounds=1):
     assert ttally.dense_gather_needed(tc) and jtally.dense_gather_needed(jc)
     assert not ttally.pallas_round_active(tc)
     t, n = tc.trials, tc.n_nodes
-    if vals is None:
-        vals = balanced_inputs(t, n)
-    jf = JFaults.first_f(jc) if faults == "first_f" else JFaults.none(t, n)
+    call = _run_call(kw, faults, vals)
+    vals = call[3]
     tf = TFaults.first_f(tc) if faults == "first_f" else TFaults.none(t, n)
-    jr, jst, _ = jsim.simulate(jc, vals, faults=jf)
+    jr, jfields = ref(*call)
     tr, tst, _ = bt.simulate(tc, vals, faults=tf, device="cpu")
-    assert tr == int(jr)
+    assert tr == jr
     assert tr >= min_rounds
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
     return tr, tst
 
 
 # --- receiver_counts, one tally ------------------------------------------
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["matmul", "kernel"])
-@pytest.mark.parametrize("kw", [
+_RC_KW = [
     dict(fault_model="crash"),
     dict(fault_model="byzantine"),
     dict(fault_model="equivocate"),
     dict(fault_model="crash", scheduler="biased", adversary_strength=1.0),
     dict(fault_model="crash", delivery="all", drop_prob=0.2),
-], ids=["crash", "byzantine", "equivocate", "biased", "omission"])
-def test_dense_receiver_counts_match_jax(kw, use_pallas):
+]
+
+
+def _rc_inputs(kw, use_pallas):
     t, n, f = 3, 48, 12
     base = dict(n_nodes=n, n_faulty=f, trials=t, delivery="quorum",
                 path="dense", use_pallas=use_pallas, seed=6)
     base.update(kw)
-    jc, tc = JCfg(**base), bt.SimConfig(**base)
     rs = np.random.default_rng(17)
     sent = rs.integers(0, 3, (t, n)).astype(np.int8)
     alive = rs.random((t, n)) < 0.9
     equiv = (rs.random((t, n)) < 0.25) \
-        if tc.fault_model == "equivocate" else None
-    for r, phase in ((1, 0), (3, 1)):
-        want = np.asarray(J_RECEIVER_COUNTS(
-            jc, jax.random.key(tc.seed), r, phase, sent, alive, equiv=equiv))
+        if base.get("fault_model") == "equivocate" else None
+    return base, sent, alive, equiv
+
+
+def _jax_receiver_counts(base, sent, alive, equiv):
+    """The JAX tally at (r, phase) = (1, 0) and (3, 1), under ``jax.jit``
+    (a worker's call)."""
+    jc = JCfg(**base)
+    return [np.asarray(J_RECEIVER_COUNTS(
+        jc, jax.random.key(jc.seed), r, phase, sent, alive, equiv=equiv))
+        for r, phase in ((1, 0), (3, 1))]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["matmul", "kernel"])
+@pytest.mark.parametrize("kw", _RC_KW,
+                         ids=["crash", "byzantine", "equivocate", "biased",
+                              "omission"])
+@prefetch(lambda kw, use_pallas: [(_jax_receiver_counts,
+                                   *_rc_inputs(kw, use_pallas))])
+def test_dense_receiver_counts_match_jax(kw, use_pallas):
+    base, sent, alive, equiv = _rc_inputs(kw, use_pallas)
+    tc = bt.SimConfig(**base)
+    t, n = tc.trials, tc.n_nodes
+    wants = ref(_jax_receiver_counts, base, sent, alive, equiv)
+    for (r, phase), want in zip(((1, 0), (3, 1)), wants):
         got = ttally.receiver_counts(
             tc, tc.seed, r, phase, torch.from_numpy(sent),
             torch.from_numpy(alive),
@@ -119,23 +156,34 @@ def test_receiver_counts_global_ids_key_the_streams():
 # --- simulate ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["matmul", "kernel"])
-def test_dense_n60_matches_jax(use_pallas):
+def _n60(use_pallas):
     """N = 60, F = 15, 16 trials, iid inputs, crash faults from birth."""
     n, f, trials = 60, 15, 16
     vals = np.random.default_rng(3).integers(0, 2, (trials, n), np.int8)
-    _assert_same_run(dict(n_nodes=n, n_faulty=f, trials=trials,
-                          max_rounds=48, delivery="quorum",
-                          scheduler="uniform", path="dense", seed=3,
-                          use_pallas=use_pallas), vals=vals)
+    return dict(n_nodes=n, n_faulty=f, trials=trials, max_rounds=48,
+                delivery="quorum", scheduler="uniform", path="dense", seed=3,
+                use_pallas=use_pallas), vals
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["matmul", "kernel"])
+@prefetch(lambda use_pallas: [_run_call(_n60(use_pallas)[0],
+                                        vals=_n60(use_pallas)[1])])
+def test_dense_n60_matches_jax(use_pallas):
+    """N = 60, F = 15, 16 trials, iid inputs, crash faults from birth."""
+    kw, vals = _n60(use_pallas)
+    _assert_same_run(kw, vals=vals)
+
+
+_N10 = dict(n_nodes=10, n_faulty=4, trials=1, max_rounds=20,
+            delivery="quorum", seed=1)
 
 
 @pytest.mark.parametrize("vals", [[1] * 10, [0, 1] * 5, [1] * 4 + [0] * 6],
                          ids=["unanimous", "balanced", "skewed"])
+@prefetch(lambda vals: [_run_call(_N10, vals=vals)])
 def test_auto_path_at_n10_matches_jax(vals):
     """path='auto' at the upstream repo's own size: N = 10, F = 4."""
-    _assert_same_run(dict(n_nodes=10, n_faulty=4, trials=1, max_rounds=20,
-                          delivery="quorum", seed=1), vals=vals)
+    _assert_same_run(_N10, vals=vals)
 
 
 _B96 = dict(n_nodes=96, n_faulty=40, trials=4, max_rounds=24,
@@ -160,6 +208,7 @@ _B96 = dict(n_nodes=96, n_faulty=40, trials=4, max_rounds=24,
 ], ids=["private", "common", "weak", "biased0.5", "biased1.0", "equivocate",
         "byzantine", "textbook", "byzantine-textbook-nofreeze", "nofreeze",
         "omission", "omission-crash-kernel"])
+@prefetch(lambda kw, faults, min_rounds: [_run_call({**_B96, **kw}, faults)])
 def test_dense_n96_matches_jax(kw, faults, min_rounds):
     _assert_same_run({**_B96, **kw}, faults=faults, min_rounds=min_rounds)
 
@@ -268,25 +317,22 @@ def test_dense_round_bound_models_run(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(delivery="all", committee_cap=4, committee_count=2,
-          committee_size=8), "13"),
+          committee_size=8), None),
     (dict(delivery="all", drop_prob=0.2, path="histogram"), None),
     (dict(scheduler="biased", adversary_strength=1.0, path="histogram"),
      None),
 ])
 def test_dense_neighbours_still_raise(kw, item):
-    """What the dense slice does not bring keeps raising, by ROADMAP item
-    (committees, item 13); omission and the biased scheduler on the
-    histogram path run now (``item`` None: binomial thinning and the
+    """The neighbours of the dense slice that once raised here run now
+    (``item`` None): committees at a dense-path size (their own tally,
+    held against JAX in tests/test_torch_topo.py), omission and the
+    biased scheduler on the histogram path (binomial thinning and the
     strict-priority sampler, held against JAX in
     tests/test_torch_hist_regimes.py)."""
+    assert item is None
     cfg = bt.SimConfig(**{**_B96, **kw})
     args = (cfg, balanced_inputs(4, 96))
     kw = dict(faults=TFaults.none(4, 96), device="cpu")
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A item {item}\\)"):
-            bt.simulate(*args, **kw)
-        return
     rounds, st, _ = bt.simulate(*args, **kw)
     assert 1 <= rounds <= cfg.max_rounds
     assert not bool((st.decided & (st.x == 2)).any())
@@ -296,19 +342,19 @@ def test_dense_neighbours_still_raise(kw, item):
     dict(scheduler="adversarial"),
     dict(scheduler="targeted"),
 ], ids=["adversarial", "targeted"])
+@prefetch(lambda kw: [_run_call({**_B96, "seed": 5, **kw}, "none")])
 def test_dense_adversaries_run_and_match_jax(kw):
     """The count-controlling adversaries at a dense-path size: closed-form
     counts on the unfused loop, no mask drawn, equal to the JAX package's
     run."""
     base = {**_B96, "seed": 5, **kw}
-    jc, tc = JCfg(**base), bt.SimConfig(**base)
+    tc = bt.SimConfig(**base)
     assert not ttally.dense_gather_needed(tc) or tc.scheduler == "targeted"
     vals = balanced_inputs(4, 96)
-    jr, jst, _ = jsim.simulate(jc, vals, faults=JFaults.none(4, 96))
+    jr, jfields = ref(*_run_call(base, "none"))
     tr, tst, _ = bt.simulate(tc, vals, faults=TFaults.none(4, 96),
                              device="cpu")
-    assert tr == int(jr) >= 1
+    assert tr == jr >= 1
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)

@@ -14,6 +14,7 @@ from benor_tpu.ops import pallas_hist as jh
 from benor_tpu.ops import rng as jrng
 from benor_tpu_torch.ops import hist as th
 from benor_tpu_torch.ops import rng as trng
+from torch_ref_pool import prefetch, ref, start
 
 # (trials, nodes, seed, round, phase)
 CASES = [
@@ -21,6 +22,12 @@ CASES = [
     (3, 1024, 8, 5, trng.PHASE_VOTE),
     (3, 1000, 21, 2, trng.PHASE_VOTE),
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_ahead(request):
+    """Start the JAX sides ahead (torch_ref_pool)."""
+    start(request)
 
 
 def _hist(t, n, seed):
@@ -31,56 +38,91 @@ def _hist(t, n, seed):
     return np.stack([c0, c1, n - c0 - c1], axis=1).astype(np.int32)
 
 
+def _jax_cf_counts(t, n, seed, r, phase):
+    """The JAX package's kernels in interpret mode (``_jax_*``: a worker's
+    calls, see torch_ref_pool)."""
+    return np.asarray(jh.cf_counts_pallas(
+        jax.random.key(seed), jnp.int32(r), phase,
+        jnp.asarray(_hist(t, n, seed)), n - n // 3, n, interpret=True))
+
+
 @pytest.mark.parametrize("t,n,seed,r,phase", CASES)
+@prefetch(lambda t, n, seed, r, phase: [(_jax_cf_counts, t, n, seed, r,
+                                         phase)])
 def test_cf_counts_matches_pallas(t, n, seed, r, phase):
     hist = _hist(t, n, seed)
     m = n - n // 3
-    j = jh.cf_counts_pallas(jax.random.key(seed), jnp.int32(r), phase,
-                            jnp.asarray(hist), m, n, interpret=True)
+    j = ref(_jax_cf_counts, t, n, seed, r, phase)
     out = th.cf_counts(seed, r, phase, torch.from_numpy(hist), m, n)
     assert out.dtype == torch.int32 and tuple(out.shape) == (t, n, 3)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(out.numpy(), j)
     assert (out.sum(-1) == m).all()
 
 
-@pytest.mark.parametrize("t,n,seed,r,phase", CASES)
-def test_equiv_counts_matches_pallas(t, n, seed, r, phase):
+def _equiv_inputs(t, n, seed):
     hist = _hist(t, n - n // 5, seed)          # the honest live senders
     n_equiv = np.full((t,), n // 5, np.int32)
     n_equiv[0] -= 1                            # one equivocator not live
-    m = n - n // 5
-    j = jh.equiv_counts_pallas(jax.random.key(seed), jnp.int32(r), phase,
-                               jnp.asarray(hist), jnp.asarray(n_equiv), m,
-                               n, interpret=True)
+    return hist, n_equiv, n - n // 5
+
+
+def _jax_equiv_counts(t, n, seed, r, phase):
+    hist, n_equiv, m = _equiv_inputs(t, n, seed)
+    return np.asarray(jh.equiv_counts_pallas(
+        jax.random.key(seed), jnp.int32(r), phase, jnp.asarray(hist),
+        jnp.asarray(n_equiv), m, n, interpret=True))
+
+
+@pytest.mark.parametrize("t,n,seed,r,phase", CASES)
+@prefetch(lambda t, n, seed, r, phase: [(_jax_equiv_counts, t, n, seed, r,
+                                         phase)])
+def test_equiv_counts_matches_pallas(t, n, seed, r, phase):
+    hist, n_equiv, m = _equiv_inputs(t, n, seed)
+    j = ref(_jax_equiv_counts, t, n, seed, r, phase)
     out = th.equiv_counts(seed, r, phase, torch.from_numpy(hist),
                           torch.from_numpy(n_equiv), m, n)
     assert out.dtype == torch.int32 and tuple(out.shape) == (t, n, 3)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(out.numpy(), j)
+
+
+def _jax_coin_flips(t, n, seed, r):
+    return np.asarray(jh.coin_flips_pallas(jax.random.key(seed),
+                                           jnp.int32(r), t, n,
+                                           interpret=True))
 
 
 @pytest.mark.parametrize("t,n,seed,r,phase", CASES)
+@prefetch(lambda t, n, seed, r, phase: [(_jax_coin_flips, t, n, seed, r)])
 def test_coin_flips_matches_pallas(t, n, seed, r, phase):
-    j = jh.coin_flips_pallas(jax.random.key(seed), jnp.int32(r), t, n,
-                             interpret=True)
+    j = ref(_jax_coin_flips, t, n, seed, r)
     out = th.coin_flips(seed, r, t, n, "cpu")
     assert out.dtype == torch.int8 and tuple(out.shape) == (t, n)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(out.numpy(), j)
 
 
-@pytest.mark.parametrize("t,n,seed,r,phase", CASES)
-def test_weak_coin_flips_matches_pallas(t, n, seed, r, phase):
+def _jax_weak_coin_flips(t, n, seed, r):
+    """The shared bits, then the weak coin at eps 0.3 and 0.5."""
     key = jax.random.key(seed)
     jshared = jrng.coin_flips(key, jnp.int32(r), jrng.ids(t), jrng.ids(1),
                               common=True)[:, 0]
+    return np.asarray(jshared), [
+        np.asarray(jh.weak_coin_flips_pallas(key, jnp.int32(r), t, n, eps,
+                                             jshared, interpret=True))
+        for eps in (0.3, 0.5)]
+
+
+@pytest.mark.parametrize("t,n,seed,r,phase", CASES)
+@prefetch(lambda t, n, seed, r, phase: [(_jax_weak_coin_flips, t, n, seed,
+                                         r)])
+def test_weak_coin_flips_matches_pallas(t, n, seed, r, phase):
+    jshared, js = ref(_jax_weak_coin_flips, t, n, seed, r)
     shared = trng.coin_flips(seed, r, trng.ids(t), trng.ids(1),
                              common=True)[:, 0]
-    np.testing.assert_array_equal(shared.numpy(), np.asarray(jshared))
-    for eps in (0.3, 0.5):
-        j = jh.weak_coin_flips_pallas(key, jnp.int32(r), t, n, eps, jshared,
-                                      interpret=True)
+    np.testing.assert_array_equal(shared.numpy(), jshared)
+    for eps, j in zip((0.3, 0.5), js):
         out = th.weak_coin_flips(seed, r, t, n, eps, shared)
         assert out.dtype == torch.int8 and tuple(out.shape) == (t, n)
-        np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(out.numpy(), j)
 
 
 def test_weak_coin_eps_limits():

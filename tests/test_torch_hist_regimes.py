@@ -37,6 +37,7 @@ from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs, random_inputs
+from torch_ref_pool import prefetch, ref, start
 
 FIELDS = ("x", "decided", "k", "killed")
 N, T = 96, 8
@@ -87,10 +88,11 @@ CF_MAX = 4
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -131,34 +133,47 @@ def _port_run(name, port_runs, monkeypatch):
     return port_runs[name]
 
 
+def _jax_mode(name):
+    """The JAX package's run_consensus of a mode, recorder and witness
+    armed (a worker's call, see torch_ref_pool)."""
+    _, kind, regime = MODES[name]
+    jc = JCfg(**_kw(name))
+    jf = _faults(JFaults, jc, kind)
+    old = jsampling.EXACT_TABLE_MAX
+    if regime == "cf":
+        jsampling.EXACT_TABLE_MAX = CF_MAX
+    try:
+        jout = jsim.run_consensus(jc, jstate.init_state(
+            jc, balanced_inputs(T, N), jf), jf, jax.random.key(jc.seed))
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+    return (int(jout[0]), {k: np.asarray(getattr(jout[1], k))
+                           for k in FIELDS},
+            [np.asarray(o) for o in jout[2:]])
+
+
 @pytest.mark.parametrize("name", list(MODES))
+@prefetch(lambda name: [(_jax_mode, name)])
 def test_regime_matches_jax(name, port_runs, monkeypatch):
     """Rounds, final state, recorder and witness equal the JAX package's;
     no kernel wrapper is reached (no TPU kernel lies on these branches);
     the partition modes stall until the heal, then decide."""
     over, kind, regime = MODES[name]
-    jc = JCfg(**_kw(name))
-    jf = _faults(JFaults, jc, kind)
     for ops in (thist, tround, tdense):
         ops.reset_launches()
-    with monkeypatch.context() as mp:
-        if regime == "cf":
-            mp.setattr(jsampling, "EXACT_TABLE_MAX", CF_MAX)
-        jout = jsim.run_consensus(jc, jstate.init_state(
-            jc, balanced_inputs(T, N), jf), jf, jax.random.key(jc.seed))
+    jr, jfields, jtails = ref(_jax_mode, name)
+    jout = (jr, jfields, *jtails)
     tc, _, tout = _port_run(name, port_runs, monkeypatch)
     assert not ttally.pallas_round_active(tc)
-    assert ttally.unfused_gap(tc) is None
     for table in (thist.KERNELS, tround.KERNELS, tdense.KERNELS):
         assert all(fn.launches == 0 for fn in table.values())
     assert len(tout) == len(jout) == 4
-    assert tout[0] == int(jout[0]) >= 1
+    assert tout[0] == jout[0] >= 1
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(tout[1], k).numpy(),
-                                      np.asarray(getattr(jout[1], k)),
-                                      err_msg=k)
+                                      jout[1][k], err_msg=k)
     for i, what in ((2, "recorder"), (3, "witness")):
-        np.testing.assert_array_equal(tout[i].numpy(), np.asarray(jout[i]),
+        np.testing.assert_array_equal(tout[i].numpy(), jout[i],
                                       err_msg=what)
     if "partition" in over and "drop_prob" not in over:
         # every lane stalls inside the epoch, then the run decides

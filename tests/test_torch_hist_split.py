@@ -26,6 +26,7 @@ from benor_tpu_torch.ops import hist as th
 from benor_tpu_torch.ops import rng as trng
 from benor_tpu_torch.ops import stream as ts
 from chip_smoke import edge_hists
+from torch_ref_pool import prefetch, ref, start
 
 SEED, ROUND = 5, 2
 N_LANES = 4096
@@ -45,7 +46,8 @@ EDGE_ROWS = np.array([
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _clear_jax_caches():
+def _clear_jax_caches(request):
+    start(request)
     yield
     jax.clear_caches()
 
@@ -100,30 +102,47 @@ def _assert_split_equals_whole(hist, n_equiv, m):
     return out
 
 
+def _jax_equiv_counts(hist, n_equiv, m):
+    """The JAX package's equivocation kernel in interpret mode (a worker's
+    call, see torch_ref_pool)."""
+    return np.asarray(jh.equiv_counts_pallas(
+        jax.random.key(SEED), np.int32(ROUND), trng.PHASE_VOTE, hist,
+        n_equiv, m, N_LANES, interpret=True))
+
+
 def _assert_split_equals_pallas(hist, n_equiv, m):
     out = _assert_split_equals_whole(hist, n_equiv, m)
-    j = jh.equiv_counts_pallas(jax.random.key(SEED), np.int32(ROUND),
-                               trng.PHASE_VOTE, hist, n_equiv, m, N_LANES,
-                               interpret=True)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    j = ref(_jax_equiv_counts, hist, n_equiv, m)
+    np.testing.assert_array_equal(out.numpy(), j)
+
+
+def _edge_operands():
+    return EDGE_ROWS[:, :3].copy(), EDGE_ROWS[:, 3].copy()
 
 
 @pytest.mark.parametrize("m", [M_EDGE, 1])
+@prefetch(lambda m: [(_jax_equiv_counts, *_edge_operands(), m)])
 def test_equiv_split_equals_whole_and_pallas_on_edge_operands(m):
-    hist, n_equiv = EDGE_ROWS[:, :3].copy(), EDGE_ROWS[:, 3].copy()
+    hist, n_equiv = _edge_operands()
     if m == M_EDGE:
         assert hist[6].sum() + n_equiv[6] == m          # the m = total row
     _assert_split_equals_pallas(hist, n_equiv, m)
 
 
-@pytest.mark.parametrize("m", [600_000, 800_000])
-def test_equiv_split_equals_whole_and_pallas_at_1m_magnitudes(m):
+def _magnitudes(m):
     rs = np.random.default_rng(m)
     n_equiv = rs.integers(0, 250_000, size=8).astype(np.int32)
     hist = np.stack([rs.multinomial(1_000_000 - int(ne), [0.45, 0.45, 0.1])
                      for ne in n_equiv]).astype(np.int32)
     hist[:2] = rs.integers(0, 1_000_000, size=(2, 3))   # totals up to 3M
     n_equiv[2] = 0
+    return hist, n_equiv
+
+
+@pytest.mark.parametrize("m", [600_000, 800_000])
+@prefetch(lambda m: [(_jax_equiv_counts, *_magnitudes(m), m)])
+def test_equiv_split_equals_whole_and_pallas_at_1m_magnitudes(m):
+    hist, n_equiv = _magnitudes(m)
     _assert_split_equals_pallas(hist, n_equiv, m)
 
 
@@ -164,6 +183,28 @@ def test_grid_reaches_every_lane_once(n_nodes, trials):
         assert (served == 1).all() and (hits == 1).all()
 
 
+def _edge_hist_rows():
+    n = 1000
+    m = n - int(0.40 * n)
+    return edge_hists(n, m, 10, "cpu")[[6, 7]].numpy()
+
+
+def _jax_edge_hist_counts(hist):
+    """The JAX package's CF and equivocation kernels in interpret mode on
+    the rows (a worker's call, see torch_ref_pool)."""
+    n = 1000
+    m = n - int(0.40 * n)
+    j_cf = jh.cf_counts_pallas(jax.random.key(SEED), np.int32(ROUND),
+                               trng.PHASE_PROPOSAL, hist, m, n,
+                               interpret=True)
+    n_equiv = np.array([0, hist[1].sum()], np.int32)
+    j_eq = jh.equiv_counts_pallas(jax.random.key(SEED), np.int32(ROUND),
+                                  trng.PHASE_VOTE, hist, n_equiv,
+                                  n - n // 5, n, interpret=True)
+    return np.asarray(j_cf), np.asarray(j_eq)
+
+
+@prefetch(lambda: [(_jax_edge_hist_counts, _edge_hist_rows())])
 def test_counts_plain_match_pallas_on_edge_hist_rows():
     """Two of chip_smoke.py's edge-histogram rows (the quorum above the
     total; c0 near the total, so m - p0 <= 0 in many lanes) at N = 1000,
@@ -171,18 +212,14 @@ def test_counts_plain_match_pallas_on_edge_hist_rows():
     trial's total)."""
     n = 1000
     m = n - int(0.40 * n)
-    hist = edge_hists(n, m, 10, "cpu")[[6, 7]].numpy()
-    j = jh.cf_counts_pallas(jax.random.key(SEED), np.int32(ROUND),
-                            trng.PHASE_PROPOSAL, hist, m, n, interpret=True)
+    hist = _edge_hist_rows()
+    j_cf, j_eq = ref(_jax_edge_hist_counts, hist)
     out = th.cf_counts_plain(SEED, ROUND, trng.PHASE_PROPOSAL,
                              torch.from_numpy(hist), m, n)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(out.numpy(), j_cf)
     n_equiv = np.array([0, hist[1].sum()], np.int32)
     em = n - n // 5
-    j = jh.equiv_counts_pallas(jax.random.key(SEED), np.int32(ROUND),
-                               trng.PHASE_VOTE, hist, n_equiv, em, n,
-                               interpret=True)
     out = th.equiv_counts_plain(SEED, ROUND, trng.PHASE_VOTE,
                                 torch.from_numpy(hist),
                                 torch.from_numpy(n_equiv), em, n)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(out.numpy(), j_eq)

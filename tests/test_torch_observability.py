@@ -51,15 +51,17 @@ from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs
 from benor_tpu_torch.utils import metrics as tmetrics
+from torch_ref_pool import prefetch, ref, start
 
 FIELDS = ("x", "decided", "k", "killed")
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -193,12 +195,11 @@ EPS = 0.5
 WIDS = tuple(int(i) for i in range(8)) + tuple(range(N - 8, N))
 
 
-@pytest.fixture(scope="module")
-def fixture():
-    """A random mid-run state packed by both packages (0.45 of the lanes
-    faulty) and round bounds that put faulty lanes in every class at round
-    R (crash rounds in {0, 1..6}, recover rounds in {0, cr + 1 .. cr + 4},
-    pad lanes 0), as in tests/test_torch_crash_rounds.py."""
+def _draws():
+    """A random mid-run state (0.45 of the lanes faulty), round bounds that
+    put faulty lanes in every class at round R (crash rounds in {0, 1..6},
+    recover rounds in {0, cr + 1 .. cr + 4}, pad lanes 0), shared coins
+    and a vote histogram, as in tests/test_torch_crash_rounds.py."""
     rs = np.random.default_rng(21)
     leaves = dict(x=rs.integers(0, 3, size=(T, N)).astype(np.int8),
                   decided=rs.random((T, N)) < 0.2,
@@ -210,17 +211,29 @@ def fixture():
     d = rs.integers(0, 5, size=(T, NP))
     rcv = np.where(d > 0, cr + d, 0).astype(np.int32)
     rcv[:, N:] = 0
+    shared = rs.integers(0, 2, size=T).astype(np.int32)
+    hist2 = rs.integers(0, N // 2, size=(T, 3)).astype(np.int32)
+    return leaves, faulty, cr, rcv, shared, hist2
+
+
+def _jax_fixture():
+    """The draws with the state packed by the JAX package."""
+    leaves, faulty, cr, rcv, shared, hist2 = _draws()
     jc = JCfg(n_nodes=N, n_faulty=400, trials=T, max_rounds=12)
     jst = jstate.NetState(**{k: jnp.asarray(v) for k, v in leaves.items()})
     jpack = jround.pack_state(jc, jst, jnp.asarray(faulty))
+    return dict(jpack=jpack, cr=cr, rcv=rcv, shared=shared, hist2=hist2)
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    """The draws with the state packed by the port."""
+    leaves, faulty, cr, rcv, shared, hist2 = _draws()
     tpack = tround.pack_state(bt.SimConfig(n_nodes=N, n_faulty=400,
                                            trials=T, max_rounds=12),
                               convert.state_from_numpy(**leaves),
                               torch.from_numpy(faulty))
-    shared = rs.integers(0, 2, size=T).astype(np.int32)
-    hist2 = rs.integers(0, N // 2, size=(T, 3)).astype(np.int32)
-    return dict(jpack=jpack, tpack=tpack, cr=cr, rcv=rcv, shared=shared,
-                hist2=hist2)
+    return dict(tpack=tpack, cr=cr, rcv=rcv, shared=shared, hist2=hist2)
 
 
 def _cfgs(fault_model, counts_mode="sampled"):
@@ -234,22 +247,30 @@ def _cfgs(fault_model, counts_mode="sampled"):
 
 
 def _bounds(fx, fault_model):
-    """The round bounds as (JAX arrays, port tensors); none under crash."""
+    """The round bounds as JAX arrays or port tensors; none under
+    crash."""
     if fault_model == "crash":
-        return (None, None), (None, None)
-    return ((jnp.asarray(fx["cr"]), jnp.asarray(fx["rcv"])),
-            (torch.from_numpy(fx["cr"]), torch.from_numpy(fx["rcv"])))
+        return None, None
+    if "jpack" in fx:
+        return jnp.asarray(fx["cr"]), jnp.asarray(fx["rcv"])
+    return torch.from_numpy(fx["cr"]), torch.from_numpy(fx["rcv"])
 
 
-def _counts(jc, tc, hist, counts_mode):
+def _jax_counts(jc, hist, counts_mode):
+    if counts_mode == "delivered":
+        return jtally.adversarial_counts(jnp.asarray(hist), jc.quorum)
+    if counts_mode == "camps":
+        return jtally.targeted_camp_triples(jc, jnp.asarray(hist))
+    return jnp.asarray(hist)
+
+
+def _counts(tc, hist, counts_mode):
     th = torch.from_numpy(np.array(hist))
     if counts_mode == "delivered":
-        return (jtally.adversarial_counts(jnp.asarray(hist), jc.quorum),
-                ttally.adversarial_counts(th, tc.quorum))
+        return ttally.adversarial_counts(th, tc.quorum)
     if counts_mode == "camps":
-        return (jtally.targeted_camp_triples(jc, jnp.asarray(hist)),
-                ttally.targeted_camp_triples(tc, th))
-    return jnp.asarray(hist), th
+        return ttally.targeted_camp_triples(tc, th)
+    return th
 
 
 def _camps(tc, counts_mode):
@@ -276,23 +297,37 @@ VOTE_CASES = [("crash", "sampled", "private"),
 FUSED_CASES = [("crash_recover", "common")]
 
 
+def _jax_armed_proposal(fault_model, counts_mode):
+    """The JAX package's armed proposal kernel in interpret mode, with the
+    histogram it is fed (a worker's call, see torch_ref_pool)."""
+    jc, _ = _cfgs(fault_model, counts_mode)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    hist = np.asarray(jround.sent_hist_from_pack(jc, fx["jpack"], jcr,
+                                                 jrcv, R, SINGLE))
+    b0, b1 = _camps(_cfgs(fault_model, counts_mode)[1], counts_mode)
+    jsum, jtel = jround.proposal_hist_pallas(
+        jax.random.key(jc.seed), R, jrng.PHASE_PROPOSAL,
+        _jax_counts(jc, hist, counts_mode), fx["jpack"], jcr, jc.quorum,
+        fault_model, True, interpret=True, counts_mode=counts_mode,
+        camp_b0=b0, camp_b1=b1, witness_ids=WIDS, n_local=N, telemetry=True,
+        recover_round=jrcv, rejoin=_rejoin(fault_model))
+    return hist, np.asarray(jsum), np.asarray(jtel)
+
+
 @pytest.mark.parametrize("fault_model,counts_mode", PROPOSAL_CASES,
                          ids=_ids(PROPOSAL_CASES))
+@prefetch(lambda fault_model, counts_mode: [
+    (_jax_armed_proposal, fault_model, counts_mode)])
 def test_armed_proposal_matches_pallas(fixture, fault_model, counts_mode):
     """The witness fields (p0, p1 of 16 watched lanes) and the proposal
     stage's counters per tile, beside the base columns."""
-    jc, tc = _cfgs(fault_model, counts_mode)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
+    _, tc = _cfgs(fault_model, counts_mode)
+    tcr, trcv = _bounds(fixture, fault_model)
     rejoin = _rejoin(fault_model)
-    hist = np.asarray(jround.sent_hist_from_pack(jc, fixture["jpack"], jcr,
-                                                 jrcv, R, SINGLE))
-    jcounts, tcounts = _counts(jc, tc, hist, counts_mode)
+    hist, jsum, jtel = ref(_jax_armed_proposal, fault_model, counts_mode)
+    tcounts = _counts(tc, hist, counts_mode)
     b0, b1 = _camps(tc, counts_mode)
-    jsum, jtel = jround.proposal_hist_pallas(
-        jax.random.key(jc.seed), R, jrng.PHASE_PROPOSAL, jcounts,
-        fixture["jpack"], jcr, jc.quorum, fault_model, True, interpret=True,
-        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, witness_ids=WIDS,
-        n_local=N, telemetry=True, recover_round=jrcv, rejoin=rejoin)
     tel = torch.zeros((NP // 512, 7), dtype=torch.int32)
     got = tround.proposal_hist(
         tc.seed, R, trng.PHASE_PROPOSAL, tcounts, fixture["tpack"],
@@ -301,34 +336,50 @@ def test_armed_proposal_matches_pallas(fixture, fault_model, counts_mode):
         witness_ids=WIDS, n_local=N, telemetry=tel)
     width = tround.PROP_COLS + 2 * len(WIDS)
     assert got.shape == (T, width)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jsum)[:, :width])
-    np.testing.assert_array_equal(tel.numpy(), np.asarray(jtel))
+    np.testing.assert_array_equal(got.numpy(), jsum[:, :width])
+    np.testing.assert_array_equal(tel.numpy(), jtel)
     assert got[:, tround.PROP_COLS:].any()
+
+
+def _jax_armed_vote(fault_model, counts_mode, coin_mode):
+    """The JAX package's armed vote kernel in interpret mode (a worker's
+    call, see torch_ref_pool)."""
+    jc, tc = _cfgs(fault_model, counts_mode)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    b0, b1 = _camps(tc, counts_mode)
+    qok = np.arange(T) % 3 != 2
+    eps = EPS if coin_mode == "weak_common" else 0.0
+    jpack2, jsum, jtel = jround.vote_commit_pallas(
+        jax.random.key(jc.seed), R, jrng.PHASE_VOTE,
+        _jax_counts(jc, fx["hist2"], counts_mode), fx["jpack"], jcr,
+        jnp.asarray(qok), jnp.asarray(fx["shared"]), jc.quorum, jc.n_faulty,
+        "reference", coin_mode, eps, True, fault_model, interpret=True,
+        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, record=True,
+        witness_ids=WIDS, n_local=N, telemetry=True, recover_round=jrcv,
+        rejoin=_rejoin(fault_model))
+    return np.asarray(jpack2), np.asarray(jsum), np.asarray(jtel)
 
 
 @pytest.mark.parametrize("fault_model,counts_mode,coin_mode", VOTE_CASES,
                          ids=_ids(VOTE_CASES))
+@prefetch(lambda fault_model, counts_mode, coin_mode: [
+    (_jax_armed_vote, fault_model, counts_mode, coin_mode)])
 def test_armed_vote_matches_pallas(fixture, fault_model, counts_mode,
                                    coin_mode):
     """The recorder's columns (the margin a max over tiles, killed with the
     pad lanes), the witness fields and the vote stage's counters, beside
     the new stack and the base columns; the armed run's stack and base
     columns equal the unarmed run's."""
-    jc, tc = _cfgs(fault_model, counts_mode)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
+    _, tc = _cfgs(fault_model, counts_mode)
+    tcr, trcv = _bounds(fixture, fault_model)
     rejoin = _rejoin(fault_model)
-    jcounts, tcounts = _counts(jc, tc, fixture["hist2"], counts_mode)
+    tcounts = _counts(tc, fixture["hist2"], counts_mode)
     b0, b1 = _camps(tc, counts_mode)
     qok = np.arange(T) % 3 != 2
     eps = EPS if coin_mode == "weak_common" else 0.0
-    jpack2, jsum, jtel = jround.vote_commit_pallas(
-        jax.random.key(jc.seed), R, jrng.PHASE_VOTE, jcounts,
-        fixture["jpack"], jcr, jnp.asarray(qok),
-        jnp.asarray(fixture["shared"]), jc.quorum, jc.n_faulty, "reference",
-        coin_mode, eps, True, fault_model, interpret=True,
-        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, record=True,
-        witness_ids=WIDS, n_local=N, telemetry=True, recover_round=jrcv,
-        rejoin=rejoin)
+    jpack2, jsum, jtel = ref(_jax_armed_vote, fault_model, counts_mode,
+                             coin_mode)
     args = (tc.seed, R, trng.PHASE_VOTE, tcounts, fixture["tpack"],
             torch.from_numpy(qok), tc.quorum, tc.n_faulty, "reference",
             fault_model, True)
@@ -341,10 +392,9 @@ def test_armed_vote_matches_pallas(fixture, fault_model, counts_mode,
                                      witness_ids=WIDS, n_local=N,
                                      telemetry=tel)
     width = tround.VOTE_OBS_COLS + 6 * len(WIDS)
-    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2),
-                                  np.asarray(jpack2))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jsum)[:, :width])
-    np.testing.assert_array_equal(tel.numpy(), np.asarray(jtel))
+    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2), jpack2)
+    np.testing.assert_array_equal(got.numpy(), jsum[:, :width])
+    np.testing.assert_array_equal(tel.numpy(), jtel)
     plain_pack, plain = tround.vote_commit(*args, **kw)
     assert torch.equal(plain_pack, tpack2)
     assert torch.equal(plain, got[:, :tround.VOTE_COLS])
@@ -354,23 +404,34 @@ def test_armed_vote_matches_pallas(fixture, fault_model, counts_mode,
         assert bool((undec + got[:, 5] + got[:, 6] >= NP).all())
 
 
+def _jax_armed_fused(fault_model, coin_mode):
+    """The JAX package's armed fused kernel in interpret mode, with the
+    histogram it is fed (a worker's call, see torch_ref_pool)."""
+    jc, _ = _cfgs(fault_model)
+    fx = _jax_fixture()
+    jcr, jrcv = _bounds(fx, fault_model)
+    hist = jround.sent_hist_from_pack(jc, fx["jpack"], jcr, jrcv, R, SINGLE)
+    jout = jround.fused_round_pallas(
+        jax.random.key(jc.seed), R, hist, fx["jpack"], jcr,
+        jnp.asarray(fx["shared"]), jc.quorum, jc.n_faulty, "textbook",
+        coin_mode, 0.0, True, fault_model, interpret=True, record=True,
+        witness_ids=WIDS, n_local=N, telemetry=True, recover_round=jrcv,
+        rejoin=_rejoin(fault_model))
+    return np.asarray(hist), [np.asarray(o) for o in jout]
+
+
 @pytest.mark.parametrize("fault_model,coin_mode", FUSED_CASES,
                          ids=_ids(FUSED_CASES))
+@prefetch(lambda fault_model, coin_mode: [
+    (_jax_armed_fused, fault_model, coin_mode)])
 def test_armed_fused_matches_pallas(fixture, fault_model, coin_mode):
     """The single pass armed: partsA and partsB with their observability
     columns and both stages' counters over one tile; equal to the armed
     two-kernel route on every column both give."""
-    jc, tc = _cfgs(fault_model)
-    (jcr, jrcv), (tcr, trcv) = _bounds(fixture, fault_model)
+    _, tc = _cfgs(fault_model)
+    tcr, trcv = _bounds(fixture, fault_model)
     rejoin = _rejoin(fault_model)
-    hist = jround.sent_hist_from_pack(jc, fixture["jpack"], jcr, jrcv, R,
-                                      SINGLE)
-    jout = jround.fused_round_pallas(
-        jax.random.key(jc.seed), R, hist, fixture["jpack"], jcr,
-        jnp.asarray(fixture["shared"]), jc.quorum, jc.n_faulty, "textbook",
-        coin_mode, 0.0, True, fault_model, interpret=True, record=True,
-        witness_ids=WIDS, n_local=N, telemetry=True, recover_round=jrcv,
-        rejoin=rejoin)
+    hist, jout = ref(_jax_armed_fused, fault_model, coin_mode)
     thist = torch.from_numpy(np.array(hist))
     bounds = dict(crash_round=tcr, recover_round=trcv, rejoin=rejoin)
     shared = torch.from_numpy(fixture["shared"])
@@ -382,12 +443,11 @@ def test_armed_fused_matches_pallas(fixture, fault_model, coin_mode):
                               record=True, telemetry=tel, **obs)
     assert len(tout) == 3
     wa, wb = tround.PROP_COLS + 2 * 16, tround.VOTE_OBS_COLS + 6 * 16
-    np.testing.assert_array_equal(convert.pack_to_numpy(tout[0]),
-                                  np.asarray(jout[0]))
-    np.testing.assert_array_equal(tout[1].numpy(), np.asarray(jout[1])[:, :wa])
-    np.testing.assert_array_equal(tout[2].numpy(), np.asarray(jout[2])[:, :wb])
+    np.testing.assert_array_equal(convert.pack_to_numpy(tout[0]), jout[0])
+    np.testing.assert_array_equal(tout[1].numpy(), jout[1][:, :wa])
+    np.testing.assert_array_equal(tout[2].numpy(), jout[2][:, :wb])
     for i in (0, 1):
-        np.testing.assert_array_equal(tel[i].numpy(), np.asarray(jout[3 + i]))
+        np.testing.assert_array_equal(tel[i].numpy(), jout[3 + i])
     parts_a = tround.proposal_hist(tc.seed, R, trng.PHASE_PROPOSAL, thist,
                                    fixture["tpack"], tc.quorum, fault_model,
                                    True, **bounds, **obs)
@@ -454,27 +514,44 @@ def _port_run(name, **extra):
     return cfg, faults, state, bt.run_consensus(cfg, state, faults)
 
 
+def _jax_loop(name):
+    """The JAX package's run_consensus with the three flags armed, in the
+    CF regime (EXACT_TABLE_MAX = 4, as ``cf_regime``; a worker's call, see
+    torch_ref_pool)."""
+    old = jsampling.EXACT_TABLE_MAX
+    jsampling.EXACT_TABLE_MAX = 4
+    try:
+        over, crash, _ = LOOPS[name]
+        jc = JCfg(**_loop_kw({**over, **OBS}))
+        jf = _faults("jax", jc, crash)
+        jout = jsim.run_consensus(jc, jstate.init_state(
+            jc, balanced_inputs(LT, LN), jf), jf, jax.random.key(jc.seed))
+        return (int(jout[0]), {k: np.asarray(getattr(jout[1], k))
+                               for k in FIELDS},
+                [np.asarray(o) for o in jout[2:]])
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+
+
 @pytest.mark.parametrize("name", list(LOOPS))
+@prefetch(lambda name: [(_jax_loop, name)])
 def test_loop_planes_match_jax(cf_regime, name):
     """run_consensus with the recorder, the witness and the counters: the
     rounds, the final state and every buffer equal the JAX package's (the
     counters ride the packed loop only); the armed run's final state equals
     the port's unarmed run's."""
-    over, crash, packed = LOOPS[name]
-    jc = JCfg(**_loop_kw({**over, **OBS}))
-    jf = _faults("jax", jc, crash)
-    jout = jsim.run_consensus(jc, jstate.init_state(
-        jc, balanced_inputs(LT, LN), jf), jf, jax.random.key(jc.seed))
+    _, _, packed = LOOPS[name]
+    jr, jfields, jtails = ref(_jax_loop, name)
+    jout = (jr, jfields, *jtails)
     tc, _, _, tout = _port_run(name, **OBS)
     assert ttally.pallas_round_active(tc) == packed
     assert len(tout) == len(jout) == (5 if packed else 4)
-    assert tout[0] == int(jout[0]) >= 2
+    assert tout[0] == jout[0] >= 2
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(tout[1], k).numpy(),
-                                      np.asarray(getattr(jout[1], k)),
-                                      err_msg=k)
+                                      jout[1][k], err_msg=k)
     for i in range(2, len(jout)):
-        np.testing.assert_array_equal(tout[i].numpy(), np.asarray(jout[i]),
+        np.testing.assert_array_equal(tout[i].numpy(), jout[i],
                                       err_msg=f"tail {i}")
     _, _, _, plain = _port_run(name)
     assert plain[0] == tout[0]
@@ -559,20 +636,34 @@ def test_renderers_match_jax(cf_regime):
         jaudit.witness_rows(wit, tc.witness_trials, ids)
 
 
+_FACADE = dict(n=10, f=4, values=[0, 0, 1, 1, 1, 0, 0, 1, 1, 1],
+               faulty=[True] * 4 + [False] * 6,
+               kw=dict(poll_rounds=2, record=True, witness_trials=(0,),
+                       witness_nodes=4, max_rounds=12))
+
+
+def _facade(api):
+    net = api.launch_network(_FACADE["n"], _FACADE["f"], _FACADE["values"],
+                             _FACADE["faulty"], **_FACADE["kw"],
+                             **({"device": "cpu"} if api is tapi else {}))
+    net.start()
+    return (net.rounds_executed,
+            [net.get_round_history(since) for since in (None, 1)],
+            net.get_witness())
+
+
+def _jax_facade():
+    """The JAX facade's answers (a worker's call, see torch_ref_pool)."""
+    return _facade(japi)
+
+
+@prefetch(lambda: [(_jax_facade,)])
 def test_facade_history_and_witness_match_jax():
     """get_round_history(since_round) and get_witness through
     launch_network with poll_rounds equal the JAX facade's."""
-    faulty = [True] * 4 + [False] * 6
-    values = [0, 0, 1, 1, 1, 0, 0, 1, 1, 1]
-    kw = dict(poll_rounds=2, record=True, witness_trials=(0,),
-              witness_nodes=4, max_rounds=12)
-    nets = [api.launch_network(10, 4, values, faulty, **kw,
-                               **({"device": "cpu"} if api is tapi else {}))
-            for api in (japi, tapi)]
-    for net in nets:
-        net.start()
-    j, t = nets
-    assert t.rounds_executed == j.rounds_executed >= 1
-    for since in (None, 1):
-        assert t.get_round_history(since) == j.get_round_history(since)
-    assert t.get_witness() == j.get_witness()
+    j_rounds, j_hist, j_wit = ref(_jax_facade)
+    t_rounds, t_hist, t_wit = _facade(tapi)
+    assert t_rounds == j_rounds >= 1
+    for t_h, j_h in zip(t_hist, j_hist):
+        assert t_h == j_h
+    assert t_wit == j_wit

@@ -41,6 +41,7 @@ from benor_tpu_torch.ops import tally as ttally
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.state import PACK_COINED
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 R = 3
 EPS = 0.5
@@ -92,10 +93,11 @@ def _jax_triples(cfg, h, nf):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -111,125 +113,202 @@ def cf_regime():
         jsampling.EXACT_TABLE_MAX, tsampling.EXACT_TABLE_MAX = old
 
 
-def _setup(t, n, fault_model, counts_mode, seed):
-    """A random mid-run state packed by both packages, its (honest)
-    proposal histogram and live equivocators, and a vote histogram.  F is
-    0.4 N, so the closed forms tie in many trials and lanes take the
-    coin."""
+def _draws(t, n, seed):
+    """The case's random mid-run state, faulty lanes, vote histogram and
+    shared coins, drawn in one order for both packages."""
     rs = np.random.default_rng(seed)
-    kw = dict(n_nodes=n, n_faulty=int(0.4 * n), trials=t, max_rounds=12,
-              fault_model=fault_model, seed=seed, delivery="quorum",
-              scheduler=SCHEDULER[counts_mode])
-    jc, tc = JCfg(**kw), bt.SimConfig(**kw)
     leaves = dict(x=rs.integers(0, 3, size=(t, n)).astype(np.int8),
                   decided=rs.random((t, n)) < 0.2,
                   k=rs.integers(0, 14, size=(t, n)).astype(np.int32),
                   killed=rs.random((t, n)) < 0.15)
     faulty = rs.random((t, n)) < 0.25
-    jst = jstate.NetState(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    jpack = _jax_pack(jc, jst, jnp.asarray(faulty))
-    tpack = tround.pack_state(tc, convert.state_from_numpy(**leaves),
-                              torch.from_numpy(faulty))
-    jhist = _jax_hist(jc, jpack)
-    thist = tround.sent_hist_from_pack(tc, tpack)
-    np.testing.assert_array_equal(thist.numpy(), np.asarray(jhist))
-    jne = _jax_n_equiv(jc, jpack)
-    tne = tround.n_equiv_from_pack(tc, tpack)
-    if fault_model == "equivocate":
-        np.testing.assert_array_equal(tne.numpy(), np.asarray(jne))
-    else:
-        assert tne is None and jne is None
     hist2 = rs.integers(0, n // 2, size=(t, 3)).astype(np.int32)
     shared = rs.integers(0, 2, size=t).astype(np.int32)
-    return dict(jc=jc, tc=tc, jpack=jpack, tpack=tpack, jhist=jhist,
-                thist=thist, jne=jne, tne=tne, hist2=hist2, shared=shared)
+    return leaves, faulty, hist2, shared
+
+
+def _case_kw(t, n, fault_model, counts_mode, seed):
+    return dict(n_nodes=n, n_faulty=int(0.4 * n), trials=t, max_rounds=12,
+                fault_model=fault_model, seed=seed, delivery="quorum",
+                scheduler=SCHEDULER[counts_mode])
+
+
+def _jax_setup(t, n, fault_model, counts_mode, seed):
+    """The JAX side of ``_setup``: its config, pack, (honest) proposal
+    histogram and live equivocators."""
+    jc = JCfg(**_case_kw(t, n, fault_model, counts_mode, seed))
+    leaves, faulty, _, _ = _draws(t, n, seed)
+    jst = jstate.NetState(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    jpack = _jax_pack(jc, jst, jnp.asarray(faulty))
+    return jc, jpack, _jax_hist(jc, jpack), _jax_n_equiv(jc, jpack)
+
+
+def _jax_setup_out(t, n, fault_model, counts_mode, seed):
+    """``_jax_setup``'s histogram and live equivocators (a worker's
+    call, see torch_ref_pool)."""
+    _, _, jhist, jne = _jax_setup(t, n, fault_model, counts_mode, seed)
+    return np.asarray(jhist), None if jne is None else np.asarray(jne)
+
+
+def _setup(t, n, fault_model, counts_mode, seed):
+    """A random mid-run state packed by the port, its (honest) proposal
+    histogram and live equivocators held against the JAX package's, and a
+    vote histogram.  F is 0.4 N, so the closed forms tie in many trials
+    and lanes take the coin."""
+    tc = bt.SimConfig(**_case_kw(t, n, fault_model, counts_mode, seed))
+    leaves, faulty, hist2, shared = _draws(t, n, seed)
+    tpack = tround.pack_state(tc, convert.state_from_numpy(**leaves),
+                              torch.from_numpy(faulty))
+    jhist, jne = ref(_jax_setup_out, t, n, fault_model, counts_mode, seed)
+    thist = tround.sent_hist_from_pack(tc, tpack)
+    np.testing.assert_array_equal(thist.numpy(), jhist)
+    tne = tround.n_equiv_from_pack(tc, tpack)
+    if fault_model == "equivocate":
+        np.testing.assert_array_equal(tne.numpy(), jne)
+    else:
+        assert tne is None and jne is None
+    return dict(tc=tc, tpack=tpack, thist=thist, tne=tne, hist2=hist2,
+                shared=shared)
+
+
+def _jax_counts(jc, hist_np, counts_mode, jne):
+    """A phase's counts in counts_mode's layout, from the JAX package's
+    closed forms."""
+    if counts_mode == "delivered":
+        return _jax_adversarial(np.asarray(hist_np), jc.quorum, jne)
+    if counts_mode == "camps":
+        return _jax_triples(jc, np.asarray(hist_np), jne)
+    return jnp.asarray(hist_np)
 
 
 def _counts(s, hist_np, counts_mode):
-    """A phase's counts in counts_mode's layout, from both packages' closed
-    forms (numpy in, (JAX array, torch tensor) out)."""
-    jc, tc = s["jc"], s["tc"]
+    """The same counts from the port's closed forms (numpy in, torch
+    tensor out)."""
+    tc = s["tc"]
     th = torch.from_numpy(np.array(hist_np))
     if counts_mode == "delivered":
-        return (_jax_adversarial(np.asarray(hist_np), jc.quorum, s["jne"]),
-                ttally.adversarial_counts(th, tc.quorum, n_free=s["tne"]))
+        return ttally.adversarial_counts(th, tc.quorum, n_free=s["tne"])
     if counts_mode == "camps":
-        return (_jax_triples(jc, np.asarray(hist_np), s["jne"]),
-                ttally.targeted_camp_triples(tc, th, n_free=s["tne"]))
-    return jnp.asarray(hist_np), th
+        return ttally.targeted_camp_triples(tc, th, n_free=s["tne"])
+    return th
+
+
+def _jax_camp_bounds(jc, counts_mode):
+    if counts_mode != "camps":
+        return 0, 0
+    s0 = jtally.targeted_camp_sizes(jc)[0]
+    return max(jc.n_nodes - 2 * s0, 0), max(jc.n_nodes - s0, 0)
+
+
+def _pair_seed(t, n):
+    return 40 + t + n % 7
+
+
+def _jax_pair(t, n, fault_model, counts_mode, coin_mode, rule, freeze):
+    """The JAX package's proposal and vote kernels in interpret mode on the
+    case's pack (a worker's call, see torch_ref_pool)."""
+    jc, jpack, jhist, jne = _jax_setup(t, n, fault_model, counts_mode,
+                                       _pair_seed(t, n))
+    _, _, hist2, shared = _draws(t, n, _pair_seed(t, n))
+    b0, b1 = _jax_camp_bounds(jc, counts_mode)
+    key = jax.random.key(jc.seed)
+    jparts = jround.proposal_hist_pallas(
+        key, R, jrng.PHASE_PROPOSAL,
+        _jax_counts(jc, np.asarray(jhist), counts_mode, jne), jpack, None,
+        jc.quorum, fault_model, freeze, interpret=True, n_equiv=jne,
+        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1)
+    qok = np.arange(t) % 3 != 2
+    jpack2, jvparts = jround.vote_commit_pallas(
+        key, R, jrng.PHASE_VOTE, _jax_counts(jc, hist2, counts_mode, jne),
+        jpack, None, jnp.asarray(qok), jnp.asarray(shared), jc.quorum,
+        jc.n_faulty, rule, coin_mode,
+        EPS if coin_mode == "weak_common" else 0.0, freeze, fault_model,
+        interpret=True, n_equiv=jne, counts_mode=counts_mode, camp_b0=b0,
+        camp_b1=b1)
+    return dict(bounds=(b0, b1), parts=np.asarray(jparts),
+                pack2=np.asarray(jpack2), vparts=np.asarray(jvparts))
 
 
 @pytest.mark.parametrize("t,n,fault_model,counts_mode,coin_mode,rule,freeze",
                          CASES, ids=IDS)
+@prefetch(lambda t, n, fault_model, counts_mode, coin_mode, rule, freeze: [
+    (_jax_setup_out, t, n, fault_model, counts_mode, _pair_seed(t, n)),
+    (_jax_pair, t, n, fault_model, counts_mode, coin_mode, rule, freeze)])
 def test_pair_matches_pallas(t, n, fault_model, counts_mode, coin_mode, rule,
                              freeze):
-    s = _setup(t, n, fault_model, counts_mode, 40 + t + n % 7)
-    jc, tc = s["jc"], s["tc"]
+    s = _setup(t, n, fault_model, counts_mode, _pair_seed(t, n))
+    tc = s["tc"]
+    j = ref(_jax_pair, t, n, fault_model, counts_mode, coin_mode, rule,
+            freeze)
     b0, b1 = (ttally.targeted_camp_bounds(tc) if counts_mode == "camps"
               else (0, 0))
-    assert (b0, b1) == ((max(n - 2 * jtally.targeted_camp_sizes(jc)[0], 0),
-                         max(n - jtally.targeted_camp_sizes(jc)[0], 0))
-                        if counts_mode == "camps" else (0, 0))
-    key = jax.random.key(jc.seed)
-    jc1, tc1 = _counts(s, np.asarray(s["jhist"]), counts_mode)
-    jparts = jround.proposal_hist_pallas(
-        key, R, jrng.PHASE_PROPOSAL, jc1, s["jpack"], None, jc.quorum,
-        fault_model, freeze, interpret=True, n_equiv=s["jne"],
-        counts_mode=counts_mode, camp_b0=b0, camp_b1=b1)
+    assert (b0, b1) == j["bounds"]
+    tc1 = _counts(s, s["thist"].numpy(), counts_mode)
     tparts = tround.proposal_hist(
         tc.seed, R, trng.PHASE_PROPOSAL, tc1, s["tpack"], tc.quorum,
         fault_model, freeze, n_equiv=s["tne"], counts_mode=counts_mode,
         camp_b0=b0, camp_b1=b1)
     np.testing.assert_array_equal(tparts.numpy(),
-                                  np.asarray(jparts)[:, :tround.PROP_COLS])
+                                  j["parts"][:, :tround.PROP_COLS])
 
     qok = np.arange(t) % 3 != 2
-    jc2, tc2 = _counts(s, s["hist2"], counts_mode)
-    jpack2, jvparts = jround.vote_commit_pallas(
-        key, R, jrng.PHASE_VOTE, jc2, s["jpack"], None, jnp.asarray(qok),
-        jnp.asarray(s["shared"]), jc.quorum, jc.n_faulty, rule, coin_mode,
-        EPS if coin_mode == "weak_common" else 0.0, freeze, fault_model,
-        interpret=True, n_equiv=s["jne"], counts_mode=counts_mode,
-        camp_b0=b0, camp_b1=b1)
+    tc2 = _counts(s, s["hist2"], counts_mode)
     tpack2, tvparts = tround.vote_commit(
         tc.seed, R, trng.PHASE_VOTE, tc2, s["tpack"], torch.from_numpy(qok),
         tc.quorum, tc.n_faulty, rule, fault_model, freeze, n_equiv=s["tne"],
         counts_mode=counts_mode, camp_b0=b0, camp_b1=b1, coin_mode=coin_mode,
         eps=EPS if coin_mode == "weak_common" else 0.0,
         shared=torch.from_numpy(s["shared"]))
-    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2),
-                                  np.asarray(jpack2))
+    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2), j["pack2"])
     np.testing.assert_array_equal(tvparts.numpy(),
-                                  np.asarray(jvparts)[:, :tround.VOTE_COLS])
+                                  j["vparts"][:, :tround.VOTE_COLS])
     if coin_mode != "private":
         # the case reaches the shared coin's branch
         assert int(tpack2[:, PACK_COINED].ne(0).sum()) > 0
 
 
+def _fused_seed(t, n):
+    return 60 + t + n % 7
+
+
+def _jax_fused(t, n, fault_model, counts_mode, coin_mode, rule, freeze):
+    """The JAX package's fused kernel in interpret mode on the case's pack
+    (a worker's call, see torch_ref_pool)."""
+    jc, jpack, jhist, jne = _jax_setup(t, n, fault_model, counts_mode,
+                                       _fused_seed(t, n))
+    _, _, _, shared = _draws(t, n, _fused_seed(t, n))
+    eps = EPS if coin_mode == "weak_common" else 0.0
+    jout = jround.fused_round_pallas(
+        jax.random.key(jc.seed), R, jhist, jpack, None, jnp.asarray(shared),
+        jc.quorum, jc.n_faulty, rule, coin_mode, eps, freeze, fault_model,
+        interpret=True, n_equiv=jne)
+    return [np.asarray(o) for o in jout[:3]]
+
+
 @pytest.mark.parametrize("t,n,fault_model,counts_mode,coin_mode,rule,freeze",
                          FUSED_CASES,
                          ids=[f"{c[4]}-{c[2]}" for c in FUSED_CASES])
+@prefetch(lambda t, n, fault_model, counts_mode, coin_mode, rule, freeze: [
+    (_jax_setup_out, t, n, fault_model, counts_mode, _fused_seed(t, n)),
+    (_jax_fused, t, n, fault_model, counts_mode, coin_mode, rule, freeze)])
 def test_fused_matches_pallas_and_two_kernel(t, n, fault_model, counts_mode,
                                             coin_mode, rule, freeze):
-    s = _setup(t, n, fault_model, counts_mode, 60 + t + n % 7)
-    jc, tc = s["jc"], s["tc"]
+    s = _setup(t, n, fault_model, counts_mode, _fused_seed(t, n))
+    tc = s["tc"]
     eps = EPS if coin_mode == "weak_common" else 0.0
-    jout = jround.fused_round_pallas(
-        jax.random.key(jc.seed), R, s["jhist"], s["jpack"], None,
-        jnp.asarray(s["shared"]), jc.quorum, jc.n_faulty, rule, coin_mode,
-        eps, freeze, fault_model, interpret=True, n_equiv=s["jne"])
+    jout = ref(_jax_fused, t, n, fault_model, counts_mode, coin_mode, rule,
+               freeze)
     shared = torch.from_numpy(s["shared"])
     modes = dict(n_equiv=s["tne"], coin_mode=coin_mode, eps=eps,
                  shared=shared)
     tpack2, ta, tb = tround.fused_round(tc.seed, R, s["thist"], s["tpack"],
                                         tc.quorum, tc.n_faulty, rule,
                                         fault_model, freeze, **modes)
-    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2),
-                                  np.asarray(jout[0]))
+    np.testing.assert_array_equal(convert.pack_to_numpy(tpack2), jout[0])
     np.testing.assert_array_equal(ta.numpy(),
-                                  np.asarray(jout[1])[:, :tround.PROP_COLS])
+                                  jout[1][:, :tround.PROP_COLS])
     np.testing.assert_array_equal(tb.numpy(),
-                                  np.asarray(jout[2])[:, :tround.VOTE_COLS])
+                                  jout[2][:, :tround.VOTE_COLS])
 
     # inside the port: fused == proposal + sum + vote, bit for bit
     parts_a = tround.proposal_hist(tc.seed, R, trng.PHASE_PROPOSAL,
@@ -244,6 +323,7 @@ def test_fused_matches_pallas_and_two_kernel(t, n, fault_model, counts_mode,
     assert torch.equal(two_b, tb)
 
 
+@prefetch(lambda: [(_jax_setup_out, 2, 1000, "equivocate", "sampled", 5)])
 def test_wrappers_refuse_missing_operands():
     s = _setup(2, 1000, "equivocate", "sampled", 5)
     tc, tpack = s["tc"], s["tpack"]
@@ -327,8 +407,25 @@ def _fields(st):
                                                   "killed")}
 
 
+def _jax_regime(over, alive_eq):
+    """The JAX package's ``use_pallas_round=True`` run in the CF regime
+    (EXACT_TABLE_MAX = 4, as ``cf_regime``; a worker's call, see
+    torch_ref_pool)."""
+    old = jsampling.EXACT_TABLE_MAX
+    jsampling.EXACT_TABLE_MAX = 4
+    try:
+        jc = JCfg(**_regime_kw(over))
+        faults = (JFaults.first_f(jc) if alive_eq else JFaults.none(T, N))
+        jr, jst, _ = jsim.simulate(jc, balanced_inputs(T, N), faults=faults)
+        return int(jr), {k: np.asarray(getattr(jst, k))
+                         for k in ("x", "decided", "k", "killed")}
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+
+
 @pytest.mark.parametrize("name,over,alive_eq", REGIMES,
                          ids=[r[0] for r in REGIMES])
+@prefetch(lambda name, over, alive_eq: [(_jax_regime, over, alive_eq)])
 def test_regime_matches_jax_packed(cf_regime, name, over, alive_eq):
     jc = JCfg(**_regime_kw(over))
     tc = bt.SimConfig(**_regime_kw(over))
@@ -336,13 +433,11 @@ def test_regime_matches_jax_packed(cf_regime, name, over, alive_eq):
     assert ttally.pallas_round_active(tc)
     assert not tround.fused_one_pass_eligible(tc, T, N) or \
         tc.scheduler == "uniform"
-    faults = (JFaults.first_f(jc) if alive_eq else JFaults.none(T, N))
-    jr, jst, _ = jsim.simulate(jc, balanced_inputs(T, N), faults=faults)
+    jr, jfields = ref(_jax_regime, over, alive_eq)
     tr, tst, _ = _port_run(over, alive_eq)
-    assert tr == int(jr)
+    assert tr == jr
     for k, v in _fields(tst).items():
-        np.testing.assert_array_equal(v, np.asarray(getattr(jst, k)),
-                                      err_msg=k)
+        np.testing.assert_array_equal(v, jfields[k], err_msg=k)
     # the structural outcomes bench.py's regimes are chosen for
     if name in ("targeted_f0.50", "equiv_3f_super", "adv_private",
                 "weak_eps0.65"):

@@ -38,6 +38,7 @@ from benor_tpu_torch.faults import partitions as tpart
 from benor_tpu_torch.ops import rng as trng
 from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.ops import tally as ttally
+from torch_ref_pool import prefetch, ref, start
 
 J_NORMAL = jax.jit(jsampling.hypergeom_normal_approx, static_argnums=4)
 J_RACE = jax.jit(jsampling.uniform_race_favored_count,
@@ -52,10 +53,11 @@ CF_MAX = 4                 # EXACT_TABLE_MAX in the CF-regime tests
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -195,10 +197,7 @@ def test_binomial_keep_matches_jax(drop_p):
 # --- the count samplers in the CF regime --------------------------------------
 
 
-@pytest.mark.parametrize("m", [5, 56, 700])
-def test_multivariate_and_equivocate_counts_match_jax_in_cf_regime(m):
-    """The uniform scheduler's two-class draw and its mixed-population twin
-    under equivocation, quorum above the (lowered) table bound."""
+def _mv_case(m):
     rs = np.random.default_rng(m)
     t, n = 8, 3000
     total = 2 * m
@@ -206,6 +205,14 @@ def test_multivariate_and_equivocate_counts_match_jax_in_cf_regime(m):
     n_equiv = rs.integers(0, m // 2 + 2, size=t).astype(np.int32)
     n_equiv[:2] = (0, m)
     u = [rs.random((t, n), dtype=np.float32) for _ in range(4)]
+    return u, hist, n_equiv
+
+
+def _jax_mv_counts(m):
+    """JAX's two-class draw and its mixed-population twin with
+    EXACT_TABLE_MAX = CF_MAX (``_jax_*``: a worker's calls, see
+    torch_ref_pool)."""
+    u, hist, n_equiv = _mv_case(m)
     with _table_max(CF_MAX):
         want_mv = np.asarray(jax.jit(
             jsampling.multivariate_hypergeom_counts, static_argnums=3)(
@@ -213,6 +220,17 @@ def test_multivariate_and_equivocate_counts_match_jax_in_cf_regime(m):
         want_eq = np.asarray(jax.jit(
             jsampling.equivocate_hypergeom_counts, static_argnums=6)(
                 *u, hist, n_equiv, m))
+    return want_mv, want_eq
+
+
+@pytest.mark.parametrize("m", [5, 56, 700])
+@prefetch(lambda m: [(_jax_mv_counts, m)])
+def test_multivariate_and_equivocate_counts_match_jax_in_cf_regime(m):
+    """The uniform scheduler's two-class draw and its mixed-population twin
+    under equivocation, quorum above the (lowered) table bound."""
+    u, hist, n_equiv = _mv_case(m)
+    want_mv, want_eq = ref(_jax_mv_counts, m)
+    with _table_max(CF_MAX):
         got_mv = tsampling.multivariate_hypergeom_counts(
             *_t(u[0], u[1], hist), m)
         got_eq = tsampling.equivocate_hypergeom_counts(
@@ -221,52 +239,84 @@ def test_multivariate_and_equivocate_counts_match_jax_in_cf_regime(m):
     np.testing.assert_array_equal(got_eq.numpy(), want_eq)
 
 
-@pytest.mark.parametrize("strength", [0.25, 0.5, 0.9, 1.0, 1.5])
-def test_biased_counts_match_jax_in_cf_regime(strength):
-    """biased_priority_counts (strength >= 1) and biased_fractional_counts
-    (0 < s < 1) over histograms whose favored populations cover the quorum
-    or fall short of it, even and odd receivers."""
+def _biased_case(strength):
     rs = np.random.default_rng(int(strength * 8))
     t, n, m = 8, 3001, 72
     hist = _hists(rs, t, 96, m)
-    node_ids = np.arange(5, 5 + n, dtype=np.int32)
     u0, u1 = (rs.random((t, n), dtype=np.float32) for _ in range(2))
+    return hist, u0, u1
+
+
+def _jax_biased_counts(strength):
+    hist, u0, u1 = _biased_case(strength)
+    n, m = 3001, 72
+    node_ids = np.arange(5, 5 + n, dtype=np.int32)
     with _table_max(CF_MAX):
         if strength >= 1.0:
             want = jax.jit(jtally.biased_priority_counts,
                            static_argnums=2)(u0, hist, m, node_ids)
-            got = ttally.biased_priority_counts(*_t(u0, hist), m,
-                                                torch.arange(5, 5 + n))
         else:
             want = jax.jit(jtally.biased_fractional_counts,
                            static_argnums=(0, 4))(strength, u0, u1, hist, m,
                                                   node_ids)
+    return np.asarray(want)
+
+
+@pytest.mark.parametrize("strength", [0.25, 0.5, 0.9, 1.0, 1.5])
+@prefetch(lambda strength: [(_jax_biased_counts, strength)])
+def test_biased_counts_match_jax_in_cf_regime(strength):
+    """biased_priority_counts (strength >= 1) and biased_fractional_counts
+    (0 < s < 1) over histograms whose favored populations cover the quorum
+    or fall short of it, even and odd receivers."""
+    n, m = 3001, 72
+    hist, u0, u1 = _biased_case(strength)
+    want = ref(_jax_biased_counts, strength)
+    with _table_max(CF_MAX):
+        if strength >= 1.0:
+            got = ttally.biased_priority_counts(*_t(u0, hist), m,
+                                                torch.arange(5, 5 + n))
+        else:
             got = ttally.biased_fractional_counts(
                 strength, *_t(u0, u1, hist), m, torch.arange(5, 5 + n))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), want)
     assert (got.sum(-1) <= m).all()
 
 
 # --- the omission and partition planes ---------------------------------------
 
 
+def _omission_case():
+    rs = np.random.default_rng(3)
+    t, n = 5, 700
+    per_lane = rs.integers(0, 500, size=(t, n, 3)).astype(np.int32)
+    hist = rs.integers(0, 300_000, size=(t, 3)).astype(np.int32)
+    return per_lane, hist
+
+
+def _jax_omission_thin(drop_p):
+    per_lane, hist = _omission_case()
+    t, n, r, phase = 5, 700, 4, 1
+    tid, nid = np.arange(2, 2 + t, dtype=np.int32), np.arange(n,
+                                                               dtype=np.int32)
+    return [np.asarray(J_OMISSION(jax.random.key(9), r, phase,
+                                  np.ascontiguousarray(counts),
+                                  np.float32(drop_p), tid, nid))
+            for counts in (per_lane,
+                           np.broadcast_to(hist[:, None, :], (t, n, 3)))]
+
+
 @pytest.mark.parametrize("drop_p", [0.05, 0.3])
+@prefetch(lambda drop_p: [(_jax_omission_thin, drop_p)])
 def test_omission_thin_counts_matches_jax(drop_p):
     """Three binomial draws a lane on the salts phase + 8, + 24, + 40, over
     per-lane counts (a partition's group counts) and over a broadcast
     histogram (an expanded view on the port)."""
-    rs = np.random.default_rng(3)
     t, n, r, phase = 5, 700, 4, 1
-    per_lane = rs.integers(0, 500, size=(t, n, 3)).astype(np.int32)
-    hist = rs.integers(0, 300_000, size=(t, 3)).astype(np.int32)
-    tid, nid = np.arange(2, 2 + t, dtype=np.int32), np.arange(n,
-                                                               dtype=np.int32)
-    for counts, tc in ((per_lane, torch.from_numpy(per_lane)),
-                       (np.broadcast_to(hist[:, None, :], (t, n, 3)),
-                        torch.from_numpy(hist)[:, None, :].expand(t, n, 3))):
-        want = np.asarray(J_OMISSION(jax.random.key(9), r, phase,
-                                     np.ascontiguousarray(counts),
-                                     np.float32(drop_p), tid, nid))
+    per_lane, hist = _omission_case()
+    wants = ref(_jax_omission_thin, drop_p)
+    for tc, want in zip((torch.from_numpy(per_lane),
+                         torch.from_numpy(hist)[:, None, :].expand(t, n, 3)),
+                        wants):
         got = ttally.omission_thin_counts(
             9, r, phase, tc, drop_p, trng.ids(t, offset=2), trng.ids(n))
         np.testing.assert_array_equal(got.numpy(), want)
@@ -380,7 +430,14 @@ def _table_case(total, m):
     return tot, good, u
 
 
+def _jax_exact_table(total, m):
+    tot, good, u = _table_case(total, m)
+    return np.asarray(J_TABLE(tot, good, m)), np.asarray(J_EXACT(u, tot, good,
+                                                                 m))
+
+
 @pytest.mark.parametrize("total,m", list(TABLE_DRAW_BOUND))
+@prefetch(lambda total, m: [(_jax_exact_table, total, m)])
 def test_exact_table_search_and_table_against_jax(total, m):
     """(1) The port's search handed JAX's CDF table gives JAX's draws
     exactly.  (2) The port's own table equals JAX's within the rounding of
@@ -389,8 +446,7 @@ def test_exact_table_search_and_table_against_jax(total, m):
     ulps of lgamma(total + 1)).  (3) Its draws differ from JAX's on at
     most twice the count measured."""
     tot, good, u = _table_case(total, m)
-    jt = np.asarray(J_TABLE(tot, good, m))
-    want = np.asarray(J_EXACT(u, tot, good, m))
+    jt, want = ref(_jax_exact_table, total, m)
     got = tsampling.shared_table_search(torch.from_numpy(jt),
                                         torch.from_numpy(u), m)
     assert got.dtype == torch.int32

@@ -23,6 +23,7 @@ from benor_tpu_torch.faults.partitions import (
 from benor_tpu_torch.ops import dense as tdense
 from benor_tpu_torch.ops import rng as trng
 from benor_tpu_torch.ops import scheduler as tsched
+from torch_ref_pool import prefetch, ref, start
 
 
 J_EDGE_UNIFORMS = jax.jit(jrng.edge_uniforms)
@@ -36,10 +37,11 @@ J_DENSE_COUNTS = jax.jit(j_dense_counts)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -55,19 +57,28 @@ def _senders(seed, t, n, p_alive):
     return sent, alive
 
 
+def _jax_edge_uniforms(seed, r, phase, t, n_recv, n_send, offs):
+    """JAX's per-edge uniforms (``_jax_*``: a worker's calls, see
+    torch_ref_pool)."""
+    return np.asarray(J_EDGE_UNIFORMS(
+        jax.random.key(seed), r, phase, _ids(offs[0], t)[0],
+        _ids(offs[1], n_recv)[0], _ids(offs[2], n_send)[0]))
+
+
 @pytest.mark.parametrize("seed,r,phase,t,n_recv,n_send,offs,chunk", [
     (0, 1, 0, 3, 7, 9, (0, 0, 0), 1 << 24),
     (7, 3, 1, 3, 7, 9, (5, 10, 0), 100),       # id offsets, chunked passes
     (123456789, 40, 33, 2, 5, 16, (1000, 2040, 3), 1),
     (2**32 + 5, 2, 8, 4, 12, 12, (0, 0, 0), 300),
 ])
+@prefetch(lambda seed, r, phase, t, n_recv, n_send, offs, chunk: [
+    (_jax_edge_uniforms, seed, r, phase, t, n_recv, n_send, offs)])
 def test_edge_uniforms_match_jax_bits(monkeypatch, seed, r, phase, t, n_recv,
                                       n_send, offs, chunk):
     monkeypatch.setattr(trng, "EDGE_CHUNK", chunk)
-    (jt, tt), (jr, tr), (js, ts) = (_ids(offs[0], t), _ids(offs[1], n_recv),
-                                    _ids(offs[2], n_send))
-    want = np.asarray(J_EDGE_UNIFORMS(jax.random.key(seed), r, phase, jt, jr,
-                                      js))
+    (_, tt), (_, tr), (_, ts) = (_ids(offs[0], t), _ids(offs[1], n_recv),
+                                 _ids(offs[2], n_send))
+    want = ref(_jax_edge_uniforms, seed, r, phase, t, n_recv, n_send, offs)
     got = trng.edge_uniforms(seed, r, phase, tt, tr, ts)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.int32),
@@ -89,18 +100,39 @@ def test_top_m_mask_ties_match_jax(m):
     assert (srt[..., m - 1] == srt[..., min(m, 15)]).any()   # ties at m
 
 
+def _jax_quorum_mask(kw, seed, r, phase, sent, alive, t_off, r_off,
+                     n_recv):
+    t, _ = alive.shape
+    return np.asarray(J_QUORUM_MASK(JCfg(**kw), jax.random.key(seed), r,
+                                    phase, sent, alive, _ids(t_off, t)[0],
+                                    _ids(r_off, n_recv)[0]))
+
+
+def _quorum_args(kw, seed, r, phase, sent, alive, t_off=0, r_off=0,
+                 n_recv=None):
+    n_recv = alive.shape[1] if n_recv is None else n_recv
+    return (kw, seed, r, phase, sent, alive, t_off, r_off, n_recv)
+
+
 def _quorum_masks(kw, seed, r, phase, sent, alive, t_off=0, r_off=0,
                   n_recv=None):
-    t, n = alive.shape
-    n_recv = n if n_recv is None else n_recv
-    jt, tt = _ids(t_off, t)
-    jr, tr = _ids(r_off, n_recv)
-    want = np.asarray(J_QUORUM_MASK(JCfg(**kw), jax.random.key(seed), r,
-                                    phase, sent, alive, jt, jr))
+    args = _quorum_args(kw, seed, r, phase, sent, alive, t_off, r_off,
+                        n_recv)
+    t, n_recv = alive.shape[0], args[-1]
+    _, tt = _ids(t_off, t)
+    _, tr = _ids(r_off, n_recv)
+    want = ref(_jax_quorum_mask, *args)
     got = tsched.quorum_delivery_mask(
         TCfg(**kw), seed, r, phase, torch.from_numpy(sent),
         torch.from_numpy(alive), tt, tr).numpy()
     return got, want
+
+
+def _quorum_kw(sched, strength, p_alive, f):
+    n, t = 40, 3
+    kw = dict(n_nodes=n, n_faulty=f, trials=t, delivery="quorum",
+              scheduler=sched, adversary_strength=strength, path="dense")
+    return kw, _senders(11, t, n, p_alive)
 
 
 @pytest.mark.parametrize("sched,strength", [
@@ -108,11 +140,13 @@ def _quorum_masks(kw, seed, r, phase, sent, alive, t_off=0, r_off=0,
     ("biased", 3.0)])
 @pytest.mark.parametrize("p_alive,f", [(1.0, 12), (0.85, 12), (0.5, 4)],
                          ids=["all-alive", "dead-senders", "under-quorum"])
+@prefetch(lambda sched, strength, p_alive, f: [
+    (_jax_quorum_mask,
+     *_quorum_args(_quorum_kw(sched, strength, p_alive, f)[0], 5, 2, 1,
+                   *_quorum_kw(sched, strength, p_alive, f)[1]))])
 def test_quorum_delivery_mask_matches_jax(sched, strength, p_alive, f):
-    n, t = 40, 3
-    kw = dict(n_nodes=n, n_faulty=f, trials=t, delivery="quorum",
-              scheduler=sched, adversary_strength=strength, path="dense")
-    sent, alive = _senders(11, t, n, p_alive)
+    n = 40
+    kw, (sent, alive) = _quorum_kw(sched, strength, p_alive, f)
     got, want = _quorum_masks(kw, 5, 2, 1, sent, alive)
     np.testing.assert_array_equal(got, want)
     assert not (got & ~alive[:, None, :]).any()
@@ -122,11 +156,18 @@ def test_quorum_delivery_mask_matches_jax(sched, strength, p_alive, f):
         assert (live < n - f).any()          # fewer than m alive somewhere
 
 
+_SHARDED_KW = dict(n_nodes=40, n_faulty=10, trials=2, delivery="quorum",
+                   scheduler="biased", adversary_strength=1.0, path="dense")
+
+
+@prefetch(lambda: [(_jax_quorum_mask,
+                    *_quorum_args(_SHARDED_KW, 9, 4, 0,
+                                  *_senders(3, 2, 40, 0.9), t_off=4,
+                                  r_off=17, n_recv=12))])
 def test_quorum_delivery_mask_sharded_receivers_match_jax():
     """Receivers 16..27 of trials 4..5: the ids are global, R != S."""
     n, t = 40, 2
-    kw = dict(n_nodes=n, n_faulty=10, trials=t, delivery="quorum",
-              scheduler="biased", adversary_strength=1.0, path="dense")
+    kw = _SHARDED_KW
     sent, alive = _senders(3, t, n, 0.9)
     got, want = _quorum_masks(kw, 9, 4, 0, sent, alive, t_off=4, r_off=17,
                               n_recv=12)
@@ -141,14 +182,27 @@ def test_full_delivery_mask_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def _jax_omission_mask(kw, key, r, alive, drop_p):
+    part = (jparse_partition(kw["partition"]) if kw.get("partition")
+            else None)
+    extra = {} if part is None else dict(part=part)
+    return np.asarray(J_OMISSION_MASK(JCfg(**kw), jax.random.key(key), r, 1,
+                                      alive, drop_p, **extra))
+
+
+def _omission_kw(drop_p):
+    return dict(n_nodes=24, n_faulty=6, trials=3, delivery="all",
+                drop_prob=drop_p, path="dense")
+
+
 @pytest.mark.parametrize("drop_p", [0.0, 0.2, 0.75])
+@prefetch(lambda drop_p: [(_jax_omission_mask, _omission_kw(drop_p), 4, 3,
+                           _senders(2, 3, 24, 0.9)[1], drop_p)])
 def test_omission_delivery_mask_matches_jax(drop_p):
     n, t = 24, 3
-    kw = dict(n_nodes=n, n_faulty=6, trials=t, delivery="all",
-              drop_prob=drop_p, path="dense")
+    kw = _omission_kw(drop_p)
     _, alive = _senders(2, t, n, 0.9)
-    want = np.asarray(J_OMISSION_MASK(JCfg(**kw), jax.random.key(4), 3, 1,
-                                      alive, drop_p))
+    want = ref(_jax_omission_mask, kw, 4, 3, alive, drop_p)
     got = tsched.omission_delivery_mask(
         TCfg(**kw), 4, 3, 1, torch.from_numpy(alive), drop_p).numpy()
     np.testing.assert_array_equal(got, want)
@@ -156,19 +210,22 @@ def test_omission_delivery_mask_matches_jax(drop_p):
         assert (got == alive[:, None, :]).all()
 
 
+_EPOCH_KW = dict(n_nodes=24, n_faulty=6, trials=3, delivery="all",
+                 drop_prob=0.1, path="dense", partition="groups:3:3")
+
+
 @pytest.mark.parametrize("r", [1, 2, 3, 5])
+@prefetch(lambda r: [(_jax_omission_mask, _EPOCH_KW, 6, r,
+                      _senders(5, 3, 24, 0.9)[1], 0.1)])
 def test_omission_partition_epoch_is_not_ported(r):
     """The partition epoch on the omission mask, now ported: cross-group
     edges are lost while r < heal_round ('groups:3:3' at N = 24), as in
     the JAX package's ``omission_delivery_mask(part=...)``."""
     n, t = 24, 3
-    kw = dict(n_nodes=n, n_faulty=6, trials=t, delivery="all",
-              drop_prob=0.1, path="dense", partition="groups:3:3")
+    kw = _EPOCH_KW
     _, alive = _senders(5, t, n, 0.9)
-    jpart = jparse_partition(kw["partition"])
     tpart = tparse_partition(kw["partition"])
-    want = np.asarray(J_OMISSION_MASK(JCfg(**kw), jax.random.key(6), r, 1,
-                                      alive, 0.1, part=jpart))
+    want = ref(_jax_omission_mask, kw, 6, r, alive, 0.1)
     got = tsched.omission_delivery_mask(
         TCfg(**kw), 6, r, 1, torch.from_numpy(alive), 0.1,
         part=tpart).numpy()

@@ -2,6 +2,8 @@
 benor_tpu.sim.simulate on the packed main path — rounds, x, decided and k
 exactly equal per trial — and the port's no-fallback rules."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,15 @@ from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.faults import crash_recover_faults
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs, random_inputs
+from torch_ref_pool import prefetch, ref, start
+
+FIELDS = ("x", "decided", "k", "killed")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_ahead(request):
+    """Start the JAX sides ahead (torch_ref_pool)."""
+    start(request)
 
 
 @pytest.fixture
@@ -38,50 +49,87 @@ def _kw(n, t, **kw):
                 use_pallas_round=True, **kw)
 
 
+def _jax_run(kw, vals, faults, cf):
+    """The JAX package's run, in the CF regime (EXACT_TABLE_MAX = 4, as
+    ``cf_regime``) where ``cf``; ``faults`` is "none", "first_f" or a
+    faulty list (a worker's call, see torch_ref_pool)."""
+    old = jsampling.EXACT_TABLE_MAX
+    if cf:
+        jsampling.EXACT_TABLE_MAX = 4
+    try:
+        jc = JCfg(**kw)
+        t, n = jc.trials, jc.n_nodes
+        if faults == "none":
+            jout = jsim.simulate(jc, vals, faults=JFaults.none(t, n))
+        elif faults == "first_f":
+            jout = jsim.simulate(jc, vals, faults=JFaults.first_f(jc))
+        else:
+            jout = jsim.simulate(jc, vals, faults)
+        return int(jout[0]), {name: np.asarray(getattr(jout[1], name))
+                              for name in FIELDS}
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+
+
 def _assert_same(jout, tout, min_rounds=1):
-    (jr, jst, _), (tr, tst, _) = jout, tout
-    assert tr == int(jr)
+    (jr, jfields), (tr, tst, _) = jout, tout
+    assert tr == jr
     assert tr >= min_rounds
-    for name in ("x", "decided", "k", "killed"):
+    for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
 
 
-@pytest.mark.parametrize("kw,crash,min_rounds", [
+_MATCH_CASES = [
     (dict(n_faulty=24, seed=3), True, 1),                    # crash-from-birth
     (dict(n_faulty=40, seed=1), False, 2),                   # multi-round
     (dict(n_faulty=0, seed=2), False, 1),
     (dict(n_faulty=30, seed=5, rule="textbook"), True, 1),
     (dict(n_faulty=24, seed=11, freeze_decided=False), True, 1),
     (dict(n_faulty=20, seed=13, fault_model="byzantine"), True, 1),
-])
+]
+
+
+def _match_call(kw, crash):
+    n, t = 96, (4 if kw["n_faulty"] == 40 else 8)
+    vals = balanced_inputs(t, n)
+    fl = ([True] * kw["n_faulty"] + [False] * (n - kw["n_faulty"])
+          if crash else "none")
+    return (_jax_run, _kw(n, t, **kw), vals, fl, True)
+
+
+@pytest.mark.parametrize("kw,crash,min_rounds", _MATCH_CASES)
+@prefetch(lambda kw, crash, min_rounds: [_match_call(kw, crash)])
 def test_simulate_matches_jax(cf_regime, kw, crash, min_rounds):
     n, t = 96, (4 if kw["n_faulty"] == 40 else 8)
-    jc, tc = JCfg(**_kw(n, t, **kw)), bt.SimConfig(**_kw(n, t, **kw))
+    tc = bt.SimConfig(**_kw(n, t, **kw))
     assert tround.fused_one_pass_eligible(tc, t, n)
     vals = balanced_inputs(t, n)
     np.testing.assert_array_equal(vals, j_balanced(t, n))
+    jout = ref(*_match_call(kw, crash))
     if crash:
         fl = [True] * tc.n_faulty + [False] * (n - tc.n_faulty)
-        jout = jsim.simulate(jc, vals, fl)
         tout = bt.simulate(tc, vals, fl, device="cpu")
     else:
-        jout = jsim.simulate(jc, vals, faults=JFaults.none(t, n))
         tout = bt.simulate(tc, vals, faults=TFaults.none(t, n), device="cpu")
     _assert_same(jout, tout, min_rounds)
 
 
+_TWO_KW = _kw(9000, 2, n_faulty=4000, seed=4, max_rounds=3)
+
+
+@prefetch(lambda: [(_jax_run, _TWO_KW, random_inputs(7, 2, 9000), "none",
+                    False)])
 def test_simulate_two_kernel_dispatch_matches_jax():
     """N = 9000 pads to 9216 > the one-pass cap: both packages take the
     proposal + vote kernel pair (the N = 1M path's dispatch)."""
     n, t = 9000, 2
-    kw = _kw(n, t, n_faulty=4000, seed=4, max_rounds=3)
+    kw = _TWO_KW
     jc, tc = JCfg(**kw), bt.SimConfig(**kw)
     assert not tround.fused_one_pass_eligible(tc, t, n)
     assert not jround.fused_one_pass_eligible(jc, t, n)
     vals = random_inputs(7, t, n)
-    jout = jsim.simulate(jc, vals, faults=JFaults.none(t, n))
+    jout = ref(_jax_run, kw, vals, "none", False)
     tout = bt.simulate(tc, vals, faults=TFaults.none(t, n), device="cpu")
     _assert_same(jout, tout, 2)
 
@@ -113,20 +161,25 @@ def test_cpu_run_launches_no_kernel(cf_regime):
     dict(debug=True),
 ])
 def test_unsupported_regimes_raise(cf_regime, kw):
-    """mesh_shape and debug raise, naming their ROADMAP item; the JAX
-    package's default sampler (use_pallas_hist=False, the plain CF draws
-    on the unfused loop) runs now."""
+    """mesh_shape raises, naming ROADMAP item 15; the JAX package's
+    default sampler (use_pallas_hist=False, the plain CF draws on the
+    unfused loop) and debug=True (the packed loop, announced, one event
+    a round: tests/test_torch_debug.py) run now."""
     base = _kw(96, 2, n_faulty=24)
     base.update(kw)
     cfg = bt.SimConfig(**base)
-    if "use_pallas_hist" not in kw:
+    if "mesh_shape" in kw:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item"):
+                           match="ROADMAP Queue A item 15\\)"):
             bt.simulate(cfg, balanced_inputs(2, 96), device="cpu")
         return
     tround.reset_launches()
-    rounds, st, _ = bt.simulate(cfg, balanced_inputs(2, 96),
-                                faults=TFaults.none(2, 96), device="cpu")
+    with warnings.catch_warnings():
+        # debug=True announces its demotion (at most once per process)
+        warnings.simplefilter("ignore", UserWarning)
+        rounds, st, _ = bt.simulate(cfg, balanced_inputs(2, 96),
+                                    faults=TFaults.none(2, 96),
+                                    device="cpu")
     assert 1 <= rounds <= cfg.max_rounds
     assert all(fn.launches == 0 for fn in tround.KERNELS.values())
     assert not bool((st.decided & (st.x == 2)).any())
@@ -205,6 +258,9 @@ def test_round_bound_regimes_run(cf_regime, kw, exact):
      "jax"),
 ], ids=["common", "weak_common", "equivocate", "adversarial",
         "dense-targeted"])
+@prefetch(lambda kw, crash, against: [
+    (_jax_run, {**_kw(96, 4), **kw}, balanced_inputs(4, 96),
+     "first_f" if crash else "none", True)] if against == "jax" else [])
 def test_packed_modes_run_and_match_jax(cf_regime, kw, crash, against):
     """The shared coins, equivocation and the count-controlling adversaries
     run on the packed loop: equal to the JAX package's packed run, or, where
@@ -217,12 +273,13 @@ def test_packed_modes_run_and_match_jax(cf_regime, kw, crash, against):
     jc, tc = JCfg(**args), bt.SimConfig(**args)
     vals = balanced_inputs(t, n)
     if crash:
-        jf, tf = JFaults.first_f(jc), TFaults.first_f(tc)
+        tf = TFaults.first_f(tc)
     else:
-        jf, tf = JFaults.none(t, n), TFaults.none(t, n)
+        tf = TFaults.none(t, n)
     got = bt.simulate(tc, vals, faults=tf, device="cpu")
     if against == "jax":
-        _assert_same(jsim.simulate(jc, vals, faults=jf), got)
+        _assert_same(ref(_jax_run, args, vals,
+                         "first_f" if crash else "none", True), got)
         return
     tr, tst, _ = bt.simulate(tc.replace(use_pallas_round=False), vals,
                              faults=tf, device="cpu")

@@ -17,6 +17,7 @@ from benor_tpu_torch import state as tstate
 from benor_tpu_torch.config import SimConfig as TCfg
 from benor_tpu_torch.ops import packed_round as tround
 from benor_tpu_torch.ops import stream as tstream
+from torch_ref_pool import prefetch, ref, start
 
 
 def test_layout_tables_match():
@@ -67,30 +68,60 @@ def _jax_state(leaves):
                            killed=jnp.asarray(leaves["killed"]))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _reference_ahead(request):
+    """Start the JAX sides ahead (torch_ref_pool)."""
+    start(request)
+
+
+_PACK_MODELS = ("crash", "byzantine")
+_PACK_ROUNDS = 37
+
+
+def _pack_draws(t, n):
+    """The random leaves and faulty lanes of each fault model's state."""
+    rng = np.random.default_rng(100 * t + n)
+    out = []
+    for _ in _PACK_MODELS:
+        leaves = _random_leaves(rng, t, n, _PACK_ROUNDS + 1)
+        faulty = rng.integers(0, 2, size=(t, n)).astype(bool)
+        out.append((leaves, faulty))
+    return out
+
+
+def _jax_packs(t, n):
+    """The JAX package's pack of each state and the proposal histogram
+    read off it, op by op (a worker's call, see torch_ref_pool)."""
+    jc = JCfg(n_nodes=n, n_faulty=0, trials=t, max_rounds=_PACK_ROUNDS)
+    out = []
+    for fault_model, (leaves, faulty) in zip(_PACK_MODELS,
+                                             _pack_draws(t, n)):
+        jpack = jround.pack_state(jc, _jax_state(leaves), jnp.asarray(faulty))
+        jh = jround.sent_hist_from_pack(jc.replace(fault_model=fault_model),
+                                        jpack, None, None, 1, SINGLE)
+        out.append((np.asarray(jpack), np.asarray(jh)))
+    return out
+
+
 @pytest.mark.parametrize("t,n", [(1, 1), (3, 31), (2, 70), (4, 96),
                                  (2, 1000), (1, 1025)])
+@prefetch(lambda t, n: [(_jax_packs, t, n)])
 def test_pack_state_word_for_word(t, n):
     """Random states, pad lanes included (N not a multiple of 512): the
     port's plane stack equals the JAX pack word for word, unpacks to the
     same state, and the proposal histogram read off it agrees."""
-    rng = np.random.default_rng(100 * t + n)
-    kw = dict(n_nodes=n, n_faulty=0, trials=t, max_rounds=37)
-    jc, tc = JCfg(**kw), TCfg(**kw)
-    for fault_model in ("crash", "byzantine"):
-        leaves = _random_leaves(rng, t, n, jc.max_rounds + 1)
-        faulty = rng.integers(0, 2, size=(t, n)).astype(bool)
-        jpack = jround.pack_state(jc, _jax_state(leaves), jnp.asarray(faulty))
+    tc = TCfg(n_nodes=n, n_faulty=0, trials=t, max_rounds=_PACK_ROUNDS)
+    for fault_model, (leaves, faulty), (jpack, jh) in zip(
+            _PACK_MODELS, _pack_draws(t, n), ref(_jax_packs, t, n)):
         tpack = tround.pack_state(tc, convert.state_from_numpy(**leaves),
                                   torch.from_numpy(faulty))
-        np.testing.assert_array_equal(convert.pack_to_numpy(tpack),
-                                      np.asarray(jpack))
+        np.testing.assert_array_equal(convert.pack_to_numpy(tpack), jpack)
         back = convert.state_to_numpy(tround.unpack_state(tpack, n))
         for name, arr in leaves.items():
             np.testing.assert_array_equal(back[name], arr, err_msg=name)
-        jc2, tc2 = (c.replace(fault_model=fault_model) for c in (jc, tc))
-        jh = jround.sent_hist_from_pack(jc2, jpack, None, None, 1, SINGLE)
+        tc2 = tc.replace(fault_model=fault_model)
         np.testing.assert_array_equal(
-            tround.sent_hist_from_pack(tc2, tpack).numpy(), np.asarray(jh))
+            tround.sent_hist_from_pack(tc2, tpack).numpy(), jh)
         unsettled = int(np.sum(~(leaves["decided"] | leaves["killed"])))
         assert int(tround.unsettled_from_pack(tpack)) == unsettled
 

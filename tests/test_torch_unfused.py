@@ -22,8 +22,16 @@ from benor_tpu_torch.ops import packed_round as tround
 from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweep import balanced_inputs
+from torch_ref_pool import prefetch, ref, start
 
 N, T = 96, 4
+FIELDS = ("x", "decided", "k", "killed")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_ahead(request):
+    """Start the JAX sides ahead (torch_ref_pool)."""
+    start(request)
 
 
 @pytest.fixture
@@ -51,6 +59,27 @@ def _faults(cfg, pkg):
     if cfg.n_faulty == 40:
         return pkg.none(T, N)
     return pkg.first_f(cfg)
+
+
+def _jax_run(kw, faults):
+    """The JAX package's run in the CF regime (EXACT_TABLE_MAX = 4, as
+    ``cf_regime``); ``faults`` "none" or "first_f" (a worker's call, see
+    torch_ref_pool)."""
+    old = jsampling.EXACT_TABLE_MAX
+    jsampling.EXACT_TABLE_MAX = 4
+    try:
+        jc = JCfg(**kw)
+        jf = JFaults.none(T, N) if faults == "none" else JFaults.first_f(jc)
+        jr, jst, _ = jsim.simulate(jc, balanced_inputs(T, N), faults=jf)
+        return int(jr), {name: np.asarray(getattr(jst, name))
+                         for name in FIELDS}
+    finally:
+        jsampling.EXACT_TABLE_MAX = old
+
+
+def _match_call(kw):
+    return (_jax_run, _kw(**kw),
+            "none" if kw["n_faulty"] == 40 else "first_f")
 
 
 def _coin_committed(cfg, faults):
@@ -92,19 +121,19 @@ def _coin_committed(cfg, faults):
 ], ids=["crash", "byzantine", "textbook", "nofreeze", "equivocate", "common",
         "weak", "private-multiround", "byzantine-textbook-nofreeze",
         "weak-eps1"])
+@prefetch(lambda kw, min_rounds, coins: [_match_call(kw)])
 def test_unfused_matches_jax(cf_regime, kw, min_rounds, coins):
-    jc, tc = JCfg(**_kw(**kw)), bt.SimConfig(**_kw(**kw))
+    tc = bt.SimConfig(**_kw(**kw))
     assert not tsim.tally.pallas_round_active(tc)
     vals = balanced_inputs(T, N)
-    jr, jst, _ = jsim.simulate(jc, vals, faults=_faults(jc, JFaults))
+    jr, jfields = ref(*_match_call(kw))
     tr, tst, _ = bt.simulate(tc, vals, faults=_faults(tc, TFaults),
                              device="cpu")
-    assert tr == int(jr)
+    assert tr == jr
     assert tr >= min_rounds
-    for name in ("x", "decided", "k", "killed"):
+    for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
     if coins:
         assert _coin_committed(tc, _faults(tc, TFaults))
 
@@ -225,21 +254,21 @@ def test_unfused_unsupported_regimes_raise(cf_regime, kw, item):
     dict(scheduler="adversarial", coin_mode="common"),
     dict(scheduler="targeted"),
 ], ids=["adversarial", "adversarial-common", "targeted"])
+@prefetch(lambda kw: [(_jax_run, {**_kw(n_faulty=24), **kw}, "none")])
 def test_unfused_adversaries_run_and_match_jax(cf_regime, kw):
     """The count-controlling adversaries run on the unfused loop (their
     closed-form counts), equal to the JAX package's unfused run."""
     base = _kw(n_faulty=24)
     base.update(kw)
-    jc, tc = JCfg(**base), bt.SimConfig(**base)
+    tc = bt.SimConfig(**base)
     vals = balanced_inputs(T, N)
-    jr, jst, _ = jsim.simulate(jc, vals, faults=JFaults.none(T, N))
+    jr, jfields = ref(_jax_run, base, "none")
     tr, tst, _ = bt.simulate(tc, vals, faults=TFaults.none(T, N),
                              device="cpu")
-    assert tr == int(jr) >= 1
-    for name in ("x", "decided", "k", "killed"):
+    assert tr == jr >= 1
+    for name in FIELDS:
         np.testing.assert_array_equal(getattr(tst, name).numpy(),
-                                      np.asarray(getattr(jst, name)),
-                                      err_msg=name)
+                                      jfields[name], err_msg=name)
 
 
 @pytest.mark.parametrize("kw", [
