@@ -16,17 +16,23 @@ in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
     net.start()
     net.get_states()
 
-Both run on CUDA unless ``device="cpu"`` is passed.
+    from benor_tpu_torch.sweep import run_curve_batched  # sweeps
+    cb = run_curve_batched(SimConfig(n_nodes=100_000, n_faulty=0,
+                                     trials=32, delivery="quorum"),
+                           [10_000, 30_000, 40_000],
+                           journal_path="sweep.jsonl")
+
+All run on CUDA unless ``device="cpu"`` is passed.
 """
 
 from .api import launch_network
 from .backends import TpuNetwork
 from .config import SimConfig, VAL0, VAL1, VALQ
 from .sim import (resume_consensus, run_consensus, run_consensus_slice,
-                  simulate)
-from .state import FaultSpec, NetState, init_state, observable_state
+                  run_consensus_traced, simulate)
+from .state import DynParams, FaultSpec, NetState, init_state, observable_state
 
-__all__ = ["SimConfig", "VAL0", "VAL1", "VALQ", "FaultSpec", "NetState",
-           "TpuNetwork", "init_state", "launch_network", "observable_state",
-           "resume_consensus", "run_consensus", "run_consensus_slice",
-           "simulate"]
+__all__ = ["SimConfig", "VAL0", "VAL1", "VALQ", "DynParams", "FaultSpec",
+           "NetState", "TpuNetwork", "init_state", "launch_network",
+           "observable_state", "resume_consensus", "run_consensus",
+           "run_consensus_slice", "run_consensus_traced", "simulate"]

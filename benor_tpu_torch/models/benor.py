@@ -43,7 +43,7 @@ from ..config import SimConfig, VAL0, VAL1, VALQ, unported
 from ..faults.recovery import rejoin_mode
 from ..ops import hist as hist_ops
 from ..ops import rng, tally
-from ..state import (FaultSpec, NetState, recorder_round_row,
+from ..state import (DynParams, FaultSpec, NetState, recorder_round_row,
                      recorder_write, witness_select, witness_write)
 from ..topo import committees
 from ..topo.graphs import parse_topology
@@ -134,7 +134,8 @@ def _coin(cfg: SimConfig, seed: int, r: int, t: int, n: int,
 
 def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
                 seed: int, r: int, recorder: Optional[torch.Tensor] = None,
-                witness: Optional[torch.Tensor] = None):
+                witness: Optional[torch.Tensor] = None,
+                dyn: Optional[DynParams] = None):
     """Advance every lane by one full Ben-Or round (proposal + vote).
 
     ``r`` is the 1-based round index (the reference's message ``k``);
@@ -143,12 +144,16 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     new_recorder) the round writes its row at index ``r`` and the return
     is ``(new_state, recorder)``; a ``witness`` buffer (state.new_witness)
     is written the same way and returned after it.  Both only reduce what
-    the round computes: no stream moves."""
+    the round computes: no stream moves.  ``dyn`` (``state.DynParams`` or
+    None) supplies F, the quorum, the committee knobs and the omission
+    probability in place of the config's (benor.py:98-99, 206-207), for
+    the batched sweep; the config still chooses every branch."""
     gap = round_gap(cfg)
     if gap is not None:
         unported(*gap)
     t, n = state.x.shape
-    f, m = cfg.n_faulty, cfg.quorum
+    f, m = (cfg.n_faulty, cfg.quorum) if dyn is None else \
+        (dyn.n_faulty, dyn.quorum)
     killed, down, x_cur = _start_of_round(cfg, state, faults, r)
 
     alive = ~killed                                          # senders
@@ -165,10 +170,11 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
     # phases; non-participants sit the round out and go silent
     member = com_id = None
     if cfg.committee_cap:
+        g, c = ((cfg.committee_count, cfg.committee_size) if dyn is None
+                else (dyn.committee_count, dyn.committee_size))
         member, com_id = committees.membership(
             cfg, seed, r, rng.ids(t, device=x_cur.device),
-            rng.ids(n, device=x_cur.device), cfg.committee_count,
-            cfg.committee_size)
+            rng.ids(n, device=x_cur.device), g, c)
         active = active & member
 
     equiv = faults.faulty if cfg.fault_model == "equivocate" else None
@@ -180,7 +186,7 @@ def benor_round(cfg: SimConfig, state: NetState, faults: FaultSpec,
             return committees.committee_counts(cfg, sent, alive & member,
                                                com_id)
         return tally.receiver_counts(cfg, seed, r, phase, sent, alive,
-                                     equiv, n_equiv)
+                                     equiv, n_equiv, dyn=dyn)
 
     # --- phase 1: proposal -----------------------------------------------
     sent1 = _sent_values(cfg, x_cur, faults)

@@ -37,6 +37,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 
+#: Kernel-library builds (an nvcc run) and loads (the library opened and
+#: bound) made by this process so far: the sweep engine's compile count.
+library_events = 0
+
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
     "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -104,6 +108,8 @@ def compile_library(flags: list[str], out_dir: Path) -> Path:
     out = out_dir / f"libbenor_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
+    global library_events
+    library_events += 1
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
@@ -143,4 +149,7 @@ def bind(path: Path) -> ctypes.CDLL:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The built kernel library with every entry point's argtypes set."""
-    return bind(build())
+    global library_events
+    lib = bind(build())
+    library_events += 1
+    return lib

@@ -76,9 +76,17 @@ _Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0,
        2.89247864745380683936E-6, 6.79019408009981274425E-9)
 
 
-def _c(v: float, like: torch.Tensor) -> torch.Tensor:
-    """``v`` rounded to f32, as a 0-dim tensor on ``like``'s device."""
-    return torch.tensor(v, dtype=_F32, device=like.device)
+def _c(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number, or a tensor such as a ``DynParams`` field) rounded
+    to f32, as a tensor on ``like``'s device."""
+    return torch.as_tensor(v, dtype=_F32, device=like.device)
+
+
+def _m_lanes(m, like: torch.Tensor) -> torch.Tensor:
+    """The draw count ``m`` (an int, or an int32 0-dim tensor) as an int32
+    tensor of ``like``'s shape."""
+    return torch.as_tensor(m, dtype=torch.int32,
+                           device=like.device).expand(like.shape)
 
 
 def _polyval(coefs, x: torch.Tensor) -> torch.Tensor:
@@ -281,7 +289,7 @@ def uniform_race_favored_count(u: torch.Tensor, nf: torch.Tensor,
     double sum, as JAX's weak typing does."""
     nf_f = nf.to(_F32)
     ns_f = ns.to(_F32)
-    m_f = _c(float(m), u)
+    m_f = _c(m, u)
     sf = _c(s, u)
     zero, one = _c(0.0, u), _c(1.0, u)
     eps = _c(1e-6, u)
@@ -349,7 +357,7 @@ def equivocate_hypergeom_counts(u_b: torch.Tensor, u0: torch.Tensor,
         h_b = hypergeom_normal_approx(
             u_b, total[:, None].expand(u_b.shape),
             n_equiv[:, None].expand(u_b.shape),
-            torch.full(u_b.shape, m, dtype=torch.int32, device=u_b.device),
+            _m_lanes(m, u_b),
             skew_correct=True)
     rem = torch.clamp(m - h_b, min=0)                           # honest
     h0 = hypergeom_normal_approx(
@@ -383,7 +391,7 @@ def multivariate_hypergeom_counts(u0: torch.Tensor, u1: torch.Tensor,
     else:
         h0 = hypergeom_normal_approx(
             u0, total[:, None].expand(u0.shape), c0[:, None].expand(u0.shape),
-            torch.full(u0.shape, m, dtype=torch.int32, device=u0.device),
+            _m_lanes(m, u0),
             skew_correct=True)
     rem_total = torch.clamp(total[:, None] - c0[:, None], min=0)
     rem_draw = torch.clamp(m - h0, min=0)

@@ -92,7 +92,7 @@ def omission_delivery_mask(cfg: SimConfig, seed: int, r: int, phase: int,
                                       alive.device)
     u = rng.edge_uniforms(seed, r, phase + 8, trial_ids, recv_ids,
                           rng.ids(n, device=alive.device))
-    keep = u >= torch.tensor(drop_p, dtype=torch.float32, device=u.device)
+    keep = u >= torch.as_tensor(drop_p, dtype=torch.float32, device=u.device)
     keep.logical_and_(alive[:, None, :])
     if part is not None and r < part.heal_round:
         g_recv = group_of(recv_ids, cfg.n_nodes, part.groups)

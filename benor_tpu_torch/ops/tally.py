@@ -104,6 +104,14 @@ def dense_gather_needed(cfg: SimConfig) -> bool:
             and cfg.resolved_path == "dense")
 
 
+def kernels_active(cfg: SimConfig) -> bool:
+    """True iff a run of cfg on the card may launch a hand-written kernel:
+    the round kernels, the fused samplers and coins, or the dense tally
+    under ``use_pallas``."""
+    return (pallas_round_active(cfg) or pallas_stream_active(cfg)
+            or (cfg.use_pallas and dense_gather_needed(cfg)))
+
+
 def class_histogram(sent: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """Per-trial class counts of live senders' values -> int32 [T, 3]."""
     return torch.stack([((sent == v) & alive).sum(-1, dtype=torch.int32)
@@ -140,8 +148,17 @@ def targeted_camp_bounds(cfg: SimConfig) -> tuple:
             max(cfg.n_nodes - size_v, 0))
 
 
+def targeted_camp_sizes_dyn(cfg: SimConfig, dyn) -> torch.Tensor:
+    """``targeted_camp_sizes``' first element from a ``DynParams`` F
+    (tally.py:536-542): the per-value-camp receiver count as an int32
+    0-dim tensor, the same formula."""
+    free = dyn.n_faulty if cfg.fault_model == "equivocate" else 0
+    return torch.clamp_min(dyn.n_faulty + 1 - free, 1)
+
+
 def targeted_camp_triples(cfg: SimConfig, hist: torch.Tensor,
-                          n_free: torch.Tensor | None = None) -> torch.Tensor:
+                          n_free: torch.Tensor | None = None,
+                          dyn=None) -> torch.Tensor:
     """The targeted adversary's three camp multisets as per-trial counts:
     int32 [T, 3 camps, 3 classes], camps ordered (0-camp, 1-camp,
     "?"-camp).  The 0-camp tallies its class first (honest and every free
@@ -149,8 +166,9 @@ def targeted_camp_triples(cfg: SimConfig, hist: torch.Tensor,
     the "?" camp tallies every "?" it can and fills the rest evenly, one
     "?" dropped where that makes the remainder even (a perfect tie adopts
     "?").  ``hist``: int32 [T, 3] global honest counts; ``n_free``: live
-    equivocators [T] or None."""
-    m = cfg.quorum
+    equivocators [T] or None; ``dyn`` (``state.DynParams`` or None)
+    supplies the quorum."""
+    m = cfg.quorum if dyn is None else dyn.quorum
     c0, c1, cq = hist[:, 0], hist[:, 1], hist[:, 2]
     free = torch.zeros_like(c0) if n_free is None else n_free
 
@@ -188,13 +206,15 @@ def targeted_camp_triples(cfg: SimConfig, hist: torch.Tensor,
 
 def targeted_counts(cfg: SimConfig, hist: torch.Tensor,
                     node_ids: torch.Tensor,
-                    n_free: torch.Tensor | None = None) -> torch.Tensor:
+                    n_free: torch.Tensor | None = None,
+                    dyn=None) -> torch.Tensor:
     """The partitioned count-controlling adversary: each receiver tallies
     its camp's triple (``targeted_camp_triples``), the camp chosen by its
     global id ``node_ids`` [N] -> int32 [T, N, 3].  Realizable as an
     explicit delivery schedule (scheduler.realize_counts_mask)."""
-    trip = targeted_camp_triples(cfg, hist, n_free)
-    size_v, _ = targeted_camp_sizes(cfg)
+    trip = targeted_camp_triples(cfg, hist, n_free, dyn)
+    size_v = (targeted_camp_sizes(cfg)[0] if dyn is None
+              else targeted_camp_sizes_dyn(cfg, dyn))
     camp1 = node_ids >= cfg.n_nodes - size_v
     camp0 = (node_ids >= cfg.n_nodes - 2 * size_v) & ~camp1
     idx = torch.where(camp1, 1, torch.where(camp0, 0, 2))
@@ -341,7 +361,7 @@ def biased_fractional_counts(s: float, u_race: torch.Tensor,
 
 
 def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
-                      trial_ids, recv_ids):
+                      trial_ids, recv_ids, drop_p):
     """``delivery='all'`` off the dense omission mask: every receiver
     tallies every live sender, so its counts are the trial's histogram over
     honest live senders — or, inside a partition epoch, its group's —
@@ -359,7 +379,7 @@ def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
     else:
         counts = class_histogram(sent, honest)[:, None, :].expand(t, n, 3)
     if cfg.drop_prob:
-        return omission_thin_counts(seed, r, phase, counts, cfg.drop_prob,
+        return omission_thin_counts(seed, r, phase, counts, drop_p,
                                     trial_ids, recv_ids)
     if equiv is None:
         return counts
@@ -373,13 +393,18 @@ def _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
 
 
 def _histogram_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
-                      trial_ids, recv_ids):
+                      trial_ids, recv_ids, m, dyn):
     """The histogram path under quorum delivery (tally.py:320-375): the
     fused samplers of ops/hist.py where they serve, else the plain
     samplers — the mixed-population draw under equivocation, the biased
     scheduler's strict or fractional form, the two-class draw."""
     t, n = sent.shape
     hist = class_histogram(sent, honest)
+    if dyn is not None and pallas_stream_active(cfg):
+        raise ValueError(
+            "dynamic-F tracing cannot drive the fused pallas samplers "
+            "(the quorum is baked into the kernel closures); bucket such "
+            "configs statically (sweep.quorum_specialized)")
     if equiv is not None and pallas_equiv_active(cfg):
         return hist_ops.equiv_counts(seed, r, phase, hist, n_equiv,
                                      cfg.quorum, n)
@@ -387,7 +412,6 @@ def _histogram_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
         return hist_ops.cf_counts(seed, r, phase, hist, cfg.quorum, n)
     trial_ids, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
                                                 sent.device)
-    m = cfg.quorum
 
     def uniforms(salt):
         return rng.grid_uniforms(seed, r, phase + salt, trial_ids, recv_ids)
@@ -408,7 +432,7 @@ def _histogram_counts(cfg, seed, r, phase, sent, honest, equiv, n_equiv,
 
 
 def _dense_receiver_counts(cfg, seed, r, phase, sent, alive, honest, equiv,
-                           trial_ids, recv_ids):
+                           trial_ids, recv_ids, drop_p):
     """The dense path's tally: an explicit [T, N, N] delivery mask, counted
     by the kernel's wrapper under ``use_pallas``, else by the f32 matrix
     product.  The mask and its delays are freed on return, before the next
@@ -423,7 +447,7 @@ def _dense_receiver_counts(cfg, seed, r, phase, sent, alive, honest, equiv,
         # within the receiver's group; the survivors are tallied exactly.
         # equivocate is rejected with drop_prob, so honest == alive.
         mask = scheduler.omission_delivery_mask(
-            cfg, seed, r, phase, alive, cfg.drop_prob, trial_ids, recv_ids,
+            cfg, seed, r, phase, alive, drop_p, trial_ids, recv_ids,
             part=parse_partition(cfg.partition))
         return tallied(mask, sent, alive)
     mask = scheduler.quorum_delivery_mask(cfg, seed, r, phase, sent, alive,
@@ -448,14 +472,21 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
                     equiv: torch.Tensor | None = None,
                     n_equiv: torch.Tensor | None = None,
                     trial_ids: torch.Tensor | None = None,
-                    recv_ids: torch.Tensor | None = None) -> torch.Tensor:
+                    recv_ids: torch.Tensor | None = None,
+                    dyn=None) -> torch.Tensor:
     """Per-receiver tallied class counts int32 [T, N, 3] over the global
     sender population.  ``equiv`` (bool [T, N] or None) marks equivocating
     senders, whose slot in ``sent`` is ignored; ``n_equiv`` (int32 [T]) is
     their live count, hoisted by the caller once per round (the histogram
     path reads it).  ``trial_ids`` / ``recv_ids``: the global ids that key
     the dense path's per-edge streams and the equivocator split's lane
-    streams (default 0..T-1 / 0..N-1)."""
+    streams (default 0..T-1 / 0..N-1).  ``dyn`` (``state.DynParams`` or
+    None) supplies the quorum and the omission probability, as in the JAX
+    function (tally.py:185, 219-220); the branch is still chosen by
+    ``cfg``.  The branches whose work is shaped by the quorum refuse it
+    with the JAX package's messages: the dense quorum mask and the fused
+    samplers (the exact tables take the CF branch instead, as a traced
+    quorum does there)."""
     if cfg.topology is not None:
         # each receiver tallies its d graph neighbours and itself (an
         # O(N * d) gather); delivery='all' is required, so no scheduler
@@ -464,6 +495,8 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
         return neighborhood_counts(cfg, seed, r, phase, sent, alive, equiv,
                                    trial_ids, recv_ids)
     t, n = sent.shape
+    m = cfg.quorum if dyn is None else dyn.quorum
+    drop_p = cfg.drop_prob if dyn is None else dyn.drop_prob
     honest = alive if equiv is None else (alive & ~equiv)
     if equiv is not None and n_equiv is None:
         n_equiv = (equiv & alive).sum(-1, dtype=torch.int32)
@@ -471,20 +504,26 @@ def receiver_counts(cfg: SimConfig, seed: int, r: int, phase: int,
     # scheduler's semantics do not flip where path='auto' crosses
     # dense_path_max_n; equivocators are their free pool
     if cfg.scheduler == "adversarial":
-        counts = adversarial_counts(class_histogram(sent, honest),
-                                    cfg.quorum, n_free=n_equiv)
+        counts = adversarial_counts(class_histogram(sent, honest), m,
+                                    n_free=n_equiv)
         return counts[:, None, :].expand(t, n, 3)
     if cfg.scheduler == "targeted":
         _, recv_ids = scheduler.default_ids(trial_ids, recv_ids, t, n,
                                             sent.device)
         return targeted_counts(cfg, class_histogram(sent, honest), recv_ids,
-                               n_free=n_equiv)
+                               n_free=n_equiv, dyn=dyn)
     if dense_gather_needed(cfg):
+        if dyn is not None and cfg.delivery != "all":
+            raise ValueError(
+                "dynamic-F tracing cannot drive the dense delivery mask "
+                "(top-k specializes its shape on the quorum); bucket "
+                "dense-path configs statically (sweep.quorum_specialized)")
         return _dense_receiver_counts(cfg, seed, r, phase, sent, alive,
-                                      honest, equiv, trial_ids, recv_ids)
+                                      honest, equiv, trial_ids, recv_ids,
+                                      drop_p)
 
     if cfg.delivery == "all":
         return _broadcast_counts(cfg, seed, r, phase, sent, honest, equiv,
-                                 n_equiv, trial_ids, recv_ids)
+                                 n_equiv, trial_ids, recv_ids, drop_p)
     return _histogram_counts(cfg, seed, r, phase, sent, honest, equiv,
-                             n_equiv, trial_ids, recv_ids)
+                             n_equiv, trial_ids, recv_ids, m, dyn)

@@ -42,7 +42,10 @@ package's debug loop calls the same kernels between a pack and an unpack
 every round; that is announced once per process, as the JAX package
 announces its own demotions (``warn_*``).  ``mesh_shape`` raises
 ``NotImplementedError`` naming ROADMAP Queue A item 15; nothing falls back
-to another path.  Entry points run on the CUDA device unless the caller
+to another path.  ``run_consensus_traced`` runs the unfused loop with a
+``state.DynParams`` in place of the config's F, quorum, committee knobs
+and omission probability: the batched sweep's dynamic buckets
+(sweep.py).  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``.
 """
 
@@ -56,8 +59,8 @@ import torch
 from .config import SimConfig, unported
 from .models import benor
 from .ops import packed_round, tally
-from .state import (FaultSpec, NetState, init_state, new_recorder,
-                    new_witness)
+from .state import (DynParams, FaultSpec, NetState, init_state,
+                    new_recorder, new_witness)
 from .utils.tracing import emit_round_event
 
 #: One warning per process for each demotion the announcers below name.
@@ -195,7 +198,7 @@ def start_state(cfg: SimConfig, state: NetState) -> NetState:
 
 
 def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
-                   recorder=None, witness=None):
+                   recorder=None, witness=None, dyn=None):
     """The unfused round loop -> (next_round, state, then the filled
     recorder and witness buffer where cfg arms them).  The JAX package runs
     it on the device (lax.while_loop); here it runs on the host and reads
@@ -205,7 +208,8 @@ def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
     from ``state``.  kernel_telemetry counts work inside the round kernels,
     which this loop does not run: it adds nothing here, as in the JAX
     package.  Under cfg.debug every round emits its event after it
-    (utils/tracing.py), in order."""
+    (utils/tracing.py), in order.  ``dyn`` reaches every round
+    (``benor.benor_round``)."""
     rec = wit = None
     if cfg.record:
         rec = (new_recorder(cfg, state) if recorder is None
@@ -215,7 +219,7 @@ def _unfused_slice(cfg, state, faults, seed, from_round, until_round,
     r = int(from_round)
     while r <= cfg.max_rounds and r < until_round and \
             not bool(benor.all_settled(state)):
-        out = benor.benor_round(cfg, state, faults, seed, r, rec, wit)
+        out = benor.benor_round(cfg, state, faults, seed, r, rec, wit, dyn)
         state = out if rec is None and wit is None else out[0]
         if cfg.debug:
             emit_round_event(state)
@@ -249,14 +253,40 @@ def run_consensus(cfg: SimConfig, state: NetState, faults: FaultSpec):
     plane they never serve — a structured delivery plane, omission or a
     partition — is announced once per process, as the JAX package's
     ``run_consensus_traced`` does."""
+    return run_consensus_traced(cfg, state, faults)
+
+
+def run_consensus_traced(cfg: SimConfig, state: NetState, faults: FaultSpec,
+                         dyn: Optional[DynParams] = None):
+    """The round loop with the dynamic parameters of a batched sweep
+    (sim.py:286-342) -> what ``run_consensus`` returns.
+
+    ``dyn`` (``state.DynParams`` of 0-dim tensors, or None) supplies F,
+    the quorum, the committee knobs and the omission probability in place
+    of cfg's, which keeps every shape and mode decision; the unfused loop
+    runs it.  Where the work is shaped by the quorum — the round kernels,
+    the fused samplers, the dense quorum mask — ``dyn`` raises
+    ``ValueError`` with the JAX package's messages
+    (``sweep.quorum_specialized`` keeps such configs out of dynamic
+    buckets).  With ``dyn=None`` this is ``run_consensus``.  The JAX
+    package's demotion warnings are given here, as there."""
+    if dyn is not None and tally.pallas_round_active(cfg):
+        raise ValueError(
+            "dynamic-F tracing cannot drive the fused pallas round; "
+            "bucket such configs statically (sweep.quorum_specialized)")
     if tally.pallas_requested(cfg):
         if delivery_plane(cfg) != "complete":
             warn_structured_demotes_pallas(cfg)
         if not tally.pallas_round_active(cfg) and \
                 (cfg.drop_prob or cfg.partition is not None):
             warn_faults_demote_pallas(cfg)
-    r, *rest = _slice(cfg, start_state(cfg, state), faults, 1,
-                      cfg.max_rounds + 2)
+    state = start_state(cfg, state)
+    if dyn is None:
+        r, *rest = _slice(cfg, state, faults, 1, cfg.max_rounds + 2)
+    else:
+        check_supported(cfg)
+        r, *rest = _unfused_slice(cfg, state, faults, cfg.seed, 1,
+                                  cfg.max_rounds + 2, dyn=dyn)
     return (r - 1, *rest)
 
 

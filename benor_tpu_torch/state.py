@@ -35,6 +35,51 @@ class NetState:
 
 
 @dataclasses.dataclass
+class DynParams:
+    """The dynamic protocol parameters of a batched sweep (state.py:45-95):
+    the fault bound F, the quorum N - F, the committee count g and target
+    size c (read only under ``cfg.committee_cap``) and the omission
+    probability (read only under ``cfg.drop_prob``), as tensors of the JAX
+    dtypes — int32 four times, float32 for ``drop_prob``.  0-dim from
+    ``from_config``, [B] from ``stack``.
+
+    Handed to ``sim.run_consensus_traced``, they take the place of the
+    config's values in the round (the decide bar, the quorum gate, the
+    closed-form adversaries, the CF samplers, the committee draw, the
+    omission thinning), while the config keeps every shape and mode
+    decision.  A quorum held in a tensor never picks the exact shared
+    tables, as a traced quorum never does in the JAX package
+    (``sampling.static_m``)."""
+
+    n_faulty: torch.Tensor         # int32 — F
+    quorum: torch.Tensor           # int32 — N - F
+    committee_count: torch.Tensor  # int32 — g
+    committee_size: torch.Tensor   # int32 — c
+    drop_prob: torch.Tensor        # float32 — p
+
+    @classmethod
+    def from_config(cls, cfg: SimConfig, device=None) -> "DynParams":
+        return cls.stack([cfg], device).at(0)
+
+    @classmethod
+    def stack(cls, cfgs, device=None) -> "DynParams":
+        """[B]-batched params from per-point configs."""
+        def col(vals, dtype):
+            return torch.from_numpy(np.asarray(vals, dtype)).to(device)
+        return cls(
+            n_faulty=col([c.n_faulty for c in cfgs], np.int32),
+            quorum=col([c.quorum for c in cfgs], np.int32),
+            committee_count=col([c.committee_count for c in cfgs], np.int32),
+            committee_size=col([c.committee_size for c in cfgs], np.int32),
+            drop_prob=col([c.drop_prob for c in cfgs], np.float32))
+
+    def at(self, j: int) -> "DynParams":
+        """Point ``j`` of a stacked batch, as 0-dim tensors."""
+        return DynParams(*(getattr(self, f.name)[j]
+                           for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass
 class FaultSpec:
     """Fault-injection masks: ``faulty`` bool [T, N] (the reference's
     faultyList), ``crash_round`` int32 [T, N] (crash_at_round /

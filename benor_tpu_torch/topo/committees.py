@@ -24,7 +24,6 @@ here, in either package.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import SimConfig, VAL0, VAL1, VALQ
@@ -37,20 +36,23 @@ PHASE_ASSIGN = 9     # committee-id draw
 
 
 def membership(cfg: SimConfig, seed: int, r: int, trial_ids: torch.Tensor,
-               node_ids: torch.Tensor, count: int, size: int):
+               node_ids: torch.Tensor, count, size):
     """Per-round committee membership -> (member bool [T, N], committee id
     int64 [T, N]) (committees.py:57-81).  ``count`` / ``size`` are g and
-    c; the participation probability ``p = min(1, (c * g) / N)`` is
-    float32, computed on the host in that order."""
+    c, ints or int32 0-dim tensors (``DynParams``); the participation
+    probability ``p = min(1, (c * g) / N)`` is float32 in that order,
+    either way."""
     u_p = rng.grid_uniforms(seed, r, PHASE_MEMBER, trial_ids, node_ids)
     u_g = rng.grid_uniforms(seed, r, PHASE_ASSIGN, trial_ids, node_ids)
-    g = np.float32(count)
-    p = np.minimum(np.float32(1.0),
-                   (np.float32(size) * g) / np.float32(cfg.n_nodes))
     dev = u_p.device
-    member = u_p < torch.tensor(p, dtype=torch.float32, device=dev)
-    cid = torch.floor(u_g * torch.tensor(g, dtype=torch.float32,
-                                         device=dev)).to(torch.int32)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.int32,
+                               device=dev).to(torch.float32)
+    g = f32(count)
+    p = torch.clamp_max((f32(size) * g) / f32(cfg.n_nodes), 1.0)
+    member = u_p < p
+    cid = torch.floor(u_g * g).to(torch.int32)
     return member, cid.clamp(0, cfg.committee_cap - 1).to(torch.int64)
 
 

@@ -1,10 +1,14 @@
 """Flight-recorder rendering: recorder buffers -> host structures (port of
-benor_tpu/utils/metrics.py:286-380).  The rest of that module (the metric
-registry, span log and exporters) waits for the observatory planes
-(ROADMAP Queue A item 16)."""
+benor_tpu/utils/metrics.py:286-380), and the line-atomic JSON-lines
+append the sweep journal writes with (metrics.py:400-409).  The rest of
+that module (the metric registry, span log and exporters) waits for the
+observatory planes (ROADMAP Queue A item 16)."""
 
 from __future__ import annotations
 
+import json
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -69,3 +73,16 @@ def round_history_summary(recorder) -> dict:
         "rounds_to_quiescence_hist": velocity,
         "final": {c: int(v) for c, v in zip(REC_COLUMNS, rows[-1])},
     }
+
+
+_APPEND_LOCK = threading.Lock()
+
+
+def append_jsonl(path: str, record: dict) -> None:
+    """Append one record as a timestamped JSON line, serialised first and
+    written in one call under a lock, so appenders in one process never
+    interleave bytes and a reader always parses every whole line."""
+    line = json.dumps({"ts": time.time(), **record}) + "\n"
+    with _APPEND_LOCK:
+        with open(path, "a") as fh:
+            fh.write(line)

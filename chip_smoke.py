@@ -151,7 +151,21 @@ Phases (any failure ends the run non-zero; nothing is caught):
      debug=True on a packed-eligible config at 8192 x 32: the demotion
      warning, one event a round, the final state and the round kernel
      launches equal to the packed run's;
- 14. the kernels line, the card line, and the result line.
+ 14. ``[sweep]``: the sweep engine, its journal and checkpoints.  bench.py's
+     north star (five balanced, zero-crash points at N = 1M x 32, the round
+     kernels) through one run_points_batched call, five static buckets,
+     each point equal to run_point's, with the round kernels' launches;
+     bench.py:744-800's batched check (five f values, max_rounds 16, the
+     plain CF samplers: one dynamic bucket, no kernel) equal to the
+     per-point loop, both wall clocks; both lists in one journaled call
+     (six buckets), the journal cut after its third record with half a
+     line after it, resumed serially and pipelined: the first three
+     buckets restored with no round kernel launched for them, the points
+     and journal records equal to the uninterrupted call's; a checkpoint
+     of the f = 0.45 run resumed to the uninterrupted run; card against
+     CPU at 8192 x 8 on a list mixing a fused static bucket and a dynamic
+     bucket, coin_comparison_batched, degree_curve and committee_curve;
+ 15. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1868,7 +1882,10 @@ def main() -> int:
     # --- 13. topologies, committees and the debug callback ---------------
     topo_phase(dev)
 
-    # --- 14. the kernels line, the card, the result ------------------------
+    # --- 14. the sweep engine, its journal and checkpoints ----------------
+    sweep_phase(dev)
+
+    # --- 15. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4293,6 +4310,272 @@ def topo_phase(dev) -> None:
     if not ok:
         raise SystemExit("[topo] the debug run failed its checks")
     print(f"[topo] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [sweep] phase: the sweep engine, its journal and checkpoints ------
+
+SWEEP_FRACS = (0.12, 0.22, 0.32, 0.42, 0.44)  # bench.py:744-800's check
+SWEEP_ROUNDS = 16         # ... and its round cap
+SWEEP_JOURNAL_CUT = 3     # journal records kept before the torn line
+SWEEP_CKPT_ROUND = 3      # the checkpoint's round (or the run's last)
+SWEEP_SMALL = (8192, 8)   # card against CPU, and its curves' axes:
+SWEEP_DEGREE_SPECS = ("ring:2", "ring:8", "torus2d:64x128")
+SWEEP_COMMITTEE_SIZES = (512, 1024, 2048)   # N/16, N/8, N/4
+
+
+def sweep_science(pt) -> tuple:
+    """A SweepPoint's fields but its clocks."""
+    return (pt.n_nodes, pt.n_faulty, pt.trials, pt.coin_mode, pt.scheduler,
+            pt.rounds_executed, pt.decided_frac, pt.mean_k, pt.ones_frac,
+            pt.disagree_frac, pt.k_hist.tolist())
+
+
+def sweep_records(path) -> list:
+    """(kind, point indices, fingerprint, payload digest, payloads) of the
+    journal's bucket records."""
+    from benor_tpu_torch.sweepscope.journal import BUCKET_KIND, read_journal
+    return [(r["bucket_kind"], r["point_indices"], r["fingerprint"],
+             r["payload_sha256"], r["points"])
+            for r in read_journal(str(path)) if r["kind"] == BUCKET_KIND]
+
+
+def sweep_phase(dev) -> None:
+    """Phase 14: the sweep engine.  bench.py's north star (five balanced,
+    zero-crash points at N = 1M x 32, the round kernels) through one
+    run_points_batched call, each point equal to run_point's; bench.py's
+    batched check (five f values in one dynamic bucket on the plain CF
+    samplers, max_rounds 16) equal to the per-point loop; the two lists in
+    one journaled call, the journal cut after its third record with a
+    torn line, resumed serially and pipelined (restored buckets launch no
+    round kernel; points and records equal); a checkpoint of the f = 0.45
+    run resumed to the uninterrupted run; card against CPU at 8192 x 8 on
+    a mixed list, coin_comparison_batched, degree_curve and
+    committee_curve."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sim import (run_consensus, run_consensus_slice,
+                                     start_state)
+    from benor_tpu_torch.state import FaultSpec, init_state
+    from benor_tpu_torch.sweep import (balanced_inputs,
+                                       coin_comparison_batched,
+                                       run_curve_batched, run_point,
+                                       run_points_batched, summarize_final)
+    from benor_tpu_torch.topo.curves import committee_curve, degree_curve
+    from benor_tpu_torch.utils.checkpoint import resume_from, save_checkpoint
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    total = {}              # the phase's launches, summed over its parts
+
+    def launches():
+        return {k: fn.launches for t in tables for k, fn in t.items()
+                if fn.launches}
+
+    def reset():
+        for k, v in launches().items():
+            total[k] = total.get(k, 0) + v
+        for ops in (dk, hk, pr):
+            ops.reset_launches()
+
+    reset()
+    total.clear()
+    bal = balanced_inputs(TRIALS, N_MAIN)
+
+    def none(c=None):
+        return FaultSpec.none(TRIALS, N_MAIN)
+
+    # (a) the north star through the engine: five static buckets on the
+    # round kernels, each point equal to run_point's
+    ns_base = SimConfig(n_nodes=N_MAIN, n_faulty=0, **MAIN_RUN)
+    ns = [ns_base.replace(n_faulty=int(f * N_MAIN)) for f in FRACS]
+    reset()
+    cb = run_points_batched(ns_base, ns, initial_values=bal, faults_for=none,
+                            device=dev)
+    ns_launch = launches()
+    rates = [round(p.trials_per_sec, 3) for p in cb.points]
+    print(f"[sweep] north star N={N_MAIN} T={TRIALS}: {cb.n_buckets} "
+          f"buckets {cb.bucket_kinds}, rounds "
+          f"{[p.rounds_executed for p in cb.points]}, trials/s {rates}, "
+          f"wall_s {cb.wall_s:.4f}, run_s {cb.run_s:.4f}, compile_count "
+          f"{cb.compile_count} ({cb.compile_s:.4f} s), kernel launches "
+          f"{ns_launch}; {card}")
+    ok = (cb.bucket_kinds == ["static"] * len(FRACS)
+          and ns_launch.get("proposal_hist", 0) > 0
+          and ns_launch.get("vote_commit", 0) > 0
+          and set(ns_launch) == {"proposal_hist", "vote_commit"})
+    for c, pt in zip(ns, cb.points):
+        ref_pt = run_point(c, initial_values=bal, faults=none(), device=dev)
+        same = sweep_science(ref_pt) == sweep_science(pt)
+        ok = ok and same
+        print(f"[sweep] run_point f={c.n_faulty / N_MAIN:.2f}: rounds "
+              f"{ref_pt.rounds_executed} mean_k {ref_pt.mean_k} decided "
+              f"{ref_pt.decided_frac} trials/s {ref_pt.trials_per_sec:.3f}"
+              f", equal to the batched point: {same}")
+    if not ok:
+        raise SystemExit("[sweep] the north star through the engine failed")
+
+    # (b) bench.py:744-800's batched check: the per-point loop against one
+    # dynamic bucket, the plain CF samplers, no kernel
+    b_base = SimConfig(n_nodes=N_MAIN, n_faulty=0, trials=TRIALS,
+                       delivery="quorum", scheduler="uniform",
+                       path="histogram", max_rounds=SWEEP_ROUNDS, seed=SEED)
+    fs = [int(fr * N_MAIN) for fr in SWEEP_FRACS]
+    reset()
+    fl = none().to(dev)
+    per_point = []
+    t0 = time.perf_counter()
+    for f in fs:
+        c = b_base.replace(n_faulty=f)
+        r, fin = run_consensus(c, init_state(c, bal, fl), fl)
+        per_point.append((r, *(v.cpu().numpy() for v in summarize_final(
+            fin, fl.faulty, SWEEP_ROUNDS))))
+        del fin
+    torch.cuda.synchronize()
+    per_point_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bcb = run_curve_batched(b_base, fs, initial_values=bal, faults_for=none,
+                            device=dev)
+    batched_s = time.perf_counter() - t0
+    same = all(
+        (r, float(dec), float(mk), float(ones), float(dis), kh.tolist())
+        == (p.rounds_executed, p.decided_frac, p.mean_k, p.ones_frac,
+            p.disagree_frac, p.k_hist.tolist())
+        for (r, dec, mk, ones, kh, dis), p in zip(per_point, bcb.points))
+    print(f"[sweep] batched check N={N_MAIN} T={TRIALS} fracs "
+          f"{list(SWEEP_FRACS)} max_rounds {SWEEP_ROUNDS}: "
+          f"{bcb.n_buckets} bucket {bcb.bucket_kinds}, rounds "
+          f"{[p.rounds_executed for p in bcb.points]}, mean_k "
+          f"{[p.mean_k for p in bcb.points]}; per-point {per_point_s:.4f} s, "
+          f"batched {batched_s:.4f} s (wall_s {bcb.wall_s:.4f}); equal: "
+          f"{same}; kernel launches {launches()}; {card}")
+    if not same or bcb.bucket_kinds != ["dyn"] or launches():
+        raise SystemExit("[sweep] the batched check failed")
+
+    # (c) both lists in one journaled call (six buckets), the journal cut
+    # after its third record with half a line after it, resumed serially
+    # and pipelined
+    cfgs = ns + [b_base.replace(n_faulty=f) for f in fs]
+    with tempfile.TemporaryDirectory() as d:
+        full_j, cut_j = Path(d) / "full.jsonl", Path(d) / "cut.jsonl"
+        reset()
+        full = run_points_batched(ns_base, cfgs, initial_values=bal,
+                                  faults_for=none, journal_path=str(full_j),
+                                  device=dev)
+        full_launch = launches()
+        # the JAX package's tests end a torn line with a newline too
+        lines = full_j.read_text().splitlines()
+        torn = lines[SWEEP_JOURNAL_CUT][:len(lines[SWEEP_JOURNAL_CUT]) // 2]
+        cut_text = "\n".join(lines[:SWEEP_JOURNAL_CUT] + [torn]) + "\n"
+        want_rounds = sum(p.rounds_executed
+                          for p in full.points[SWEEP_JOURNAL_CUT:len(ns)])
+        for pipeline in (False, True):
+            cut_j.write_text(cut_text)
+            reset()
+            res = run_points_batched(ns_base, cfgs, initial_values=bal,
+                                     faults_for=none,
+                                     journal_path=str(cut_j), resume=True,
+                                     pipeline=pipeline, device=dev)
+            got = launches()
+            round_launches = got.get("proposal_hist", 0) + \
+                got.get("vote_commit", 0)
+            same = ([sweep_science(p) for p in res.points]
+                    == [sweep_science(p) for p in full.points])
+            recs = sweep_records(full_j)
+            same_recs = sweep_records(cut_j) == recs
+            print(f"[sweep] journal resume (pipeline={pipeline}): "
+                  f"{res.n_buckets} buckets, reused {res.bucket_reused}, "
+                  f"round kernel launches {round_launches} (the rerun "
+                  f"packed points' 2 x {want_rounds} rounds; the full run "
+                  f"launched {full_launch}), points equal: {same}, journal "
+                  f"records equal: {same_recs}, wall_s {res.wall_s:.4f} "
+                  f"(full {full.wall_s:.4f})")
+            reused = [i < SWEEP_JOURNAL_CUT for i in range(len(FRACS) + 1)]
+            if (res.bucket_reused != reused or not same or not same_recs
+                    or round_launches != 2 * want_rounds):
+                raise SystemExit("[sweep] the journal resume failed")
+
+        # (d) a checkpoint of the f = 0.45 run, resumed
+        c = ns[-1]
+        fl = none().to(dev)
+        want_r, want = run_consensus(c, init_state(c, bal, fl), fl)
+        cut = min(SWEEP_CKPT_ROUND, want_r)
+        nxt, st = run_consensus_slice(
+            c, start_state(c, init_state(c, bal, fl)), fl, 1, cut)
+        path = Path(d) / "ckpt.npz"
+        t0 = time.perf_counter()
+        save_checkpoint(str(path), c, st, fl, nxt)
+        t_save = time.perf_counter() - t0
+        del st
+        t0 = time.perf_counter()
+        rounds, fin, _ = resume_from(str(path), device=dev)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        diff = trials_differing(fin, want)
+        print(f"[sweep] checkpoint f=0.45 at round {nxt} of {want_r} "
+              f"({path.stat().st_size / 2**20:.1f} MiB, save {t_save:.3f} s,"
+              f" load + resume {t_resume:.3f} s): rounds {rounds}, trials "
+              f"differing {diff} of {TRIALS}")
+        if rounds != want_r or diff:
+            raise SystemExit("[sweep] the checkpoint resume failed")
+        del fin, want
+
+    # (e) card against CPU at 8192 x 8: a mixed list (a fused static
+    # bucket, a dynamic bucket), the coin comparison, the degree and
+    # committee curves
+    n_s, t_s = SWEEP_SMALL
+    s_bal = balanced_inputs(t_s, n_s)
+    s_base = SimConfig(n_nodes=n_s, n_faulty=0, trials=t_s,
+                       max_rounds=MAX_ROUNDS, delivery="quorum",
+                       scheduler="uniform", path="histogram", seed=SEED)
+    mixed = [s_base.replace(n_faulty=int(0.40 * n_s), use_pallas_hist=True,
+                            use_pallas_round=True),
+             s_base.replace(n_faulty=int(0.25 * n_s)),
+             s_base.replace(n_faulty=int(0.40 * n_s))]
+    even = [f - (n_s - f) % 2 for f in (n_s // 10, n_s // 4, 2 * n_s // 5)]
+    t_base = SimConfig(n_nodes=n_s, n_faulty=0, trials=t_s,
+                       max_rounds=TOPO_MAX_ROUNDS, seed=SEED)
+    runs = {
+        "mixed": lambda d: [sweep_science(p) for p in run_points_batched(
+            s_base, mixed, initial_values=s_bal,
+            faults_for=lambda c: FaultSpec.none(t_s, n_s),
+            device=d).points],
+        "coins": lambda d: {k: [sweep_science(p) for p in v]
+                            for k, v in coin_comparison_batched(
+                                s_base, even, verbose=False,
+                                device=d).items()},
+        "degree": lambda d: degree_curve(
+            t_base, list(SWEEP_DEGREE_SPECS), device=d),
+        "committee": lambda d: committee_curve(
+            t_base.replace(n_faulty=1), sizes=list(SWEEP_COMMITTEE_SIZES),
+            committee_count=4, device=d)[0],
+    }
+    for name, run in runs.items():
+        reset()
+        t0 = time.perf_counter()
+        got = run(dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        card_launch = launches()
+        t0 = time.perf_counter()
+        want = run("cpu")
+        t_cpu = time.perf_counter() - t0
+        print(f"[sweep] card vs cpu {name} N={n_s} T={t_s}: equal "
+              f"{got == want} (card {t_card:.3f} s, cpu {t_cpu:.2f} s; "
+              f"card kernel launches {card_launch})")
+        if got != want:
+            raise SystemExit(f"[sweep] {name}: card and CPU differ")
+        if name == "mixed" and set(card_launch) != {"fused_round"}:
+            raise SystemExit("[sweep] the mixed list's static bucket did "
+                             "not run the fused kernel alone")
+    reset()
+    print(f"[sweep] kernel launches in the phase: {total}")
+    print(f"[sweep] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {
