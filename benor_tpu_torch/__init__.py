@@ -22,7 +22,24 @@ in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
                            [10_000, 30_000, 40_000],
                            journal_path="sweep.jsonl")
 
-All run on CUDA unless ``device="cpu"`` is passed.
+    from benor_tpu_torch.atlas.manifest import capture_atlas  # the atlas
+    doc = capture_atlas(("quorum",))      # cliffs, audits, shrunk repros
+
+    from benor_tpu_torch import results  # the science studies
+    results.generate(out_dir="RESULTS")   # RESULTS/results.json, RESULTS.md
+
+The command line (``python -m benor_tpu_torch``; the JAX package's
+arguments, lines and exit codes):
+
+    python -m benor_tpu_torch                       # the start.ts demo
+    python -m benor_tpu_torch sweep --n 100000 --f-values 10000,40000
+    python -m benor_tpu_torch coins | preset NAME | results
+    python -m benor_tpu_torch audit --f 4 --scheduler targeted --balanced
+                                                    # exit 2: violations
+    python -m benor_tpu_torch atlas --searches quorum
+    python -m benor_tpu_torch replay repro.json
+
+All run on CUDA unless ``device="cpu"`` (``--device cpu``) is passed.
 """
 
 from .api import launch_network

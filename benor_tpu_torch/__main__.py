@@ -1,0 +1,714 @@
+"""CLI driver (port of benor_tpu/__main__.py): the reference's `yarn start`
+demo plus the science harness, on the card.
+
+`python -m benor_tpu_torch` reproduces src/start.ts:6-43: launch 10 nodes
+with 4 faulty, all-1 inputs, run consensus, print each node's final state.
+
+Subcommands (the JAX package's arguments, defaults, printed lines and
+exit codes):
+  demo    [-n N] [-f F] [--max-rounds R]              the start.ts demo
+  sweep   --n N --f-values 0,100,...                  rounds-vs-f curve;
+          [--batched --journal J --resume --pipeline] the batched engine
+                                                      and its journal
+  coins   --n N --f F [--eps ...]                     private vs common coin
+  preset  NAME                                        a BASELINE.json config
+  results [--out DIR] [--n N] [--trials T]            RESULTS/ (the studies)
+  audit   --n N --f F [--witness-trials 0,1]          run one witnessed
+          [--witness-nodes k] [--audit-out b.json]    config and check the
+                                                      Ben-Or invariants;
+                                                      exit 2 on violations
+  atlas   [--searches omission,partition,quorum]      cliff search ->
+          [--axis SPEC] [--heatmap A,B]               atlas manifest, gated
+                                                      against
+                                                      ATLAS_BASELINE.json;
+                                                      exit 2 on drift
+  replay  PATH                                        re-run an atlas_repro
+                                                      document; exit 2 on a
+                                                      mismatch
+
+Every subcommand runs on the CUDA device unless ``--device cpu`` is
+given; with no CUDA device and no ``--device cpu`` it fails (exit 1)
+instead of moving to the CPU.  Not ported: ``trace``, ``lint``,
+``profile``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A item 16),
+``scale`` (item 15), ``demo --backend express|native`` (item 17), and the
+``--metrics-out``, ``--trace-out`` (sweep), ``--manifest-out``,
+``--heartbeat-rounds`` and ``--heartbeat-out`` flags (item 16): each
+raises ``NotImplementedError`` naming its item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+from .config import unported
+
+#: Subcommands of the JAX CLI that wait for a later Queue A item.
+UNPORTED_COMMANDS = {
+    "trace": ("the `trace` subcommand (the Chrome-trace exporter)", "16"),
+    "lint": ("the `lint` subcommand (benorlint)", "16"),
+    "profile": ("the `profile` subcommand (perfscope, kernelscope)", "16"),
+    "scale": ("the `scale` subcommand (mesh scaling ladders)", "15"),
+    "serve": ("the `serve` subcommand (the request plane)", "16"),
+    "load": ("the `load` subcommand (the request plane's load test)", "16"),
+    "watch": ("the `watch` subcommand (the progress tail)", "16"),
+}
+
+#: Flags of the JAX CLI that wait for the observatory planes (item 16):
+#: argument name -> what it would arm.
+UNPORTED_FLAGS = {
+    "metrics_out": "--metrics-out (the metrics registry's exporters)",
+    "manifest_out": "--manifest-out (the sweep manifest)",
+    "heartbeat_rounds": "--heartbeat-rounds (the progress heartbeat)",
+    "heartbeat_out": "--heartbeat-out (the progress heartbeat)",
+}
+
+
+def _refuse_unported(args) -> None:
+    """Raise for an unported demo backend or flag, before any device is
+    touched."""
+    if args.cmd == "demo" and args.backend in ("express", "native"):
+        unported(f"demo --backend {args.backend} (the event-loop "
+                 "oracles)", "17")
+    for name, what in UNPORTED_FLAGS.items():
+        if getattr(args, name, None):
+            unported(what, "16")
+    if args.cmd == "sweep" and args.trace_out:
+        unported("sweep --trace-out (the sweep's bucket spans)", "16")
+
+
+def _demo(args) -> int:
+    from .api import get_nodes_state, launch_network, start_consensus
+    n, f = args.n, args.f
+    # start.ts:25-29 — the reference refuses F > N/2 in the demo driver
+    if f > n / 2:
+        print("Too many faulty nodes", file=sys.stderr)
+        return 1
+    initial = [1] * n                      # start.ts:9-20: all-1 inputs
+    faulty = [True] * f + [False] * (n - f)
+    net = launch_network(n, f, initial, faulty, backend=args.backend,
+                         max_rounds=args.max_rounds, seed=args.seed,
+                         device=args.device)
+    start_consensus(net)
+    for i, st in enumerate(get_nodes_state(net)):
+        print(f"node {i}: {st}")
+    return 0
+
+
+def _add_device_arg(sub) -> None:
+    """ONE definition of --device for every subcommand that runs."""
+    sub.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where to run: the CUDA device (default; no "
+                          "fallback when there is none) or the CPU, "
+                          "which runs the kernels' plain versions")
+
+
+def _add_pallas_arg(sub) -> None:
+    """ONE definition of the --pallas option for every subparser that
+    runs the compute path."""
+    sub.add_argument("--pallas", choices=("auto", "on", "off"),
+                     default="auto",
+                     help="the flagship kernels (auto: on for the CUDA "
+                          "device, off on the CPU)")
+
+
+def _add_obs_args(sub, record: bool = True) -> None:
+    """ONE definition of the observability options for every compute
+    subcommand (--metrics-out raises: the registry is item 16)."""
+    if record:
+        sub.add_argument("--record", action="store_true",
+                         help="fill the flight recorder (SimConfig."
+                              "record): per-round decided/killed/value-"
+                              "histogram/coin/margin telemetry")
+    sub.add_argument("--metrics-out", metavar="PATH",
+                     help="not ported (ROADMAP Queue A item 16)")
+
+
+def _pallas_flags(choice: str, device) -> dict:
+    """--pallas plumbing: 'auto' arms the flagship kernels exactly when
+    results.py's studies do (on the CUDA device, not on the CPU); 'on'
+    forces the flags (the CPU runs their plain versions); 'off' clears
+    them.  Configs the kernels do not serve ignore the flags."""
+    from .results import FLAGSHIP_FLAGS, _flagship_flags
+    if choice == "on":
+        return dict(FLAGSHIP_FLAGS)
+    if choice == "off":
+        return {}
+    return _flagship_flags(device)
+
+
+def _sweep(args) -> int:
+    from .config import SimConfig
+    from .sweep import rounds_vs_f, run_point, save_points
+    f_values = [int(x) for x in args.f_values.split(",")]
+    flags = _pallas_flags(args.pallas, args.device)
+    cfg = SimConfig(n_nodes=args.n, n_faulty=0, trials=args.trials,
+                    max_rounds=args.max_rounds, delivery="quorum",
+                    scheduler=args.scheduler, coin_mode=args.coin,
+                    fault_model=args.fault_model, seed=args.seed,
+                    record=args.record, **flags)
+    if not args.batched and (args.journal or args.resume
+                             or args.pipeline):
+        # the journal instruments the BUCKET lifecycle; the per-point
+        # path has no buckets — a silent no-op would fake durability
+        print("warning: --journal/--resume/--trace-out/--manifest-out/"
+              "--pipeline instrument the batched engine's buckets; "
+              "add --batched", file=sys.stderr)
+    if args.resume and not args.journal:
+        print("sweep: --resume requires --journal (the journal is the "
+              "resume substrate)", file=sys.stderr)
+        return 1
+    journal_kw = dict(journal_path=args.journal, resume=args.resume,
+                      pipeline=args.pipeline, device=args.device)
+    mode = "balanced/no-crash" if args.balanced else "iid/crash"
+    # the banner reports the compute path taken, per f value: the kernel
+    # predicates gate on the quorum N - f
+    from .ops.tally import pallas_round_active, pallas_stream_active
+
+    def _engaged(c):
+        return pallas_round_active(c) or pallas_stream_active(c)
+
+    eng = [_engaged(cfg.replace(n_faulty=int(f))) for f in f_values]
+    pallas_note = (", pallas" if eng and all(eng)
+                   else ", pallas (where eligible)" if any(eng) else "")
+    print(f"rounds-vs-f sweep: N={args.n}, trials={args.trials}, "
+          f"scheduler={args.scheduler}, coin={args.coin}, "
+          f"faults={args.fault_model}, inputs={mode}"
+          f"{pallas_note}")
+    if args.balanced:
+        # the science regime: balanced inputs, F purely a protocol
+        # parameter; under 'byzantine'/'equivocate' the F lanes are LIVE
+        # adversaries, so they are marked (not crashed) rather than zeroed
+        from .state import FaultSpec
+        from .sweep import balanced_inputs, run_curve_batched
+        bal = balanced_inputs(args.trials, args.n)
+
+        def faults_for(c):
+            if c.fault_model in ("byzantine", "equivocate"):
+                return FaultSpec.first_f(c)
+            return FaultSpec.none(args.trials, args.n)
+
+        if args.batched:
+            cb = run_curve_batched(cfg, f_values, initial_values=bal,
+                                   faults_for=faults_for, verbose=True,
+                                   **journal_kw)
+            points = cb.points
+        else:
+            points = []
+            for f in f_values:
+                cfg_f = cfg.replace(n_faulty=int(f))
+                points.append(run_point(cfg_f, initial_values=bal,
+                                        faults=faults_for(cfg_f),
+                                        device=args.device))
+        for pt in points:
+            print(f"  f={pt.n_faulty}: mean_k={pt.mean_k:.2f} "
+                  f"decided={pt.decided_frac:.3f} "
+                  f"disagree={pt.disagree_frac:.3f} "
+                  f"{pt.trials_per_sec:.1f} trials/s", flush=True)
+    elif args.batched:
+        from .sweep import run_curve_batched
+        cb = run_curve_batched(cfg, f_values, verbose=True, **journal_kw)
+        points = cb.points
+        for pt in points:
+            print(f"  f={pt.n_faulty}: mean_k={pt.mean_k:.2f} "
+                  f"decided={pt.decided_frac:.3f} "
+                  f"{pt.trials_per_sec:.1f} trials/s", flush=True)
+    else:
+        points = rounds_vs_f(cfg, f_values, device=args.device)
+    if args.record:
+        from .utils.metrics import round_history_summary
+        for pt in points:
+            s = round_history_summary(pt.round_history)
+            print(f"  f={pt.n_faulty}: quiescence_round="
+                  f"{s['rounds_to_quiescence']} "
+                  f"decide_velocity={s['decide_velocity']}", flush=True)
+    if args.out:
+        save_points(args.out, points)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def _audit(args) -> int:
+    """Run ONE witnessed config and machine-check the Ben-Or invariants:
+    prints the audit verdict (pinpointed violations with trial/round/node
+    ids and tallies) and optionally dumps the JSON witness bundle.  Exit
+    code 0 = clean, 2 = violations found (so CI can gate on it)."""
+    from .audit import audit_point, default_witness_overrides, save_bundle
+    from .config import SimConfig
+    from .state import FaultSpec
+    from .sweep import balanced_inputs
+
+    dflt = default_witness_overrides(args.trials, args.n)
+    wt = (tuple(int(x) for x in args.witness_trials.split(","))
+          if args.witness_trials else dflt["witness_trials"])
+    wk = args.witness_nodes or dflt["witness_nodes"]
+    cfg = SimConfig(n_nodes=args.n, n_faulty=args.f, trials=args.trials,
+                    max_rounds=args.max_rounds, delivery="quorum",
+                    scheduler=args.scheduler, coin_mode=args.coin,
+                    fault_model=args.fault_model, seed=args.seed,
+                    witness_trials=wt, witness_nodes=wk,
+                    **_pallas_flags(args.pallas, args.device))
+    initial = faults = unanimous = None
+    if args.balanced:
+        initial = balanced_inputs(args.trials, args.n)
+        if cfg.fault_model not in ("byzantine", "equivocate"):
+            faults = FaultSpec.none(args.trials, args.n)
+    if args.unanimous is not None:
+        initial = np.full((args.trials, args.n), args.unanimous, np.int8)
+        unanimous = args.unanimous
+    report, bundle = audit_point(cfg, initial_values=initial,
+                                 faults=faults, unanimous=unanimous,
+                                 label=f"cli N={args.n} f={args.f}",
+                                 device=args.device)
+    print(f"watched trials={[int(t) for t in bundle.trial_ids]} "
+          f"nodes={[int(i) for i in bundle.node_ids]}")
+    print(report.summary())
+    for v in report.violations[:args.max_violations]:
+        print(f"  [{v.invariant}] {v.message}")
+    if len(report.violations) > args.max_violations:
+        print(f"  ... {len(report.violations) - args.max_violations} more "
+              f"(see --audit-out)")
+    if args.audit_out:
+        save_bundle(args.audit_out, bundle, report)
+        print(f"wrote witness bundle to {args.audit_out}")
+    return 0 if report.ok else 2
+
+
+def _coins(args) -> int:
+    from .config import SimConfig
+    from .state import FaultSpec
+    from .sweep import balanced_inputs, coin_comparison, run_point
+    cfg = SimConfig(n_nodes=args.n, n_faulty=args.f, trials=args.trials,
+                    max_rounds=args.max_rounds, seed=args.seed,
+                    **_pallas_flags(args.pallas, args.device))
+    res = coin_comparison(cfg, device=args.device)
+    for mode, pts in res.items():
+        p = pts[0]
+        print(f"{mode}: decided={p.decided_frac:.3f} mean_k={p.mean_k:.2f}")
+    for eps in (args.eps or []):
+        wcfg = cfg.replace(coin_mode="weak_common", coin_eps=eps,
+                           scheduler="adversarial", delivery="quorum")
+        p = run_point(wcfg, initial_values=balanced_inputs(args.trials,
+                                                           args.n),
+                      faults=FaultSpec.none(args.trials, args.n),
+                      device=args.device)
+        print(f"weak_common(eps={eps}): decided={p.decided_frac:.3f} "
+              f"mean_k={p.mean_k:.2f}")
+    return 0
+
+
+#: (n_nodes, trials) defaults of `results` (the JAX package's
+#: utils/backend.py FULL_SCALE and SMOKE_SCALE): the N = 1M x 32 study set
+#: on the card, the same studies at smoke scale on the CPU.
+FULL_SCALE = (1_000_000, 32)
+SMOKE_SCALE = (50_000, 8)
+
+
+def _results(args) -> int:
+    from .results import generate
+    n, trials = args.n, args.trials
+    if n is None or trials is None:
+        on_cpu = args.device == "cpu"
+        dn, dt = SMOKE_SCALE if on_cpu else FULL_SCALE
+        n = dn if n is None else n
+        trials = dt if trials is None else trials
+        if on_cpu:
+            print(f"results: CPU backend — defaulting to N={dn:,}, "
+                  f"trials={dt} (pass --n/--trials to override)",
+                  flush=True)
+    generate(out_dir=args.out, n_large=n, trials_large=trials,
+             seed=args.seed, presets=not args.no_presets,
+             device=args.device)
+    return 0
+
+
+def _atlas(args) -> int:
+    """The phase-boundary observatory (atlas/): adaptive cliff search over
+    the scenario grid -> atlas manifest + cliff-drift gate vs the
+    committed ATLAS_BASELINE.json.  Exit 2 on drift findings; an
+    incomparable baseline (platform/scale mismatch) is a printed note,
+    not a failure."""
+    from .atlas import gate as agate
+    from .atlas import manifest as amanifest
+    from .atlas import render_heatmap
+    from .atlas import search as asearch
+
+    verbose = args.format == "text"
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+
+    if args.heatmap:
+        from .config import SimConfig
+        spec_a, spec_b = args.heatmap.split(",", 1)
+        cfg = SimConfig(n_nodes=args.n, n_faulty=args.f,
+                        trials=args.trials, max_rounds=args.max_rounds,
+                        delivery="all", path="histogram",
+                        seed=args.seed)
+        doc = asearch.heatmap_slice(cfg, spec_a, spec_b,
+                                    na=args.coarse, nb=args.coarse,
+                                    journal_path=args.journal,
+                                    verbose=verbose, device=args.device)
+        asearch.export_heatmap(doc, json_path=args.profile_out,
+                               trace_path=args.trace_out)
+        if args.format == "json":
+            print(json.dumps(doc, indent=1, sort_keys=True))
+        else:
+            print(render_heatmap(doc))
+            print(f"  {len(doc['rows'])} probes in {doc['n_buckets']} "
+                  f"bucket(s), {doc['compile_count']} compile(s)")
+        return 0
+
+    if args.axis:
+        from .config import SimConfig
+        cfg = SimConfig(n_nodes=args.n, n_faulty=args.f,
+                        trials=args.trials, max_rounds=args.max_rounds,
+                        delivery="all", path="histogram",
+                        seed=args.seed)
+        docs = []
+        for i, spec in enumerate(args.axis):
+            res = asearch.find_cliffs(
+                cfg, spec, coarse=args.coarse,
+                journal_path=args.journal,
+                resume=args.resume or i > 0,
+                forensics=not args.no_forensics,
+                out_dir=args.out_dir, verbose=verbose, device=args.device)
+            d = res.to_dict()
+            d["name"] = f"axis{i}"
+            docs.append(d)
+        manifest = amanifest.build_manifest(docs, scale=args.scale,
+                                            device=args.device)
+    else:
+        searches = tuple(s for s in args.searches.split(",") if s)
+        manifest = amanifest.capture_atlas(
+            searches=searches, scale=args.scale,
+            forensics=not args.no_forensics,
+            journal_path=args.journal, resume=args.resume,
+            out_dir=args.out_dir, verbose=verbose, device=args.device)
+
+    baseline_path = args.baseline or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "ATLAS_BASELINE.json")
+    if args.update_baseline:
+        amanifest.save_manifest(baseline_path, manifest)
+        print(f"baseline updated: {baseline_path} "
+              f"({manifest['cliff_count']} cliffs, "
+              f"{manifest['probe_count']} probes)")
+        return 0
+    if args.profile_out:
+        amanifest.save_manifest(args.profile_out, manifest)
+    if args.format == "json":
+        print(json.dumps(manifest, indent=1, sort_keys=True))
+    else:
+        for s in manifest["searches"]:
+            print(f"[{s['name']}] {s['spec']}: {s['probe_count']} "
+                  f"probes / {len(s['generations'])} generations / "
+                  f"{s['compile_count']} compiles")
+            for c in s["cliffs"]:
+                extra = ""
+                if c.get("safety"):
+                    extra += (" audit_ok" if c["safety"]["audit_ok"]
+                              else f" VIOLATIONS="
+                                   f"{c['safety']['n_violations']}")
+                if c.get("repro_reproduced") is not None:
+                    extra += (" repro_ok" if c["repro_reproduced"]
+                              else " REPRO-STALE")
+                print(f"  cliff {c['axis']}={c['point']:g} bracket "
+                      f"[{c['lo']:g}, {c['hi']:g}] "
+                      f"{c['lo_verdict']}->{c['hi_verdict']}{extra}")
+    if os.path.exists(baseline_path):
+        try:
+            findings = agate.compare_atlas(
+                manifest, amanifest.load_manifest(baseline_path))
+        except (agate.IncomparableAtlas, ValueError) as e:
+            print(f"atlas: baseline not comparable ({e}) — skipping "
+                  f"the drift gate", file=sys.stderr)
+            return 0
+        for f in findings:
+            print(f"REGRESSION: [{f.metric}] {f.message}")
+        if findings:
+            return 2
+        print(f"atlas: in-band vs {os.path.basename(baseline_path)}")
+    return 0
+
+
+def _replay(args) -> int:
+    """Re-execute a ``kind: atlas_repro`` document and pin it bit for bit:
+    exit 0 reproduced, 2 verdict/digest mismatch, 1 unreadable input."""
+    from .atlas import repro as arepro
+
+    try:
+        doc = arepro.load_repro(args.path)
+    except (OSError, ValueError) as e:
+        print(f"replay: unreadable repro: {e}", file=sys.stderr)
+        return 1
+    res = arepro.replay_repro(doc, args.device)
+    if args.format == "json":
+        print(json.dumps(res, indent=1, sort_keys=True))
+    else:
+        v, e = res["verdict"], res["expected"]
+        print(f"replay {os.path.basename(args.path)} "
+              f"[{doc.get('label') or 'unlabeled'}]: "
+              f"digest {'ok' if res['digest_ok'] else 'MISMATCH'}, "
+              f"verdict {v['verdict']} (recorded {e.get('verdict')}) "
+              f"rounds={v['rounds_executed']} "
+              f"decided={v['decided_frac']:g} -> "
+              f"{'REPRODUCED' if res['ok'] else 'NOT REPRODUCED'}")
+    return 0 if res["ok"] else 2
+
+
+def _preset(args) -> int:
+    from .sweep import baseline_configs, run_point
+    cfgs = baseline_configs()
+    if args.name not in cfgs:
+        print(f"unknown preset {args.name!r}; choose from "
+              f"{sorted(cfgs)}", file=sys.stderr)
+        return 1
+    pt = run_point(cfgs[args.name], device=args.device)
+    print(json.dumps(pt.to_dict(), indent=1))
+    return 0
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="benor_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd")
+
+    d = sub.add_parser("demo", help="the reference start.ts demo")
+    d.add_argument("-n", type=int, default=10)        # start.ts:7
+    d.add_argument("-f", type=int, default=4)         # start.ts:8
+    d.add_argument("--backend", choices=("tpu", "express", "native"),
+                   default="tpu")
+    d.add_argument("--max-rounds", type=int, default=32)
+    d.add_argument("--seed", type=int, default=0)
+    _add_device_arg(d)
+
+    s = sub.add_parser("sweep", help="rounds-vs-f curve")
+    s.add_argument("--n", type=int, required=True)
+    s.add_argument("--f-values", required=True,
+                   help="comma-separated fault counts")
+    s.add_argument("--trials", type=int, default=256)
+    s.add_argument("--max-rounds", type=int, default=64)
+    s.add_argument("--scheduler",
+                   choices=("uniform", "biased", "adversarial", "targeted"),
+                   default="uniform")
+    s.add_argument("--coin", choices=("private", "common"), default="private")
+    s.add_argument("--fault-model",
+                   choices=("crash", "byzantine", "equivocate"),
+                   default="crash")
+    s.add_argument("--seed", type=int, default=0)
+    _add_pallas_arg(s)
+    _add_obs_args(s)
+    s.add_argument("--balanced", action="store_true",
+                   help="balanced inputs + zero crashes (the multi-round "
+                        "science regime; default is the reference-style "
+                        "iid-inputs/crash-faults workload)")
+    s.add_argument("--batched", action="store_true",
+                   help="run the curve through the batched engine "
+                        "(sweep.run_curve_batched; the same summaries)")
+    s.add_argument("--pipeline", action="store_true",
+                   help="with --batched: build bucket k+1 on a worker "
+                        "thread while bucket k runs (the same results)")
+    s.add_argument("--out", help="write points to this JSON file")
+    s.add_argument("--heartbeat-out", metavar="PATH",
+                   help="not ported (ROADMAP Queue A item 16)")
+    s.add_argument("--heartbeat-rounds", type=int, default=0,
+                   help="not ported (ROADMAP Queue A item 16)")
+    s.add_argument("--journal", metavar="PATH",
+                   help="with --batched: append one durable JSON-lines "
+                        "record per completed bucket (the sweep journal "
+                        "--resume restarts from)")
+    s.add_argument("--resume", action="store_true",
+                   help="with --journal: skip every bucket whose "
+                        "fingerprint matches a journal record and "
+                        "reassemble its points from disk")
+    s.add_argument("--trace-out", metavar="PATH",
+                   help="not ported (ROADMAP Queue A item 16)")
+    s.add_argument("--manifest-out", metavar="PATH",
+                   help="not ported (ROADMAP Queue A item 16)")
+    _add_device_arg(s)
+
+    c = sub.add_parser("coins", help="private vs common coin, adversarial")
+    c.add_argument("--n", type=int, default=100)
+    c.add_argument("--f", type=int, default=40)  # need F >> sqrt(N)
+    c.add_argument("--trials", type=int, default=128)
+    c.add_argument("--max-rounds", type=int, default=48)
+    c.add_argument("--seed", type=int, default=0)
+    _add_pallas_arg(c)
+    c.add_argument("--eps", type=float, nargs="*",
+                   help="also run weak_common coins at these deviation "
+                        "probabilities (0 ~ common, 1 ~ private; the "
+                        "termination transition sits at 1 - F/N)")
+    _add_obs_args(c, record=False)
+    _add_device_arg(c)
+
+    a = sub.add_parser("audit",
+                       help="run one witnessed config and machine-check "
+                            "the Ben-Or invariants (audit.py)")
+    a.add_argument("--n", type=int, default=100)
+    a.add_argument("--f", type=int, default=25)
+    a.add_argument("--trials", type=int, default=16)
+    a.add_argument("--max-rounds", type=int, default=32)
+    a.add_argument("--scheduler",
+                   choices=("uniform", "biased", "adversarial", "targeted"),
+                   default="uniform")
+    a.add_argument("--coin", choices=("private", "common"),
+                   default="private")
+    a.add_argument("--fault-model",
+                   choices=("crash", "byzantine", "equivocate"),
+                   default="crash")
+    a.add_argument("--balanced", action="store_true",
+                   help="balanced inputs + zero crashes (live marked "
+                        "faults under byzantine/equivocate) — the regime "
+                        "where the safety adversaries bite")
+    a.add_argument("--unanimous", type=int, choices=(0, 1), default=None,
+                   help="run all-<v> inputs and arm the VALIDITY check "
+                        "(any decision != v is a violation)")
+    a.add_argument("--seed", type=int, default=0)
+    a.add_argument("--witness-trials", default=None,
+                   help="comma-separated global trial ids to watch "
+                        "(default: the first min(trials, 4))")
+    a.add_argument("--witness-nodes", type=int, default=None,
+                   help="how many nodes to watch — the first ceil(k/2) + "
+                        "last floor(k/2) global ids (default: "
+                        "min(n, 16))")
+    a.add_argument("--audit-out", metavar="PATH",
+                   help="write the witness bundle + audit verdict as one "
+                        "JSON document (re-auditable offline via "
+                        "audit.load_bundle)")
+    a.add_argument("--max-violations", type=int, default=5,
+                   help="violations printed before truncating (all land "
+                        "in --audit-out)")
+    _add_pallas_arg(a)
+    _add_obs_args(a, record=False)
+    _add_device_arg(a)
+
+    p = sub.add_parser("preset", help="run a BASELINE.json preset config")
+    p.add_argument("name")
+    _add_device_arg(p)
+
+    for name, (what, item) in UNPORTED_COMMANDS.items():
+        sub.add_parser(name, help=f"not ported (ROADMAP Queue A item "
+                                  f"{item})")
+
+    at = sub.add_parser(
+        "atlas",
+        help="phase-boundary observatory: adaptive cliff search over "
+             "the scenario grid (atlas/) -> kind:atlas_manifest + "
+             "cliff-drift gate vs ATLAS_BASELINE.json; exit 2 on drift")
+    at.add_argument("--searches", default="omission,partition,quorum",
+                    help="comma-separated shipped searches to run "
+                         "(default: all three — the omission stall "
+                         "cliff, the partition liveness boundary, the "
+                         "F >= N/2 quorum cliff)")
+    at.add_argument("--axis", action="append", default=None,
+                    metavar="SPEC",
+                    help="instead of the shipped searches, hunt cliffs "
+                         "on this '<name>:<lo>:<hi>[:<tol>]' axis over "
+                         "the --n/--f/--trials/--max-rounds base "
+                         "config (repeatable; see "
+                         "atlas/scenario.AXIS_KINDS)")
+    at.add_argument("--n", type=int, default=64,
+                    help="base nodes for --axis/--heatmap searches")
+    at.add_argument("--f", type=int, default=16)
+    at.add_argument("--trials", type=int, default=8)
+    at.add_argument("--max-rounds", type=int, default=16)
+    at.add_argument("--seed", type=int, default=0)
+    at.add_argument("--coarse", type=int, default=4,
+                    help="coarse seeding-grid intervals per axis "
+                         "(default 4 -> 5 grid points)")
+    at.add_argument("--scale", type=float, default=1.0,
+                    help="trial-count multiplier for the shipped "
+                         "searches (cliff LOCATIONS are scale-free; "
+                         "the gate refuses cross-scale compares)")
+    at.add_argument("--no-forensics", action="store_true",
+                    help="skip the per-cliff witness-armed audit and "
+                         "minimal-repro emission")
+    at.add_argument("--journal", metavar="PATH",
+                    help="append atlas_probe/atlas_cliff records plus "
+                         "the underlying sweep-journal bucket records "
+                         "here (--resume restarts from it)")
+    at.add_argument("--resume", action="store_true",
+                    help="with --journal: restore every completed "
+                         "generation's buckets from the journal and run "
+                         "only the remainder")
+    at.add_argument("--out-dir", metavar="DIR",
+                    help="dump witness bundles + repro JSONs here")
+    at.add_argument("--heatmap", metavar="SPEC_A,SPEC_B",
+                    help="instead of a search: evaluate the 2D "
+                         "axis_a x axis_b slice in ONE batched call "
+                         "and render the stall/rounds heatmap "
+                         "(--profile-out JSON rows, --trace-out "
+                         "Perfetto counter tracks)")
+    at.add_argument("--trace-out", metavar="PATH",
+                    help="with --heatmap: write Perfetto counter "
+                         "tracks (one per axis_b row) here")
+    at.add_argument("--format", choices=("text", "json"),
+                    default="text")
+    at.add_argument("--profile-out", metavar="PATH",
+                    help="write the manifest (or --heatmap document) "
+                         "to this JSON file")
+    at.add_argument("--baseline", metavar="PATH", default=None,
+                    help="baseline manifest to gate against (default: "
+                         "the committed ATLAS_BASELINE.json)")
+    at.add_argument("--update-baseline", action="store_true",
+                    help="write this capture as the new baseline "
+                         "instead of gating against it")
+    _add_obs_args(at, record=False)
+    _add_device_arg(at)
+
+    rp = sub.add_parser(
+        "replay",
+        help="re-execute a kind:atlas_repro document bit-identically "
+             "(digest + verdict pinned); exit 0 reproduced, 2 "
+             "mismatch, 1 unreadable")
+    rp.add_argument("path", help="repro JSON (atlas --out-dir emission "
+                                 "or a manifest cliff's repro block "
+                                 "saved to a file)")
+    rp.add_argument("--format", choices=("text", "json"),
+                    default="text")
+    _add_device_arg(rp)
+
+    r = sub.add_parser("results",
+                       help="generate RESULTS/ (curves + presets artifact)")
+    r.add_argument("--out", default="RESULTS")
+    r.add_argument("--n", type=int, default=None,
+                   help="study size (default: 1M on the card, 50k on "
+                        "the CPU)")
+    r.add_argument("--trials", type=int, default=None,
+                   help="MC trials (default: 32 on the card, 8 on the "
+                        "CPU)")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--no-presets", action="store_true",
+                   help="skip the BASELINE presets (quick smoke)")
+    _add_device_arg(r)
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # bare `python -m benor_tpu_torch [-n N -f F ...]` == the start.ts demo
+    if not argv or argv[0] not in ("demo", "sweep", "coins", "preset",
+                                   "results", "audit", "atlas", "replay",
+                                   *UNPORTED_COMMANDS, "-h", "--help"):
+        argv = ["demo"] + argv
+    if argv[0] in UNPORTED_COMMANDS:
+        unported(*UNPORTED_COMMANDS[argv[0]])
+    args = ap.parse_args(argv)
+    _refuse_unported(args)
+    from .sim import resolve_device
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"benor_tpu_torch {args.cmd}: {e}", file=sys.stderr)
+        return 1
+    return {"demo": _demo, "sweep": _sweep, "coins": _coins,
+            "preset": _preset, "results": _results, "audit": _audit,
+            "atlas": _atlas, "replay": _replay}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,10 @@ bounds every round); healing partitions, ``SimConfig(partition=
 round (``partitions.py``; group histograms, never an N x N array).
 Message omission (``drop_prob``) lives in the delivery masks and tallies:
 the per-edge mask on the dense path, binomial thinning of the counts on
-the histogram path."""
+the histogram path.  ``curves.py`` sweeps rounds-to-decide against the
+omission probability and the churn depth; ``report.py`` assembles the
+``faults_manifest`` document; the auditor (``audit.py``) checks the
+down-interval silence and the partition-epoch tally bounds."""
 
 from .partitions import (PartitionSpec, group_of, group_size_of,
                          parse_partition)

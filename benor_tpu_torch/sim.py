@@ -179,6 +179,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_identity(device=None) -> tuple:
+    """(platform, device kind) of the device a run uses, as the documents
+    that record it name it: ("cpu", "cpu") on the CPU, as the JAX
+    package's CPU backend names itself, and ("gpu", the card's name) on
+    CUDA."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "cpu", "cpu"
+    return "gpu", torch.cuda.get_device_name(dev)
+
+
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError unless one of the port's loops serves
     cfg: only ``mesh_shape`` (sharded runs) is left."""

@@ -1,12 +1,15 @@
 """Flight-recorder rendering: recorder buffers -> host structures (port of
-benor_tpu/utils/metrics.py:286-380), and the line-atomic JSON-lines
-append the sweep journal writes with (metrics.py:400-409).  The rest of
-that module (the metric registry, span log and exporters) waits for the
-observatory planes (ROADMAP Queue A item 16)."""
+benor_tpu/utils/metrics.py:286-380), the atomic file write the atlas
+manifests and heatmaps go through (metrics.py:390-397) and the line-atomic
+JSON-lines append the sweep and atlas journals write with
+(metrics.py:400-409).  The rest of that module (the metric registry, span
+log and exporters) waits for the observatory planes (ROADMAP Queue A item
+16)."""
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from typing import List, Optional
@@ -73,6 +76,16 @@ def round_history_summary(recorder) -> dict:
         "rounds_to_quiescence_hist": velocity,
         "final": {c: int(v) for c, v in zip(REC_COLUMNS, rows[-1])},
     }
+
+
+def _atomic_write(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` through a temporary file and a rename, so
+    a concurrent reader sees the old whole file or the new one, never a
+    part."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "w") as fh:
+        fh.write(text)
+    os.replace(tmp, path)
 
 
 _APPEND_LOCK = threading.Lock()

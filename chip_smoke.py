@@ -165,7 +165,17 @@ Phases (any failure ends the run non-zero; nothing is caught):
      of the f = 0.45 run resumed to the uninterrupted run; card against
      CPU at 8192 x 8 on a list mixing a fused static bucket and a dynamic
      bucket, coin_comparison_batched, degree_curve and committee_curve;
- 15. the kernels line, the card line, and the result line.
+ 15. ``[science]``: science and the CLI on the card.  ``python -m
+     benor_tpu_torch results --n 1000000 --trials 32`` in process (the
+     studies and presets, each study's wall time, the round kernels'
+     launches, the safety verdicts, the forensics and repros of every
+     violating row); generate at N = 400 x 4 card against CPU; the
+     atlas's three searches with forensics card against CPU, in band of
+     ATLAS_BASELINE.json, ``atlas --searches quorum`` (baseline not
+     comparable, exit 0); faults_curves at N = 1M x 32; ``audit`` at
+     N = 1M x 32 (0 on crash, 2 on the targeted adversary); the
+     baseline's repros through ``replay``;
+ 16. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1885,7 +1895,10 @@ def main() -> int:
     # --- 14. the sweep engine, its journal and checkpoints ----------------
     sweep_phase(dev)
 
-    # --- 15. the kernels line, the card, the result ------------------------
+    # --- 15. science and the CLI ------------------------------------------
+    science_phase(dev)
+
+    # --- 16. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4576,6 +4589,299 @@ def sweep_phase(dev) -> None:
     reset()
     print(f"[sweep] kernel launches in the phase: {total}")
     print(f"[sweep] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [science] phase: the studies, the atlas, the auditor and the CLI
+# on the card ----------------------------------------------------------------
+
+SCIENCE_SMALL = (400, 4)    # card against CPU (the JAX package's toy size)
+SCIENCE_CLOCKS = ("seconds", "trials_per_sec", "compile_count")
+
+
+def science_strip(doc):
+    """A results / atlas document without what differs by design between
+    the card and the CPU: the clocks and compile counts, the repro digest
+    (it covers the config, whose use_pallas_* flags the card arms), the
+    use_pallas_* fields and the file paths' directories."""
+    import os
+    if isinstance(doc, dict):
+        out = {}
+        for k, v in doc.items():
+            if k in SCIENCE_CLOCKS or k in ("repro_digest", "digest") \
+                    or k.startswith("use_pallas"):
+                continue
+            out[k] = (os.path.basename(v) if k in ("bundle", "repro")
+                      and isinstance(v, str) else science_strip(v))
+        return out
+    if isinstance(doc, list):
+        return [science_strip(v) for v in doc]
+    return doc
+
+
+class _Stamped:
+    """A stdout that passes everything through and stamps each line that
+    does not start with a space (a study's header) with the time it was
+    printed."""
+
+    def __init__(self, out):
+        self.out, self.marks = out, []
+
+    def write(self, s):
+        for line in s.splitlines():
+            if line and not line.startswith(" "):
+                self.marks.append((time.perf_counter(), line))
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def science_files(out_dir) -> dict:
+    """The witness bundles and repro documents a results run wrote."""
+    import os
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(("witness_", "repro_")):
+            with open(os.path.join(out_dir, name)) as fh:
+                out[name] = science_strip(json.load(fh))
+    return out
+
+
+def science_phase(dev) -> None:
+    """Phase 15: science and the CLI on the card.  (1) ``python -m
+    benor_tpu_torch results --n 1000000 --trials 32`` in process, presets
+    included: every study's lines and wall time, the round kernels'
+    launches, the safety verdicts (violated strictly inside (0, N/2),
+    intact at f = 0 and past N/2, the equivocator row violated, the odd
+    rows violated iff N < 3F + 1), every balanced_curve point deciding,
+    the forensics of every violating row (the break found where the
+    watched ids hold both value camps), every repro replaying; (2)
+    generate at N = 400 x 4 on the card equal to the CPU's; (3) the
+    atlas's three searches with forensics on the card and on the CPU,
+    equal, the CPU capture in band against ATLAS_BASELINE.json, each
+    cliff audited clean and its repro replaying; ``atlas --searches
+    quorum`` exiting 0 with the baseline-not-comparable note; (4)
+    faults_curves at N = 1M x 32; (5) ``audit`` at N = 1M x 32, 0 on a
+    crash config and 2 on the targeted adversary; (6) the baseline's
+    three repros replayed through ``replay``, as on the CPU."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    from benor_tpu_torch import results
+    from benor_tpu_torch.__main__ import main as cli
+    from benor_tpu_torch.atlas import gate, manifest, repro
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sweep import baseline_configs
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    total = {}
+
+    def launches():
+        return {k: fn.launches for t in tables for k, fn in t.items()
+                if fn.launches}
+
+    def reset():
+        for k, v in launches().items():
+            total[k] = total.get(k, 0) + v
+        for ops in (dk, hk, pr):
+            ops.reset_launches()
+
+    reset()
+    total.clear()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "ATLAS_BASELINE.json")) as fh:
+        baseline = json.load(fh)
+    work = tempfile.mkdtemp(prefix="science_")
+
+    # (1) the full-width studies through the CLI
+    out_dir = os.path.join(work, "results")
+    stamped = _Stamped(sys.stdout)
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        rc = cli(["results", "--n", str(N_MAIN), "--trials", str(TRIALS),
+                  "--out", out_dir])
+    t_results = time.perf_counter() - t0
+    study_launch = launches()
+    marks = stamped.marks + [(t0 + t_results, "")]
+    for (ta, line), (tb, _) in zip(marks, marks[1:]):
+        print(f"[science] wall {tb - ta:.3f} s: {line}")
+    with open(os.path.join(out_dir, "results.json")) as fh:
+        res = json.load(fh)
+    print(f"[science] results N={N_MAIN} T={TRIALS}: exit {rc}, "
+          f"{t_results:.1f} s, kernel launches {study_launch}; {card}")
+    ok = (rc == 0 and study_launch.get("proposal_hist", 0) > 0
+          and study_launch.get("vote_commit", 0) > 0)
+    bc = res["balanced_curve"]
+    print(f"[science] balanced_curve decided "
+          f"{[p['decided_frac'] for p in bc]} mean_k "
+          f"{[p['mean_k'] for p in bc]} trials/s "
+          f"{[round(p['trials_per_sec'], 3) for p in bc]}")
+    ok = ok and all(p["decided_frac"] == 1.0 for p in bc)
+    half = N_MAIN // 2
+    size_watch = 4          # value-camp receivers per camp the watch holds
+    for row in res["safety_violation"]:
+        label = row["fault_model"]
+        if label == "equivocate":
+            want = True
+        elif "odd" in label:
+            want = "N<3F+1" in label
+        else:
+            want = 0 < row["f"] < half
+        violated = row["disagree_frac"] > 0
+        wa = row.get("witness_audit")
+        free = row["f"] if label == "equivocate" else 0
+        camps_watched = max(row["f"] + 1 - free, 1) <= size_watch
+        found = wa is not None and wa["n_violations"] > 0
+        print(f"[science] safety f={row['f']} {label}: disagree "
+              f"{row['disagree_frac']} decided {row['decided_frac']:.4f} "
+              f"(violated {violated}, want {want}); witness audit "
+              f"{None if wa is None else wa['n_violations']} violations "
+              f"(value camps inside the watched ids {camps_watched}), "
+              f"repro {None if wa is None else wa.get('repro_reproduced')}")
+        ok = ok and violated == want and (wa is not None) == violated
+        if violated and camps_watched:
+            ok = ok and found
+    for row in res["disagreement"]:
+        wa = row.get("witness_audit")
+        print(f"[science] disagreement s={row['strength']}: disagree "
+              f"{row['disagree_frac']} witness audit "
+              f"{None if wa is None else wa['n_violations']} violations, "
+              f"repro {None if wa is None else wa.get('repro_reproduced')}")
+        ok = ok and (wa is not None) == (row["disagree_frac"] > 0)
+    for key in ("safety_violation", "disagreement"):
+        for row in res[key]:
+            wa = row.get("witness_audit") or {}
+            if "repro_reproduced" in wa:
+                ok = ok and wa["repro_reproduced"] is True
+    eq = res["equivocation"]
+    print(f"[science] equivocation decided "
+          f"{ {r['label']: r['decided_frac'] for r in eq} }")
+    # the rows either side of the N > 3F bound: 3F < N decides, 3F > N not
+    ok = ok and eq[1]["decided_frac"] == 1.0 and eq[2]["decided_frac"] == 0.0
+    presets = [k for k in res if k.startswith("preset_")]
+    print(f"[science] presets {presets}: trials/s "
+          f"{[round(res[k]['trials_per_sec'], 3) for k in presets]}")
+    ok = ok and len(presets) == sum(c.n_nodes <= N_MAIN for c in
+                                    baseline_configs().values())
+    if not ok:
+        raise SystemExit("[science] the full-width studies failed a check")
+
+    # (2) the card against the CPU at the JAX package's toy size, where
+    # the quorum is within EXACT_TABLE_MAX and the flags are inert
+    n_s, t_s = SCIENCE_SMALL
+    small = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        sub = os.path.join(work, f"small_{tag}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            doc = results.generate(out_dir=sub, n_large=n_s,
+                                   trials_large=t_s, presets=False,
+                                   device=d)
+        small[tag] = (
+            science_strip({k: v for k, v in doc.items() if k != "meta"}),
+            science_files(sub), time.perf_counter() - t0)
+    same = small["card"][:2] == small["cpu"][:2]
+    print(f"[science] card vs cpu generate N={n_s} T={t_s}: equal {same} "
+          f"(card {small['card'][2]:.2f} s, cpu {small['cpu'][2]:.2f} s; "
+          f"{len(small['card'][1])} bundles and repros)")
+    if not same:
+        raise SystemExit("[science] generate differs card vs cpu")
+
+    # (3) the atlas: three searches with forensics, card and CPU
+    caps = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        reset()
+        t0 = time.perf_counter()
+        caps[tag] = (manifest.capture_atlas(device=d),
+                     time.perf_counter() - t0, launches())
+    (g_doc, g_s, g_launch), (c_doc, c_s, _) = caps["card"], caps["cpu"]
+    same = (science_strip(g_doc["searches"])
+            == science_strip(c_doc["searches"]))
+    findings = gate.compare_atlas(c_doc, baseline)
+    print(f"[science] atlas card {g_s:.1f} s ({g_doc['probe_count']} "
+          f"probes, launches {g_launch}), cpu {c_s:.1f} s: equal {same}; "
+          f"cpu capture against ATLAS_BASELINE.json: "
+          f"{[f.message for f in findings] or 'in band'}")
+    ok = same and not findings
+    for s in g_doc["searches"]:
+        for c in s["cliffs"]:
+            print(f"[science] atlas {s['name']}: cliff [{c['lo']:g}, "
+                  f"{c['hi']:g}] {c['lo_verdict']}->{c['hi_verdict']}, "
+                  f"audit_ok {c['safety']['audit_ok']}, repro "
+                  f"{c['repro']['config']['trials']}x"
+                  f"{c['repro']['config']['n_nodes']} reproduced "
+                  f"{c['repro_reproduced']}")
+            ok = ok and c["safety"]["audit_ok"] and c["repro_reproduced"]
+    ok = ok and sorted(len(s["cliffs"]) for s in g_doc["searches"]) \
+        == [1, 1, 1]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["atlas", "--searches", "quorum"])
+    note = "baseline not comparable" in err.getvalue()
+    print(f"[science] atlas --searches quorum on the card: exit {rc}, "
+          f"note {note}: {err.getvalue().strip()[:160]}")
+    if not (ok and rc == 0 and note):
+        raise SystemExit("[science] the atlas failed a check")
+
+    # (4) the fault curves at full width
+    reset()
+    t0 = time.perf_counter()
+    fc = results.faults_curves(N_MAIN, TRIALS, device=dev)
+    torch.cuda.synchronize()
+    t_fc = time.perf_counter() - t0
+    n_pts = len(fc["drop_curve"]) + len(fc["churn_curve"])
+    for row in fc["drop_curve"] + fc["churn_curve"]:
+        print(f"[science] faults {row}")
+    print(f"[science] faults_curves N={N_MAIN} T={TRIALS}: {n_pts} points "
+          f"in {t_fc:.2f} s ({n_pts * TRIALS / t_fc:.3f} trials/s over "
+          f"the call, each point run twice), drop buckets "
+          f"{fc['drop_buckets']}, launches {launches()}")
+    if fc["drop_buckets"] != 1 or not all(
+            0 < r["decided_frac"] for r in fc["drop_curve"]):
+        raise SystemExit("[science] faults_curves failed a check")
+
+    # (5) the auditor at full width
+    audits = {}
+    for name, argv, want in (
+            ("crash", ["--f", str(N_MAIN // 4)], 0),
+            ("targeted", ["--f", "4", "--scheduler", "targeted",
+                          "--balanced"], 2)):
+        reset()
+        t0 = time.perf_counter()
+        rc = cli(["audit", "--n", str(N_MAIN), "--trials", str(TRIALS),
+                  *argv])
+        audits[name] = rc
+        print(f"[science] audit {name} N={N_MAIN} T={TRIALS}: exit {rc} "
+              f"(want {want}), {time.perf_counter() - t0:.2f} s, launches "
+              f"{launches()}")
+        if rc != want:
+            raise SystemExit(f"[science] audit {name} exited {rc}")
+
+    # (6) the baseline's repros through `replay`, as on the CPU
+    for s in baseline["searches"]:
+        doc = s["cliffs"][0]["repro"]
+        path = os.path.join(work, f"repro_{s['name']}.json")
+        repro.save_repro(path, doc)
+        rc = cli(["replay", path])
+        cpu = repro.replay_repro(doc, "cpu")
+        card_res = repro.replay_repro(doc, dev)
+        print(f"[science] replay {s['name']}: exit {rc}, card verdict "
+              f"{card_res['verdict']}, recorded {doc['verdict']}; cpu "
+              f"reproduced {cpu['ok']}")
+        if rc != (0 if cpu["ok"] else 2) or card_res != cpu or \
+                card_res["verdict"]["verdict"] != doc["verdict"]["verdict"]:
+            raise SystemExit(f"[science] replay {s['name']} failed")
+    reset()
+    print(f"[science] kernel launches in the phase: {total}")
+    print(f"[science] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {
