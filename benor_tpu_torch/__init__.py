@@ -16,6 +16,12 @@ in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
     net.start()
     net.get_states()
 
+    net = launch_network(10, 4, [1] * 10, [True] * 4 + [False] * 6,
+                         backend="express")   # or "native": host oracles
+    from benor_tpu_torch.backends.http_api import serve_network
+    with serve_network(net, base_port=3000):   # /status /start /stop
+        ...                                    # /getState on 3000 + i
+
     from benor_tpu_torch.sweep import run_curve_batched  # sweeps
     cb = run_curve_batched(SimConfig(n_nodes=100_000, n_faulty=0,
                                      trials=32, delivery="quorum"),
@@ -38,8 +44,11 @@ arguments, lines and exit codes):
                                                     # exit 2: violations
     python -m benor_tpu_torch atlas --searches quorum
     python -m benor_tpu_torch replay repro.json
+    python -m benor_tpu_torch trace --out trace.json --metrics-out m.prom
+    python -m benor_tpu_torch demo --backend express   # no device
 
-All run on CUDA unless ``device="cpu"`` (``--device cpu``) is passed.
+All run on CUDA unless ``device="cpu"`` (``--device cpu``) is passed,
+but the event-loop oracles, which run on the host.
 """
 
 from .api import launch_network

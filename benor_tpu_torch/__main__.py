@@ -6,11 +6,14 @@ with 4 faulty, all-1 inputs, run consensus, print each node's final state.
 
 Subcommands (the JAX package's arguments, defaults, printed lines and
 exit codes):
-  demo    [-n N] [-f F] [--max-rounds R]              the start.ts demo
+  demo    [--backend tpu|express|native] [-n N] [-f F] the start.ts demo
   sweep   --n N --f-values 0,100,...                  rounds-vs-f curve;
           [--batched --journal J --resume --pipeline] the batched engine
                                                       and its journal
   coins   --n N --f F [--eps ...]                     private vs common coin
+  trace   --n N --f F --out trace.json                flight-recorder round
+                                                      history as a Chrome-
+                                                      trace/Perfetto file
   preset  NAME                                        a BASELINE.json config
   results [--out DIR] [--n N] [--trials T]            RESULTS/ (the studies)
   audit   --n N --f F [--witness-trials 0,1]          run one witnessed
@@ -26,14 +29,19 @@ exit codes):
                                                       document; exit 2 on a
                                                       mismatch
 
+Observability: ``--record`` (sweep) fills the flight recorder;
+``--metrics-out PATH`` (sweep, coins, trace, audit) writes the metrics
+registry on exit (JSON-lines, or the Prometheus textfile format with a
+.prom extension).
+
 Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device and no ``--device cpu`` it fails (exit 1)
-instead of moving to the CPU.  Not ported: ``trace``, ``lint``,
-``profile``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A item 16),
-``scale`` (item 15), ``demo --backend express|native`` (item 17), and the
-``--metrics-out``, ``--trace-out`` (sweep), ``--manifest-out``,
-``--heartbeat-rounds`` and ``--heartbeat-out`` flags (item 16): each
-raises ``NotImplementedError`` naming its item.
+instead of moving to the CPU.  ``demo --backend express|native`` runs the
+event-loop oracles, host programs that need no device.  Not ported:
+``lint``, ``profile``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A
+item 16), ``scale`` (item 15), and the ``--trace-out`` (sweep),
+``--manifest-out``, ``--heartbeat-rounds`` and ``--heartbeat-out`` flags
+(item 16): each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -49,7 +58,6 @@ from .config import unported
 
 #: Subcommands of the JAX CLI that wait for a later Queue A item.
 UNPORTED_COMMANDS = {
-    "trace": ("the `trace` subcommand (the Chrome-trace exporter)", "16"),
     "lint": ("the `lint` subcommand (benorlint)", "16"),
     "profile": ("the `profile` subcommand (perfscope, kernelscope)", "16"),
     "scale": ("the `scale` subcommand (mesh scaling ladders)", "15"),
@@ -61,7 +69,6 @@ UNPORTED_COMMANDS = {
 #: Flags of the JAX CLI that wait for the observatory planes (item 16):
 #: argument name -> what it would arm.
 UNPORTED_FLAGS = {
-    "metrics_out": "--metrics-out (the metrics registry's exporters)",
     "manifest_out": "--manifest-out (the sweep manifest)",
     "heartbeat_rounds": "--heartbeat-rounds (the progress heartbeat)",
     "heartbeat_out": "--heartbeat-out (the progress heartbeat)",
@@ -69,11 +76,7 @@ UNPORTED_FLAGS = {
 
 
 def _refuse_unported(args) -> None:
-    """Raise for an unported demo backend or flag, before any device is
-    touched."""
-    if args.cmd == "demo" and args.backend in ("express", "native"):
-        unported(f"demo --backend {args.backend} (the event-loop "
-                 "oracles)", "17")
+    """Raise for an unported flag, before any device is touched."""
     for name, what in UNPORTED_FLAGS.items():
         if getattr(args, name, None):
             unported(what, "16")
@@ -117,15 +120,30 @@ def _add_pallas_arg(sub) -> None:
 
 
 def _add_obs_args(sub, record: bool = True) -> None:
-    """ONE definition of the observability options for every compute
-    subcommand (--metrics-out raises: the registry is item 16)."""
+    """ONE definition of the observability options (flight recorder and
+    metrics export) for every compute subcommand."""
     if record:
         sub.add_argument("--record", action="store_true",
                          help="fill the flight recorder (SimConfig."
                               "record): per-round decided/killed/value-"
                               "histogram/coin/margin telemetry")
     sub.add_argument("--metrics-out", metavar="PATH",
-                     help="not ported (ROADMAP Queue A item 16)")
+                     help="write the metrics registry (utils/metrics.py: "
+                          "timers and counters) as JSON-lines on exit; "
+                          "a .prom extension switches to the Prometheus "
+                          "textfile format")
+
+
+def _export_metrics(path) -> None:
+    if not path:
+        return
+    from .utils import metrics
+    if str(path).endswith(".prom"):
+        n = metrics.export_prometheus(path)
+    else:
+        n = metrics.export_jsonl(path)
+    print(f"wrote {n} metrics records to {path}", file=sys.stderr,
+          flush=True)
 
 
 def _pallas_flags(choice: str, device) -> dict:
@@ -179,6 +197,7 @@ def _sweep(args) -> int:
           f"scheduler={args.scheduler}, coin={args.coin}, "
           f"faults={args.fault_model}, inputs={mode}"
           f"{pallas_note}")
+    t0 = time.perf_counter()
     if args.balanced:
         # the science regime: balanced inputs, F purely a protocol
         # parameter; under 'byzantine'/'equivocate' the F lanes are LIVE
@@ -219,6 +238,8 @@ def _sweep(args) -> int:
                   f"{pt.trials_per_sec:.1f} trials/s", flush=True)
     else:
         points = rounds_vs_f(cfg, f_values, device=args.device)
+    from .utils.metrics import REGISTRY
+    REGISTRY.timer("cli.sweep").record(time.perf_counter() - t0)
     if args.record:
         from .utils.metrics import round_history_summary
         for pt in points:
@@ -229,14 +250,53 @@ def _sweep(args) -> int:
     if args.out:
         save_points(args.out, points)
         print(f"wrote {args.out}")
+    _export_metrics(args.metrics_out)
+    return 0
+
+
+def _trace(args) -> int:
+    """Run ONE recorded config and export a Chrome-trace/Perfetto file:
+    every protocol round as a trace slice (its telemetry row in args)
+    beside the registry's host-side timer spans."""
+    from .config import SimConfig
+    from .state import FaultSpec
+    from .sweep import balanced_inputs, run_point
+    from .utils import metrics
+    from .utils.tracing import timed
+
+    cfg = SimConfig(n_nodes=args.n, n_faulty=args.f, trials=args.trials,
+                    max_rounds=args.max_rounds, delivery="quorum",
+                    scheduler=args.scheduler, coin_mode=args.coin,
+                    fault_model=args.fault_model, seed=args.seed,
+                    record=True, **_pallas_flags(args.pallas, args.device))
+    with timed("trace.run"):
+        if args.balanced:
+            faults = (FaultSpec.first_f(cfg)
+                      if cfg.fault_model in ("byzantine", "equivocate")
+                      else FaultSpec.none(args.trials, args.n))
+            pt = run_point(cfg, initial_values=balanced_inputs(
+                args.trials, args.n), faults=faults, device=args.device)
+        else:
+            pt = run_point(cfg, device=args.device)
+    summ = metrics.round_history_summary(pt.round_history)
+    n_ev = metrics.export_chrome_trace(
+        args.out, round_history=pt.round_history,
+        rounds_label=f"benor N={args.n} f={args.f}")
+    print(f"rounds={pt.rounds_executed} decided={pt.decided_frac:.3f} "
+          f"mean_k={pt.mean_k:.2f} "
+          f"quiescence_round={summ['rounds_to_quiescence']}")
+    print(f"wrote {n_ev} trace events to {args.out} "
+          f"(open in https://ui.perfetto.dev or chrome://tracing)")
+    _export_metrics(args.metrics_out)
     return 0
 
 
 def _audit(args) -> int:
     """Run ONE witnessed config and machine-check the Ben-Or invariants:
     prints the audit verdict (pinpointed violations with trial/round/node
-    ids and tallies) and optionally dumps the JSON witness bundle.  Exit
-    code 0 = clean, 2 = violations found (so CI can gate on it)."""
+    ids and tallies), optionally dumps the JSON witness bundle, and feeds
+    the audit.* counters of the metrics registry.  Exit code 0 = clean,
+    2 = violations found (so CI can gate on it)."""
     from .audit import audit_point, default_witness_overrides, save_bundle
     from .config import SimConfig
     from .state import FaultSpec
@@ -275,6 +335,7 @@ def _audit(args) -> int:
     if args.audit_out:
         save_bundle(args.audit_out, bundle, report)
         print(f"wrote witness bundle to {args.audit_out}")
+    _export_metrics(args.metrics_out)
     return 0 if report.ok else 2
 
 
@@ -298,6 +359,7 @@ def _coins(args) -> int:
                       device=args.device)
         print(f"weak_common(eps={eps}): decided={p.decided_frac:.3f} "
               f"mean_k={p.mean_k:.2f}")
+    _export_metrics(args.metrics_out)
     return 0
 
 
@@ -331,7 +393,8 @@ def _atlas(args) -> int:
     the scenario grid -> atlas manifest + cliff-drift gate vs the
     committed ATLAS_BASELINE.json.  Exit 2 on drift findings; an
     incomparable baseline (platform/scale mismatch) is a printed note,
-    not a failure."""
+    not a failure.  ``--metrics-out`` is accepted and writes nothing, as
+    in the JAX package."""
     from .atlas import gate as agate
     from .atlas import manifest as amanifest
     from .atlas import render_heatmap
@@ -585,6 +648,33 @@ def _parser() -> argparse.ArgumentParser:
     _add_obs_args(a, record=False)
     _add_device_arg(a)
 
+    t = sub.add_parser("trace",
+                       help="run one recorded config, export a Chrome-"
+                            "trace/Perfetto file of its round history")
+    t.add_argument("--n", type=int, default=1000)
+    t.add_argument("--f", type=int, default=250)
+    t.add_argument("--trials", type=int, default=64)
+    t.add_argument("--max-rounds", type=int, default=64)
+    t.add_argument("--scheduler",
+                   choices=("uniform", "biased", "adversarial", "targeted"),
+                   default="uniform")
+    t.add_argument("--coin", choices=("private", "common", "weak_common"),
+                   default="private")
+    t.add_argument("--fault-model",
+                   choices=("crash", "byzantine", "equivocate"),
+                   default="crash")
+    t.add_argument("--balanced", action="store_true",
+                   help="balanced inputs + zero crashes (live marked "
+                        "faults under byzantine/equivocate) — the "
+                        "multi-round science regime")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--out", default="benor_trace.json",
+                   help="Chrome-trace output path (default "
+                        "benor_trace.json)")
+    _add_pallas_arg(t)
+    _add_obs_args(t, record=False)   # trace implies --record
+    _add_device_arg(t)
+
     p = sub.add_parser("preset", help="run a BASELINE.json preset config")
     p.add_argument("name")
     _add_device_arg(p)
@@ -692,22 +782,26 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # bare `python -m benor_tpu_torch [-n N -f F ...]` == the start.ts demo
     if not argv or argv[0] not in ("demo", "sweep", "coins", "preset",
-                                   "results", "audit", "atlas", "replay",
-                                   *UNPORTED_COMMANDS, "-h", "--help"):
+                                   "results", "trace", "audit", "atlas",
+                                   "replay", *UNPORTED_COMMANDS, "-h",
+                                   "--help"):
         argv = ["demo"] + argv
     if argv[0] in UNPORTED_COMMANDS:
         unported(*UNPORTED_COMMANDS[argv[0]])
     args = ap.parse_args(argv)
     _refuse_unported(args)
-    from .sim import resolve_device
-    try:
-        resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"benor_tpu_torch {args.cmd}: {e}", file=sys.stderr)
-        return 1
+    # the event-loop oracles are host programs: no device to ask for
+    if not (args.cmd == "demo" and args.backend in ("express", "native")):
+        from .sim import resolve_device
+        try:
+            resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"benor_tpu_torch {args.cmd}: {e}", file=sys.stderr)
+            return 1
     return {"demo": _demo, "sweep": _sweep, "coins": _coins,
-            "preset": _preset, "results": _results, "audit": _audit,
-            "atlas": _atlas, "replay": _replay}[args.cmd](args)
+            "preset": _preset, "results": _results, "trace": _trace,
+            "audit": _audit, "atlas": _atlas,
+            "replay": _replay}[args.cmd](args)
 
 
 if __name__ == "__main__":

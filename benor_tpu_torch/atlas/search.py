@@ -30,9 +30,9 @@ the sweep journal's bucket records in the same JSON-lines file; the
 sweep's resume reader skips foreign kinds.  A generation's
 ``compile_count`` is the engine's: kernel-library builds and loads
 (0 on the CPU and in a warm process), where the JAX package counts one
-executable a bucket.  The JAX search's ``atlas.*`` registry counters
-wait for the metrics registry (ROADMAP Queue A item 16).  Every entry
-runs on CUDA unless ``device`` names the CPU.
+executable a bucket.  The search ticks the JAX package's ``atlas.*``
+counters of the metrics registry (probes, generations, cliffs, heatmap
+probes).  Every entry runs on CUDA unless ``device`` names the CPU.
 """
 
 from __future__ import annotations
@@ -202,6 +202,8 @@ class _Evaluator:
             "compile_count": int(cb.compile_count),
             "buckets_reused": sum(1 for r in cb.bucket_reused if r)})
         self.probes.extend(out)
+        metrics.REGISTRY.counter("atlas.probes").inc(len(out))
+        metrics.REGISTRY.counter("atlas.generations").inc()
         if self.journal_path:
             for p in out:
                 metrics.append_jsonl(self.journal_path, {
@@ -302,6 +304,7 @@ def find_cliffs(base_cfg, axis: Union[str, ScenarioAxis],
                     compile_count=sum(gen_compiles[g]
                                       for g in b["generations"]))
               for b in refined]
+    metrics.REGISTRY.counter("atlas.cliffs").inc(len(cliffs))
     search = AtlasSearch(axis=axis, metric=metric, probes=ev.probes,
                          cliffs=cliffs, generations=ev.generations)
     if forensics:
@@ -390,6 +393,7 @@ def heatmap_slice(base_cfg, axis_a: Union[str, ScenarioAxis],
              "stall_frac": float(1.0 - pt.decided_frac),
              "mean_k": float(pt.mean_k)}
             for (a, b), pt in zip(pairs, cb.points)]
+    metrics.REGISTRY.counter("atlas.heatmap.probes").inc(len(rows))
     doc = {"kind": HEATMAP_KIND, "axis_a": axis_a.name,
            "axis_b": axis_b.name, "spec_a": axis_a.spec,
            "spec_b": axis_b.spec, "values_a": va, "values_b": vb,

@@ -29,9 +29,9 @@ host and checked against the Ben-Or invariants of the reference
 Host-side numpy: the auditor reads a buffer copied off the device and
 never launches anything.  The bundle JSON (``save_bundle`` /
 ``load_bundle``) is the JAX package's document, so a bundle saved by one
-package loads and audits in the other.  The JAX auditor's ``audit.*``
-registry counters wait for the metrics registry (ROADMAP Queue A item
-16).
+package loads and audits in the other.  Every audit ticks the JAX
+auditor's ``audit.*`` counters of the metrics registry (runs, pass / fail,
+violations, one counter an invariant broken).
 """
 
 from __future__ import annotations
@@ -558,6 +558,13 @@ def audit_witness(bundle: WitnessBundle) -> AuditReport:
         ok=not violations, violations=violations, checks=checks,
         rounds_audited=max(len(written) - 1, 0), lanes_audited=W * k,
         label=bundle.label)
+
+    from .utils.metrics import REGISTRY
+    REGISTRY.counter("audit.runs").inc()
+    REGISTRY.counter("audit.pass" if report.ok else "audit.fail").inc()
+    REGISTRY.counter("audit.violations").inc(len(violations))
+    for v in violations:
+        REGISTRY.counter(f"audit.violation.{v.invariant}").inc()
     return report
 
 

@@ -27,8 +27,10 @@ The studies:
                      weak coin's deviation rate.
   topo_curves, faults_curves — the structured-delivery and faultlab rows.
 
-``oracle_parity`` needs the event-loop oracles (ROADMAP Queue A item 17):
-``generate`` skips it, as the JAX package does without a C++ compiler.
+  oracle_parity    — the native event-loop oracle's rounds-to-decide law
+                     against the simulator's (N = 100); ``generate`` skips
+                     it where there is no C++ compiler, as the JAX
+                     package does.
 
 Every entry runs on CUDA unless ``device`` names the CPU.  On the card
 ``_flagship_flags`` arms the round kernels and fused samplers for the
@@ -41,11 +43,12 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Dict, List
 
 import numpy as np
 
-from .config import SimConfig, unported
+from .config import SimConfig
 from .sim import device_identity, resolve_device, run_consensus
 from .state import FaultSpec, init_state
 from .sweep import (SweepPoint, baseline_configs, coin_comparison,
@@ -381,12 +384,113 @@ def ks_two_sample(a, b) -> tuple:
     return d, float(min(max(p, 0.0), 1.0))
 
 
+def _parity_scenario(n: int, f: int):
+    """oracle_parity's scenario: the first f nodes crash-faulty, the
+    healthy ones alternating 0 / 1 -> (values, faulty list)."""
+    return ([0] * f + [i % 2 for i in range(n - f)],
+            [True] * f + [False] * (n - f))
+
+
+def _parity_sim(trials: int, seed: int, n: int, f: int, device=None):
+    """oracle_parity's simulator side: the uniform-quorum histogram run of
+    its scenario at N = n x max(8 * trials, 256) on ``device`` -> the
+    final NetState."""
+    s_seeds = max(trials * 8, 256)
+    vals, faulty = _parity_scenario(n, f)
+    cfg_t = SimConfig(n_nodes=n, n_faulty=f, trials=s_seeds,
+                      delivery="quorum", scheduler="uniform",
+                      path="histogram", max_rounds=64, seed=seed + 11)
+    faults = FaultSpec.from_faulty_list(cfg_t, faulty,
+                                        device=resolve_device(device))
+    state = init_state(cfg_t, np.tile(np.asarray(vals, np.int8),
+                                      (s_seeds, 1)), faults)
+    return run_consensus(cfg_t, state, faults)[1]
+
+
 def oracle_parity(trials: int, seed: int = 0, n: int = 100, f: int = 40,
-                  verbose=True) -> Dict:
-    """Oracle <-> scheduler distribution parity (results.py:465-563) needs
-    the event-loop oracles, which are not ported yet."""
-    unported("oracle_parity (the native and express event-loop oracles)",
-             "17")
+                  verbose=True, device=None) -> Dict:
+    """Oracle <-> scheduler distribution parity, at a FIXED differential
+    scale (N = 100: the oracles are event-loop programs, not tensor
+    programs; N does not scale them).
+
+    Three facts, each checked here:
+      * decided runs are delivery-order INVARIANT (fifo == shuffle bit for
+        bit): with crash faults pinned to F, alive == quorum, so every
+        tally holds the whole live population in any order;
+      * order-dependence survives only in runs capped mid-coin-phase, and
+        there only as a permutation of the coin assignment;
+      * hence the per-trial rounds-to-decide law has one source of chance
+        (iid fair coins) and matches the simulator's uniform-quorum
+        scheduler's law (two-sample KS).
+
+    The oracle side is the native oracle on the host over max(8 * trials,
+    256) seeds; the simulator side is ``run_consensus`` at N = 100 x that
+    many trials on ``device`` (CUDA unless it names the CPU).
+    """
+    from .backends import native_oracle
+
+    s_seeds = max(trials * 8, 256)          # oracle seeds are cheap (C++)
+    vals, faulty = _parity_scenario(n, f)
+    healthy = np.r_[f:n]
+    cfg_o = SimConfig(n_nodes=n, n_faulty=f, backend="native",
+                      max_rounds=64, oracle_order="shuffle")
+    seeds = np.arange(s_seeds, dtype=np.uint32)
+    t0 = time.perf_counter()
+    # raise_on_cap: a capped seed's state is a mid-run snapshot, not a
+    # finished trace — it must not enter the invariance or KS samples
+    out_s = native_oracle.run_batch(cfg_o, vals, faulty, seeds,
+                                    raise_on_cap=True)
+    oracle_elapsed = time.perf_counter() - t0
+    out_f = native_oracle.run_batch(cfg_o.replace(oracle_order="fifo"),
+                                    vals, faulty, seeds, raise_on_cap=True)
+    # the invariance covers DECIDED runs only (a run capped mid-coin-phase
+    # permutes its coin assignment): compare seeds decided in both orders
+    dec = (out_s["decided"][:, healthy].all(axis=1)
+           & out_f["decided"][:, healthy].all(axis=1))
+    order_invariant = bool((out_s["x"][dec] == out_f["x"][dec]).all()
+                           and (out_s["k"][dec] == out_f["k"][dec]).all())
+    # the KS samples hold FINISHED rounds-to-decide values only: a trial
+    # that hit max_rounds undecided contributes a censored k
+    dec_o = out_s["decided"][:, healthy].all(axis=1)
+    if not dec_o.any():
+        raise RuntimeError(
+            "oracle_parity: every oracle trial was censored at "
+            f"max_rounds={cfg_o.max_rounds}; raise max_rounds or shrink "
+            "the scenario")
+    k_oracle = out_s["k"][dec_o][:, healthy].max(axis=1) - 1
+
+    fin = _parity_sim(trials, seed, n, f, device)
+    dec_t = fin.decided.cpu().numpy()[:, healthy].all(axis=1)
+    if not dec_t.any():
+        raise RuntimeError(
+            "oracle_parity: every tpu trial was censored at "
+            f"max_rounds={cfg_t.max_rounds}; raise max_rounds or shrink "
+            "the scenario")
+    k_tpu = fin.k.cpu().numpy()[dec_t][:, healthy].max(axis=1) - 1
+
+    stat, pvalue = ks_two_sample(k_oracle, k_tpu)
+    res = {
+        "n": n, "f": f, "n_seeds": int(s_seeds),
+        "n_decided_both_orders": int(dec.sum()),
+        "n_censored": {"oracle": int((~dec_o).sum()),
+                       "tpu": int((~dec_t).sum())},
+        "order_invariant_decided_runs": order_invariant,
+        "oracle_mean_rounds": round(float(k_oracle.mean()), 4),
+        "tpu_mean_rounds": round(float(k_tpu.mean()), 4),
+        "oracle_round_hist": np.bincount(k_oracle,
+                                         minlength=8)[:8].tolist(),
+        "tpu_round_hist": np.bincount(k_tpu, minlength=8)[:8].tolist(),
+        "ks_statistic": round(stat, 5), "ks_pvalue": round(pvalue, 5),
+        "oracle_msgs_per_sec": round(
+            float(out_s["steps"].sum()) / max(oracle_elapsed, 1e-9), 1),
+    }
+    if verbose:
+        print(f"  order-invariant (fifo==shuffle, decided): "
+              f"{order_invariant}", flush=True)
+        print(f"  rounds-to-decide: oracle {res['oracle_round_hist']} "
+              f"vs tpu {res['tpu_round_hist']}; "
+              f"KS D={stat:.4f} p={pvalue:.3f}", flush=True)
+    return res
 
 
 def rule_comparison(n: int, trials: int, seed: int = 0,
@@ -653,9 +757,8 @@ def generate(out_dir: str = "RESULTS", n_large: int = 1_000_000,
     """Run every study, write JSON artifacts + RESULTS.md, return the data.
     Runs on CUDA unless ``device`` names the CPU; on the card the studies
     that take the flagship flags run on the round kernels.  The oracle
-    parity study needs the event-loop oracles (ROADMAP Queue A item 17)
-    and is skipped, its key left out, as the JAX package skips it without
-    a C++ compiler."""
+    parity study runs where g++ builds the native oracle, and is skipped,
+    its key left out, where there is none, as in the JAX package."""
     os.makedirs(out_dir, exist_ok=True)
     platform, kind = device_identity(device)
     meta = {"device": kind, "platform": platform, "n_large": n_large,
@@ -714,8 +817,13 @@ def generate(out_dir: str = "RESULTS", n_large: int = 1_000_000,
     out["weak_coin"] = weak_coin_study(n_large, trials_large, seed,
                                        device=device)
 
-    print("oracle parity: skipped (the event-loop oracles are ROADMAP "
-          "Queue A item 17)", flush=True)
+    from .backends.native_oracle import native_available
+    if native_available():
+        print("oracle<->scheduler distribution parity (N=100):", flush=True)
+        out["oracle_parity"] = oracle_parity(trials_large, seed,
+                                             device=device)
+    else:
+        print("oracle parity: skipped (no g++)", flush=True)
 
     if presets:
         for name, cfg in baseline_configs().items():

@@ -102,7 +102,11 @@ def warn_faults_demote_pallas(cfg: SimConfig) -> None:
     """Omission and partitions require delivery='all', which every
     fused-kernel gate rejects, so a use_pallas_round / use_pallas_hist
     config with either armed runs the unfused loop: announced once per
-    process, with the JAX package's text."""
+    process, with the JAX package's text.  Every call ticks the
+    ``sim.demotion.faults`` counter of the metrics registry: one tick is
+    one demoting call (the JAX package ticks once per traced build)."""
+    from .utils.metrics import REGISTRY
+    REGISTRY.counter("sim.demotion.faults").inc()
     global _faults_demotion_warned
     if _faults_demotion_warned:
         return
@@ -122,7 +126,10 @@ def warn_structured_demotes_pallas(cfg: SimConfig) -> None:
     """A structured delivery plane (cfg.topology / cfg.committee_cap)
     requires delivery='all', which every fused-kernel gate rejects, so a
     use_pallas_round / use_pallas_hist config runs the unfused loop:
-    announced once per process, with the JAX package's text."""
+    announced once per process, with the JAX package's text.  Every call
+    ticks ``sim.demotion.structured`` (one tick a demoting call)."""
+    from .utils.metrics import REGISTRY
+    REGISTRY.counter("sim.demotion.structured").inc()
     global _structured_demotion_warned
     if _structured_demotion_warned:
         return
@@ -144,7 +151,10 @@ def warn_debug_demotes_pallas(cfg: SimConfig) -> None:
     one count (the JAX package packs and unpacks around the same kernels
     every round).  The results are the packed run's; the run is slower.
     Announced once per process, with the JAX package's text; cfg.record
-    observes without that cost."""
+    observes without that cost.  Every call ticks ``sim.demotion.debug``
+    (one tick a demoting call)."""
+    from .utils.metrics import REGISTRY
+    REGISTRY.counter("sim.demotion.debug").inc()
     global _debug_demotion_warned
     if _debug_demotion_warned:
         return

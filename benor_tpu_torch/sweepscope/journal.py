@@ -16,9 +16,9 @@ field (an integrity stamp covers them) — reruns the bucket.
 
 The record format, the fingerprint and the digests are the JAX
 package's, byte for byte: a journal written by either package resumes in
-the other.  The JAX package also ticks two registry counters here
-(``sweepscope.journal.buckets`` / ``.tampered``); the registry waits for
-ROADMAP Queue A item 16.
+the other.  Each bucket recorded ticks ``sweepscope.journal.buckets`` and
+each tampered record ``sweepscope.journal.tampered`` in the metrics
+registry, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -197,6 +197,7 @@ class SweepJournal:
                     fingerprint, list(point_indices),
                     rec.get("mesh_shape"), rec.get("pipelined", False),
                     rec.get("payload_sha256"))):
+            metrics.REGISTRY.counter("sweepscope.journal.tampered").inc()
             return None
         return rec
 
@@ -225,6 +226,7 @@ class SweepJournal:
             "points": points,
         }
         metrics.append_jsonl(self.path, rec)
+        metrics.REGISTRY.counter("sweepscope.journal.buckets").inc()
         return rec
 
     def record_done(self, points_total: int, n_buckets: int,

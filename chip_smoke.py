@@ -135,14 +135,15 @@ Phases (any failure ends the run non-zero; nothing is caught):
      path's partition epoch with omission), card against CPU with the
      first differing round; no kernel may launch in the phase;
  13. ``[topo]``: adjacency topologies, sampled committees and the
-     debug callback; no kernel on the structured planes.  The degree ladder of
-     the JAX package's science harness (ring:2, ring:4, ring:8,
+     debug callback; no kernel on the structured planes.  The degree
+     ladder of the JAX package's science harness (ring:2, ring:4, ring:8,
      torus2d:1000x1000, random_regular:6:1; F = d, zero crashes,
      per-trial random inputs, max_rounds 32), the committee ladder
      (count = cap = 4, sizes N/16, N/8, N/4, F = 1) and the fault mixes
      on ring:8 with F = 8 (byzantine and equivocate with the first 5 %
      faulty, 'halves:4', crash_at_round with the first 5 % dying at round
-     2) and a byzantine committee mix, at N = 1M x 32: rounds, decided and
+     2) and a byzantine committee mix, at N = 1M x 16 (half the main
+     path's trials, the script's depth cut): rounds, decided and
      disagree fractions, the smallest decided k, trials/s over simulate
      and over run_consensus, peak memory; ``[breakdown] topo`` of ring:8
      and of the N/8 committee; the same runs at 8192 x 8 (torus2d:64x128)
@@ -174,8 +175,23 @@ Phases (any failure ends the run non-zero; nothing is caught):
      ATLAS_BASELINE.json, ``atlas --searches quorum`` (baseline not
      comparable, exit 0); faults_curves at N = 1M x 32; ``audit`` at
      N = 1M x 32 (0 on crash, 2 on the targeted adversary); the
-     baseline's repros through ``replay``;
- 16. the kernels line, the card line, and the result line.
+     baseline's repros through ``replay``; the oracle-parity study's
+     lines;
+ 16. ``[oracle]``: the event-loop oracles, the HTTP node servers and the
+     metrics registry.  The native oracle (built with g++ from the
+     checkout) equal to the express oracle on tests/test_native_oracle.py's
+     seven scenarios in both orders; ``run_batch`` at N = 100 x 256 seeds;
+     ``oracle_parity(32)`` on the card, its simulator side's final state
+     equal to the CPU's, decided runs order-invariant, the KS statistic
+     and p-value; ``serve_network`` over a card ``TpuNetwork`` with the
+     flagship flags armed (the CF regime forced), the start.ts demo
+     (N = 10, F = 4) and N = 100, F = 30 with ``record=True,
+     poll_rounds=1``: every /status and /getState equal to the facade's
+     ``get_states`` and to the same launch on the CPU, the
+     /getRoundHistory cursor walking every round, POST /message answering
+     405, the fused kernel's launches counted; ``trace --device cuda``
+     with ``--metrics-out`` (JSON-lines and Prometheus);
+ 17. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1898,7 +1914,10 @@ def main() -> int:
     # --- 15. science and the CLI ------------------------------------------
     science_phase(dev)
 
-    # --- 16. the kernels line, the card, the result ------------------------
+    # --- 16. the event-loop oracles, the HTTP servers, the registry -------
+    oracle_phase(dev)
+
+    # --- 17. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4073,6 +4092,10 @@ def samplers_phase(dev) -> None:
 # --- the [topo] phase: topologies, committees and the debug callback ------
 
 TOPO_MAX_ROUNDS = 32      # results.topo_curves' round cap
+# the trials of the ladders and the mixes at N = 1M: half the main path's
+# 32, the script's depth cut that keeps it near 800 s (the equivocate mix
+# alone took ~100 s at 32 trials, two runs)
+TOPO_TRIALS = TRIALS // 2
 TOPO_FAULTY = 0.05        # the fault mixes' faulty share (the first lanes)
 TOPO_MIX_SPEC = "ring:8"
 TOPO_SMALL = (8192, 8)    # card against CPU (torus2d:64x128 for the torus)
@@ -4147,7 +4170,7 @@ def topo_runs(n, trials, device="cuda"):
 
 def topo_phase(dev) -> None:
     """Phase 13: topologies, committees and the debug callback.  The
-    degree ladder, the committee ladder and the fault mixes at N = 1M x 32
+    degree ladder, the committee ladder and the fault mixes at N = 1M x 16
     (rounds, decided and disagree fractions, the smallest decided k,
     trials/s over simulate and over run_consensus, peak memory), two
     profiled runs, card against CPU at 8192 x 8 (every trial and every
@@ -4175,8 +4198,8 @@ def topo_phase(dev) -> None:
         ops.reset_launches()
     obs_before = pr.obs_launch_counts()
 
-    # (a) the ladders and the mixes at N = 1M x 32
-    runs = topo_runs(N_MAIN, TRIALS, device=dev)
+    # (a) the ladders and the mixes at N = 1M x TOPO_TRIALS
+    runs = topo_runs(N_MAIN, TOPO_TRIALS, device=dev)
     t_runs = {}
     for name, c, vals, fl in runs:
         assert not tally.pallas_round_active(c)
@@ -4595,7 +4618,8 @@ def sweep_phase(dev) -> None:
 # on the card ----------------------------------------------------------------
 
 SCIENCE_SMALL = (400, 4)    # card against CPU (the JAX package's toy size)
-SCIENCE_CLOCKS = ("seconds", "trials_per_sec", "compile_count")
+SCIENCE_CLOCKS = ("seconds", "trials_per_sec", "compile_count",
+                  "oracle_msgs_per_sec")
 
 
 def science_strip(doc):
@@ -4624,9 +4648,10 @@ class _Stamped:
     printed."""
 
     def __init__(self, out):
-        self.out, self.marks = out, []
+        self.out, self.marks, self.text = out, [], ""
 
     def write(self, s):
+        self.text += s
         for line in s.splitlines():
             if line and not line.startswith(" "):
                 self.marks.append((time.perf_counter(), line))
@@ -4770,6 +4795,20 @@ def science_phase(dev) -> None:
           f"{[round(res[k]['trials_per_sec'], 3) for k in presets]}")
     ok = ok and len(presets) == sum(c.n_nodes <= N_MAIN for c in
                                     baseline_configs().values())
+    # the oracle-parity study: its header, its two lines, its row
+    head = "oracle<->scheduler distribution parity (N=100):"
+    lines = stamped.text.splitlines()
+    i = lines.index(head) if head in lines else -1
+    study = lines[i + 1:i + 3] if i >= 0 else []
+    op = res.get("oracle_parity", {})
+    print(f"[science] oracle parity: {study}; order-invariant "
+          f"{op.get('order_invariant_decided_runs')}, KS D "
+          f"{op.get('ks_statistic')} p {op.get('ks_pvalue')}")
+    ok = ok and len(study) == 2 and study[0].startswith(
+        "  order-invariant (fifo==shuffle, decided): True") and \
+        study[1].startswith("  rounds-to-decide: oracle") and \
+        op.get("order_invariant_decided_runs") is True and \
+        op.get("n_seeds") == max(8 * TRIALS, 256)
     if not ok:
         raise SystemExit("[science] the full-width studies failed a check")
 
@@ -4882,6 +4921,280 @@ def science_phase(dev) -> None:
     reset()
     print(f"[science] kernel launches in the phase: {total}")
     print(f"[science] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [oracle] phase: the event-loop oracles, the HTTP node servers and
+# the metrics registry ---------------------------------------------------------
+
+# tests/test_native_oracle.py's scenarios: (n, f, seed, values, faulty)
+ORACLE_SCENARIOS = (
+    (5, 0, 0, [1] * 5, [False] * 5),
+    (5, 1, 1, [1, 1, 1, 0, 0], [False] * 4 + [True]),
+    (9, 4, 2, [1, 0, 1, 0, 1, 0, 1, 1, 0],
+     [True, True, False, False, True, False, False, False, True]),
+    (10, 5, 3, [1, 0] * 5, [True] * 5 + [False] * 5),
+    (7, 2, 4, [0, 1, 1, 0, 1, 0, 1],
+     [True, False, True, False, False, False, False]),
+    (1, 0, 5, [1], [False]),
+    (30, 9, 6, [i % 2 for i in range(30)], [True] * 9 + [False] * 21),
+)
+ORACLE_BATCH = (100, 40, 256)   # run_batch: N, F, seeds (oracle_parity's)
+ORACLE_PARITY_TRIALS = TRIALS   # oracle_parity(32): 256 seeds and trials
+# the served networks (the first F faulty; quorum delivery, so the round
+# kernels serve): (name, N, F, inputs, launch overrides, base port); the
+# start.ts demo's all-1 inputs, then alternating inputs, which take rounds
+ORACLE_SERVED = (("start.ts demo", 10, 4, "ones", {}, 3000),
+                 ("N=100 F=30 recorded", 100, 30, "alternating",
+                  {"record": True, "poll_rounds": 1}, 3200))
+
+
+def http_get(port, path):
+    """GET one route of a node server -> (status code, body bytes,
+    headers)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def http_post(port, path, body: bytes):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def served_run(n, f, inputs, kw, base, device):
+    """A launch (the first F faulty) with the flagship flags, served on
+    ``base``; /start, then every /status and
+    /getState, polled after every slice where poll_rounds is set ->
+    (answers, facade states, checks)."""
+    from benor_tpu_torch import launch_network
+    from benor_tpu_torch.backends.http_api import serve_network
+    from benor_tpu_torch.results import FLAGSHIP_FLAGS
+    faulty = [True] * f + [False] * (n - f)
+    values = [1] * n if inputs == "ones" else [i % 2 for i in range(n)]
+    net = launch_network(n, f, values, faulty, device=device,
+                         max_rounds=32, delivery="quorum",
+                         path="histogram", **FLAGSHIP_FLAGS, **kw)
+    answers, cursors = [], []
+    cluster = serve_network(net, base_port=base)
+    try:
+        before = [http_get(base + i, "/status")[:2] for i in range(n)]
+        if kw.get("poll_rounds"):
+            def poll():
+                code, body, _ = http_get(
+                    base, f"/getRoundHistory?since_round="
+                          f"{cursors[-1] if cursors else -1}")
+                doc = json.loads(body)
+                cursors.append(doc["cursor"])
+                answers.append([r["round"] for r in doc["rows"]])
+                answers.append(http_get(base + n - 1, "/getState")[:2])
+            net.start(on_slice=poll)
+            started = http_get(base, "/start")[:2]   # idempotent
+        else:
+            started = http_get(base, "/start")[:2]
+        status = [http_get(base + i, "/status")[:2] for i in range(n)]
+        state = [http_get(base + i, "/getState") for i in range(n)]
+        post = http_post(base + n - 1, "/message",
+                         b'{"k": 1, "x": 1, "messageType": "proposal '
+                         b'phase"}')
+        history = (http_get(base, "/getRoundHistory")[:2]
+                   if kw.get("record") else None)
+    finally:
+        cluster.close()
+    facade = net.get_states()
+    checks = {
+        "status_before": [c for c, _ in before] == [500] * f + [200] * (n - f),
+        "start": started == (200, b'{"message": "Algorithm started"}'),
+        "status": [(c, b.decode()) for c, b in status]
+        == [(code, body) for body, code in
+            (net.status(i) for i in range(n))],
+        "getState": [json.loads(b) for _, b, _ in state] == facade,
+        "json": all(h.get("Content-Type") == "application/json"
+                    for _, _, h in state),
+        "post_405": post[0] == 405 and post[2].get("Allow") == "GET",
+    }
+    if kw.get("poll_rounds"):
+        rounds = net.rounds_executed
+        rows = json.loads(history[1])["rows"]
+        checks["cursor"] = cursors == list(range(1, rounds + 1))
+        checks["history"] = [r["round"] for r in rows] == \
+            list(range(rounds + 1))
+    answers += [before, started, status, [b for _, b, _ in state],
+                post[:2], history]
+    return answers, facade, checks, net.rounds_executed
+
+
+def oracle_phase(dev) -> None:
+    """Phase 16: the event-loop oracles, the HTTP node servers and the
+    metrics registry.  (1) the native oracle, built from the checkout's
+    copy of the C++ source, equal to the express oracle on
+    tests/test_native_oracle.py's seven scenarios in both orders, then
+    ``run_batch`` at N = 100 x 256 seeds; (2) ``oracle_parity(32)`` on the
+    card: the simulator side's final state equal to the same call's on the
+    CPU, decided runs order-invariant, the KS statistic and p-value; (3)
+    ``serve_network`` over a card ``TpuNetwork`` with the flagship flags
+    armed (the CF regime forced, so the fused kernel serves): the start.ts
+    demo and N = 100, F = 30 with ``record=True, poll_rounds=1``, every
+    answer equal to the facade's and to the CPU launch's, the cursor
+    walking every round, POST /message 405, the fused kernel's launches;
+    (4) ``trace --device cuda`` with ``--metrics-out``."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from benor_tpu_torch import launch_network, results
+    from benor_tpu_torch.__main__ import main as cli
+    from benor_tpu_torch.backends import native_oracle
+    from benor_tpu_torch.config import SimConfig
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.ops import sampling
+    from benor_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+
+    def launches():
+        return {k: fn.launches for t in (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+                for k, fn in t.items() if fn.launches}
+
+    # (1) the oracles on the host
+    t0 = time.perf_counter()
+    native_oracle.load_library()
+    t_build = time.perf_counter() - t0
+    same = []
+    for n, f, seed, values, faulty in ORACLE_SCENARIOS:
+        for order in ("fifo", "shuffle"):
+            states = {}
+            for backend in ("express", "native"):
+                net = launch_network(n, f, values, faulty, backend=backend,
+                                     seed=seed, max_rounds=12,
+                                     oracle_order=order)
+                net.start()
+                states[backend] = net.get_states()
+            same.append(states["express"] == states["native"])
+    n_b, f_b, s_b = ORACLE_BATCH
+    cfg_b = SimConfig(n_nodes=n_b, n_faulty=f_b, backend="native",
+                      max_rounds=64, oracle_order="shuffle")
+    vals_b, faulty_b = results._parity_scenario(n_b, f_b)
+    t0 = time.perf_counter()
+    out = native_oracle.run_batch(cfg_b, vals_b, faulty_b,
+                                  np.arange(s_b, dtype=np.uint32),
+                                  raise_on_cap=True)
+    t_batch = time.perf_counter() - t0
+    healthy = out["decided"][:, f_b:].all(axis=1)
+    print(f"[oracle] native == express on {len(ORACLE_SCENARIOS)} "
+          f"scenarios x 2 orders: {sum(same)}/{len(same)} (library "
+          f"loaded in {t_build:.2f} s); run_batch N={n_b} F={f_b} x "
+          f"{s_b} seeds: {t_batch * 1e3:.1f} ms, "
+          f"{int(out['steps'].sum())} deliveries "
+          f"({out['steps'].sum() / t_batch:.4g}/s), decided "
+          f"{int(healthy.sum())}/{s_b}, tripped {out['n_tripped']}")
+    if not all(same) or out["n_tripped"] or not healthy.any():
+        raise SystemExit("[oracle] the native and express oracles differ")
+
+    # (2) oracle parity with its simulator side on the card
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = results.oracle_parity(ORACLE_PARITY_TRIALS, device=dev)
+    t_par = time.perf_counter() - t0
+    fins = {d: results._parity_sim(ORACLE_PARITY_TRIALS, 0, 100, 40, d)
+            for d in (dev, "cpu")}
+    equal = all(torch.equal(getattr(fins[dev], a).cpu(),
+                            getattr(fins["cpu"], a))
+                for a in ("x", "decided", "k", "killed"))
+    print(f"[oracle] oracle_parity({ORACLE_PARITY_TRIALS}) on the card: "
+          f"{t_par:.2f} s, {res['n_seeds']} seeds, order-invariant "
+          f"{res['order_invariant_decided_runs']}, rounds oracle "
+          f"{res['oracle_round_hist']} vs card {res['tpu_round_hist']}, "
+          f"KS D={res['ks_statistic']} p={res['ks_pvalue']}; the "
+          f"simulator side card == cpu {equal}; {card}")
+    if not (equal and res["order_invariant_decided_runs"]):
+        raise SystemExit("[oracle] oracle_parity failed a check")
+
+    # (3) the node servers over the card's network, flagship flags armed
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+    old = sampling.EXACT_TABLE_MAX
+    sampling.EXACT_TABLE_MAX = 4          # the CF regime: the kernels serve
+    total_fused = 0
+    try:
+        for name, n, f, inputs, kw, base in ORACLE_SERVED:
+            t0 = time.perf_counter()
+            got = served_run(n, f, inputs, kw, base, dev)
+            t_card = time.perf_counter() - t0
+            # a recorded run takes the armed twin (its own counter)
+            fused = pr.fused_round.launches + pr.fused_round.obs_launches
+            others = {k: v for k, v in launches().items()
+                      if k != "fused_round"}
+            cpu = served_run(n, f, inputs, kw, base + 500, "cpu")
+            equal = got[:2] == cpu[:2] and got[3] == cpu[3]
+            print(f"[oracle] serve_network {name}: rounds {got[3]}, "
+                  f"checks {got[2]}, card == cpu {equal}, fused_round "
+                  f"launches {fused} (armed {pr.fused_round.obs_launches})"
+                  f", other kernels {others}, {t_card:.2f} s")
+            if not (all(got[2].values()) and equal and fused == got[3]
+                    and not others):
+                raise SystemExit(f"[oracle] serve_network {name} failed")
+            for ops in (dk, hk, pr):
+                ops.reset_launches()
+            total_fused += fused
+    finally:
+        sampling.EXACT_TABLE_MAX = old
+
+    # (4) trace on the card with the registry's two exports
+    work = tempfile.mkdtemp(prefix="oracle_")
+    docs = {}
+    for ext in ("jsonl", "prom"):
+        metrics.REGISTRY.reset()
+        trace = os.path.join(work, f"trace_{ext}.json")
+        mpath = os.path.join(work, f"metrics.{ext}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli(["trace", "--n", "1000", "--f", "250", "--trials",
+                      str(TRIALS), "--out", trace, "--metrics-out", mpath])
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        with open(mpath) as fh:
+            docs[ext] = fh.read()
+        rounds = [e for e in events if e.get("tid") == "rounds"]
+        host = [e for e in events if e.get("tid") == "host"]
+        print(f"[oracle] trace --device cuda --metrics-out {ext}: exit "
+              f"{rc}, {len(events)} events ({len(rounds)} round slices, "
+              f"{len(host)} host spans), {time.perf_counter() - t0:.2f} s; "
+              f"{buf.getvalue().splitlines()[0]}")
+        if rc != 0 or not rounds or [e["name"] for e in host] != \
+                ["trace.run"]:
+            raise SystemExit("[oracle] trace failed a check")
+    recs = [json.loads(ln) for ln in docs["jsonl"].splitlines()]
+    ok = ([(r["name"], r["type"], r["count"]) for r in recs]
+          == [("trace.run", "timer", 1)]
+          and "benor_tpu_trace_run_count 1" in docs["prom"].splitlines())
+    print(f"[oracle] metrics: jsonl {recs[0]['name']} count "
+          f"{recs[0]['count']}, prom {len(docs['prom'].splitlines())} "
+          f"lines: ok {ok}")
+    if not ok:
+        raise SystemExit("[oracle] the metrics exports failed a check")
+    print(f"[oracle] fused_round launches in the phase: {total_fused}")
+    print(f"[oracle] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

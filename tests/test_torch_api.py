@@ -20,13 +20,15 @@ from benor_tpu.backends.tpu import TpuNetwork as JTpuNetwork
 from benor_tpu.config import SimConfig as JCfg
 from benor_tpu.state import observable_state as j_observable_state
 from benor_tpu_torch import api as tapi
+from torch_ref_pool import prefetch, ref, start
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Every XLA:CPU executable keeps memory maps, and a test process that
-    holds too many dies in a later compile: drop this module's when it is
-    done."""
+def _release_compiled_programs(request):
+    """Start the JAX sides ahead (torch_ref_pool).  Every XLA:CPU
+    executable keeps memory maps, and a test process that holds too many
+    dies in a later compile: drop this module's when it is done."""
+    start(request)
     yield
     jax.clear_caches()
 
@@ -38,16 +40,46 @@ def _launch(api, faulty, values, **kw):
                               backend="tpu", **kw)
 
 
-def _run_both(faulty, values, **kw):
-    """The scenario on both packages -> the port's states (equal to the
-    JAX package's, state for state)."""
-    out = []
-    for api in (japi, tapi):
-        net = _launch(api, faulty, values, **kw)
-        api.start_consensus(net)
-        out.append((net.rounds_executed, api.get_nodes_state(net)))
-        net.close()
-    (j_rounds, j_states), (t_rounds, t_states) = out
+def _jax_run(faulty, values, kw):
+    """The scenario on the JAX package -> (rounds, states)."""
+    net = _launch(japi, faulty, values, **kw)
+    japi.start_consensus(net)
+    return net.rounds_executed, japi.get_nodes_state(net)
+
+
+#: the scenarios of tests/test_scenarios.py run on both packages: name ->
+#: (faulty, values, launch overrides)
+SCEN = {
+    "unanimous": ([False] * 5, [1] * 5, {}),
+    "simple_majority": ([False, False, False, False, True],
+                        [1, 1, 1, 0, 0], {}),
+    "threshold": ([True] * 4 + [False] * 5, [0, 0, 1, 1, 1, 0, 0, 1, 1],
+                  {}),
+    "livelock": ([True] * 5 + [False] * 5, [0, 0, 1, 1, 1, 0, 0, 1, 1, 0],
+                 {"max_rounds": 15}),
+    "no_faulty": ([False] * 5, [0, 1, 0, 1, 1], {}),
+    "randomized": ([False, False, True, False, True, False, False],
+                   [int(v) for v in
+                    np.random.default_rng(42).integers(0, 2, size=7)], {}),
+    "one_node": ([False], [1], {}),
+    "default": ([True] * 4 + [False] * 6, [0, 0, 1, 1, 1, 0, 0, 1, 1, 1],
+                {}),
+}
+
+
+def _scen(name):
+    return prefetch(lambda: [(_jax_run, *SCEN[name])])
+
+
+def _run_both(name):
+    """A scenario on both packages (the JAX side from the worker pool) ->
+    the port's states (equal to the JAX package's, state for state)."""
+    faulty, values, kw = SCEN[name]
+    net = _launch(tapi, faulty, values, **kw)
+    tapi.start_consensus(net)
+    t_rounds, t_states = net.rounds_executed, tapi.get_nodes_state(net)
+    net.close()
+    j_rounds, j_states = ref(_jax_run, *SCEN[name])
     assert t_rounds == j_rounds
     assert t_states == j_states
     return t_states
@@ -73,16 +105,18 @@ def test_status(faulty):
     net.close()
 
 
+@_scen("unanimous")
 def test_unanimous_agreement():
-    states = _run_both([False] * 5, [1] * 5)
+    states = _run_both("unanimous")
     assert bt.api.reached_finality(states)
     for st in states:
         assert st["decided"] is True and st["x"] == 1 and st["k"] <= 2
 
 
+@_scen("simple_majority")
 def test_simple_majority():
-    faulty = [False, False, False, False, True]
-    states = _run_both(faulty, [1, 1, 1, 0, 0])
+    faulty = SCEN["simple_majority"][0]
+    states = _run_both("simple_majority")
     for st, f in zip(states, faulty):
         if f:
             _assert_faulty_null(st)
@@ -90,9 +124,10 @@ def test_simple_majority():
             assert st["decided"] is True and st["x"] == 1 and st["k"] <= 2
 
 
+@_scen("threshold")
 def test_fault_tolerance_threshold():
-    faulty = [True] * 4 + [False] * 5
-    states = _run_both(faulty, [0, 0, 1, 1, 1, 0, 0, 1, 1])
+    faulty = SCEN["threshold"][0]
+    states = _run_both("threshold")
     live = [st for st, f in zip(states, faulty) if not f]
     for st, f in zip(states, faulty):
         if f:
@@ -101,10 +136,10 @@ def test_fault_tolerance_threshold():
     assert len({st["x"] for st in live}) == 1
 
 
+@_scen("livelock")
 def test_exceeding_fault_tolerance_livelock():
-    faulty = [True] * 5 + [False] * 5
-    states = _run_both(faulty, [0, 0, 1, 1, 1, 0, 0, 1, 1, 0],
-                       max_rounds=15)
+    faulty = SCEN["livelock"][0]
+    states = _run_both("livelock")
     for st, f in zip(states, faulty):
         if f:
             _assert_faulty_null(st)
@@ -113,24 +148,25 @@ def test_exceeding_fault_tolerance_livelock():
             assert st["k"] > 10 and st["x"] is not None
 
 
+@_scen("no_faulty")
 def test_no_faulty_nodes():
-    states = _run_both([False] * 5, [0, 1, 0, 1, 1])
+    states = _run_both("no_faulty")
     for st in states:
         assert st["decided"] is True and st["x"] == 1 and st["k"] <= 2
 
 
+@_scen("randomized")
 def test_randomized():
-    rng = np.random.default_rng(42)
-    faulty = [False, False, True, False, True, False, False]
-    values = [int(v) for v in rng.integers(0, 2, size=7)]
-    states = _run_both(faulty, values)
+    faulty = SCEN["randomized"][0]
+    states = _run_both("randomized")
     live = [st for st, f in zip(states, faulty) if not f]
     assert all(st["decided"] is True for st in live)
     assert len({st["x"] for st in live}) == 1
 
 
+@_scen("one_node")
 def test_one_node():
-    states = _run_both([False], [1])
+    states = _run_both("one_node")
     assert states == [{"killed": False, "x": 1, "decided": True, "k": 2}]
 
 
@@ -146,12 +182,12 @@ def test_stop_consensus_kills_all():
 # --- the facade beyond the scenarios -----------------------------------------
 
 
+@_scen("default")
 def test_default_config_facade_matches_jax():
     """The upstream repo's own use case: N = 10 launched with SimConfig's
     defaults, started, read node by node and in bulk."""
-    faulty = [True] * 4 + [False] * 6
-    values = [0, 0, 1, 1, 1, 0, 0, 1, 1, 1]
-    states = _run_both(faulty, values)
+    faulty, values, _ = SCEN["default"]
+    states = _run_both("default")
     net = _launch(tapi, faulty, values)
     assert net.cfg == bt.SimConfig(n_nodes=10, n_faulty=4)
     assert [net.get_state(i) for i in range(10)] == net.get_states() == \
@@ -163,50 +199,68 @@ def test_default_config_facade_matches_jax():
     assert bt.api.reached_finality(states)
 
 
+CRASH = ([True] * 4 + [False] * 6, [0, 1] * 5, [2, 2, 3, 3] + [0] * 6)
+
+
+def _jax_crash_at_round(faulty, values, crash):
+    jnet = JTpuNetwork(JCfg(n_nodes=10, n_faulty=4,
+                            fault_model="crash_at_round"), values, faulty,
+                       crash_rounds=crash)
+    jnet.start()
+    return (jnet.rounds_executed, jnet.get_states(),
+            [jnet.status(i) for i in range(10)])
+
+
+@prefetch(lambda: [(_jax_crash_at_round, *CRASH)])
 def test_crash_at_round_facade_matches_jax():
     """Faulty nodes that die mid-run (crash_at_round, rounds 2 and 3):
     ``launch_network(..., crash_rounds=...)`` on the port against the JAX
     ``TpuNetwork`` with the same crash rounds, state for state; the dead
     nodes report killed with their last state, the live ones decide."""
-    faulty = [True] * 4 + [False] * 6
-    values = [0, 1] * 5
-    crash = [2, 2, 3, 3] + [0] * 6
-    jnet = JTpuNetwork(JCfg(n_nodes=10, n_faulty=4,
-                            fault_model="crash_at_round"), values, faulty,
-                       crash_rounds=crash)
+    faulty, values, crash = CRASH
     tnet = _launch(tapi, faulty, values, fault_model="crash_at_round",
                    crash_rounds=crash)
-    for net in (jnet, tnet):
-        net.start()
-    assert tnet.rounds_executed == jnet.rounds_executed >= 2
+    tnet.start()
+    j_rounds, j_states, j_status = ref(_jax_crash_at_round, *CRASH)
+    assert tnet.rounds_executed == j_rounds >= 2
     states = tnet.get_states()
-    assert states == jnet.get_states()
+    assert states == j_states
     # a node is killed from its crash round on, and reports its state
     assert [st["killed"] for st in states] == \
         [0 < c <= tnet.rounds_executed for c in crash]
     assert all(st["decided"] is not None for st in states)
     assert bt.api.reached_finality(states[4:])
-    assert [tnet.status(i) for i in range(10)] == \
-        [jnet.status(i) for i in range(10)]
+    assert [tnet.status(i) for i in range(10)] == j_status
+
+
+OBS_VALS = [0, 1] * 6
+OBS_FAULTY = [False, True, False, True, True] + [False] * 7
+
+
+def _obs_kw(fault_model):
+    return dict(n_nodes=12, n_faulty=3, trials=2, max_rounds=8,
+                fault_model=fault_model, seed=4)
+
+
+def _jax_observable(fault_model):
+    """Every node's observable state of every trial of the JAX run."""
+    from benor_tpu import sim as jsim
+    kw = _obs_kw(fault_model)
+    _, jst, jf = jsim.simulate(JCfg(**kw), OBS_VALS, OBS_FAULTY)
+    return [[j_observable_state(JCfg(**kw), jst, jf, i, trial)
+             for i in range(12)] for trial in range(2)]
 
 
 @pytest.mark.parametrize("fault_model", ["crash", "byzantine"])
+@prefetch(lambda fault_model: [(_jax_observable, fault_model)])
 def test_observable_state_matches_jax(fault_model):
     """Every node of every trial, a birth-faulty crash node all-null, a
     byzantine one live."""
-    from benor_tpu import sim as jsim
-    from benor_tpu.config import SimConfig as JCfg
-    kw = dict(n_nodes=12, n_faulty=3, trials=2, max_rounds=8,
-              fault_model=fault_model, seed=4)
-    vals = [0, 1] * 6
-    faulty = [False, True, False, True, True] + [False] * 7
-    _, jst, jf = jsim.simulate(JCfg(**kw), vals, faulty)
-    cfg = bt.SimConfig(**kw)
-    _, tst, tf = bt.simulate(cfg, vals, faulty, device="cpu")
-    for trial in range(2):
-        for i in range(12):
-            assert bt.observable_state(cfg, tst, tf, i, trial) == \
-                j_observable_state(JCfg(**kw), jst, jf, i, trial)
+    cfg = bt.SimConfig(**_obs_kw(fault_model))
+    _, tst, tf = bt.simulate(cfg, OBS_VALS, OBS_FAULTY, device="cpu")
+    assert [[bt.observable_state(cfg, tst, tf, i, trial)
+             for i in range(12)] for trial in range(2)] == \
+        ref(_jax_observable, fault_model)
 
 
 def test_poll_rounds_slices_equal_one_shot():
@@ -290,8 +344,8 @@ def test_history_and_witness_methods(call, flags, match):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(backend="express"), "17"),
-    (dict(backend="native"), "17"),
+    (dict(backend="express"), "jax"),
+    (dict(backend="native"), "jax"),
     (dict(heartbeat_rounds=2), "16"),
     (dict(mesh_shape=(1, 1)), "15"),
     (dict(drop_prob=0.2, path="histogram"), None),
@@ -299,8 +353,18 @@ def test_history_and_witness_methods(call, flags, match):
 def test_unported_launches_raise(kw, item):
     """The launches the port does not serve raise, naming their ROADMAP
     item; omission on the histogram path (``item`` None) launches and runs
-    now."""
+    now, and so do the event-loop oracles (``item`` "jax"), whose states
+    and statuses equal the JAX package's oracle's (they take no device)."""
     args = (4, 1, [1, 1, 0, 0], [True, False, False, False])
+    if item == "jax":
+        nets = [api.launch_network(*args, **kw) for api in (tapi, japi)]
+        for net in nets:
+            net.start()
+        assert [[net.status(i) for i in range(4)] for net in nets] == \
+            [[("faulty", 500)] * 4] * 2         # the global-halt probe
+        assert nets[0].get_states() == nets[1].get_states()
+        assert nets[0].get_states()[1]["decided"] is True
+        return
     if item is not None:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue A item {item}\\)"):

@@ -1,14 +1,20 @@
 """``python -m benor_tpu_torch`` against ``python -m benor_tpu``, on the CPU:
-``main([...])`` of each ported subcommand (demo, sweep, coins, preset,
-audit, atlas, replay; results' argument plumbing) with ``--device cpu``
-prints the JAX package's lines, writes its ``--out`` / ``--audit-out`` /
-``--profile-out`` / ``--out-dir`` JSON and returns its exit code (audit 2 on
+``main([...])`` of each ported subcommand (demo with the tpu, express and
+native backends, sweep, coins, trace, preset, audit, atlas, replay;
+results' argument plumbing) with ``--device cpu`` prints the JAX package's
+lines, writes its ``--out`` / ``--audit-out`` / ``--profile-out`` /
+``--out-dir`` JSON, its Chrome trace and its ``--metrics-out`` documents
+(JSON-lines or Prometheus), and returns its exit code (audit 2 on
 violations, atlas 2 on drift, replay 2 on a mismatch and 1 on an
 unreadable file).  Clocks and compile counts are masked in the lines and
-left out of the JSON (``seconds``, ``trials_per_sec``, ``compile_count``):
-they differ by design.  Each unported subcommand and flag raises naming its
+left out of the JSON (``seconds``, ``trials_per_sec``, ``compile_count``;
+a timer's seconds, the trace's host spans' times, the JSON-lines ``ts``):
+they differ by design, as do the JAX package's XLA counters (``jax.*``,
+``backend.*``), which the port does not keep.  Both registries are emptied
+before each call.  Each unported subcommand and flag raises naming its
 ROADMAP item, and without ``--device cpu`` on a machine with no CUDA
-device a subcommand fails instead of running on the CPU.
+device a subcommand fails instead of running on the CPU, but the
+event-loop oracles' demo, which takes no device.
 
 The uniform-scheduler runs draw by the CF sampler in both packages
 (``EXACT_TABLE_MAX`` lowered to 4).  The JAX side runs in the worker pool
@@ -27,9 +33,11 @@ import pytest
 from benor_tpu import results as jresults
 from benor_tpu.__main__ import main as jmain
 from benor_tpu.ops import sampling as jsampling
+from benor_tpu.utils import metrics as jmetrics
 from benor_tpu_torch import results as tresults
 from benor_tpu_torch.__main__ import main as tmain
 from benor_tpu_torch.ops import sampling as tsampling
+from benor_tpu_torch.utils import metrics as tmetrics
 from torch_ref_pool import prefetch, ref, start
 
 CF_MAX = 4
@@ -44,6 +52,8 @@ MASKS = ((r'"(seconds|trials_per_sec|compile_count)": [^,\n]+',
          (r"[0-9.]+ trials/s", "<rate> trials/s"),
          (r"\d+\.\d+s\b", "<t>s"),
          (r"\d+ compiles", "<n> compiles"),
+         (r"\d+ compile\(s\)", "<n> compile(s)"),
+         (r"wrote \d+ trace events", "wrote <n> trace events"),
          (r"max bucket share \d+%", "max bucket share <p>%"))
 
 
@@ -64,12 +74,55 @@ def _drop(doc):
     return doc
 
 
-def _run(main, argv, inputs, sampling):
+#: the JAX package's XLA metrics, which the port does not keep: the compile
+#: and backend-probe counters, and perfscope's AOT lower / compile timers
+#: around the batched sweep's bucket executables
+XLA_ONLY = ("jax.", "backend.", "perfscope.")
+
+
+def _trace_doc(doc):
+    """A Chrome trace without its clocks (the host spans' times) and the
+    XLA counters."""
+    events = []
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") == "C" and ev["name"].startswith(XLA_ONLY):
+            continue
+        if ev.get("tid") == "host":
+            ev = {k: v for k, v in ev.items() if k not in ("ts", "dur")}
+        events.append(ev)
+    return dict(doc, traceEvents=events)
+
+
+def _metrics_doc(path):
+    """A --metrics-out document without its clocks and the XLA counters:
+    JSON-lines records without ``ts`` and a timer's seconds; Prometheus
+    samples with a timer's seconds masked."""
+    with open(path) as fh:
+        text = fh.read()
+    if path.endswith(".prom"):
+        lines = text.splitlines()
+        keep = [ln for ln in lines if ln and not
+                re.search(r"benor_tpu_(jax|backend|perfscope)_", ln)]
+        return [re.sub(r"(_seconds_(total|max)) \S+$", r"\1 <t>", ln)
+                for ln in keep]
+    recs = []
+    for ln in text.splitlines():
+        rec = json.loads(ln)
+        if rec["name"].startswith(XLA_ONLY):
+            continue
+        recs.append({k: v for k, v in rec.items()
+                     if k not in ("ts", "total_s", "min_s", "max_s")})
+    return recs
+
+
+def _run(main, argv, inputs, sampling, metrics):
     """One CLI call in a fresh directory ``{d}`` holding ``inputs`` (name
-    -> JSON document) -> (exit code, masked stdout lines, every JSON file
-    the call left there, clocks dropped)."""
+    -> JSON document), the metrics registry emptied first -> (exit code,
+    masked stdout lines, every JSON file and metrics document the call
+    left there, clocks dropped)."""
     old = sampling.EXACT_TABLE_MAX
     sampling.EXACT_TABLE_MAX = CF_MAX
+    metrics.REGISTRY.reset()
     buf = io.StringIO()
     try:
         with tempfile.TemporaryDirectory() as d:
@@ -82,19 +135,26 @@ def _run(main, argv, inputs, sampling):
             files = {}
             for base, _, names in os.walk(d):
                 for name in names:
-                    if name.endswith(".json") and name not in inputs:
-                        with open(os.path.join(base, name)) as fh:
-                            files[os.path.relpath(os.path.join(base, name),
-                                                  d)] = _drop(json.load(fh))
+                    path = os.path.join(base, name)
+                    key = os.path.relpath(path, d)
+                    if name.startswith("metrics"):
+                        files[key] = _metrics_doc(path)
+                    elif name.endswith(".json") and name not in inputs:
+                        with open(path) as fh:
+                            doc = json.load(fh)
+                        files[key] = (_trace_doc(doc)
+                                      if "traceEvents" in doc
+                                      else _drop(doc))
     finally:
         sampling.EXACT_TABLE_MAX = old
+        metrics.REGISTRY.reset()
     for pat, rep in MASKS:
         text = re.sub(pat, rep, text)
     return rc, text.splitlines(), files
 
 
 def _jax_cli(argv, inputs):
-    return _run(jmain, argv, inputs, jsampling)
+    return _run(jmain, argv, inputs, jsampling, jmetrics)
 
 
 # name -> (argv, input files); argv as the JAX CLI takes it
@@ -128,13 +188,40 @@ CASES = {
                         {"repro.json": BASELINE_REPROS["omission"]}),
     "replay_unreadable": (["replay", "{d}/repro.json"],
                           {"repro.json": {"kind": "atlas_manifest"}}),
+    # the pins that raised before the oracles, the registry and the trace
+    # were ported
+    "demo_express": (["demo", "--backend", "express"], {}),
+    "demo_native": (["demo", "--backend", "native", "-n", "9", "-f", "4",
+                     "--seed", "3"], {}),
+    "trace": (["trace", "--n", "100", "--f", "25", "--trials", "4",
+               "--max-rounds", "16", "--balanced", "--out",
+               "{d}/trace.json", "--metrics-out", "{d}/metrics.jsonl"], {}),
+    "sweep_metrics": (["sweep", "--n", "64", "--f-values", "8,20",
+                       "--trials", "4", "--max-rounds", "8", "--batched",
+                       "--journal", "{d}/sweep.jsonl", "--metrics-out",
+                       "{d}/metrics"], {}),
+    "coins_metrics": (["coins", "--n", "64", "--f", "20", "--trials", "4",
+                       "--max-rounds", "8", "--metrics-out",
+                       "{d}/metrics.jsonl"], {}),
+    "audit_metrics": (["audit", "--n", "96", "--f", "4", "--trials", "4",
+                       "--scheduler", "targeted", "--balanced",
+                       "--max-violations", "1", "--metrics-out",
+                       "{d}/metrics.prom"], {}),
+    "atlas_metrics": (["atlas", "--heatmap", "drop_prob:0.1:0.4,f:8:24",
+                       "--coarse", "1", "--profile-out", "{d}/heat.json",
+                       "--metrics-out", "{d}/metrics.jsonl"], {}),
 }
 #: the JAX package's exit codes, pinned: quorum alone has no counterpart
 #: for the baseline's omission and partition searches (drift, 2); the
 #: baseline's omission repro no longer reproduces bit for bit in either
 #: package (ROADMAP), so its replay exits 2
 EXIT = {"audit_violation": 2, "atlas_quorum": 2, "replay_omission": 2,
-        "replay_unreadable": 1}
+        "replay_unreadable": 1, "audit_metrics": 2}
+#: the --metrics-out documents each case must write (coins ticks nothing
+#: but the JAX package's XLA counters, so its document holds no record;
+#: the JAX package's atlas takes the flag and writes nothing)
+METRICS = {"trace": "metrics.jsonl", "sweep_metrics": "metrics",
+           "coins_metrics": "metrics.jsonl", "audit_metrics": "metrics.prom"}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -142,11 +229,16 @@ EXIT = {"audit_violation": 2, "atlas_quorum": 2, "replay_omission": 2,
 def test_cli_matches_jax(name):
     """The lines, the files and the exit code of one invocation."""
     argv, inputs = CASES[name]
-    got = _run(tmain, argv + ["--device", "cpu"], inputs, tsampling)
+    got = _run(tmain, argv + ["--device", "cpu"], inputs, tsampling,
+               tmetrics)
     want = ref(_jax_cli, argv, inputs)
     assert got[0] == want[0] == EXIT.get(name, 0)
     assert got[1] == want[1]
     assert got[2] == want[2]
+    if name in METRICS:
+        assert got[2][METRICS[name]] or name == "coins_metrics"
+    if name.startswith("atlas"):
+        assert not any(k.startswith("metrics") for k in got[2])
     if any(a.startswith("{d}/") for a in argv[1:]) and \
             not name.startswith("replay"):
         assert got[2]
@@ -155,19 +247,12 @@ def test_cli_matches_jax(name):
 # --- what is not ported --------------------------------------------------------
 
 UNPORTED = {
-    ("trace", "--n", "100"): "16",
     ("lint",): "16",
     ("profile", "--kernels"): "16",
     ("scale", "--mesh", "1,2"): "15",
     ("serve",): "16",
     ("load", "--clients", "4"): "16",
     ("watch", "x.jsonl"): "16",
-    ("demo", "--backend", "express"): "17",
-    ("demo", "--backend", "native"): "17",
-    ("sweep", "--n", "64", "--f-values", "8", "--metrics-out", "m"): "16",
-    ("coins", "--metrics-out", "m.prom"): "16",
-    ("audit", "--metrics-out", "m"): "16",
-    ("atlas", "--metrics-out", "m"): "16",
     ("sweep", "--n", "64", "--f-values", "8", "--trace-out", "t"): "16",
     ("sweep", "--n", "64", "--f-values", "8", "--batched",
      "--manifest-out", "m"): "16",
@@ -183,8 +268,8 @@ def test_unported_commands_and_flags_raise(argv):
     device is touched (with or without --device cpu)."""
     item = UNPORTED[argv]
     for extra in ([], ["--device", "cpu"]):
-        if argv[0] in ("trace", "lint", "profile", "scale", "serve",
-                       "load", "watch") and extra:
+        if argv[0] in ("lint", "profile", "scale", "serve", "load",
+                       "watch") and extra:
             continue
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
@@ -215,6 +300,18 @@ def test_no_cuda_no_fallback(cmd, capsys, tmp_path, monkeypatch):
     err = capsys.readouterr().err
     assert f"benor_tpu_torch {cmd}: " in err and "CUDA" in err
     assert not list(tmp_path.iterdir())
+
+
+def test_oracle_demo_needs_no_device(capsys, monkeypatch):
+    """With no CUDA device and no --device cpu the oracles' demo runs (a
+    host program) and prints the JAX demo's lines; the tpu demo exits 1."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tmain(["demo", "--backend", "express"]) == 0
+    got = capsys.readouterr().out
+    assert jmain(["demo", "--backend", "express"]) == 0
+    assert capsys.readouterr().out == got and "node 9:" in got
+    assert tmain(["demo", "--backend", "tpu"]) == 1
 
 
 def test_results_argument_plumbing(monkeypatch, capsys):

@@ -4,8 +4,10 @@ package's own toy size for it) runs end to end and writes results.json and
 RESULTS.md, and every study in it equals the JAX study at the same size,
 field for field but the clocks (``seconds``, ``trials_per_sec``), with the
 same printed lines and the same witness bundles and repro documents on
-disk; ``faults_curves`` and ``faults_manifest``, ``ks_two_sample`` and the
-preset rows' ``serve_replay`` documents equal the JAX package's.
+disk; the oracle-parity study (the native oracle's rounds-to-decide law
+against the simulator's, N = 100) equals the JAX study but its oracle's
+message rate; ``faults_curves`` and ``faults_manifest``, ``ks_two_sample``
+and the preset rows' ``serve_replay`` documents equal the JAX package's.
 
 The uniform-scheduler studies draw their counts by the CF sampler in both
 packages (``EXACT_TABLE_MAX`` lowered to 4), whose draws are exact at these
@@ -38,7 +40,7 @@ from torch_ref_pool import prefetch, ref, start
 
 N, T = 400, 4
 CF_MAX = 4
-CLOCKS = ("seconds", "trials_per_sec")
+CLOCKS = ("seconds", "trials_per_sec", "oracle_msgs_per_sec")
 #: generate's key -> (study function, its header line in generate's output)
 STUDIES = {
     "balanced_curve": ("balanced_curve", "balanced rounds-vs-f curve:"),
@@ -58,6 +60,8 @@ STUDIES = {
                         "textbook (f=0.45, balanced):"),
     "weak_coin": ("weak_coin_study", "weak common coin: termination vs eps "
                   "(f=0.40, adversary):"),
+    "oracle_parity": ("oracle_parity", "oracle<->scheduler distribution "
+                      "parity (N=100):"),
 }
 WITH_OUT_DIR = ("disagreement", "safety_violation")
 
@@ -110,7 +114,10 @@ def _jax_study(key, n, trials):
         with tempfile.TemporaryDirectory() as d, \
                 contextlib.redirect_stdout(buf):
             kw = {"out_dir": d} if key in WITH_OUT_DIR else {}
-            v = fn(n, trials, 0, **kw)
+            # the oracle study runs at its fixed N = 100 (generate hands it
+            # the trials and the seed)
+            v = (fn(trials, 0) if key == "oracle_parity"
+                 else fn(n, trials, 0, **kw))
             files = _files(d)
             lines = _lines(buf.getvalue(), d)
     finally:
@@ -147,7 +154,8 @@ def _block(text, out_dir, key):
     headers = [h for _, h in STUDIES.values()]
     i = lines.index(STUDIES[key][1])
     j = next((k for k in range(i + 1, len(lines))
-              if lines[k] in headers or lines[k].startswith("oracle")),
+              if lines[k] in headers
+              or lines[k].startswith(("oracle", "results: wrote"))),
              len(lines))
     return lines[i + 1:j]
 
@@ -173,14 +181,15 @@ def test_study_matches_jax(key, generated):
 
 
 def test_generate_end_to_end(generated):
-    """Both artifacts, every study's key, the oracle study skipped with its
-    item, the CPU's meta, and the science verdicts the JAX package's own
-    generator test pins at this size."""
+    """Both artifacts, every study's key (the oracle study's with it: g++
+    builds the native oracle here), the CPU's meta, and the science
+    verdicts the JAX package's own generator test pins at this size."""
     out, out_dir, text = generated
     assert set(out) == {"meta", *STUDIES}
     assert out["meta"] == {"device": "cpu", "platform": "cpu",
                            "n_large": N, "trials_large": T, "seed": 0}
-    assert "oracle parity: skipped" in text and "item 17" in text
+    assert "oracle parity: skipped" not in text
+    assert out["oracle_parity"]["order_invariant_decided_runs"] is True
     with open(os.path.join(out_dir, "results.json")) as fh:
         assert _normal(json.load(fh), out_dir) == _normal(out, out_dir)
     sv = out["safety_violation"]
@@ -300,12 +309,20 @@ def test_serve_replay_documents_match_jax():
             JobSpec.from_config(jcfg).to_dict()
 
 
-def test_device_rule_and_unported_study():
+@prefetch(lambda: [(_jax_study, "oracle_parity", N, T)])
+def test_device_rule_and_unported_study(monkeypatch):
     """No flags on the CPU (as the JAX package on its CPU); the oracle
-    study names its item."""
+    study, called on its own, equals the JAX package's key for key (but
+    its oracle's message rate) with the same printed lines."""
     assert tresults._flagship_flags("cpu") == {}
     assert tresults.FLAGSHIP_FLAGS == jresults.FLAGSHIP_FLAGS
     for name in ("CURVE_FRACS", "MARGINS", "STRENGTHS", "WEAK_COIN_EPS"):
         assert getattr(tresults, name) == getattr(jresults, name)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tresults.oracle_parity(4)
+    monkeypatch.setattr(tsampling, "EXACT_TABLE_MAX", CF_MAX)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = tresults.oracle_parity(T, device="cpu")
+    want_rows, _, want_lines = ref(_jax_study, "oracle_parity", N, T)
+    assert set(got) == set(want_rows) | {"oracle_msgs_per_sec"}
+    assert _normal(got, "") == want_rows
+    assert _lines(buf.getvalue(), "<none>") == want_lines

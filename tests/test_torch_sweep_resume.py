@@ -333,19 +333,40 @@ def test_jax_checkpoint_resumes_on_port(cf_regime, tmp_path):
         assert torch.equal(getattr(final, k), getattr(want, k)), k
 
 
+_PORT_CKPT = []
+
+
+def _port_checkpoint_bytes():
+    """The bytes of the port's checkpoint (made once, in the CF regime, so
+    the JAX resume of these very bytes is computed ahead in the pool)."""
+    if not _PORT_CKPT:
+        old = tsampling.EXACT_TABLE_MAX
+        tsampling.EXACT_TABLE_MAX = CF_MAX
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "port.npz")
+                _port_checkpoint(path)
+                with open(path, "rb") as fh:
+                    _PORT_CKPT.append(fh.read())
+        finally:
+            tsampling.EXACT_TABLE_MAX = old
+    return _PORT_CKPT[0]
+
+
+@prefetch(lambda: [(_jax_from_port_checkpoint, _port_checkpoint_bytes())])
 def test_port_checkpoint_resumes_in_jax(cf_regime, tmp_path):
     """A port checkpoint loads in the JAX package (same keys, version and
     config text) and JAX's resume_from gives the port's uninterrupted
     run."""
     path = tmp_path / "port.npz"
-    _port_checkpoint(path)
+    path.write_bytes(_port_checkpoint_bytes())
     with np.load(path) as z:
         assert sorted(z.files) == sorted(
             ["key_data", "x", "decided", "k", "killed", "faulty",
              "crash_round", "recover_round", "next_round", "version",
              "config_json"])
         assert int(z["version"]) == 2
-    jr, jfinal = ref(_jax_from_port_checkpoint, path.read_bytes())
+    jr, jfinal = ref(_jax_from_port_checkpoint, _port_checkpoint_bytes())
     want_r, want = _uninterrupted()
     assert jr == want_r
     for k in FIELDS:

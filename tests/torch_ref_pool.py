@@ -32,8 +32,11 @@ from concurrent.futures.process import BrokenProcessPool
 
 import torch
 
-# a whole-run comparison's compile keeps two to three cores busy
-WORKERS = max(1, min(3, (len(os.sched_getaffinity(0)) - 1) // 2))
+# a whole-run comparison's compile keeps about two cores busy, and the test
+# process mostly waits for the workers' results: one worker more than the
+# cores make pairs (measured on eight cores: 3 workers 312-319 s of port
+# test durations, 4 workers 266-290 s, 5 workers 250 s)
+WORKERS = max(1, min(5, len(os.sched_getaffinity(0)) // 2 + 1))
 RESULT_TIMEOUT_S = 900
 
 _pool: ProcessPoolExecutor | None = None
