@@ -28,20 +28,31 @@ exit codes):
   replay  PATH                                        re-run an atlas_repro
                                                       document; exit 2 on a
                                                       mismatch
+  profile [--regimes traced,...] [--profile-out m.json] the regimes' stages,
+          [--kernels [--telemetry-out t.jsonl]]       footprint and device
+          [--baseline B --update-baseline]            profile (perfscope),
+          [--trace-dir DIR]                           or the round kernels'
+                                                      stage counters
+                                                      (kernelscope), gated
+                                                      against PERF_ /
+                                                      KERNEL_BASELINE.json;
+                                                      exit 2 on regression
 
 Observability: ``--record`` (sweep) fills the flight recorder;
-``--metrics-out PATH`` (sweep, coins, trace, audit) writes the metrics
-registry on exit (JSON-lines, or the Prometheus textfile format with a
-.prom extension).
+``--metrics-out PATH`` (sweep, coins, trace, audit, profile) writes the
+metrics registry on exit (JSON-lines, or the Prometheus textfile format
+with a .prom extension); sweep ``--batched --trace-out t.json`` writes the
+buckets' span trees as a Chrome-trace/Perfetto file and ``--batched
+--manifest-out m.json`` the sweep manifest (sweepscope).
 
 Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device and no ``--device cpu`` it fails (exit 1)
 instead of moving to the CPU.  ``demo --backend express|native`` runs the
 event-loop oracles, host programs that need no device.  Not ported:
-``lint``, ``profile``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A
-item 16), ``scale`` (item 15), and the ``--trace-out`` (sweep),
-``--manifest-out``, ``--heartbeat-rounds`` and ``--heartbeat-out`` flags
-(item 16): each raises ``NotImplementedError`` naming its item.
+``lint``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A item 16),
+``scale`` and ``profile --regimes sharded`` (item 15), and the
+``--heartbeat-rounds`` and ``--heartbeat-out`` flags (item 16): each
+raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -59,29 +70,32 @@ from .config import unported
 #: Subcommands of the JAX CLI that wait for a later Queue A item.
 UNPORTED_COMMANDS = {
     "lint": ("the `lint` subcommand (benorlint)", "16"),
-    "profile": ("the `profile` subcommand (perfscope, kernelscope)", "16"),
     "scale": ("the `scale` subcommand (mesh scaling ladders)", "15"),
     "serve": ("the `serve` subcommand (the request plane)", "16"),
     "load": ("the `load` subcommand (the request plane's load test)", "16"),
     "watch": ("the `watch` subcommand (the progress tail)", "16"),
 }
 
-#: Flags of the JAX CLI that wait for the observatory planes (item 16):
+#: Flags of the JAX CLI that wait for the service plane (item 16):
 #: argument name -> what it would arm.
 UNPORTED_FLAGS = {
-    "manifest_out": "--manifest-out (the sweep manifest)",
     "heartbeat_rounds": "--heartbeat-rounds (the progress heartbeat)",
     "heartbeat_out": "--heartbeat-out (the progress heartbeat)",
 }
 
 
 def _refuse_unported(args) -> None:
-    """Raise for an unported flag, before any device is touched."""
+    """Raise for an unported flag or regime, before any device is
+    touched."""
     for name, what in UNPORTED_FLAGS.items():
         if getattr(args, name, None):
             unported(what, "16")
-    if args.cmd == "sweep" and args.trace_out:
-        unported("sweep --trace-out (the sweep's bucket spans)", "16")
+    if args.cmd == "profile" and args.regimes and not args.kernels:
+        from .perfscope.regimes import UNPORTED_REGIMES
+        for name in args.regimes.split(","):
+            if name in UNPORTED_REGIMES:
+                unported(f"profile --regimes {name} (a mesh run)",
+                         UNPORTED_REGIMES[name])
 
 
 def _demo(args) -> int:
@@ -170,9 +184,10 @@ def _sweep(args) -> int:
                     fault_model=args.fault_model, seed=args.seed,
                     record=args.record, **flags)
     if not args.batched and (args.journal or args.resume
+                             or args.trace_out or args.manifest_out
                              or args.pipeline):
-        # the journal instruments the BUCKET lifecycle; the per-point
-        # path has no buckets — a silent no-op would fake durability
+        # sweepscope instruments the BUCKET lifecycle; the per-point path
+        # has no buckets — a silent no-op would fake durability or tracing
         print("warning: --journal/--resume/--trace-out/--manifest-out/"
               "--pipeline instrument the batched engine's buckets; "
               "add --batched", file=sys.stderr)
@@ -180,6 +195,9 @@ def _sweep(args) -> int:
         print("sweep: --resume requires --journal (the journal is the "
               "resume substrate)", file=sys.stderr)
         return 1
+    if args.trace_out and args.batched:
+        from .utils.metrics import SPANS
+        SPANS.enable()
     journal_kw = dict(journal_path=args.journal, resume=args.resume,
                       pipeline=args.pipeline, device=args.device)
     mode = "balanced/no-crash" if args.balanced else "iid/crash"
@@ -240,6 +258,23 @@ def _sweep(args) -> int:
         points = rounds_vs_f(cfg, f_values, device=args.device)
     from .utils.metrics import REGISTRY
     REGISTRY.timer("cli.sweep").record(time.perf_counter() - t0)
+    if args.batched and args.manifest_out:
+        from .sweepscope import build_sweep_manifest, save_sweep_manifest
+        try:
+            save_sweep_manifest(args.manifest_out,
+                                build_sweep_manifest(cb, cfg,
+                                                     device=args.device))
+            print(f"wrote sweep manifest to {args.manifest_out}",
+                  file=sys.stderr)
+        except ValueError as e:
+            # a resumed curve's stage clocks price the original run —
+            # build_sweep_manifest refuses; say so instead of writing a lie
+            print(f"sweep: no manifest written: {e}", file=sys.stderr)
+    if args.batched and args.trace_out:
+        from .utils.metrics import export_chrome_trace
+        n_ev = export_chrome_trace(args.trace_out, spans=True)
+        print(f"wrote {n_ev} trace events to {args.trace_out} "
+              f"(open in ui.perfetto.dev)", file=sys.stderr)
     if args.record:
         from .utils.metrics import round_history_summary
         for pt in points:
@@ -523,6 +558,255 @@ def _replay(args) -> int:
     return 0 if res["ok"] else 2
 
 
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+#: The committed baselines ``profile`` reads by default and never writes:
+#: they are the JAX package's captures.
+COMMITTED_BASELINES = ("PERF_BASELINE.json", "KERNEL_BASELINE.json",
+                       "SWEEP_BASELINE.json")
+
+
+def _baseline_target(args):
+    """``--update-baseline``'s file: an explicit ``--baseline PATH`` that
+    is none of the committed baselines, or None (refused, said why)."""
+    committed = {os.path.realpath(os.path.join(_repo_root(), name))
+                 for name in COMMITTED_BASELINES}
+    if not args.baseline or os.path.realpath(args.baseline) in committed:
+        where = (f"onto {args.baseline}" if args.baseline
+                 else "without --baseline PATH")
+        print(f"profile: refusing --update-baseline {where}: the "
+              f"committed {', '.join(COMMITTED_BASELINES)} are the JAX "
+              f"package's captures and are never written; name another "
+              f"file with --baseline", file=sys.stderr)
+        return None
+    return args.baseline
+
+
+def _profile_kernels(args) -> int:
+    """kernelscope capture (``profile --kernels``): arm the stage counters
+    on both packed dispatches (the fused kernel, the two-kernel pair),
+    report them per stage and per tile with the traffic model's predicted
+    bytes (and, on the card, the kernels' device time against their
+    bound), emit the ``kind: kernel_manifest`` document and gate it
+    against KERNEL_BASELINE.json: exit 2 on a regression, 0 otherwise (an
+    incomparable baseline is reported and skipped)."""
+    from .kernelscope import (IncomparableKernels, capture_kernels,
+                              compare_kernels, load_kernel_manifest,
+                              save_kernel_manifest)
+
+    target = None
+    if args.update_baseline:
+        target = _baseline_target(args)
+        if target is None:
+            return 1
+    manifest = capture_kernels(n_nodes=args.n, trials=args.trials,
+                               max_rounds=args.max_rounds, seed=args.seed,
+                               telemetry_path=args.telemetry_out,
+                               device=args.device)
+    if args.format == "json":
+        print(json.dumps(manifest, indent=1))
+    else:
+        sc = manifest["scale"]
+        mode = "plain versions" if manifest["interpret"] else "kernels"
+        print(f"kernelscope: {manifest['platform']} "
+              f"({manifest['device_kind']}, {mode}), scale "
+              f"N={sc['n_nodes']} T={sc['trials']} "
+              f"R<={sc['max_rounds']} seed={sc['seed']}")
+        for name, rep in manifest["kernels"].items():
+            pred = rep["predicted_bytes_per_round"]
+            print(f"  {name} [{rep['dispatch']}/{rep['counts_mode']}]: "
+                  f"rounds={rep['rounds_executed']} "
+                  f"pad_waste={rep['pad_waste_frac']} "
+                  f"hops/round={rep['plane_hops_per_round']} "
+                  f"predicted={pred['total']}B/round "
+                  f"bit_equal={rep['bit_equal_off_on']}")
+            for stage, blk in rep["stages"].items():
+                print(f"    {stage}: {blk['counters']}")
+            dv = rep.get("device")
+            if dv:
+                # the bound is None on a card off the peak table
+                print(f"    device: {dv['device_ms_per_round']:.4f} ms a "
+                      f"round {dv['launches']}, predicted "
+                      f"{dv['predicted_kernel_bytes_per_round']} B and "
+                      f"{dv['predicted_ops_per_round']:.4g} ops a round, "
+                      f"bound {dv['bound_ms_per_round']} ms "
+                      f"({dv['bound_by']}), share {dv['bound_share']}")
+        fvx = manifest.get("fused_vs_xla")
+        if fvx:
+            print(f"  fused_vs_xla: stage shares "
+                  f"{fvx['stage_attribution']}, "
+                  f"bit_equal={fvx['bit_equal']}")
+    if args.profile_out:
+        save_kernel_manifest(args.profile_out, manifest)
+        print(f"wrote kernel manifest to {args.profile_out}",
+              file=sys.stderr)
+    _export_metrics(args.metrics_out)
+
+    if target is not None:
+        save_kernel_manifest(target, manifest)
+        print(f"re-baselined {target}", file=sys.stderr)
+        return 0
+    baseline_path = args.baseline or os.path.join(_repo_root(),
+                                                  "KERNEL_BASELINE.json")
+    if not os.path.exists(baseline_path):
+        print(f"no baseline at {baseline_path} — capture-only run",
+              file=sys.stderr)
+        return 0
+    try:
+        findings = compare_kernels(manifest,
+                                   load_kernel_manifest(baseline_path))
+    except (IncomparableKernels, ValueError) as e:
+        print(f"baseline {baseline_path} not comparable: {e}",
+              file=sys.stderr)
+        return 0
+    for f in findings:
+        print(f"REGRESSION [{f.kind}]: {f.message}", file=sys.stderr)
+    if findings:
+        return 2
+    print(f"kernel gate: in-band vs {baseline_path}", file=sys.stderr)
+    return 0
+
+
+def _profile(args) -> int:
+    """The performance observatory (perfscope): each ported regime's
+    stages (the kernel library's build and load, the first and steady
+    executions), memory footprint and, on the card, one profiler pass
+    (device busy share, kernel launches, top device entries), and the
+    packed loop against the unfused one.  Emits the manifest
+    (``--profile-out`` / ``--format json``), optionally inside a
+    ``torch.profiler`` trace (``--trace-dir``, with the metrics
+    registry's tracks beside it), and gates it against a baseline: exit 2
+    on an out-of-band metric, 0 otherwise."""
+    if args.kernels:
+        return _profile_kernels(args)
+    from .perfscope import (IncomparableManifests, build_manifest,
+                            capture_all, compare_manifests, load_manifest,
+                            missing_regimes, save_manifest)
+    from .perfscope.regimes import (PORTED_REGIMES, REGIME_NAMES,
+                                    UNPORTED_REGIMES, capture_fused_vs_xla,
+                                    default_profile_scale)
+
+    scale = default_profile_scale(args.device)
+    for k, v in (("n_nodes", args.n), ("trials", args.trials),
+                 ("max_rounds", args.max_rounds)):
+        if v is not None:
+            scale[k] = v
+    scale["seed"] = args.seed
+    regimes = args.regimes.split(",") if args.regimes else None
+    if regimes:
+        unknown = sorted(set(regimes) - set(REGIME_NAMES))
+        if unknown:
+            print(f"unknown regimes {unknown}; choose from "
+                  f"{list(REGIME_NAMES)}", file=sys.stderr)
+            return 1
+    target = None
+    if args.update_baseline:
+        target = _baseline_target(args)
+        if target is None:
+            return 1
+
+    import contextlib
+    trace_cm = contextlib.nullcontext()
+    if args.trace_dir:
+        from .utils.tracing import profile_trace
+        trace_cm = profile_trace(args.trace_dir)
+    # under --trace-dir the one profiler records the whole capture; the
+    # per-regime passes (a profiler inside a profiler) are left out
+    kw = dict(steady_reps=args.steady_reps, device=args.device,
+              profile=not args.trace_dir, **scale)
+    with trace_cm as trace_path:
+        reports = capture_all(regimes=regimes, **kw)
+        fvx = None
+        if regimes is None:
+            # the paired measurement rides every full capture; a subset
+            # records an explicit null
+            fvx = capture_fused_vs_xla(**kw)
+    manifest = build_manifest(reports, scale, fused_vs_xla=fvx,
+                              device=args.device)
+    if args.trace_dir:
+        from .utils import metrics
+        counters = os.path.join(args.trace_dir,
+                                "perfscope_counters.trace.json")
+        n_ev = metrics.export_chrome_trace(counters)
+        print(f"torch.profiler trace in {trace_path} "
+              f"(+{n_ev} counter events in {counters})", file=sys.stderr)
+
+    if args.format == "json":
+        print(json.dumps(manifest, indent=1))
+    else:
+        print(f"perfscope: {manifest['platform']} "
+              f"({manifest['device_kind']}), scale "
+              f"N={scale['n_nodes']} T={scale['trials']} "
+              f"R<={scale['max_rounds']} seed={scale['seed']}")
+        for r in reports:
+            peak = ("n/a" if r.peak_bytes is None
+                    else f"{r.peak_bytes / 2 ** 20:.1f} MiB")
+            prof = ""
+            if r.device_busy_share is not None:
+                prof = (f" | busy {r.device_busy_share:.4f} "
+                        f"launches {r.kernel_launches} top "
+                        f"{[e[0] for e in r.top_device[:3]]}")
+            print(f"  {r.regime}: build {r.compile_s * 1e3:.0f}ms "
+                  f"({r.backend_compiles} library event(s)) "
+                  f"first {r.first_execute_s * 1e3:.0f}ms "
+                  f"steady {r.steady_execute_s * 1e3:.1f}ms | "
+                  f"rounds={r.rounds_executed} peak={peak}{prof}")
+        for name, item in UNPORTED_REGIMES.items():
+            print(f"  {name}: not ported (ROADMAP Queue A item {item})")
+        if fvx:
+            print(f"  fused_vs_xla: bit_equal={fvx['bit_equal']} "
+                  f"speedup={fvx['speedup']} ({fvx['counts_mode']}, "
+                  f"one_pass={fvx['one_pass']}, against "
+                  f"{fvx['baseline_path']}"
+                  f"{', plain versions' if fvx['interpret_mode'] else ''})"
+                  f" packed_traffic_ratio={fvx['packed_traffic_ratio']}")
+    if args.profile_out:
+        save_manifest(args.profile_out, manifest)
+        print(f"wrote perf manifest to {args.profile_out}",
+              file=sys.stderr)
+    _export_metrics(args.metrics_out)
+
+    missing = missing_regimes(manifest)
+    if target is not None:
+        if missing:
+            # a partial baseline would make every later gate pass
+            # vacuously: compare_manifests only walks baseline regimes
+            print(f"refusing to write a partial baseline (missing "
+                  f"{missing}) — a baseline must cover all of "
+                  f"{list(PORTED_REGIMES)}", file=sys.stderr)
+            return 1
+        save_manifest(target, manifest)
+        print(f"re-baselined {target}", file=sys.stderr)
+        return 0
+    baseline_path = args.baseline or os.path.join(_repo_root(),
+                                                  "PERF_BASELINE.json")
+    if not os.path.exists(baseline_path):
+        print(f"no baseline at {baseline_path} — capture-only run",
+              file=sys.stderr)
+        return 0
+    if regimes and missing:
+        print(f"partial capture ({sorted(set(regimes))}) — baseline gate "
+              f"skipped (a full manifest covers {list(PORTED_REGIMES)})",
+              file=sys.stderr)
+        return 0
+    try:
+        regressions = compare_manifests(manifest,
+                                        load_manifest(baseline_path),
+                                        timing_band=args.timing_band)
+    except (IncomparableManifests, ValueError) as e:
+        print(f"baseline {baseline_path} not comparable: {e}",
+              file=sys.stderr)
+        return 0
+    for reg in regressions:
+        print(f"REGRESSION: {reg.message}", file=sys.stderr)
+    if regressions:
+        return 2
+    print(f"perf gate: in-band vs {baseline_path}", file=sys.stderr)
+    return 0
+
+
 def _preset(args) -> int:
     from .sweep import baseline_configs, run_point
     cfgs = baseline_configs()
@@ -588,9 +872,14 @@ def _parser() -> argparse.ArgumentParser:
                         "fingerprint matches a journal record and "
                         "reassemble its points from disk")
     s.add_argument("--trace-out", metavar="PATH",
-                   help="not ported (ROADMAP Queue A item 16)")
+                   help="with --batched: write each bucket's span tree "
+                        "(prepare / compile / execute / fetch, flow "
+                        "links to its points) as a Chrome-trace/Perfetto "
+                        "file")
     s.add_argument("--manifest-out", metavar="PATH",
-                   help="not ported (ROADMAP Queue A item 16)")
+                   help="with --batched: write the sweep manifest "
+                        "(per-bucket stage clocks, the pipeline model, "
+                        "the telescoping check)")
     _add_device_arg(s)
 
     c = sub.add_parser("coins", help="private vs common coin, adversarial")
@@ -749,6 +1038,58 @@ def _parser() -> argparse.ArgumentParser:
     _add_obs_args(at, record=False)
     _add_device_arg(at)
 
+    pf = sub.add_parser(
+        "profile",
+        help="the performance observatory: each ported regime's stages, "
+             "footprint and device profile (perfscope), or with "
+             "--kernels the round kernels' stage counters (kernelscope), "
+             "gated against the committed baseline; exit 2 on regression")
+    pf.add_argument("--n", type=int, default=None,
+                    help="nodes (default: the profile scale — 256 on "
+                         "the CPU, 1,000,000 on the card; --kernels: 256)")
+    pf.add_argument("--trials", type=int, default=None)
+    pf.add_argument("--max-rounds", type=int, default=None)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--regimes", default=None,
+                    help="comma-separated subset of traced,fused_pallas,"
+                         "sliced,batched_sweep (default: all four; "
+                         "sharded is item 15; a subset skips the "
+                         "baseline gate)")
+    pf.add_argument("--steady-reps", type=int, default=2,
+                    help="executions after the first averaged into the "
+                         "steady timing (default 2)")
+    pf.add_argument("--format", choices=("text", "json"), default="text",
+                    help="stdout format; json = the manifest")
+    pf.add_argument("--profile-out", metavar="PATH",
+                    help="write the manifest to this JSON file")
+    pf.add_argument("--baseline", metavar="PATH", default=None,
+                    help="baseline manifest to gate against (default: "
+                         "the committed PERF_BASELINE.json, or "
+                         "KERNEL_BASELINE.json with --kernels)")
+    pf.add_argument("--update-baseline", action="store_true",
+                    help="write this capture to --baseline PATH instead "
+                         "of gating against it (never to a committed "
+                         "baseline)")
+    pf.add_argument("--timing-band", type=float, default=None,
+                    help="also gate the machine-sensitive stage timings "
+                         "at this ratio band (off by default)")
+    pf.add_argument("--trace-dir", metavar="DIR", default=None,
+                    help="wrap the capture in a torch.profiler trace "
+                         "(TensorBoard / Perfetto) and export the metrics "
+                         "registry's tracks beside it")
+    pf.add_argument("--kernels", action="store_true",
+                    help="kernelscope capture instead of the regimes: "
+                         "the stage counters of both packed dispatches, "
+                         "the traffic model and, on the card, the "
+                         "kernels' time against their bound -> "
+                         "kind:kernel_manifest, gated against "
+                         "KERNEL_BASELINE.json (exit 2 on regression)")
+    pf.add_argument("--telemetry-out", metavar="PATH", default=None,
+                    help="with --kernels: append kind:kernel_telemetry "
+                         "JSON-lines records here")
+    _add_obs_args(pf, record=False)
+    _add_device_arg(pf)
+
     rp = sub.add_parser(
         "replay",
         help="re-execute a kind:atlas_repro document bit-identically "
@@ -783,8 +1124,8 @@ def main(argv=None) -> int:
     # bare `python -m benor_tpu_torch [-n N -f F ...]` == the start.ts demo
     if not argv or argv[0] not in ("demo", "sweep", "coins", "preset",
                                    "results", "trace", "audit", "atlas",
-                                   "replay", *UNPORTED_COMMANDS, "-h",
-                                   "--help"):
+                                   "replay", "profile", *UNPORTED_COMMANDS,
+                                   "-h", "--help"):
         argv = ["demo"] + argv
     if argv[0] in UNPORTED_COMMANDS:
         unported(*UNPORTED_COMMANDS[argv[0]])
@@ -800,8 +1141,8 @@ def main(argv=None) -> int:
             return 1
     return {"demo": _demo, "sweep": _sweep, "coins": _coins,
             "preset": _preset, "results": _results, "trace": _trace,
-            "audit": _audit, "atlas": _atlas,
-            "replay": _replay}[args.cmd](args)
+            "audit": _audit, "atlas": _atlas, "replay": _replay,
+            "profile": _profile}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -31,11 +31,13 @@ and loads that leg made (``ops/_build.library_events``): 0 on the CPU and
 in a process that has loaded it already.  ``compile_s`` is that leg's
 time.
 
-The sweep journal (sweepscope/journal.py) and the build-ahead scheduler
-(sweep_async.py) are the JAX package's; ``mesh`` raises (ROADMAP Queue A
-item 15), and so does ``base_cfg.heartbeat_rounds`` > 0 (item 16), whose
-heartbeat and per-bucket spans wait for the observatory planes.  Entry
-points run on CUDA unless the caller passes ``device="cpu"``.
+The sweep journal (sweepscope/journal.py), the per-bucket spans
+(sweepscope/spans.py, emitted where ``utils.metrics.SPANS`` is enabled)
+and the build-ahead scheduler (sweep_async.py) are the JAX package's;
+``mesh`` raises (ROADMAP Queue A item 15), and so does
+``base_cfg.heartbeat_rounds`` > 0 (item 16), whose heartbeat waits for
+the service plane.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -434,6 +436,7 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
     from .sweepscope import gate as sweep_gate
     from .sweepscope.journal import (SweepJournal, bucket_fingerprint,
                                      deserialize_point, serialize_point)
+    from .sweepscope.spans import emit_bucket_spans
 
     t_wall0 = time.perf_counter()
     T, N = base_cfg.trials, base_cfg.n_nodes
@@ -497,7 +500,9 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
             if resume:
                 rec = journal.match(b["fp"], b["idx"])
         if rec is not None:
-            return {"bi": bi, "key": key, "b": b, "rec": rec}
+            return {"bi": bi, "key": key, "b": b, "rec": rec,
+                    "t_prep0": t_prep0,
+                    "restore_s": time.perf_counter() - t_prep0}
         faults = [fl.to(dev) for fl in faults]
         if key[0] == "dyn":
             states = [init_state(c, initial_values, fl)
@@ -515,7 +520,7 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
                                       for c in b["cfgs"]):
             _build.load_library()
         return {"bi": bi, "key": key, "b": b, "rec": None, "rep": rep,
-                "args": args, "prepare_s": prepare_s,
+                "args": args, "t_prep0": t_prep0, "prepare_s": prepare_s,
                 "compile_s": time.perf_counter() - t0,
                 "compiles": _build.library_events - events0}
 
@@ -542,6 +547,10 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
             bucket_compiles.append(0)
             bucket_reused.append(True)
             journal.reused += 1
+            emit_bucket_spans(bi, key[0], b["idx"], b["cfgs"],
+                              {"restore": (plan["t_prep0"],
+                                           plan["restore_s"])},
+                              reused=True)
         else:
             rep = plan["rep"]
             t0 = time.perf_counter()
@@ -572,6 +581,14 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
             stage_fetch.append(bucket_fetch_s)
             bucket_compiles.append(plan["compiles"])
             bucket_reused.append(False)
+            t_prep0, prepare_s = plan["t_prep0"], plan["prepare_s"]
+            t_exec0 = t_prep0 + prepare_s + plan["compile_s"]
+            emit_bucket_spans(
+                bi, key[0], b["idx"], b["cfgs"],
+                {"prepare": (t_prep0, prepare_s),
+                 "compile": (t_prep0 + prepare_s, plan["compile_s"]),
+                 "execute": (t_exec0, bucket_run_s),
+                 "fetch": (t_exec0 + bucket_run_s, bucket_fetch_s)})
             if journal is not None:
                 journal.record_bucket(
                     bi, key[0], b["idx"], b["fp"], plan["compiles"],

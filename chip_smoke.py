@@ -191,7 +191,17 @@ Phases (any failure ends the run non-zero; nothing is caught):
      /getRoundHistory cursor walking every round, POST /message answering
      405, the fused kernel's launches counted; ``trace --device cuda``
      with ``--metrics-out`` (JSON-lines and Prometheus);
- 17. the kernels line, the card line, and the result line.
+ 17. ``[profile]``: the performance observatory.  ``profile --device
+     cuda`` at N = 1M x 32 x 16 in process (each regime's build, first and
+     steady execution, peak memory, device busy share, the port's kernel
+     launches and top device entries; the packed loop bit-equal to the
+     unfused one and its speedup); ``profile --kernels`` at the capture
+     scale, every stage counter equal to the CPU capture's, then at
+     N = 8192 x 32 and 1M x 32 (lanes a stage = T x Np x rounds, telemetry
+     off == on, each dispatch's device ms a round against its bound); the
+     sweep manifest at 9000 x 4 pipelined, card against CPU, telescoping
+     in band, one span tree a bucket;
+ 18. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -199,10 +209,17 @@ It imports nothing of JAX and nothing of the JAX package, and needs one card.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
+
+# The bound: the card's peaks and the operations the functions need on a
+# run's inputs (benor_tpu_torch/perfscope/roofline.py says how each is
+# counted).
+from benor_tpu_torch.perfscope.roofline import (
+    F32_OPS_PER_S, HBM_BYTES_PER_S, OPS_CF_PAIR_LANE, OPS_CF_SAMPLE,
+    OPS_CF_TERMS, OPS_CF_TRIAL, OPS_READ_PLANES, OPS_THREEFRY, OPS_UNIFORM,
+    ops_needed, ops_quantiles)
 
 N_MAIN = 1_000_000
 N_FUSED = 8192
@@ -235,94 +252,9 @@ MAIN_RUN = dict(trials=TRIALS, max_rounds=MAX_ROUNDS, delivery="quorum",
                 scheduler="uniform", path="histogram", fault_model="crash",
                 seed=SEED, use_pallas_hist=True, use_pallas_round=True)
 
-# The bound: peaks of one H100 SXM (NVIDIA's data sheet, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12     # non-tensor f32; every op below is charged at it
-# Operations the functions need on this run's inputs, counted from
-# csrc/stream.cuh and csrc/*_kernels.cu (an IEEE divide, square root or
-# log counts as one):
-#  - threefry-2x32-20 = 2 + 20 x (add, shl, shr, or, xor) + 5 x 3 key adds;
-#    bits_to_uniform = 5;
-#  - the normal quantile (ndtri_clipped) by the branch its uniform takes:
-#    q = p - 0.5, |q|, the compare (3), then central (|q| <= 0.425: r_c,
-#    num_c and den_c by Horner, q * num_c, the divide: 16) or middle tail
-#    (1 - p, min, log, negate, sqrt, r_m, num_m and den_m by Horner, the
-#    sign, the divide: 19).  bits_to_uniform clips u to [1e-7, 1 - 1e-7],
-#    which keeps r_t <= 4.02, so AS241's far tail (r_t > 5) is never needed;
-#  - a CF draw's population and quorum terms (cf_pop, and cf_terms of the
-#    first draw of a pair) once a trial: 55 for a pair.  A lane then needs
-#    10 + its quantile for each draw (cf_sample); the terms of a sample
-#    size that is the lane's own (the second draw of a pair: max(m - p0,
-#    0); equivocate's rem and rem - h0), 23 (cf_terms), once for each
-#    distinct (trial, sample size) that this run's lanes draw;
-#  - a round kernel reads 5 planes a lane (x0, x1, decided, killed,
-#    faulty: shift and mask, 2 each); the vote sets 4 new bits a lane and
-#    rebuilds each k plane of a word with 2 word operations; the rest of a
-#    lane's logic, ballots and counts is 15 (proposal) or 31 (vote);
-#  - the round kernels need a CF pair only for the lanes that read it (see
-#    lane_needs), the coin only for lanes that coin; the dense tally does
-#    three integer adds an edge (one per class).
-OPS_THREEFRY = 117
-OPS_UNIFORM = 5
-OPS_NDTRI_CENTRAL = 3 + 16
-OPS_NDTRI_TAIL = 3 + 19
-OPS_CF_SAMPLE = 10
-OPS_CF_TERMS = 23
-# a pair's lane work without its quantiles and its sample-size terms
-OPS_CF_PAIR_LANE = OPS_THREEFRY + 2 * OPS_UNIFORM + 2 * OPS_CF_SAMPLE
-OPS_CF_TRIAL = 55
-OPS_READ_PLANES = 5 * 2
 # Sample sizes a block of cf_counts / equiv_counts tabulates its per-lane
 # terms over (csrc/hist_kernels.cu kCfWindow, kEquivWindow).
 CF_WINDOW, EQUIV_WINDOW = 2048, 1024
-
-
-def ops_quantiles(n: int, tails: int) -> int:
-    """Operations of ``n`` normal quantiles, ``tails`` of them in the
-    middle tail."""
-    return (n - tails) * OPS_NDTRI_CENTRAL + tails * OPS_NDTRI_TAIL
-
-
-def ops_needed(kernel: str, lanes: int, trials: int = 0, words: int = 0,
-               k_planes: int = 0, draws: int = 0, tails: int = 0,
-               coins: int = 0, sizes: int = 0) -> int:
-    """Operations the function needs on this run's inputs: ``lanes`` lanes
-    (for the dense tally: edges) in ``words`` plane words with ``k_planes``
-    k planes, ``trials`` trials; for the round kernels ``draws`` lanes
-    drawing a CF pair (two quantiles each, ``tails`` of them in the tail)
-    and ``coins`` lanes drawing a coin; for cf_counts and equiv_counts
-    ``tails`` of the lanes' 2 or 4 quantiles in the tail; ``sizes``
-    distinct (trial, sample size) pairs of the draws whose sample size is
-    the lane's own."""
-    prop = OPS_READ_PLANES + 15
-    vote = OPS_READ_PLANES + 4 + 31
-    if kernel in ("proposal_hist", "vote_commit", "fused_round"):
-        base = {"proposal_hist": prop, "vote_commit": vote,
-                "fused_round": prop + vote}[kernel]
-        k_ops = 0 if kernel == "proposal_hist" else words * 2 * k_planes
-        n_phases = 2 if kernel == "fused_round" else 1
-        return (lanes * base + k_ops + draws * OPS_CF_PAIR_LANE
-                + sizes * OPS_CF_TERMS + ops_quantiles(2 * draws, tails)
-                + coins * (OPS_THREEFRY + 1)
-                + n_phases * trials * OPS_CF_TRIAL)
-    return {
-        # the pair, hq = max(m - h0 - h1, 0), three casts
-        "cf_counts": lanes * (OPS_CF_PAIR_LANE + 6) + sizes * OPS_CF_TERMS
-        + ops_quantiles(2 * lanes, tails) + trials * OPS_CF_TRIAL,
-        # one block, the bit, the cast
-        "coin_flips": lanes * (OPS_THREEFRY + 2),
-        # one block, the bit, the deviation uniform, compare and select
-        "weak_coin_flips": lanes * (OPS_THREEFRY + 2 + OPS_UNIFORM + 2),
-        # two blocks, four uniforms, the samples of h_b, h0 and h1, the
-        # binomial split's ~8 ops and its quantile, ~8 sums and clamps;
-        # four quantiles; the terms of h0's and h1's sample sizes; the
-        # trial terms of h_b and of h0's and h1's populations
-        "equiv_counts": lanes * (2 * OPS_THREEFRY + 4 * OPS_UNIFORM
-                                 + 3 * OPS_CF_SAMPLE + 16)
-        + sizes * OPS_CF_TERMS + ops_quantiles(4 * lanes, tails)
-        + trials * 80,
-        "dense_counts": 3 * lanes,
-    }[kernel]
 
 
 def ops_per_lane_whole(kernel: str, planes: int = 0) -> int:
@@ -1166,43 +1098,20 @@ def breakdown(tag, name, run, t_run, ours, torch_ops=False):
     time, the share of the named kernels, and the top device entries;
     with ``torch_ops``, also the torch ops whose kernels took the most
     device time (a path of plain torch, where the kernels' names say
-    little)."""
-    import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
+    little).  The pass is perfscope's (``profile_pass``)."""
+    from benor_tpu_torch.perfscope.capture import profile_pass
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only (an aten op's entry repeats its kernels' time)
-    evs = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and dev_us(e) > 0), key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in evs) / 1e3
-    top = ", ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in evs[:8])
-    # a port kernel's entry: its name, its template arguments if any
-    port = re.compile(r"(\w+_kernel)(<[^>]*>)?\(")
-
-    def ours_(e):
-        m = port.search(e.key)
-        return m if m and any(k in m.group(1) for k in ours) else None
-
-    ours_ms = sum(dev_us(e) for e in evs if ours_(e)) / 1e3
-    per = ", ".join(f"{''.join(g for g in ours_(e).groups() if g)} "
-                    f"{dev_us(e) / e.count / 1e3:.4f} ms a launch x{e.count}"
-                    for e in evs if ours_(e))
+    prof = profile_pass(run, ours=ours, torch_ops=torch_ops)
+    busy_ms = prof["busy_us"] / 1e3
+    top = ", ".join(f"{k[:60]} {us / 1e3:.3f} ms x{c}"
+                    for k, us, c in prof["device"][:8])
+    ours_ms = sum(us for _, us, _ in prof["ours"]) / 1e3
+    per = ", ".join(f"{k} {us / c / 1e3:.4f} ms a launch x{c}"
+                    for k, us, c in prof["ours"])
     if torch_ops:
-        ops = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CPU
-                      and e.key.startswith("aten::") and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
         top += "; top torch ops by their kernels' device time: " + ", ".join(
-            f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in ops[:10])
+            f"{k} {us / 1e3:.3f} ms x{c}" for k, us, c in
+            prof["torch_ops"][:10])
     print(f"[breakdown] {tag} {name}: profiled run_consensus: device busy "
           f"{busy_ms:.3f} ms (port kernels {ours_ms:.3f} ms: {per}) = "
           f"{busy_ms / 1e3 / t_run:.4f} of the unprofiled run_consensus; "
@@ -1917,7 +1826,10 @@ def main() -> int:
     # --- 16. the event-loop oracles, the HTTP servers, the registry -------
     oracle_phase(dev)
 
-    # --- 17. the kernels line, the card, the result ------------------------
+    # --- 17. the performance observatory ----------------------------------
+    profile_phase(dev)
+
+    # --- 18. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5195,6 +5107,182 @@ def oracle_phase(dev) -> None:
         raise SystemExit("[oracle] the metrics exports failed a check")
     print(f"[oracle] fused_round launches in the phase: {total_fused}")
     print(f"[oracle] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [profile] phase: the performance observatory -----------------------
+
+# the kernel captures' scales beyond CAPTURE_SCALE: the one-pass cap and
+# the main path's width
+PROFILE_KERNEL_SCALES = ((8192, 32), (N_MAIN, 32))
+
+
+def profile_phase(dev) -> None:
+    """Phase 17: perfscope, kernelscope and the sweep manifest on the card.
+    (1) ``profile --device cuda`` at 1M x 32 x 16 in process: each
+    regime's first and steady execution, peak MiB, busy share, the port's
+    kernel launches and top device entries; ``fused_vs_xla`` bit-equal,
+    its speedup; (2) ``profile --kernels --device cuda`` at CAPTURE_SCALE,
+    every counter and per-tile row equal to the CPU capture's; then the
+    capture at 8192 x 32 (the one-pass cap) and 1M x 32: active + pad lanes
+    = T x Np x rounds a stage, telemetry off == on, each dispatch's device
+    ms a round, predicted bytes and ops and share of the bound; (3) the
+    sweep manifest at 9000 x 4 (pipelined): buckets, points and science
+    equal to the CPU capture's, the stage clocks telescoping within the
+    gate's bands on both, one bucket span with its four stages a bucket.
+    The kernels' launches are read around the phase."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from benor_tpu_torch.__main__ import main as cli
+    from benor_tpu_torch.kernelscope import capture_kernels
+    from benor_tpu_torch.kernelscope.capture import CAPTURE_SCALE
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sweepscope import capture_sweep_manifest
+    from benor_tpu_torch.sweepscope import gate as sgate
+    from benor_tpu_torch.utils.metrics import SPANS
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    dk.reset_launches()
+    hk.reset_launches()
+    pr.reset_launches()
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        return rc, buf.getvalue()
+
+    # (1) perfscope at the card's profile scale
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "perf.json")
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["profile", "--device", "cuda", "--profile-out",
+                         path])
+        t_cli = time.perf_counter() - t0
+        with open(path) as fh:
+            doc = json.load(fh)
+    sc = doc["scale"]
+    print(f"[profile] perfscope N={sc['n_nodes']} T={sc['trials']} "
+          f"R<={sc['max_rounds']}: exit {rc} in {t_cli:.1f} s ({card})")
+    for name, r in doc["regimes"].items():
+        print(f"[profile] {name}: rounds {r['rounds_executed']}, build "
+              f"{r['compile_s']:.4f} s ({r['backend_compiles']} library "
+              f"event(s)), first {r['first_execute_s']:.6f} s, steady "
+              f"{r['steady_execute_s']:.6f} s, peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB, busy "
+              f"{r['device_busy_s']:.6f} s = {r['device_busy_share']:.4f} "
+              f"of steady, launches {r['kernel_launches']}, top "
+              f"{r['top_device'][:3]}")
+    fvx = doc["fused_vs_xla"]
+    print(f"[profile] fused_vs_xla: {fvx['counts_mode']} one_pass "
+          f"{fvx['one_pass']} against {fvx['baseline_path']}: bit_equal "
+          f"{fvx['bit_equal']}, packed {fvx['fused_steady_execute_s']} s, "
+          f"unfused {fvx['xla_steady_execute_s']} s, speedup "
+          f"{fvx['speedup']}")
+    if (rc != 0 or sorted(doc["regimes"]) != sorted(
+            ("traced", "fused_pallas", "sliced", "batched_sweep"))
+            or not fvx["bit_equal"] or fvx["interpret_mode"]
+            or any(r["rounds_executed"] < 1 or r["device_busy_s"] is None
+                   for r in doc["regimes"].values())
+            or not doc["regimes"]["fused_pallas"]["kernel_launches"]):
+        raise SystemExit("[profile] perfscope failed a check")
+
+    # (2) kernelscope: CAPTURE_SCALE card == CPU, then the larger scales
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kernels.json")
+        rc, _ = run_cli(["profile", "--kernels", "--device", "cuda",
+                         "--profile-out", path])
+        with open(path) as fh:
+            card_k = json.load(fh)["kernels"]
+    cpu_k = capture_kernels(device="cpu")["kernels"]
+    same = sorted(card_k) == sorted(cpu_k) and all(
+        card_k[k]["stages"] == cpu_k[k]["stages"]
+        and card_k[k]["rounds_executed"] == cpu_k[k]["rounds_executed"]
+        for k in cpu_k)
+    print(f"[profile] kernelscope N={CAPTURE_SCALE['n_nodes']} "
+          f"T={CAPTURE_SCALE['trials']}: cli exit {rc}, counters and "
+          f"per-tile rows card == cpu {same}")
+    if rc != 0 or not same:
+        raise SystemExit("[profile] kernelscope at CAPTURE_SCALE failed")
+    for n, t in PROFILE_KERNEL_SCALES:
+        t0 = time.perf_counter()
+        man = capture_kernels(n_nodes=n, trials=t, device="cuda")
+        for name, rep in man["kernels"].items():
+            g, r = rep["geometry"], rep["rounds_executed"]
+            lanes = {s: b["counters"]["active_lanes"]
+                     + b["counters"]["pad_lanes"]
+                     for s, b in rep["stages"].items()}
+            dv = rep["device"]
+            print(f"[profile] {name} N={n} T={t} [{rep['dispatch']}]: "
+                  f"rounds {r}, lanes a stage {lanes} (T x Np x rounds "
+                  f"{t * g['np_total'] * r}), off == on "
+                  f"{rep['bit_equal_off_on']}, device "
+                  f"{dv['device_ms_per_round']:.4f} ms a round "
+                  f"{dv['launches']}, predicted "
+                  f"{dv['predicted_kernel_bytes_per_round']} B and "
+                  f"{dv['predicted_ops_per_round']:.0f} ops a round, "
+                  f"{dv['bytes_per_s']:.4g} B/s, {dv['ops_per_s']:.4g} "
+                  f"op/s, bound {dv['bound_ms_per_round']:.4f} ms "
+                  f"({dv['bound_by']}), share {dv['bound_share']:.4f} "
+                  f"({card})")
+            if (not rep["bit_equal_off_on"] or r < 1
+                    or any(v != t * g["np_total"] * r
+                           for v in lanes.values())
+                    or not dv["launches"]):
+                raise SystemExit(f"[profile] {name} at N={n} failed a check")
+        print(f"[profile] kernels N={n} T={t}: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # (3) the sweep manifest, card against the CPU
+    SPANS.clear()
+    SPANS.enable()
+    try:
+        man = {d: capture_sweep_manifest(pipeline=True, device=d)
+               for d in ("cuda", "cpu")}
+        spans = SPANS.snapshot()
+    finally:
+        SPANS.disable()
+        SPANS.clear()
+
+    def shape(m):
+        return [(b["kind"], b["size"], b["point_indices"])
+                for b in m["buckets"]]
+
+    science = {d: [sweep_science(p) for p in cb.points]
+               for d, (_, cb) in man.items()}
+    tel = {d: (m["telescoping"]["coverage"], sgate.telescope_max(m))
+           for d, (m, _) in man.items()}
+    buckets = [sp for sp in spans if sp.name.startswith("sweep.bucket[")]
+    kids = [sum(1 for c in spans if c.parent_id == b.span_id)
+            for b in buckets]
+    m = man["cuda"][0]
+    print(f"[profile] sweep manifest {m['scale']}: buckets "
+          f"{shape(m)} (cpu {shape(man['cpu'][0])}), science card == cpu "
+          f"{science['cuda'] == science['cpu']}, coverage / band max "
+          f"card {tel['cuda']} cpu {tel['cpu']}, wall {m['wall_s']} s, "
+          f"headroom {m['overlap_headroom_s']} s, reclaimed "
+          f"{m['pipeline']['headroom_reclaimed_frac']}, spans "
+          f"{len(buckets)} buckets x {kids} stages")
+    if (shape(m) != shape(man["cpu"][0])
+            or science["cuda"] != science["cpu"]
+            or any(not sgate.TELESCOPE_MIN <= cov <= hi
+                   for cov, hi in tel.values())
+            or kids != [4] * len(buckets)
+            or len(buckets) != 2 * m["n_buckets"]):
+        raise SystemExit("[profile] the sweep manifest failed a check")
+    got = {k: fn.launches for t in tables for k, fn in t.items()
+           if fn.launches}
+    print(f"[profile] launches in the phase: {got}, armed "
+          f"{pr.obs_launch_counts()}")
+    if not (got.get("proposal_hist") and got.get("vote_commit")
+            and got.get("fused_round")):
+        raise SystemExit("[profile] a round kernel was never launched")
+    print(f"[profile] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

@@ -248,14 +248,11 @@ def test_cli_matches_jax(name):
 
 UNPORTED = {
     ("lint",): "16",
-    ("profile", "--kernels"): "16",
+    ("profile", "--regimes", "traced,sharded"): "15",
     ("scale", "--mesh", "1,2"): "15",
     ("serve",): "16",
     ("load", "--clients", "4"): "16",
     ("watch", "x.jsonl"): "16",
-    ("sweep", "--n", "64", "--f-values", "8", "--trace-out", "t"): "16",
-    ("sweep", "--n", "64", "--f-values", "8", "--batched",
-     "--manifest-out", "m"): "16",
     ("sweep", "--n", "64", "--f-values", "8", "--batched",
      "--heartbeat-rounds", "2"): "16",
     ("sweep", "--n", "64", "--f-values", "8", "--heartbeat-out", "h"): "16",
@@ -268,8 +265,7 @@ def test_unported_commands_and_flags_raise(argv):
     device is touched (with or without --device cpu)."""
     item = UNPORTED[argv]
     for extra in ([], ["--device", "cpu"]):
-        if argv[0] in ("lint", "profile", "scale", "serve", "load",
-                       "watch") and extra:
+        if argv[0] in ("lint", "scale", "serve", "load", "watch") and extra:
             continue
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
@@ -286,6 +282,7 @@ NO_CUDA = {
     "audit": ["audit", "--audit-out", "{d}/b.json"],
     "atlas": ["atlas", "--profile-out", "{d}/m.json"],
     "replay": ["replay", "{d}/r.json"],
+    "profile": ["profile", "--kernels", "--profile-out", "{d}/k.json"],
 }
 
 
@@ -300,6 +297,145 @@ def test_no_cuda_no_fallback(cmd, capsys, tmp_path, monkeypatch):
     err = capsys.readouterr().err
     assert f"benor_tpu_torch {cmd}: " in err and "CUDA" in err
     assert not list(tmp_path.iterdir())
+
+
+# --- the observatory: the pins that raised before perfscope, kernelscope
+# and the rest of sweepscope were ported, each now a run on --device cpu --
+
+OBSERVATORY = {
+    "profile_kernels": ["profile", "--kernels", "--profile-out",
+                        "{d}/out.json"],
+    "sweep_trace": ["sweep", "--n", "64", "--f-values", "8", "--trials",
+                    "8", "--batched", "--trace-out", "{d}/out.json"],
+    "sweep_manifest": ["sweep", "--n", "64", "--f-values", "8,20",
+                       "--trials", "8", "--batched", "--manifest-out",
+                       "{d}/out.json"],
+}
+
+
+def _observatory(main, argv):
+    """One CLI call writing ``{d}/out.json`` -> (exit code, what the file
+    holds but its clocks: a kernel manifest's dispatches and stage
+    counters, a trace's sweep spans (name, bucket, points), a sweep
+    manifest's scale and buckets)."""
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = main([a.replace("{d}", d) for a in argv])
+        with open(os.path.join(d, "out.json")) as fh:
+            doc = json.load(fh)
+    if "traceEvents" in doc:
+        held = [(ev["name"], ev["args"].get("bucket"),
+                 ev["args"].get("points"), "parent_id" in ev["args"])
+                for ev in doc["traceEvents"]
+                if ev.get("ph") == "X" and ev["name"].startswith("sweep.")]
+    elif doc["kind"] == "kernel_manifest":
+        held = {k: (r["dispatch"], r["stages"])
+                for k, r in doc["kernels"].items()}
+    else:
+        held = (doc["kind"], doc["scale"],
+                [(b["kind"], b["size"], b["point_indices"])
+                 for b in doc["buckets"]])
+    return rc, held, err.getvalue()
+
+
+def _jax_observatory(argv):
+    from benor_tpu.utils.metrics import SPANS
+    SPANS.clear()
+    return _observatory(jmain, argv)[:2]
+
+
+@pytest.mark.parametrize("name", [n for n in OBSERVATORY
+                                  if n.startswith("sweep")])
+@prefetch(lambda name: [(_jax_observatory, OBSERVATORY[name])])
+def test_sweep_observatory_runs(name):
+    """sweep --batched --trace-out / --manifest-out on --device cpu: the
+    file's spans or buckets equal the JAX CLI's, one bucket span with its
+    four stages a bucket."""
+    tmetrics.SPANS.clear()
+    try:
+        rc, held, err = _observatory(
+            tmain, OBSERVATORY[name] + ["--device", "cpu"])
+    finally:
+        tmetrics.SPANS.disable()
+        tmetrics.SPANS.clear()
+    assert (rc, held) == ref(_jax_observatory, OBSERVATORY[name])
+    assert rc == 0 and "wrote" in err
+    if name == "sweep_trace":
+        kinds = [n for n, *_ in held if n.startswith("sweep.bucket[")]
+        stages = [n for n, _, _, child in held if child]
+        assert len(kinds) == 1 and stages == [
+            "sweep.prepare", "sweep.compile", "sweep.execute", "sweep.fetch"]
+    else:
+        assert held[2] == [("static", 1, [0]), ("static", 1, [1])]
+
+
+def test_profile_kernels_runs_in_band():
+    """profile --kernels on --device cpu: the kernel manifest's stage
+    counters are the committed KERNEL_BASELINE.json's, and the default
+    gate reads it and passes."""
+    rc, held, err = _observatory(
+        tmain, OBSERVATORY["profile_kernels"] + ["--device", "cpu"])
+    with open(os.path.join(ROOT, "KERNEL_BASELINE.json")) as fh:
+        base = json.load(fh)
+    assert rc == 0 and "kernel gate: in-band" in err
+    assert held == {k: (r["dispatch"], r["stages"])
+                    for k, r in base["kernels"].items()}
+
+
+def test_profile_runs_in_band():
+    """profile on --device cpu: the four ported regimes with the committed
+    PERF_BASELINE.json's rounds, sharded named unported, the packed and
+    unfused legs bit-equal, and the default gate passes."""
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        path = os.path.join(d, "p.json")
+        rc = tmain(["profile", "--device", "cpu", "--profile-out", path])
+        with open(path) as fh:
+            doc = json.load(fh)
+    with open(os.path.join(ROOT, "PERF_BASELINE.json")) as fh:
+        base = json.load(fh)
+    assert rc == 0 and "perf gate: in-band" in err.getvalue()
+    assert {k: r["rounds_executed"] for k, r in doc["regimes"].items()} == \
+        {k: r["rounds_executed"] for k, r in base["regimes"].items()
+         if k != "sharded"}
+    assert doc["fused_vs_xla"]["bit_equal"]
+    assert "sharded: not ported (ROADMAP Queue A item 15)" in \
+        out.getvalue()
+
+
+def test_profile_update_baseline_never_writes_committed(tmp_path, capsys):
+    """--update-baseline with no --baseline, or onto a committed baseline,
+    refuses (exit 1) and leaves the committed files byte for byte; onto
+    another file it writes there."""
+    names = ("PERF_BASELINE.json", "KERNEL_BASELINE.json",
+             "SWEEP_BASELINE.json")
+
+    def read():
+        out = {}
+        for name in names:
+            with open(os.path.join(ROOT, name), "rb") as fh:
+                out[name] = fh.read()
+        return out
+
+    before = read()
+    for extra in ([], ["--kernels"],
+                  ["--baseline", os.path.join(ROOT, "PERF_BASELINE.json")],
+                  ["--kernels", "--baseline",
+                   os.path.join(ROOT, "KERNEL_BASELINE.json")]):
+        assert tmain(["profile", "--device", "cpu", "--update-baseline",
+                      *extra]) == 1
+        assert "refusing --update-baseline" in capsys.readouterr().err
+    assert read() == before
+    target = str(tmp_path / "k.json")
+    assert tmain(["profile", "--kernels", "--device", "cpu",
+                  "--update-baseline", "--baseline", target]) == 0
+    with open(target) as fh:
+        assert json.load(fh)["kind"] == "kernel_manifest"
+    assert read() == before
 
 
 def test_oracle_demo_needs_no_device(capsys, monkeypatch):
