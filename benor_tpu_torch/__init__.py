@@ -34,6 +34,10 @@ in CUDA C++ for ``sm_90a`` (csrc/).  It imports neither JAX nor the JAX package.
     from benor_tpu_torch import results  # the science studies
     results.generate(out_dir="RESULTS")   # RESULTS/results.json, RESULTS.md
 
+    from benor_tpu_torch.serve import ServeApp   # the request plane
+    with ServeApp(port=8400) as app:      # POST /v1/jobs (SSE), /v1/stats
+        ...
+
 The command line (``python -m benor_tpu_torch``; the JAX package's
 arguments, lines and exit codes):
 
@@ -46,9 +50,14 @@ arguments, lines and exit codes):
     python -m benor_tpu_torch replay repro.json
     python -m benor_tpu_torch trace --out trace.json --metrics-out m.prom
     python -m benor_tpu_torch demo --backend express   # no device
+    python -m benor_tpu_torch serve --port 8400      # the request plane
+    python -m benor_tpu_torch load --clients 1000    # its load test
+    python -m benor_tpu_torch sweep --n 100000 --f-values 10000,40000 \
+        --batched --heartbeat-rounds 1 --heartbeat-out hb.jsonl
+    python -m benor_tpu_torch watch hb.jsonl         # no device
 
 All run on CUDA unless ``device="cpu"`` (``--device cpu``) is passed,
-but the event-loop oracles, which run on the host.
+but the event-loop oracles and ``watch``, which run on the host.
 """
 
 from .api import launch_network

@@ -37,22 +37,37 @@ exit codes):
                                                       against PERF_ /
                                                       KERNEL_BASELINE.json;
                                                       exit 2 on regression
+  serve   [--host H --port P] [--max-batch-jobs B]    the request plane:
+          [--trace-out t.json]                        HTTP + SSE job API
+                                                      over the warm batch
+                                                      executor pool
+  load    [--clients C] [--url URL] [--job JSON]      concurrent SSE clients
+          [--profile-out m.json] [--baseline B]       -> serve manifest,
+                                                      gated against
+                                                      SERVE_BASELINE.json;
+                                                      exit 2 on regression
+  watch   PATH [--no-follow] [--timeout S]            tail a JSON-lines
+                                                      progress file
+                                                      (heartbeats, journal,
+                                                      kernel telemetry,
+                                                      atlas records)
 
 Observability: ``--record`` (sweep) fills the flight recorder;
 ``--metrics-out PATH`` (sweep, coins, trace, audit, profile) writes the
 metrics registry on exit (JSON-lines, or the Prometheus textfile format
 with a .prom extension); sweep ``--batched --trace-out t.json`` writes the
 buckets' span trees as a Chrome-trace/Perfetto file and ``--batched
---manifest-out m.json`` the sweep manifest (sweepscope).
+--manifest-out m.json`` the sweep manifest (sweepscope); ``--batched
+--heartbeat-rounds h --heartbeat-out PATH`` appends one progress beat a
+bucket for ``watch``.
 
 Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device and no ``--device cpu`` it fails (exit 1)
 instead of moving to the CPU.  ``demo --backend express|native`` runs the
-event-loop oracles, host programs that need no device.  Not ported:
-``lint``, ``serve``, ``load`` and ``watch`` (ROADMAP Queue A item 16),
-``scale`` and ``profile --regimes sharded`` (item 15), and the
-``--heartbeat-rounds`` and ``--heartbeat-out`` flags (item 16): each
-raises ``NotImplementedError`` naming its item.
+event-loop oracles and ``watch`` tails a file: host programs that need no
+device.  Not ported: ``lint`` (ROADMAP Queue A item 16), ``scale`` and
+``profile --regimes sharded`` (item 15): each raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -71,25 +86,11 @@ from .config import unported
 UNPORTED_COMMANDS = {
     "lint": ("the `lint` subcommand (benorlint)", "16"),
     "scale": ("the `scale` subcommand (mesh scaling ladders)", "15"),
-    "serve": ("the `serve` subcommand (the request plane)", "16"),
-    "load": ("the `load` subcommand (the request plane's load test)", "16"),
-    "watch": ("the `watch` subcommand (the progress tail)", "16"),
-}
-
-#: Flags of the JAX CLI that wait for the service plane (item 16):
-#: argument name -> what it would arm.
-UNPORTED_FLAGS = {
-    "heartbeat_rounds": "--heartbeat-rounds (the progress heartbeat)",
-    "heartbeat_out": "--heartbeat-out (the progress heartbeat)",
 }
 
 
 def _refuse_unported(args) -> None:
-    """Raise for an unported flag or regime, before any device is
-    touched."""
-    for name, what in UNPORTED_FLAGS.items():
-        if getattr(args, name, None):
-            unported(what, "16")
+    """Raise for an unported regime, before any device is touched."""
     if args.cmd == "profile" and args.regimes and not args.kernels:
         from .perfscope.regimes import UNPORTED_REGIMES
         for name in args.regimes.split(","):
@@ -182,7 +183,15 @@ def _sweep(args) -> int:
                     max_rounds=args.max_rounds, delivery="quorum",
                     scheduler=args.scheduler, coin_mode=args.coin,
                     fault_model=args.fault_model, seed=args.seed,
-                    record=args.record, **flags)
+                    record=args.record,
+                    heartbeat_rounds=args.heartbeat_rounds, **flags)
+    if args.heartbeat_rounds and not args.batched:
+        # the per-point path runs each point as one loop: there is no
+        # boundary to beat at, and a silent no-op would fake progress
+        print("warning: --heartbeat-rounds only publishes on the "
+              "batched engine (per bucket); add --batched, or use "
+              "`trace`/poll_rounds for per-round liveness",
+              file=sys.stderr)
     if not args.batched and (args.journal or args.resume
                              or args.trace_out or args.manifest_out
                              or args.pipeline):
@@ -199,7 +208,8 @@ def _sweep(args) -> int:
         from .utils.metrics import SPANS
         SPANS.enable()
     journal_kw = dict(journal_path=args.journal, resume=args.resume,
-                      pipeline=args.pipeline, device=args.device)
+                      pipeline=args.pipeline, device=args.device,
+                      heartbeat_path=args.heartbeat_out)
     mode = "balanced/no-crash" if args.balanced else "iid/crash"
     # the banner reports the compute path taken, per f value: the kernel
     # predicates gate on the quorum N - f
@@ -562,10 +572,10 @@ def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-#: The committed baselines ``profile`` reads by default and never writes:
-#: they are the JAX package's captures.
+#: The committed baselines ``profile`` and ``load`` read by default and
+#: never write: they are the JAX package's captures.
 COMMITTED_BASELINES = ("PERF_BASELINE.json", "KERNEL_BASELINE.json",
-                       "SWEEP_BASELINE.json")
+                       "SWEEP_BASELINE.json", "SERVE_BASELINE.json")
 
 
 def _baseline_target(args):
@@ -576,7 +586,7 @@ def _baseline_target(args):
     if not args.baseline or os.path.realpath(args.baseline) in committed:
         where = (f"onto {args.baseline}" if args.baseline
                  else "without --baseline PATH")
-        print(f"profile: refusing --update-baseline {where}: the "
+        print(f"{args.cmd}: refusing --update-baseline {where}: the "
               f"committed {', '.join(COMMITTED_BASELINES)} are the JAX "
               f"package's captures and are never written; name another "
               f"file with --baseline", file=sys.stderr)
@@ -807,6 +817,256 @@ def _profile(args) -> int:
     return 0
 
 
+def _serve(args) -> int:
+    """The request plane (serve/server.py): accept concurrent simulate /
+    sweep / trajectory / audit jobs over HTTP, coalesce them into batches
+    on the warm executor pool, stream round-history and witness rows back
+    as server-sent events.  Runs until interrupted."""
+    from .serve import run_server
+    return run_server(host=args.host, port=args.port,
+                      max_batch_jobs=args.max_batch_jobs,
+                      trace_out=args.trace_out, device=args.device)
+
+
+def _load(args) -> int:
+    """Load-test the request plane (serve/loadgen.py): drive --clients
+    concurrent SSE clients (against --url, or an in-process server on
+    --device when omitted), print the serve manifest (p50/p99 latency,
+    throughput, jobs a launch) and gate it against the committed
+    SERVE_BASELINE.json (serve/gate.py): exit 2 on a regression, 0
+    otherwise; an incomparable baseline (another platform) is reported.
+    ``--update-baseline`` writes only to an explicit ``--baseline PATH``
+    that is none of the committed baselines."""
+    from .serve import IncomparableServe, compare_serve, run_load
+
+    target = None
+    if args.update_baseline:
+        target = _baseline_target(args)
+        if target is None:
+            return 1
+    job = None
+    if args.job:
+        job = json.loads(args.job)
+    if args.trace_out:
+        from .utils.metrics import SPANS
+        SPANS.enable()
+    manifest = run_load(url=args.url, clients=args.clients, job=job,
+                        timeout=args.timeout, ramp_s=args.ramp,
+                        max_batch_jobs=args.max_batch_jobs,
+                        device=args.device)
+    if args.trace_out:
+        from .utils.metrics import export_chrome_trace
+        n = export_chrome_trace(args.trace_out, spans=True)
+        print(f"wrote {n} trace events to {args.trace_out} "
+              f"(open in ui.perfetto.dev)", file=sys.stderr)
+    if args.format == "json":
+        print(json.dumps(manifest, indent=1))
+    else:
+        lat = manifest["latency_ms"]
+        attr = manifest["attribution"]
+        print(f"benor-serve load: {manifest['platform']} "
+              f"({manifest['device_kind']}), {manifest['clients']} "
+              f"concurrent clients")
+        print(f"  jobs {manifest['jobs_completed']}"
+              f"/{manifest['jobs_submitted']} "
+              f"(errors {manifest['errors']}) in "
+              f"{manifest['duration_s']:.2f}s = "
+              f"{manifest['throughput_jobs_per_sec']:.1f} jobs/s")
+        print(f"  latency p50={lat['p50']:.0f}ms p99={lat['p99']:.0f}ms; "
+              f"coalescing {manifest['jobs_per_launch']:.1f} "
+              f"jobs/launch over {manifest['launches']} launches")
+        stages = manifest["stages"]
+        print("  stages p99 (ms): "
+              + " ".join(f"{s}={stages[s]['p99']:.0f}"
+                         for s in ("queue_wait", "batch_assemble",
+                                   "launch", "stream_out")))
+        print(f"  attribution: {attr['stage_mean_sum_ms']:.0f}ms of "
+              f"{attr['client_mean_ms']:.0f}ms client mean attributed "
+              f"(coverage {attr['coverage']:.2f}, "
+              f"{'ok' if attr['ok'] else 'INCOMPLETE'})")
+    if args.profile_out:
+        with open(args.profile_out, "w") as fh:
+            json.dump(manifest, fh, indent=1)
+        print(f"wrote serve manifest to {args.profile_out}",
+              file=sys.stderr)
+    _export_metrics(args.metrics_out)
+
+    if target is not None:
+        with open(target, "w") as fh:
+            json.dump(manifest, fh, indent=1)
+        print(f"re-baselined {target}", file=sys.stderr)
+        return 0
+    baseline_path = args.baseline or os.path.join(_repo_root(),
+                                                  "SERVE_BASELINE.json")
+    if not os.path.exists(baseline_path):
+        print(f"no baseline at {baseline_path} — capture-only run "
+              f"(--update-baseline to create one)", file=sys.stderr)
+        return 0
+    try:
+        with open(baseline_path) as fh:
+            base = json.load(fh)
+        findings = compare_serve(manifest, base,
+                                 timing_band=args.timing_band)
+    except (IncomparableServe, ValueError) as e:
+        print(f"baseline {baseline_path} not comparable: {e}",
+              file=sys.stderr)
+        return 0
+    for f in findings:
+        print(f"REGRESSION: {f.message}", file=sys.stderr)
+    if findings:
+        return 2
+    print(f"serve gate: in-band vs {baseline_path}", file=sys.stderr)
+    return 0
+
+
+def _format_heartbeat(rec) -> str:
+    bits = [f"[{rec.get('label', '?')}]"]
+    if rec.get("round") is not None:
+        bits.append(f"round={rec['round']}/{rec.get('max_rounds')}")
+    if rec.get("points_done") is not None:
+        bits.append(f"points={rec['points_done']}"
+                    f"/{rec.get('points_total')}")
+    if rec.get("rounds_per_sec") is not None:
+        bits.append(f"{rec['rounds_per_sec']:.3g} rounds/s")
+    if rec.get("decided_frac") is not None:
+        bits.append(f"decided={rec['decided_frac']:.3f}")
+    if rec.get("eta_s") is not None:
+        bits.append(f"eta={rec['eta_s']:.1f}s")
+    if rec.get("progress") is not None:
+        bits.append(f"{100 * rec['progress']:.0f}%")
+    if rec.get("done"):
+        bits.append("DONE")
+    return " ".join(bits)
+
+
+def _format_sweep_bucket(rec) -> str:
+    """One sweep-journal bucket record (sweepscope/journal.py): which
+    bucket landed, its stage clocks, its compile count."""
+    idx = rec.get("point_indices") or []
+    bits = [f"[{rec.get('label', 'sweep')}-journal]",
+            f"bucket {rec.get('bucket_index')}",
+            f"({rec.get('bucket_kind')}, {len(idx)} pt"
+            f"{'s' if len(idx) != 1 else ''})"]
+    for stage in ("prepare_s", "compile_s", "run_s", "fetch_s"):
+        v = rec.get(stage)
+        if isinstance(v, (int, float)):
+            bits.append(f"{stage[:-2]}={v:.2f}s")
+    if rec.get("compile_count") is not None:
+        bits.append(f"compiles={rec['compile_count']}")
+    return " ".join(bits)
+
+
+def _format_kernel_telem(rec) -> str:
+    """One kernelscope telemetry record (kernelscope/report.py): the
+    kernel, its rounds, the pad waste and the per-stage counter totals."""
+    bits = [f"[{rec.get('label', 'kernelscope')}]",
+            f"kernel={rec.get('kernel')}",
+            f"rounds={rec.get('rounds')}"]
+    if rec.get("pad_waste_frac") is not None:
+        bits.append(f"pad_waste={rec['pad_waste_frac']:.3f}")
+    totals = rec.get("stage_totals") or {}
+    for stage in sorted(totals):
+        c = totals[stage]
+        bits.append(f"{stage}(hist={c.get('hist_visits')} "
+                    f"quorum={c.get('quorum_passes')} "
+                    f"coins={c.get('coin_draws')} "
+                    f"hops={c.get('plane_hops')})")
+    return " ".join(bits)
+
+
+def _format_sweep_done(rec) -> str:
+    bits = [f"[{rec.get('label', 'sweep')}-journal]",
+            f"sweep complete: {rec.get('points_total')} points / "
+            f"{rec.get('n_buckets')} buckets"]
+    if rec.get("buckets_reused"):
+        bits.append(f"({rec['buckets_reused']} journal-restored)")
+    if rec.get("overlap_headroom_s") is not None:
+        bits.append(f"overlap_headroom={rec['overlap_headroom_s']:.2f}s")
+    bits.append("DONE")
+    return " ".join(bits)
+
+
+def _format_atlas_probe(rec) -> str:
+    """One atlas search probe (atlas/search.py): the axis and generation,
+    the probed value and its verdict."""
+    bits = [f"[atlas:{rec.get('axis')}]",
+            f"gen={rec.get('generation')}",
+            f"{rec.get('axis')}={rec.get('value')}",
+            f"verdict={rec.get('verdict')}"]
+    if isinstance(rec.get("stall_frac"), (int, float)):
+        bits.append(f"stall={rec['stall_frac']:.3f}")
+    if rec.get("rounds_executed") is not None:
+        bits.append(f"rounds={rec['rounds_executed']}")
+    return " ".join(bits)
+
+
+def _format_atlas_cliff(rec) -> str:
+    """One cliff-refinement step: the bracketing interval after this
+    generation's bisection, flagged when at the pinned tolerance."""
+    bits = [f"[atlas:{rec.get('axis')}]"]
+    if rec.get("generation") is not None:
+        bits.append(f"gen={rec['generation']}")
+    bits.append(f"cliff [{rec.get('lo')}, {rec.get('hi')}]")
+    if isinstance(rec.get("width"), (int, float)):
+        bits.append(f"width={rec['width']:g}")
+    bits.append(f"{rec.get('lo_verdict')}->{rec.get('hi_verdict')}")
+    if rec.get("converged"):
+        bits.append("CONVERGED")
+    return " ".join(bits)
+
+
+def _format_atlas_heatmap(rec) -> str:
+    """One 2D-slice heatmap document, rendered with atlas.render_heatmap;
+    a torn or foreign one is printed raw."""
+    from .atlas import render_heatmap
+    try:
+        return render_heatmap(rec)
+    except (KeyError, TypeError, ValueError):
+        return json.dumps(rec, sort_keys=True)
+
+
+def _watch(args) -> int:
+    """Tail a run's JSON-lines progress file (heartbeats, sweep-journal
+    records, kernel telemetry, atlas records, interleaved or not): print
+    each new record as it is appended, formatted by kind, an unknown kind
+    raw; stop on a ``done: true`` record, on --no-follow after one pass,
+    or after --timeout seconds of silence.  Touches no device.  Exit 0
+    once a record was seen, 1 on a silent timeout."""
+    from .atlas import CLIFF_KIND, HEATMAP_KIND, PROBE_KIND
+    from .kernelscope.report import KERNEL_TELEM_KIND
+    from .meshscope.heartbeat import HEARTBEAT_KIND, tail_records
+    from .sweepscope.journal import BUCKET_KIND, DONE_KIND
+
+    formatters = {HEARTBEAT_KIND: _format_heartbeat,
+                  BUCKET_KIND: _format_sweep_bucket,
+                  DONE_KIND: _format_sweep_done,
+                  KERNEL_TELEM_KIND: _format_kernel_telem,
+                  PROBE_KIND: _format_atlas_probe,
+                  CLIFF_KIND: _format_atlas_cliff,
+                  HEATMAP_KIND: _format_atlas_heatmap}
+    seen = 0
+    for rec in tail_records(args.path, poll_s=args.poll,
+                            timeout_s=args.timeout,
+                            follow=not args.no_follow,
+                            stop_when_done=not args.keep_going):
+        seen += 1
+        fmt = formatters.get(rec.get("kind"))
+        if fmt is not None:
+            print(fmt(rec), flush=True)
+        else:
+            print(json.dumps(rec.get("raw", rec), sort_keys=True),
+                  flush=True)
+        if args.max_updates and seen >= args.max_updates:
+            break
+    if not seen:
+        print(f"watch: no records in {args.path} within "
+              f"{args.timeout}s (is the run armed with a heartbeat/"
+              f"journal path?)",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def _preset(args) -> int:
     from .sweep import baseline_configs, run_point
     cfgs = baseline_configs()
@@ -860,9 +1120,13 @@ def _parser() -> argparse.ArgumentParser:
                         "thread while bucket k runs (the same results)")
     s.add_argument("--out", help="write points to this JSON file")
     s.add_argument("--heartbeat-out", metavar="PATH",
-                   help="not ported (ROADMAP Queue A item 16)")
+                   help="with --batched and a heartbeat cadence "
+                        "(--heartbeat-rounds), append progress records "
+                        "here for `python -m benor_tpu_torch watch`")
     s.add_argument("--heartbeat-rounds", type=int, default=0,
-                   help="not ported (ROADMAP Queue A item 16)")
+                   help="arm the progress heartbeat at this round "
+                        "cadence (0 = off); the batched engine beats "
+                        "per bucket")
     s.add_argument("--journal", metavar="PATH",
                    help="with --batched: append one durable JSON-lines "
                         "record per completed bucket (the sweep journal "
@@ -1090,6 +1354,94 @@ def _parser() -> argparse.ArgumentParser:
     _add_obs_args(pf, record=False)
     _add_device_arg(pf)
 
+    sv = sub.add_parser("serve",
+                        help="the asynchronous multi-tenant request "
+                             "plane: HTTP+SSE job API coalescing "
+                             "concurrent client jobs onto the warm "
+                             "executor pool (serve/)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8400,
+                    help="listen port (default 8400; 0 = ephemeral)")
+    sv.add_argument("--max-batch-jobs", type=int, default=None,
+                    help="coalescing ceiling: jobs a launch (default "
+                         "serve.MAX_BATCH_JOBS, rounded up to a power "
+                         "of two)")
+    sv.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="arm span tracing and write the Perfetto trace "
+                         "(request, batch and job stage spans, "
+                         "flow-linked) here on shutdown")
+    _add_device_arg(sv)
+
+    ld = sub.add_parser("load",
+                        help="load-test the request plane: concurrent "
+                             "SSE clients -> serve manifest + baseline "
+                             "gate (SERVE_BASELINE.json); exit 2 on "
+                             "regression")
+    ld.add_argument("--clients", type=int, default=1000,
+                    help="concurrent clients (default 1000)")
+    ld.add_argument("--url", default=None,
+                    help="target a running `benor_tpu_torch serve` "
+                         "instance (default: an in-process server on "
+                         "--device, on an ephemeral port)")
+    ld.add_argument("--job", default=None,
+                    help="JSON JobSpec each client submits (default: "
+                         "serve.loadgen.DEFAULT_JOB, a dyn-bucket "
+                         "simulate; clients get distinct seeds)")
+    ld.add_argument("--timeout", type=float, default=120.0,
+                    help="per-client completion deadline in seconds")
+    ld.add_argument("--ramp", type=float, default=0.0,
+                    help="spread connection setup across this many "
+                         "seconds (0 = thundering herd)")
+    ld.add_argument("--max-batch-jobs", type=int, default=None,
+                    help="coalescing ceiling of the in-process server "
+                         "(ignored with --url)")
+    ld.add_argument("--format", choices=("text", "json"), default="text",
+                    help="stdout format; json = the manifest")
+    ld.add_argument("--profile-out", metavar="PATH",
+                    help="write the serve manifest to this JSON file")
+    ld.add_argument("--baseline", metavar="PATH", default=None,
+                    help="baseline manifest to gate against (default: "
+                         "the committed SERVE_BASELINE.json)")
+    ld.add_argument("--update-baseline", action="store_true",
+                    help="write this capture to --baseline PATH instead "
+                         "of gating against it (never to a committed "
+                         "baseline)")
+    ld.add_argument("--timing-band", type=float, default=None,
+                    help="also gate the machine-sensitive throughput/"
+                         "p99 numbers at this ratio band (off by "
+                         "default; see serve/gate.py)")
+    ld.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="arm span tracing for the run and write the "
+                         "Perfetto trace (request, batch and job stage "
+                         "spans, flow-linked) here")
+    _add_obs_args(ld, record=False)
+    _add_device_arg(ld)
+
+    w = sub.add_parser("watch",
+                       help="tail a run's JSON-lines progress file: "
+                            "heartbeats (rounds/sec, decided fraction, "
+                            "ETA) and/or sweep-journal bucket records, "
+                            "by kind; touches no device")
+    w.add_argument("path", help="JSON-lines file (sweep "
+                                "--heartbeat-out / --journal / "
+                                "TpuNetwork.heartbeat_path; mixed kinds "
+                                "interleave freely)")
+    w.add_argument("--poll", type=float, default=0.2,
+                   help="poll interval in seconds (default 0.2)")
+    w.add_argument("--timeout", type=float, default=60.0,
+                   help="give up after this many seconds without a new "
+                        "record (default 60)")
+    w.add_argument("--max-updates", type=int, default=0,
+                   help="stop after printing this many records "
+                        "(0 = until done/timeout)")
+    w.add_argument("--no-follow", action="store_true",
+                   help="print what is in the file now and exit "
+                        "instead of tailing")
+    w.add_argument("--keep-going", action="store_true",
+                   help="do not stop at done: true records — an atlas "
+                        "search journal carries one sweep_done per "
+                        "refinement generation")
+
     rp = sub.add_parser(
         "replay",
         help="re-execute a kind:atlas_repro document bit-identically "
@@ -1124,15 +1476,17 @@ def main(argv=None) -> int:
     # bare `python -m benor_tpu_torch [-n N -f F ...]` == the start.ts demo
     if not argv or argv[0] not in ("demo", "sweep", "coins", "preset",
                                    "results", "trace", "audit", "atlas",
-                                   "replay", "profile", *UNPORTED_COMMANDS,
+                                   "replay", "profile", "serve", "load",
+                                   "watch", *UNPORTED_COMMANDS,
                                    "-h", "--help"):
         argv = ["demo"] + argv
     if argv[0] in UNPORTED_COMMANDS:
         unported(*UNPORTED_COMMANDS[argv[0]])
     args = ap.parse_args(argv)
     _refuse_unported(args)
-    # the event-loop oracles are host programs: no device to ask for
-    if not (args.cmd == "demo" and args.backend in ("express", "native")):
+    # the event-loop oracles and the tail are host programs: no device
+    if not (args.cmd == "watch" or
+            (args.cmd == "demo" and args.backend in ("express", "native"))):
         from .sim import resolve_device
         try:
             resolve_device(args.device)
@@ -1142,7 +1496,8 @@ def main(argv=None) -> int:
     return {"demo": _demo, "sweep": _sweep, "coins": _coins,
             "preset": _preset, "results": _results, "trace": _trace,
             "audit": _audit, "atlas": _atlas, "replay": _replay,
-            "profile": _profile}[args.cmd](args)
+            "profile": _profile, "serve": _serve, "load": _load,
+            "watch": _watch}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,11 @@ the reference's src/nodes/node.ts:
 ``start()`` runs the whole consensus to termination (or the round cap) in
 one call by default; ``SimConfig(poll_rounds=c)`` steps the loop in
 c-round slices instead, republishing ``self.state`` between slices, with a
-final state equal to the one-shot run's bit for bit.
+final state equal to the one-shot run's bit for bit.  With
+``SimConfig(heartbeat_rounds=h)`` the run publishes progress beats
+(meshscope/heartbeat.py) between slices, and one final beat, into the
+metrics registry and, when ``heartbeat_path`` is set, a JSON-lines file;
+the run itself is unchanged.
 """
 
 from __future__ import annotations
@@ -24,9 +28,18 @@ from typing import List, Optional
 import torch
 
 from .. import sim
-from ..config import VALQ, SimConfig, unported
+from ..config import VALQ, SimConfig
 from ..models.benor import all_settled
 from ..state import FaultSpec, NetState, init_state, observable_state
+
+
+def _decided_frac(state: NetState) -> Optional[float]:
+    """Decided fraction over decided + live undecided lanes, the classes
+    the flight recorder counts, so a beat's decided_frac means the same
+    with cfg.record on or off (backends/tpu.py:32-40)."""
+    decided = int(state.decided.sum())
+    undec = int((~state.decided & ~state.killed).sum())
+    return decided / (decided + undec) if (decided + undec) else None
 
 
 class TpuNetwork:
@@ -39,11 +52,12 @@ class TpuNetwork:
         if len(initial_values) != len(faulty_list) or \
                 cfg.n_nodes != len(initial_values):
             raise ValueError("Arrays don't match")
-        if cfg.heartbeat_rounds or heartbeat_path is not None:
-            unported("heartbeat_rounds / heartbeat_path (the live-progress "
-                     "heartbeat)", "16")
         sim.check_supported(cfg)
         self.cfg = cfg
+        #: The JSON-lines file the progress heartbeat (cfg.heartbeat_rounds)
+        #: appends to, what ``watch`` tails; the registry's gauges are fed
+        #: either way.  Assignable after construction too.
+        self.heartbeat_path = heartbeat_path
         dev = sim.resolve_device(device)
         self.faults = FaultSpec.from_faulty_list(cfg, faulty_list,
                                                  crash_rounds, device=dev)
@@ -72,13 +86,23 @@ class TpuNetwork:
         run's.  Under cfg.record / cfg.witness the recorder and the witness
         buffer are carried from slice to slice and kept after the run, for
         ``get_round_history`` / ``get_witness`` (between slices they hold
-        the rounds run so far)."""
+        the rounds run so far).  Under cfg.heartbeat_rounds a beat is
+        published whenever the round cursor crosses a multiple of it
+        (``sim.heartbeat_due``) and a final one, ``done: true``, at the
+        end; a one-shot run publishes the final beat alone."""
         if self._started:
             return
         if on_slice is not None and not self.cfg.poll_rounds > 0:
             raise ValueError(
                 "start(on_slice=...) requires SimConfig(poll_rounds > 0); "
                 "this config runs one uninterrupted loop")
+        heartbeat = None
+        if self.cfg.heartbeat_rounds:
+            # host-side beats between slices: the slices are untouched
+            from ..meshscope.heartbeat import HeartbeatPublisher
+            heartbeat = HeartbeatPublisher(
+                self.cfg, path=self.heartbeat_path,
+                label=f"net N={self.cfg.n_nodes}")
         if self.cfg.poll_rounds > 0:
             state = sim.start_state(self.cfg, self.state)
             self.state = state               # k=1 visible (node.ts:172)
@@ -92,6 +116,12 @@ class TpuNetwork:
                 self.state = state           # publish the live snapshot
                 if on_slice is not None:
                     on_slice()
+                if heartbeat is not None and sim.heartbeat_due(
+                        self.cfg, r - 1, r_next - 1):
+                    heartbeat.publish(
+                        r_next - 1, recorder=self._recorder,
+                        decided_frac=(None if self.cfg.record
+                                      else _decided_frac(state)))
                 if (r_next == r or r_next > self.cfg.max_rounds
                         or bool(all_settled(state))):
                     break
@@ -101,6 +131,10 @@ class TpuNetwork:
             out = sim.run_consensus(self.cfg, self.state, self.faults)
             self.rounds_executed, self.state = out[0], out[1]
             self._keep(out)
+        if heartbeat is not None:
+            # a one-shot run has no boundary to beat at: its one record is
+            # the final state, so `watch` is never left on an empty file
+            heartbeat.close(self.rounds_executed, recorder=self._recorder)
         self._started = True
 
     def _keep(self, out) -> None:

@@ -38,25 +38,28 @@ def key_words(seed: int) -> tuple[int, int]:
     return 0, int(seed) & _M32
 
 
-def _rotl(x, d: int):
-    return ((x << d) & _M32) | (x >> (32 - d))
-
-
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32-20 on 32-bit values held in int64 tensors (or Python
-    ints) -> the two output words, each in [0, 2**32)."""
+    ints) -> the two output words, each in [0, 2**32).
+
+    Only ``x0``'s low 32 bits ever reach ``x1`` (through the xor, which is
+    masked), so ``x0`` is carried unmasked and masked once at the end: it
+    grows by less than 2**32 an addition, 26 additions from below 2**33,
+    so it stays below 2**38 in int64.  The words equal the masked-every-
+    step form exactly; the tensor path runs one op fewer a mix."""
     ks2 = k0 ^ k1 ^ 0x1BD11BDA
     keys = (k0, k1, ks2)
-    x0 = (x0 + k0) & _M32
+    x0 = x0 + k0
     x1 = (x1 + k1) & _M32
     for group in range(5):
         rots = _ROT_A if group % 2 == 0 else _ROT_B
         for d in rots:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, d) ^ x0
-        x0 = (x0 + keys[(group + 1) % 3]) & _M32
-        x1 = (x1 + keys[(group + 2) % 3] + group + 1) & _M32
-    return x0, x1
+            x0 = x0 + x1
+            x1 = ((x1 << d) | (x1 >> (32 - d))) ^ x0
+            x1 &= _M32
+        x0 = x0 + keys[(group + 1) % 3]
+        x1 = (x1 + (keys[(group + 2) % 3] + group + 1)) & _M32
+    return x0 & _M32, x1
 
 
 def stream_scal(seed: int, r: int, salt: int) -> tuple[int, int]:

@@ -725,32 +725,6 @@ def faults_curves(n: int, trials: int, seed: int = 0,
             "churn_compile_count": churn_cb.compile_count}
 
 
-#: SimConfig fields a serve-plane job document carries
-#: (benor_tpu/serve/jobs.py:56-60): the provenance a preset row records
-#: as ``serve_replay``.  The serve plane itself is ROADMAP Queue A item 16.
-SERVE_CONFIG_FIELDS = ("n_nodes", "n_faulty", "trials", "max_rounds",
-                       "rule", "seed", "coin_mode", "coin_eps", "delivery",
-                       "scheduler", "adversary_strength", "fault_model",
-                       "path", "topology", "committee_cap",
-                       "committee_count", "committee_size", "drop_prob",
-                       "recovery", "partition")
-
-
-def serve_job_doc(cfg: SimConfig, kind: str = "simulate") -> Dict:
-    """The job document that replays ``cfg`` through the JAX package's
-    request plane with run_point's default inputs
-    (``JobSpec.from_config(cfg).to_dict()``, jobs.py:286-306): the
-    wire-representable fields and the kind, ``audit`` for a witnessed
-    config and ``trajectory`` for a recorded one."""
-    if cfg.witness:
-        kind = "audit"
-    elif cfg.record:
-        kind = "trajectory"
-    doc = {f: getattr(cfg, f) for f in SERVE_CONFIG_FIELDS}
-    doc["kind"] = kind
-    return doc
-
-
 def generate(out_dir: str = "RESULTS", n_large: int = 1_000_000,
              trials_large: int = 32, seed: int = 0,
              presets=True, device=None) -> Dict[str, object]:
@@ -826,6 +800,7 @@ def generate(out_dir: str = "RESULTS", n_large: int = 1_000_000,
         print("oracle parity: skipped (no g++)", flush=True)
 
     if presets:
+        from .serve.jobs import JobSpec
         for name, cfg in baseline_configs().items():
             if cfg.n_nodes > n_large:      # CPU smoke scaling
                 continue
@@ -834,7 +809,9 @@ def generate(out_dir: str = "RESULTS", n_large: int = 1_000_000,
             print(f"  mean_k={pt.mean_k:.3f} decided={pt.decided_frac:.3f} "
                   f"{pt.trials_per_sec:.1f} trials/s", flush=True)
             row = pt.to_dict()
-            row["serve_replay"] = serve_job_doc(cfg)
+            # the job document that replays this row through the request
+            # plane (`POST /v1/jobs` on `python -m benor_tpu_torch serve`)
+            row["serve_replay"] = JobSpec.from_config(cfg).to_dict()
             out[f"preset_{name}"] = row
 
     with open(os.path.join(out_dir, "results.json"), "w") as fh:

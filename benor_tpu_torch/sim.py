@@ -211,6 +211,18 @@ def check_supported(cfg: SimConfig) -> None:
             unported(*gap)
 
 
+def heartbeat_due(cfg: SimConfig, prev_round, next_round) -> bool:
+    """True iff the progress heartbeat (cfg.heartbeat_rounds;
+    meshscope/heartbeat.py) fires for a round cursor that moved
+    prev_round -> next_round: the cursor crossed a multiple of the cadence
+    (sim.py:174-186).  Host-side only, between slices, so the knob cannot
+    change a run; the one rule every regime beats by."""
+    h = cfg.heartbeat_rounds
+    if h <= 0:
+        return False
+    return (int(next_round) // h) > (int(prev_round) // h)
+
+
 def start_state(cfg: SimConfig, state: NetState) -> NetState:
     """The /start transition: live lanes set k=1."""
     k = torch.where(~state.killed, torch.ones_like(state.k), state.k)

@@ -33,10 +33,10 @@ time.
 
 The sweep journal (sweepscope/journal.py), the per-bucket spans
 (sweepscope/spans.py, emitted where ``utils.metrics.SPANS`` is enabled)
-and the build-ahead scheduler (sweep_async.py) are the JAX package's;
-``mesh`` raises (ROADMAP Queue A item 15), and so does
-``base_cfg.heartbeat_rounds`` > 0 (item 16), whose heartbeat waits for
-the service plane.  Entry points run on CUDA unless the caller passes
+the build-ahead scheduler (sweep_async.py) and the progress heartbeat,
+one beat a bucket under ``base_cfg.heartbeat_rounds`` > 0
+(meshscope/heartbeat.py), are the JAX package's; ``mesh`` raises (ROADMAP
+Queue A item 15).  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
@@ -430,9 +430,12 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
     indices match a record from the journal, running nothing for it.
     ``pipeline=True`` builds bucket k + 1 on a worker thread while bucket
     k runs (sweep_async.py); results, counts and journal records equal the
-    serial dispatch.  ``mesh`` and ``base_cfg.heartbeat_rounds`` raise
-    ``NotImplementedError`` (ROADMAP Queue A items 15 and 16);
-    ``heartbeat_path`` is read only with the heartbeat."""
+    serial dispatch.  With ``base_cfg.heartbeat_rounds`` > 0 a progress
+    heartbeat (points done / points total) is published after every
+    bucket, in bucket order, into the metrics registry and, when
+    ``heartbeat_path`` is given, a JSON-lines file that ``watch`` tails;
+    the points are unchanged.  ``mesh`` raises ``NotImplementedError``
+    (ROADMAP Queue A item 15)."""
     from .sweepscope import gate as sweep_gate
     from .sweepscope.journal import (SweepJournal, bucket_fingerprint,
                                      deserialize_point, serialize_point)
@@ -451,8 +454,6 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
                          "journal IS the resume substrate)")
     if mesh is not None:
         unported("mesh (the sweep's grid placement)", "15")
-    if base_cfg.heartbeat_rounds:
-        unported("heartbeat_rounds (the sweep's progress heartbeat)", "16")
     dev = resolve_device(device)
     if initial_values is None:
         initial_values = random_inputs(base_cfg.seed, T, N)
@@ -485,6 +486,13 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
     bucket_indices: List[List[int]] = []
     bucket_compiles: List[int] = []
     bucket_reused: List[bool] = []
+    heartbeat = None
+    if base_cfg.heartbeat_rounds:
+        from .meshscope.heartbeat import (HeartbeatPublisher,
+                                          publish_sweep_heartbeat)
+        heartbeat = HeartbeatPublisher(base_cfg, path=heartbeat_path,
+                                       label="sweep")
+    points_done = 0
 
     def build_bucket(bi, key, b):
         """Bucket k's build leg: fault specs, fingerprint and journal match,
@@ -526,8 +534,8 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
 
     def execute_bucket(plan):
         """Bucket k's ordered leg, on the caller's thread: run, fetch,
-        journal record, verbose line."""
-        nonlocal compile_s, run_s, total_compiles
+        journal record, heartbeat, verbose line."""
+        nonlocal compile_s, run_s, total_compiles, points_done
         bi, key, b, rec = plan["bi"], plan["key"], plan["b"], plan["rec"]
         bucket_sizes.append(len(b["idx"]))
         bucket_kinds.append(key[0])
@@ -598,6 +606,10 @@ def run_points_batched(base_cfg: SimConfig, cfgs: Sequence[SimConfig],
                     [serialize_point(c, raw[i])
                      for c, i in zip(b["cfgs"], b["idx"])],
                     pipelined=pipeline)
+        points_done += len(b["idx"])
+        if heartbeat is not None:
+            publish_sweep_heartbeat(base_cfg, points_done, len(cfgs),
+                                    publisher=heartbeat, bucket_index=bi)
         if verbose:
             if rec is not None:
                 detail = "journal-restored"

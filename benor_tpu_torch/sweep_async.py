@@ -6,7 +6,8 @@ fingerprint, journal match, the state tensors, the kernel library's build
 or load) strictly in bucket order, while the caller's thread runs the
 bucket before it.  The handoff queue holds at most one built bucket, so at
 most two buckets' tensors are alive at once.  Everything ordered — the
-run, the fetch, the journal records, the verbose lines — stays on the
+run, the fetch, the journal records, the heartbeat beats, the verbose
+lines — stays on the
 caller's thread in bucket order, so results, per-bucket counts and
 journal contents equal the serial dispatch; only the wall clock changes.
 A build's exception is raised on the caller's thread at the bucket it

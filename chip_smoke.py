@@ -143,9 +143,10 @@ Phases (any failure ends the run non-zero; nothing is caught):
      on ring:8 with F = 8 (byzantine and equivocate with the first 5 %
      faulty, 'halves:4', crash_at_round with the first 5 % dying at round
      2) and a byzantine committee mix, at N = 1M x 16 (half the main
-     path's trials, the script's depth cut): rounds, decided and
-     disagree fractions, the smallest decided k, trials/s over simulate
-     and over run_consensus, peak memory; ``[breakdown] topo`` of ring:8
+     path's trials, the script's depth cut; the equivocate mix x 8):
+     rounds, decided and disagree fractions, the smallest decided k,
+     trials/s over simulate and over run_consensus, peak memory;
+     ``[breakdown] topo`` of ring:8
      and of the N/8 committee; the same runs at 8192 x 8 (torus2d:64x128)
      card against CPU, every trial and every recorder row equal;
      'complete' equal to no topology; no kernel may launch; then
@@ -201,7 +202,32 @@ Phases (any failure ends the run non-zero; nothing is caught):
      off == on, each dispatch's device ms a round against its bound); the
      sweep manifest at 9000 x 4 pipelined, card against CPU, telescoping
      in band, one span tree a bucket;
- 18. the kernels line, the card line, and the result line.
+ 18. ``[serve]``: the request plane on the card.  ``load --device cuda
+     --clients 1000`` in process at DEFAULT_JOB (the committed
+     baseline's scale; gated as not comparable, platform gpu): jobs/s,
+     p50 / p99, jobs a launch, the attribution coverage, executor builds;
+     a ``ServeApp(device='cuda')`` at the default limits, to which a
+     simulate at the per-job cap (N = 65,536 x 32, f = 0.45, quorum
+     delivery on the histogram path), a sweep over the north star's f
+     grid, a trajectory and an audit job are posted over HTTP with SSE,
+     each result equal to ``run_point`` of its config on the card (the
+     trajectory's round rows to its recorder, the audit's witness rows
+     and verdict to the auditor's on that run), then the same four at
+     8192 x 8 equal to ``run_point`` on the CPU; a ``ServeApp(limits=...)``
+     with n_nodes lifted running 1M x 32 at f = 0.45 (a private
+     instance), equal to ``run_point`` on the card; the hand-written
+     kernels' launches in the phase (a served job arms no kernel flag);
+ 19. ``[heartbeat]``: the progress heartbeat.  A 1M x 32 sliced network
+     (poll_rounds = 1, heartbeat_rounds = 1, f = 0.45, balanced inputs,
+     the flagship flags) against the same run with the heartbeat off:
+     final state, rounds and round-kernel launches equal, one beat a round
+     and a final one; the north star's six points through
+     ``run_points_batched`` with a heartbeat file (five balanced points,
+     then the iid crash point), one beat a bucket; ``python -m
+     benor_tpu_torch watch --no-follow`` on the file (exit 0); the same
+     runs at 8192 x 8 card against CPU, every record equal but its
+     clocks;
+ 20. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1829,7 +1855,13 @@ def main() -> int:
     # --- 17. the performance observatory ----------------------------------
     profile_phase(dev)
 
-    # --- 18. the kernels line, the card, the result ------------------------
+    # --- 18. the request plane -----------------------------------------------
+    serve_phase(dev)
+
+    # --- 19. the progress heartbeat ------------------------------------------
+    heartbeat_phase(dev)
+
+    # --- 20. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4008,6 +4040,9 @@ TOPO_MAX_ROUNDS = 32      # results.topo_curves' round cap
 # 32, the script's depth cut that keeps it near 800 s (the equivocate mix
 # alone took ~100 s at 32 trials, two runs)
 TOPO_TRIALS = TRIALS // 2
+# the equivocate mix's trials at N = 1M: half again (~50 s at 16 trials),
+# the next depth cut, which the [serve] and [heartbeat] phases pay for
+TOPO_EQUIV_TRIALS = TOPO_TRIALS // 2
 TOPO_FAULTY = 0.05        # the fault mixes' faulty share (the first lanes)
 TOPO_MIX_SPEC = "ring:8"
 TOPO_SMALL = (8192, 8)    # card against CPU (torus2d:64x128 for the torus)
@@ -4031,14 +4066,15 @@ def topo_degree_specs(n):
     return specs
 
 
-def topo_runs(n, trials, device="cuda"):
+def topo_runs(n, trials, device="cuda", equiv_trials=None):
     """(name, config, inputs, faults) of the [topo] runs at N = n: the
     degree ladder (F = d, zero crashes, per-trial random inputs); the
     committee ladder of results.topo_curves (count = cap = 4, sizes N/16,
     N/8 and N/4, F = 1, zero crashes); the fault mixes on ring:8 with
     F = 8 (byzantine and equivocate with the first 5 % of the lanes faulty,
     'halves:4' with no crashes, crash_at_round with the first 5 % dying
-    at round 2) and the committee mix (size N/8, byzantine 5 %)."""
+    at round 2) and the committee mix (size N/8, byzantine 5 %).  The
+    equivocate mix runs the first ``equiv_trials`` trials when given."""
     import torch
     from benor_tpu_torch import SimConfig
     from benor_tpu_torch.state import FaultSpec
@@ -4063,11 +4099,14 @@ def topo_runs(n, trials, device="cuda"):
             n_nodes=n, n_faulty=1, committee_cap=4, committee_count=4,
             committee_size=size, **base), vals, none))
     ring = dict(n_nodes=n, n_faulty=8, topology=TOPO_MIX_SPEC, **base)
+    et = trials if equiv_trials is None else equiv_trials
+    fe = mix()
     out += [
         ("ring8_byzantine", SimConfig(fault_model="byzantine", **ring),
          vals, mix()),
-        ("ring8_equivocate", SimConfig(fault_model="equivocate", **ring),
-         vals, mix()),
+        ("ring8_equivocate", SimConfig(fault_model="equivocate",
+                                       **{**ring, "trials": et}),
+         vals[:et], FaultSpec(fe.faulty[:et], fe.crash_round[:et])),
         ("ring8_halves4", SimConfig(partition="halves:4", **ring), vals,
          none),
         ("ring8_crash_at_2", SimConfig(fault_model="crash_at_round", **ring),
@@ -4111,7 +4150,8 @@ def topo_phase(dev) -> None:
     obs_before = pr.obs_launch_counts()
 
     # (a) the ladders and the mixes at N = 1M x TOPO_TRIALS
-    runs = topo_runs(N_MAIN, TOPO_TRIALS, device=dev)
+    runs = topo_runs(N_MAIN, TOPO_TRIALS, device=dev,
+                     equiv_trials=TOPO_EQUIV_TRIALS)
     t_runs = {}
     for name, c, vals, fl in runs:
         assert not tally.pallas_round_active(c)
@@ -5283,6 +5323,405 @@ def profile_phase(dev) -> None:
             and got.get("fused_round")):
         raise SystemExit("[profile] a round kernel was never launched")
     print(f"[profile] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [serve] phase: the request plane ----------------------------------
+
+SERVE_LOAD_CLIENTS = 1000       # the committed baseline's scale
+SERVE_N, SERVE_T = 1 << 16, 32  # the default per-job cap on N, 32 trials
+SERVE_SMALL = (8192, 8)         # the card-vs-CPU scale
+SERVE_F = 0.45
+SERVE_BIG = N_MAIN              # the private instance's north-star width
+#: clocks and the job plumbing, which differ between two runs by design
+SERVE_CLOCKS = ("seconds", "trials_per_sec", "job", "batch_jobs")
+
+
+def serve_sse(app, doc, timeout=600.0) -> list:
+    """POST one job document with ?stream=sse and read its stream to the
+    terminal done -> [(event, data)]."""
+    import socket
+    body = json.dumps(doc).encode()
+    buf = b""
+    with socket.create_connection((app.host, app.port),
+                                  timeout=timeout) as s:
+        s.sendall(b"POST /v1/jobs?stream=sse HTTP/1.1\r\nHost: x\r\n"
+                  + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        while b"event: done" not in buf:
+            got = s.recv(1 << 16)
+            if not got:
+                break
+            buf += got
+    if not buf.startswith(b"HTTP/1.1 200"):
+        raise SystemExit(f"[serve] POST {doc} answered {buf[:200]!r}")
+    out = []
+    for block in buf.partition(b"\r\n\r\n")[2].split(b"\n\n"):
+        ev = dict(line.partition(b": ")[::2] for line in block.split(b"\n"))
+        if b"event" in ev:
+            out.append((ev[b"event"].decode(), json.loads(ev[b"data"])))
+    return out
+
+
+def serve_direct(doc, device, limits=None) -> tuple:
+    """A job document run directly: the result ``run_point`` of its
+    config gives, its recorder rows and its witness rows and verdict."""
+    from benor_tpu_torch.audit import (WitnessBundle, audit_witness,
+                                       witness_rows)
+    from benor_tpu_torch.serve import JobSpec, result_dict
+    from benor_tpu_torch.state import witness_node_ids
+    from benor_tpu_torch.sweep import default_crash_faults, run_point
+    from benor_tpu_torch.utils.metrics import round_history_rows
+    rows = wit = blob = None
+    out = []
+    for spec in JobSpec.from_dict(doc, limits=limits).expand():
+        cfg = spec.to_config()
+        pt = run_point(cfg, device=device)
+        res = {k: v for k, v in result_dict(pt, spec).items()
+               if k not in SERVE_CLOCKS}
+        if pt.round_history is not None:
+            rows = round_history_rows(pt.round_history)
+        if pt.witness is not None:
+            wit = witness_rows(pt.witness, cfg.witness_trials,
+                               witness_node_ids(cfg))
+            rep = audit_witness(WitnessBundle.from_run(
+                cfg, pt.witness, faults=default_crash_faults(cfg, device)))
+            blob = {"ok": rep.ok, "violations": len(rep.violations),
+                    "summary": rep.summary()}
+            res["audit"] = blob
+        out.append(res)
+    return out, rows, wit, blob
+
+
+def serve_jobs(n, t) -> dict:
+    """The four job kinds at N = n x t, f = SERVE_F, quorum delivery on
+    the histogram path; the sweep over the north star's f grid."""
+    base = {"n_nodes": n, "n_faulty": int(SERVE_F * n), "trials": t,
+            "max_rounds": MAX_ROUNDS, "delivery": "quorum",
+            "path": "histogram", "seed": 7}
+    return {"simulate": {**base, "kind": "simulate"},
+            "sweep": {**base, "kind": "sweep",
+                      "f_values": [int(fr * n) for fr in FRACS]},
+            "trajectory": {**base, "kind": "trajectory", "seed": 8},
+            "audit": {**base, "kind": "audit", "seed": 9}}
+
+
+def serve_check(app, tag, docs, device, limits=None) -> bool:
+    """Post each job and hold it against its direct run on ``device``."""
+    ok = True
+    for kind, doc in docs.items():
+        t0 = time.perf_counter()
+        events = serve_sse(app, doc)
+        t_serve = time.perf_counter() - t0
+        results = [{k: v for k, v in p.items() if k not in SERVE_CLOCKS}
+                   for e, p in events if e == "result"]
+        rows = [p for e, p in events if e == "round"]
+        wit = [p for e, p in events if e == "witness"]
+        blob = [p for e, p in events if e == "audit"]
+        want, wrows, wwit, wblob = serve_direct(doc, device, limits)
+        same = (results == want
+                and (kind != "trajectory" or rows == wrows)
+                and (kind != "audit" or (wit == wwit and blob == [wblob])))
+        ok = ok and same and bool(results)
+        print(f"[serve] {tag} {kind} N={doc['n_nodes']} T={doc['trials']}: "
+              f"{len(results)} result(s) in {t_serve:.3f} s, rounds "
+              f"{[r['rounds_executed'] for r in results]}, decided "
+              f"{[r['decided_frac'] for r in results]}, round rows "
+              f"{len(rows)}, witness rows {len(wit)}, verdict "
+              f"{blob[0]['summary'] if blob else None}; equal to run_point "
+              f"on {device}: {same}")
+    return ok
+
+
+def serve_phase(dev) -> None:
+    """Phase 18: the request plane on the card.  (1) ``load --device cuda
+    --clients 1000`` in process at DEFAULT_JOB: the manifest's jobs/s,
+    p50 / p99, jobs a launch, attribution and executor builds; (2) a
+    ServeApp on the card at the default limits: the four job kinds at
+    the per-job cap (65,536 x 32) equal to run_point on the card, and at
+    8192 x 8 equal to run_point on the CPU; (3) a private instance with
+    n_nodes lifted: 1M x 32 at f = 0.45 equal to run_point on the card;
+    (4) the hand-written kernels' launches in the phase."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    from benor_tpu_torch.__main__ import main as cli
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.perfscope.capture import PORT_KERNELS
+    from benor_tpu_torch.serve import DEFAULT_JOB, Batcher, ServeApp
+    from benor_tpu_torch.sim import device_identity
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+
+    # (1) the load test at the committed baseline's scale
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.json")
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["load", "--device", str(dev), "--clients",
+                      str(SERVE_LOAD_CLIENTS), "--profile-out", path])
+        t_load = time.perf_counter() - t0
+        with open(path) as fh:
+            m = json.load(fh)
+    lat, attr, st = m["latency_ms"], m["attribution"], m["stages"]
+    print(f"[serve] load --clients {m['clients']} ({m['platform']}, "
+          f"{m['device_kind']}): exit {rc} in {t_load:.1f} s; jobs "
+          f"{m['jobs_completed']}/{m['jobs_submitted']} errors "
+          f"{m['errors']} in {m['duration_s']} s = "
+          f"{m['throughput_jobs_per_sec']} jobs/s; latency p50 "
+          f"{lat['p50']} ms p99 {lat['p99']} ms; {m['launches']} launches, "
+          f"{m['jobs_per_launch']} jobs a launch; executor_compiles "
+          f"{m['executor_compiles']}; attribution coverage "
+          f"{attr['coverage']} ok {attr['ok']}; stage p99 ms "
+          f"{ {k: v['p99'] for k, v in st.items()} }; {card}")
+    for line in out.getvalue().splitlines() + err.getvalue().splitlines():
+        print(f"[serve]   {line}")
+    if (rc != 0 or m["errors"] or m["platform"] != device_identity(dev)[0]
+            or m["jobs_completed"] != SERVE_LOAD_CLIENTS
+            or m["executor_compiles"] != 0 or not attr["ok"]
+            or m["jobs_per_launch"] <= 1.0):
+        raise SystemExit("[serve] the load test failed a check")
+    # the launch layer alone: one full batch of DEFAULT_JOB slots through
+    # Batcher.step on this thread, no request plane beside it
+    b = Batcher(start=False, device=dev)
+    times = []
+    for r in range(3):
+        for i in range(b.max_batch_jobs):
+            b.submit_dict({**DEFAULT_JOB, "seed": 1000 * r + i})
+        t0 = time.perf_counter()
+        b.step()
+        times.append(time.perf_counter() - t0)
+    print(f"[serve] batcher alone: {b.max_batch_jobs} DEFAULT_JOB slots "
+          f"a step in {[round(t, 4) for t in times]} s, "
+          f"{median(times) / b.max_batch_jobs * 1e3:.3f} ms a slot "
+          f"(median); {card}")
+    for i in range(b.max_batch_jobs):
+        b.submit_dict({**DEFAULT_JOB, "seed": 5000 + i})
+    breakdown("serve", f"one step of {b.max_batch_jobs} DEFAULT_JOB slots",
+              b.step, median(times), PORT_KERNELS, torch_ops=True)
+
+    # (2) the four kinds on the card's request plane
+    ok = True
+    with ServeApp(device=dev) as app:
+        torch.cuda.reset_peak_memory_stats()
+        ok &= serve_check(app, "cap", serve_jobs(SERVE_N, SERVE_T), dev)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ok &= serve_check(app, "small", serve_jobs(*SERVE_SMALL), "cpu")
+        st = app.batcher.stats()
+    print(f"[serve] ServeApp on the card: {st['jobs_completed']} jobs, "
+          f"{st['launches']} launches, {st['executors']} executors, "
+          f"executor_compiles {st['executor_compiles']}, batch_errors "
+          f"{st['batch_errors']}; peak {peak:.1f} MiB at the cap; {card}")
+    if not ok or st["batch_errors"]:
+        raise SystemExit("[serve] a served job differs from run_point")
+
+    # (3) the private instance at the north star's width
+    doc = {"kind": "simulate", "n_nodes": SERVE_BIG,
+           "n_faulty": int(SERVE_F * SERVE_BIG), "trials": TRIALS,
+           "max_rounds": MAX_ROUNDS, "delivery": "quorum",
+           "path": "histogram", "seed": 11}
+    lifted = {"n_nodes": SERVE_BIG}
+    with ServeApp(device=dev, limits=lifted) as app:
+        torch.cuda.reset_peak_memory_stats()
+        ok = serve_check(app, "private", {"simulate": doc}, dev, lifted)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"[serve] private instance N={SERVE_BIG}: peak {peak:.1f} MiB")
+    if not ok:
+        raise SystemExit("[serve] the private instance failed a check")
+
+    got = {k: fn.launches for t in tables for k, fn in t.items()
+           if fn.launches}
+    print(f"[serve] hand-written kernel launches in the phase: {got} (a "
+          f"served job arms no kernel flag)")
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [heartbeat] phase: the progress heartbeat ---------------------------
+
+HB_CLOCKS = ("ts", "elapsed_s", "rounds_per_sec", "eta_s")
+
+
+def sync(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def hb_nonclock(rec) -> dict:
+    """A heartbeat record with its clocks reduced to present / null."""
+    return {k: (v is None) if k in HB_CLOCKS else v for k, v in rec.items()}
+
+
+def hb_network(n, t, hb, path, device):
+    """The sliced network at N = n x t, f = SERVE_F, balanced inputs, the
+    flagship flags, one round a slice -> (network, seconds, round-kernel
+    launches)."""
+    from benor_tpu_torch import launch_network
+    from benor_tpu_torch.ops import packed_round as pr
+    f = int(SERVE_F * n)
+    pr.reset_launches()
+    net = launch_network(n, f, [i % 2 for i in range(n)],
+                         [True] * f + [False] * (n - f), device=device,
+                         trials=t, max_rounds=MAX_ROUNDS, delivery="quorum",
+                         scheduler="uniform", path="histogram",
+                         use_pallas_hist=True, use_pallas_round=True,
+                         poll_rounds=1, heartbeat_rounds=hb)
+    net.heartbeat_path = path
+    t0 = time.perf_counter()
+    net.start()
+    sync(device)
+    secs = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in pr.KERNELS.items()
+                if fn.launches}
+    return net, secs, launched
+
+
+def hb_sweep(n, t, path, device) -> list:
+    """The north star's six points through run_points_batched with a
+    heartbeat file: the five balanced zero-crash points, then the iid
+    point with crash faults from birth -> the two curves."""
+    from benor_tpu_torch import SimConfig
+    from benor_tpu_torch.state import FaultSpec
+    from benor_tpu_torch.sweep import balanced_inputs, run_points_batched
+    base = SimConfig(n_nodes=n, n_faulty=0, **{**MAIN_RUN, "trials": t},
+                     heartbeat_rounds=1)
+    bal = balanced_inputs(t, n)
+    five = run_points_batched(
+        base, [base.replace(n_faulty=int(fr * n)) for fr in FRACS],
+        initial_values=bal, faults_for=lambda c: FaultSpec.none(t, n),
+        heartbeat_path=path, device=device)
+    iid = base.replace(n_faulty=int(0.20 * n))
+    one = run_points_batched(iid, [iid], heartbeat_path=path,
+                             device=device)
+    return [five, one]
+
+
+def heartbeat_phase(dev) -> None:
+    """Phase 19: the progress heartbeat.  (1) the 1M x 32 sliced network
+    with a beat a round against the run without: final state, rounds and
+    round-kernel launches equal; (2) the north star's six points through
+    run_points_batched with a heartbeat file, one beat a bucket; (3)
+    ``watch --no-follow`` on the file in its own process, exit 0; (4) the
+    network and the sweep at 8192 x 8 card against CPU, every record
+    equal but its clocks."""
+    import os
+    import tempfile
+    import torch
+    from benor_tpu_torch.meshscope import read_heartbeats
+    from benor_tpu_torch.ops import _build
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.sweep import summarize_final
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    work = tempfile.mkdtemp(prefix="heartbeat_")
+    total = {}              # the phase's launches (hb_network resets pr's)
+
+    def tally_launches():
+        for t in (dk.KERNELS, hk.KERNELS, pr.KERNELS):
+            for k, fn in t.items():
+                if fn.launches:
+                    total[k] = total.get(k, 0) + fn.launches
+        for ops in (dk, hk, pr):
+            ops.reset_launches()
+
+    tally_launches()
+    total.clear()
+
+    # (1) the sliced network, heartbeat off and on (the kernel library
+    # loaded first, so neither run carries its build)
+    _build.load_library()
+    path = os.path.join(work, "net.jsonl")
+    runs = {}
+    for hb in (0, 1):
+        runs[hb] = hb_network(N_MAIN, TRIALS, hb, path if hb else None, dev)
+        tally_launches()
+    (off, s_off, l_off), (on, s_on, l_on) = runs[0], runs[1]
+    same = (off.rounds_executed == on.rounds_executed and l_off == l_on
+            and all(torch.equal(getattr(off.state, a), getattr(on.state, a))
+                    for a in ("x", "decided", "k", "killed")))
+    beats = read_heartbeats(path)
+    summ = [float(v) for v in summarize_final(
+        on.state, on.faults.faulty, MAX_ROUNDS)[:2]]
+    print(f"[heartbeat] network N={N_MAIN} T={TRIALS} f={SERVE_F} "
+          f"poll_rounds=1: rounds {on.rounds_executed}, decided "
+          f"{summ[0]:.6f}, off {s_off:.3f} s / on {s_on:.3f} s, round-"
+          f"kernel launches off {l_off} on {l_on}, off == on {same}; "
+          f"{len(beats)} beats: "
+          f"{[(b['round'], b['decided_frac'], b['done']) for b in beats]}"
+          f"; rounds/s {[b['rounds_per_sec'] for b in beats]}; {card}")
+    if (not same or (dev.type == "cuda" and not l_on)
+            or len(beats) != on.rounds_executed + 1
+            or not beats[-1]["done"]
+            or beats[-1]["round"] != on.rounds_executed):
+        raise SystemExit("[heartbeat] the sliced network failed a check")
+    del off, on, runs
+
+    # (2) the north star through the engine with a heartbeat file
+    path = os.path.join(work, "sweep.jsonl")
+    t0 = time.perf_counter()
+    curves = hb_sweep(N_MAIN, TRIALS, path, dev)
+    t_sweep = time.perf_counter() - t0
+    tally_launches()
+    beats = read_heartbeats(path)
+    n_buckets = sum(cb.n_buckets for cb in curves)
+    shown = [(b["bucket_index"], b["points_done"], b["points_total"],
+              b["done"]) for b in beats]
+    rounds = [p.rounds_executed for cb in curves for p in cb.points]
+    print(f"[heartbeat] north star N={N_MAIN} T={TRIALS}: "
+          f"{n_buckets} buckets in {t_sweep:.1f} s, {len(beats)} beats: "
+          f"{shown}; rounds {rounds}")
+    if len(beats) != n_buckets or [b["done"] for b in beats] != \
+            [False] * 4 + [True, True]:
+        raise SystemExit("[heartbeat] not one beat a bucket")
+
+    # (3) watch on the file, in its own process
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "benor_tpu_torch", "watch", path,
+         "--no-follow", "--keep-going", "--timeout", "5"], cwd=here,
+        capture_output=True, text=True, timeout=120)
+    lines = proc.stdout.splitlines()
+    print(f"[heartbeat] watch --no-follow: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s, {len(lines)} lines, last "
+          f"{lines[-1] if lines else None!r}")
+    if proc.returncode != 0 or len(lines) != len(beats):
+        raise SystemExit("[heartbeat] watch failed")
+
+    # (4) card against CPU at 8192 x 8
+    n_s, t_s = SERVE_SMALL
+    recs = {}
+    for d in (dev, "cpu"):
+        pn = os.path.join(work, f"net_{d}.jsonl")
+        ps = os.path.join(work, f"sweep_{d}.jsonl")
+        net = hb_network(n_s, t_s, 1, pn, d)[0]
+        tally_launches()
+        cbs = hb_sweep(n_s, t_s, ps, d)
+        tally_launches()
+        recs[str(d)] = ([hb_nonclock(r) for r in read_heartbeats(pn)],
+                        [hb_nonclock(r) for r in read_heartbeats(ps)],
+                        net.rounds_executed,
+                        [sweep_science(p) for cb in cbs for p in cb.points])
+    equal = recs[str(dev)] == recs["cpu"]
+    print(f"[heartbeat] N={n_s} T={t_s}: network beats "
+          f"{len(recs['cpu'][0])}, sweep beats {len(recs['cpu'][1])}, "
+          f"records, rounds and points card == cpu {equal}")
+    if not equal:
+        raise SystemExit("[heartbeat] card and CPU records differ")
+    print(f"[heartbeat] kernel launches in the phase: {total}, armed "
+          f"{pr.obs_launch_counts()}")
+    print(f"[heartbeat] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

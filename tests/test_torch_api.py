@@ -8,6 +8,8 @@ state; ``poll_rounds`` slicing equals the one-shot run; stop, stop_node and
 status behave as in the reference; what is not ported raises, naming its
 ROADMAP item."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -346,7 +348,7 @@ def test_history_and_witness_methods(call, flags, match):
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="express"), "jax"),
     (dict(backend="native"), "jax"),
-    (dict(heartbeat_rounds=2), "16"),
+    (dict(heartbeat_rounds=2), "beats"),
     (dict(mesh_shape=(1, 1)), "15"),
     (dict(drop_prob=0.2, path="histogram"), None),
 ], ids=["express", "native", "heartbeat", "mesh", "omission-histogram"])
@@ -354,8 +356,21 @@ def test_unported_launches_raise(kw, item):
     """The launches the port does not serve raise, naming their ROADMAP
     item; omission on the histogram path (``item`` None) launches and runs
     now, and so do the event-loop oracles (``item`` "jax"), whose states
-    and statuses equal the JAX package's oracle's (they take no device)."""
+    and statuses equal the JAX package's oracle's (they take no device),
+    and the heartbeat (``item`` "beats"), which publishes its final beat
+    and leaves the states of the run without it."""
     args = (4, 1, [1, 1, 0, 0], [True, False, False, False])
+    if item == "beats":
+        from benor_tpu_torch.utils.metrics import REGISTRY
+        before = REGISTRY.counter("heartbeat.published").value
+        nets = [tapi.launch_network(*args, device="cpu", **k)
+                for k in (kw, {})]
+        for net in nets:
+            net.start()
+        assert REGISTRY.counter("heartbeat.published").value == before + 1
+        assert REGISTRY.gauge("heartbeat.progress").value == 1.0
+        assert nets[0].get_states() == nets[1].get_states()
+        return
     if item == "jax":
         nets = [api.launch_network(*args, **kw) for api in (tapi, japi)]
         for net in nets:
@@ -390,8 +405,19 @@ def test_recorded_launch_runs():
         nets[0].rounds_executed
 
 
-def test_heartbeat_path_raises():
-    cfg = bt.SimConfig(n_nodes=3, n_faulty=0)
-    with pytest.raises(NotImplementedError, match="item 16\\)"):
-        bt.TpuNetwork(cfg, [1, 1, 1], [False] * 3, device="cpu",
-                      heartbeat_path="beats.jsonl")
+def test_heartbeat_path_raises(tmp_path):
+    """A heartbeat path raised before the heartbeat was ported; now the
+    network writes its beats there (one final beat for a one-shot run,
+    ``done: true`` at the rounds run) and nothing with no cadence."""
+    from benor_tpu_torch.meshscope import read_heartbeats
+    path = str(tmp_path / "beats.jsonl")
+    for hb in (0, 2):
+        cfg = bt.SimConfig(n_nodes=3, n_faulty=0, heartbeat_rounds=hb)
+        net = bt.TpuNetwork(cfg, [1, 1, 1], [False] * 3, device="cpu",
+                            heartbeat_path=path)
+        assert net.heartbeat_path == path
+        net.start()
+        assert os.path.exists(path) == bool(hb)
+    beats = read_heartbeats(path)
+    assert len(beats) == 1 and beats[0]["done"]
+    assert beats[0]["round"] == net.rounds_executed

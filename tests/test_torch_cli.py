@@ -11,10 +11,11 @@ left out of the JSON (``seconds``, ``trials_per_sec``, ``compile_count``;
 a timer's seconds, the trace's host spans' times, the JSON-lines ``ts``):
 they differ by design, as do the JAX package's XLA counters (``jax.*``,
 ``backend.*``), which the port does not keep.  Both registries are emptied
-before each call.  Each unported subcommand and flag raises naming its
-ROADMAP item, and without ``--device cpu`` on a machine with no CUDA
-device a subcommand fails instead of running on the CPU, but the
-event-loop oracles' demo, which takes no device.
+before each call.  ``serve``, ``load``, ``watch`` and the sweep's
+heartbeat flags run; each unported subcommand raises naming its ROADMAP
+item, and without ``--device cpu`` on a machine with no CUDA device a
+subcommand fails instead of running on the CPU, but the event-loop
+oracles' demo and ``watch``, which take no device.
 
 The uniform-scheduler runs draw by the CF sampler in both packages
 (``EXACT_TABLE_MAX`` lowered to 4).  The JAX side runs in the worker pool
@@ -250,12 +251,6 @@ UNPORTED = {
     ("lint",): "16",
     ("profile", "--regimes", "traced,sharded"): "15",
     ("scale", "--mesh", "1,2"): "15",
-    ("serve",): "16",
-    ("load", "--clients", "4"): "16",
-    ("watch", "x.jsonl"): "16",
-    ("sweep", "--n", "64", "--f-values", "8", "--batched",
-     "--heartbeat-rounds", "2"): "16",
-    ("sweep", "--n", "64", "--f-values", "8", "--heartbeat-out", "h"): "16",
 }
 
 
@@ -265,11 +260,128 @@ def test_unported_commands_and_flags_raise(argv):
     device is touched (with or without --device cpu)."""
     item = UNPORTED[argv]
     for extra in ([], ["--device", "cpu"]):
-        if argv[0] in ("lint", "scale", "serve", "load", "watch") and extra:
+        if argv[0] in ("lint", "scale") and extra:
             continue
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
             tmain(list(argv) + extra)
+
+
+# --- the request plane and the heartbeat: the pins that raised before
+# they were ported, each now a run on --device cpu ------------------------
+
+
+def _serve_run(tmp_path):
+    """`serve --port 0` in its own process: it prints where it listens,
+    answers /healthz and a streamed job, and exits 0 on an interrupt."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "benor_tpu_torch", "serve", "--port", "0",
+         "--device", "cpu"], cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stderr.readline()
+        m = re.search(r"listening on http://([0-9.]+):(\d+)", line)
+        assert m, line
+        body = json.dumps({"n_nodes": 16, "n_faulty": 2, "trials": 4,
+                           "max_rounds": 8, "delivery": "all"}).encode()
+        resp = b""
+        with socket.create_connection((m[1], int(m[2])), timeout=30) as s:
+            s.sendall(b"POST /v1/jobs?stream=sse HTTP/1.1\r\nHost: x\r\n"
+                      + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                      + body)
+            while b"event: done" not in resp:
+                got = s.recv(65536)
+                assert got, resp
+                resp += got
+        assert resp.startswith(b"HTTP/1.1 200") and b"event: result" in resp
+    finally:
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=30)
+        proc.stderr.close()
+    assert rc == 0
+
+
+def _load_run(tmp_path):
+    """`load --clients 4`: the manifest of four jobs on the CPU, gated
+    against the committed 1000-client baseline as not comparable (exit
+    0), with the JAX CLI's lines but the clocks."""
+    path = str(tmp_path / "m.json")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tmain(["load", "--clients", "4", "--device", "cpu",
+                    "--profile-out", path])
+    with open(path) as fh:
+        doc = json.load(fh)
+    assert rc == 0 and doc["kind"] == "serve_manifest"
+    assert doc["jobs_completed"] == doc["jobs_submitted"] == 4
+    assert out.getvalue().startswith(
+        "benor-serve load: cpu (cpu), 4 concurrent clients\n  jobs 4/4 "
+        "(errors 0) in ")
+    assert "not comparable: manifest drove 4 clients, baseline 1000" in \
+        err.getvalue()
+
+
+def _watch_run(tmp_path):
+    """`watch` on a heartbeat file prints the JAX CLI's lines."""
+    path = str(tmp_path / "x.jsonl")
+    with open(path, "w") as fh:
+        for r in (3, 6):
+            fh.write(json.dumps({"kind": "heartbeat", "label": "run",
+                                 "round": r, "max_rounds": 6,
+                                 "decided_frac": r / 6, "progress": r / 6,
+                                 "done": r == 6}) + "\n")
+    got = []
+    for main in (tmain, jmain):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            got.append((main(["watch", path, "--timeout", "1"]),
+                        out.getvalue()))
+    assert got[0] == got[1] and got[0][0] == 0
+    assert got[0][1].splitlines()[-1] == \
+        "[run] round=6/6 decided=1.000 100% DONE"
+
+
+def _sweep_run(tmp_path, flags):
+    """The sweep with a heartbeat flag: one beat a bucket with --batched
+    (registry counter and gauge), none on the per-point path (the JAX
+    warning), and no file without a cadence."""
+    path = str(tmp_path / "h")
+    argv = ["sweep", "--n", "64", "--f-values", "8", "--trials", "8",
+            "--device", "cpu"] + [a.replace("{h}", path) for a in flags]
+    before = tmetrics.REGISTRY.counter("heartbeat.published").value
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        assert tmain(argv) == 0
+    beats = tmetrics.REGISTRY.counter("heartbeat.published").value - before
+    if "--batched" in flags:
+        assert beats == 1
+        assert tmetrics.REGISTRY.gauge("heartbeat.progress").value == 1.0
+    else:
+        assert beats == 0 and not os.path.exists(path)
+
+
+SERVICE = {
+    ("serve",): _serve_run,
+    ("load", "--clients", "4"): _load_run,
+    ("watch", "x.jsonl"): _watch_run,
+    ("sweep", "--n", "64", "--f-values", "8", "--batched",
+     "--heartbeat-rounds", "2"):
+        lambda d: _sweep_run(d, ["--batched", "--heartbeat-rounds", "2"]),
+    ("sweep", "--n", "64", "--f-values", "8", "--heartbeat-out", "h"):
+        lambda d: _sweep_run(d, ["--heartbeat-out", "{h}"]),
+}
+
+
+@pytest.mark.parametrize("argv", list(SERVICE))
+def test_service_commands_and_flags_run(argv, tmp_path):
+    """serve, load, watch and the heartbeat flags, each of which raised
+    (ROADMAP Queue A item 16) before the request plane and the heartbeat
+    were ported, run and give their results."""
+    SERVICE[argv](tmp_path)
 
 
 NO_CUDA = {
@@ -283,6 +395,8 @@ NO_CUDA = {
     "atlas": ["atlas", "--profile-out", "{d}/m.json"],
     "replay": ["replay", "{d}/r.json"],
     "profile": ["profile", "--kernels", "--profile-out", "{d}/k.json"],
+    "serve": ["serve", "--port", "0"],
+    "load": ["load", "--clients", "4", "--profile-out", "{d}/m.json"],
 }
 
 
@@ -436,6 +550,26 @@ def test_profile_update_baseline_never_writes_committed(tmp_path, capsys):
     with open(target) as fh:
         assert json.load(fh)["kind"] == "kernel_manifest"
     assert read() == before
+
+
+def test_load_update_baseline_never_writes_committed(tmp_path, capsys):
+    """load --update-baseline refuses (exit 1) without --baseline PATH or
+    onto SERVE_BASELINE.json, leaving it byte for byte; onto another file
+    it writes the manifest there."""
+    committed = os.path.join(ROOT, "SERVE_BASELINE.json")
+    with open(committed, "rb") as fh:
+        before = fh.read()
+    for extra in ([], ["--baseline", committed]):
+        assert tmain(["load", "--clients", "2", "--device", "cpu",
+                      "--update-baseline", *extra]) == 1
+        assert "refusing --update-baseline" in capsys.readouterr().err
+    target = str(tmp_path / "s.json")
+    assert tmain(["load", "--clients", "2", "--device", "cpu",
+                  "--update-baseline", "--baseline", target]) == 0
+    with open(target) as fh:
+        assert json.load(fh)["clients"] == 2
+    with open(committed, "rb") as fh:
+        assert fh.read() == before
 
 
 def test_oracle_demo_needs_no_device(capsys, monkeypatch):

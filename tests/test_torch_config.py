@@ -174,12 +174,14 @@ def test_gate_predicates_match(table_max):
 
 
 def test_port_imports_without_jax_or_the_jax_package():
-    """With ``jax`` made unimportable, the port imports and runs a CPU
-    simulation, and no ``benor_tpu`` module is ever loaded."""
+    """With ``jax`` made unimportable, the port imports (the request plane
+    and the heartbeat included) and runs a CPU simulation, and no
+    ``benor_tpu`` module is ever loaded."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         import benor_tpu_torch
+        import benor_tpu_torch.meshscope, benor_tpu_torch.serve
         from benor_tpu_torch import SimConfig, simulate
         from benor_tpu_torch.ops import sampling
         from benor_tpu_torch.sweep import balanced_inputs

@@ -332,9 +332,10 @@ def test_observatory_imports_no_jax():
 
 @pytest.mark.parametrize("path", ("perfscope/baseline.py",
                                   "kernelscope/gate.py",
-                                  "sweepscope/gate.py"))
+                                  "sweepscope/gate.py",
+                                  "serve/gate.py"))
 def test_gate_loads_by_path_with_stdlib_alone(path):
-    """The three gates load by file path, as a CI step loads them, with
+    """The four gates load by file path, as a CI step loads them, with
     no module outside the standard library."""
     code = ("import importlib.util, sys\n"
             f"p = {os.path.join(ROOT, 'benor_tpu_torch', path)!r}\n"

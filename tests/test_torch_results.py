@@ -35,6 +35,7 @@ from benor_tpu_torch import results as tresults
 from benor_tpu_torch.faults.curves import churn_curve, drop_curve
 from benor_tpu_torch.faults import report as treport
 from benor_tpu_torch.ops import sampling as tsampling
+from benor_tpu_torch.serve.jobs import JobSpec as TJobSpec
 from benor_tpu_torch.sweep import baseline_configs
 from torch_ref_pool import prefetch, ref, start
 
@@ -295,9 +296,9 @@ def test_ks_two_sample_matches_jax(name):
 
 
 def test_serve_replay_documents_match_jax():
-    """A preset row's ``serve_replay``: JobSpec.from_config(cfg).to_dict()
-    of the JAX request plane, for every preset and for a recorded and a
-    witnessed config."""
+    """A preset row's ``serve_replay``, the port's
+    JobSpec.from_config(cfg).to_dict(), equals the JAX request plane's,
+    for every preset and for a recorded and a witnessed config."""
     from benor_tpu.config import SimConfig as JCfg
     import dataclasses
     cfgs = list(baseline_configs().values())
@@ -305,7 +306,7 @@ def test_serve_replay_documents_match_jax():
              cfgs[0].replace(witness_trials=(0,), witness_nodes=2)]
     for cfg in cfgs:
         jcfg = JCfg(**dataclasses.asdict(cfg))
-        assert tresults.serve_job_doc(cfg) == \
+        assert TJobSpec.from_config(cfg).to_dict() == \
             JobSpec.from_config(jcfg).to_dict()
 
 

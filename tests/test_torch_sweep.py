@@ -39,6 +39,7 @@ from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.state import DynParams as TDyn
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweepscope.journal import read_journal
+from benor_tpu_torch.utils import metrics as tmetrics
 from torch_ref_pool import prefetch, ref, start
 
 N, T = 96, 8
@@ -615,14 +616,20 @@ def test_coin_comparison_odd_quorum_refusal_matches_jax():
 
 
 def test_engine_refusals():
-    """A mesh, a heartbeat, resume without a journal and points of another
-    shape refuse, with the port's item numbers where they wait for one."""
+    """A mesh, resume without a journal and points of another shape
+    refuse, with the port's item number where one waits for it; a
+    heartbeat, which raised before it was ported, runs and beats once a
+    bucket with the points of the run without it."""
     base = bt.SimConfig(n_nodes=N, n_faulty=10, trials=T)
     with pytest.raises(NotImplementedError, match="item 15"):
         tsweep.run_points_batched(base, [base], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tsweep.run_points_batched(base.replace(heartbeat_rounds=2), [base],
-                                  device="cpu")
+    before = tmetrics.REGISTRY.counter("heartbeat.published").value
+    beat = tsweep.run_points_batched(base.replace(heartbeat_rounds=2),
+                                     [base], device="cpu")
+    assert tmetrics.REGISTRY.counter("heartbeat.published").value == \
+        before + beat.n_buckets
+    plain = tsweep.run_points_batched(base, [base], device="cpu")
+    assert [p.mean_k for p in beat.points] == [p.mean_k for p in plain.points]
     with pytest.raises(ValueError, match="journal_path"):
         tsweep.run_points_batched(base, [base], resume=True, device="cpu")
     with pytest.raises(ValueError, match="share base_cfg"):
