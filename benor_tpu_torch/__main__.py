@@ -64,9 +64,10 @@ bucket for ``watch``.
 Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device and no ``--device cpu`` it fails (exit 1)
 instead of moving to the CPU.  ``demo --backend express|native`` runs the
-event-loop oracles and ``watch`` tails a file: host programs that need no
-device.  Not ported: ``lint`` (ROADMAP Queue A item 16), ``scale`` and
-``profile --regimes sharded`` (item 15): each raises
+event-loop oracles, ``watch`` tails a file and ``lint`` parses the package
+(benorlint, analysis/; exit 0 clean, 2 on findings): host programs that
+need no device and take no ``--device``.  Not ported: ``scale`` and
+``profile --regimes sharded`` (ROADMAP Queue A item 15): each raises
 ``NotImplementedError`` naming its item.
 """
 
@@ -84,7 +85,6 @@ from .config import unported
 
 #: Subcommands of the JAX CLI that wait for a later Queue A item.
 UNPORTED_COMMANDS = {
-    "lint": ("the `lint` subcommand (benorlint)", "16"),
     "scale": ("the `scale` subcommand (mesh scaling ladders)", "15"),
 }
 
@@ -1025,6 +1025,14 @@ def _format_atlas_heatmap(rec) -> str:
         return json.dumps(rec, sort_keys=True)
 
 
+def _lint(args) -> int:
+    """benorlint over the package tree: device-path hygiene, kernel column
+    layouts and the CUDA constants, config parity, build observability
+    (analysis/).  Exit 0 = clean, 2 = findings — the `audit` convention."""
+    from .analysis.cli import main as lint_main
+    return lint_main(args)
+
+
 def _watch(args) -> int:
     """Tail a run's JSON-lines progress file (heartbeats, sweep-journal
     records, kernel telemetry, atlas records, interleaved or not): print
@@ -1231,6 +1239,22 @@ def _parser() -> argparse.ArgumentParser:
     p = sub.add_parser("preset", help="run a BASELINE.json preset config")
     p.add_argument("name")
     _add_device_arg(p)
+
+    li = sub.add_parser("lint",
+                        help="benorlint static analysis (device-path "
+                             "hygiene, kernel column layouts and the CUDA "
+                             "constants, config parity, build "
+                             "observability); exit 2 on findings; "
+                             "touches no device")
+    li.add_argument("--root", default=None,
+                    help="package root to lint (default: the "
+                         "benor_tpu_torch package directory)")
+    li.add_argument("--format", choices=("text", "json"), default="text",
+                    help="report format (json is schema-pinned by "
+                         "tools/check_metrics_schema.py)")
+    li.add_argument("--out", metavar="PATH",
+                    help="write the report to this file instead of stdout")
+    _add_obs_args(li, record=False)
 
     for name, (what, item) in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported (ROADMAP Queue A item "
@@ -1477,15 +1501,16 @@ def main(argv=None) -> int:
     if not argv or argv[0] not in ("demo", "sweep", "coins", "preset",
                                    "results", "trace", "audit", "atlas",
                                    "replay", "profile", "serve", "load",
-                                   "watch", *UNPORTED_COMMANDS,
+                                   "watch", "lint", *UNPORTED_COMMANDS,
                                    "-h", "--help"):
         argv = ["demo"] + argv
     if argv[0] in UNPORTED_COMMANDS:
         unported(*UNPORTED_COMMANDS[argv[0]])
     args = ap.parse_args(argv)
     _refuse_unported(args)
-    # the event-loop oracles and the tail are host programs: no device
-    if not (args.cmd == "watch" or
+    # the event-loop oracles, the tail and the (pure-AST) linter are host
+    # programs: no device
+    if not (args.cmd in ("watch", "lint") or
             (args.cmd == "demo" and args.backend in ("express", "native"))):
         from .sim import resolve_device
         try:
@@ -1497,7 +1522,7 @@ def main(argv=None) -> int:
             "preset": _preset, "results": _results, "trace": _trace,
             "audit": _audit, "atlas": _atlas, "replay": _replay,
             "profile": _profile, "serve": _serve, "load": _load,
-            "watch": _watch}[args.cmd](args)
+            "watch": _watch, "lint": _lint}[args.cmd](args)
 
 
 if __name__ == "__main__":

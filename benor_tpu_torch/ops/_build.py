@@ -41,6 +41,20 @@ _F = ctypes.c_float
 #: bound) made by this process so far: the sweep engine's compile count.
 library_events = 0
 
+#: The reviewed functions outside this module that build or load a shared
+#: library (module-relative names; benorlint's perf-unregistered-build
+#: reads the tuple by parsing and flags every other build or load):
+#:  - backends.native_oracle._build / load_library: the host event-loop
+#:    oracle's C++ library (g++), a host program with no kernel, loaded
+#:    once a process and never counted as the kernel library's build;
+#:  - ops.sass._compile: one source to a cubin for its SASS listing and
+#:    ptxas report (nvcc -cubin); nothing is loaded or launched from it.
+LIBRARY_REGISTRY = (
+    "backends.native_oracle._build",
+    "backends.native_oracle.load_library",
+    "ops.sass._compile",
+)
+
 #: argtypes of every C entry point in csrc/*.cu.
 SIGNATURES = {
     "benor_round_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

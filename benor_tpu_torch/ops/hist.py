@@ -57,6 +57,8 @@ BLOCK_NODES = (THREADS, THREADS, THREADS * COIN_NODES, THREADS * COIN_NODES)
 def cf_counts_plain(seed, r, phase, hist, m, n_nodes):
     """Plain version of the CF sampler kernel -> int32 [T, N, 3]."""
     t, device = hist.shape[0], hist.device
+    # benorlint: allow-host-sync — m is cfg.quorum, a host int: a dynamic
+    # quorum raises before the samplers (tally._histogram_counts)
     mf = torch.tensor(float(m), dtype=torch.float32, device=device)
     h0, h1 = cf_pair_draws(m, stream_scal(seed, r, phase), count_vecs(hist),
                            (t, n_nodes), device)
@@ -131,6 +133,10 @@ def _launch_cf_counts(lib, key, hist_f, m, n_nodes):
                       device=hist_f.device)
     blocks = hist_blocks(lib, 0, n_nodes, t, hist_f.device)
     raise_on(lib.benor_cf_counts(ptr(hist_f), ptr(out), t, n_nodes, blocks,
+                                 # benorlint: allow-host-sync — m is
+                                 # cfg.quorum, a host int, passed by value to
+                                 # the kernel (a dynamic quorum never reaches
+                                 # it)
                                  key[0], key[1], float(m),
                                  stream(hist_f.device)), "cf_counts")
     return out
@@ -151,6 +157,8 @@ def _launch_equiv_counts(lib, key, key2, hist_f, ne_f, m, n_nodes):
     blocks = hist_blocks(lib, 1, n_nodes, t, hist_f.device)
     raise_on(lib.benor_equiv_counts(
         ptr(hist_f), ptr(ne_f), ptr(out), t, n_nodes, blocks, key[0], key[1],
+        # benorlint: allow-host-sync — m is cfg.quorum, a host int, passed by
+        # value to the kernel (a dynamic quorum never reaches it)
         key2[0], key2[1], float(m), stream(hist_f.device)), "equiv_counts")
     return out
 
@@ -161,6 +169,8 @@ def _launch_weak_coin_flips(lib, key, trials, n_nodes, eps, shared_i):
     blocks = hist_blocks(lib, 3, n_nodes, trials, shared_i.device)
     raise_on(lib.benor_weak_coin_flips(
         ptr(shared_i), ptr(out), trials, n_nodes, blocks, key[0], key[1],
+        # benorlint: allow-host-sync — eps is cfg.coin_eps, a host float passed
+        # by value to the kernel
         float(eps), stream(shared_i.device)), "weak_coin_flips")
     return out
 

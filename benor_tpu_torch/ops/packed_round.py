@@ -592,6 +592,8 @@ def _vote_pass(seed, r, phase, hist, pack, quorum_ok, m, n_faulty, rule,
                       camp_b0, camp_b1)
     coin = _coin(seed, r, shape, device, coin_mode, eps, shared)
 
+    # benorlint: allow-host-sync — n_faulty is cfg.n_faulty, a host int
+    # (packed_round passes the config's)
     ff = float(n_faulty)
     decide0 = v0 > ff
     decide1 = v1 > ff
@@ -788,6 +790,8 @@ def round_blocks(lib, kernel: int, n_w: int, t: int, device,
     failed CUDA query raises."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
+        # benorlint: allow-host-sync — obs is the host flag ``obs is not None``
+        # (a cached query on host arguments)
         raise_on(lib.benor_round_blocks(kernel, *modes, fault, int(obs), n_w,
                                         t, ctypes.byref(blocks)),
                  "round_blocks")
@@ -850,6 +854,9 @@ def _add_shape_cols(telemetry, t, n_local, tile, sampled, hops):
     """Add a launch's shape columns into its ``telemetry`` accumulator
     (``_telem_shape``), beside the counts its kernel adds."""
     telemetry += _telem_shape(telemetry.device, t, telemetry.shape[-2],
+                              # benorlint: allow-host-sync — n_local (the
+                              # shard's node count) and sampled are host values
+                              # of the launch's shape
                               tile, int(n_local), bool(sampled),
                               tuple(hops)).view(telemetry.shape)
 
@@ -866,6 +873,8 @@ def _obs_operands(t, device, witness_ids, n_local, telemetry=None):
     wit_a = buf[:n_a].view(t, k, _WITA_PER_NODE) if k else None
     wit_b = buf[n_a:].view(t, k, _WITB_PER_NODE) if k else None
     obs = Obs(*(None if a is None else a.data_ptr()
+                # benorlint: allow-host-sync — n_local is the shard's node
+                # count, a host int
                 for a in (wit_a, wit_b, telemetry)), lo, hs, k, int(n_local))
     return obs, wit_a, wit_b
 
@@ -906,8 +915,12 @@ def _launch_proposal_hist(lib, key, hist_f, pack, m, fault_model, freeze,
                         device=pack.device)
     raise_on(lib.benor_proposal_hist(
         ptr(pack), ptr(hist_f), _opt_ptr(ne_f), ptr(parts), t, p, n_w,
+        # benorlint: allow-host-sync — m is cfg.quorum, a host int (by value)
         key[0], key[1], key2[0], key2[1], camps[0], camps[1], float(m),
+        # benorlint: allow-host-sync — freeze is cfg.freeze_decided, a host
+        # bool
         modes[0], modes[2], *_fault_ids(fault_model), int(bool(freeze)),
+        # benorlint: allow-host-sync — r is the host loop's round counter
         _opt_ptr(bounds[0]), _opt_ptr(bounds[1]), int(r), fault, bounds[2],
         blocks, stream(pack.device),
         None if obs is None else ctypes.byref(obs)), "proposal_hist")
@@ -935,8 +948,14 @@ def _launch_vote_commit(lib, vkey, ckey, rk, hist_f, qok, pack, m, n_faulty,
     raise_on(lib.benor_vote_commit(
         ptr(pack), ptr(hist_f), _opt_ptr(ne_f), ptr(qok), _opt_ptr(shared_i),
         ptr(new_pack), ptr(parts), t, p, n_w, vkey[0], vkey[1], vkey2[0],
+        # benorlint: allow-host-sync — rk is the host loop's round + 1, m
+        # cfg.quorum: host ints passed by value
         vkey2[1], ckey[0], ckey[1], camps[0], camps[1], int(rk), float(m),
+        # benorlint: allow-host-sync — n_faulty and eps are cfg.n_faulty and
+        # cfg.coin_eps, host values passed by value
         float(n_faulty), float(eps), *modes[:3], int(rule == "textbook"),
+        # benorlint: allow-host-sync — freeze is cfg.freeze_decided, a host
+        # bool
         *_fault_ids(fault_model), int(bool(freeze)), _opt_ptr(bounds[0]),
         _opt_ptr(bounds[1]), fault, bounds[2], blocks, stream(pack.device),
         None if obs is None else ctypes.byref(obs)), "vote_commit")
@@ -983,7 +1002,10 @@ def fused_fits(lib, device, coin_mode="private", equiv=False, fault=0,
             for w in FUSED_WARPS:
                 n = ctypes.c_int(0)
                 raise_on(lib.benor_fused_fits(
+                    # benorlint: allow-host-sync — equiv is a host flag of
+                    # a cached occupancy query
                     c, w, COIN_MODES.index(coin_mode), int(equiv), fault,
+                    # benorlint: allow-host-sync — so is obs
                     int(obs), ctypes.byref(n)), "fused_fits")
                 out[(c, w)] = n.value
     return out
@@ -1022,8 +1044,12 @@ def _launch_fused_round(lib, pkey, vkey, ckey, rk, hist_f, pack, m, n_faulty,
         ptr(pack), ptr(hist_f), _opt_ptr(ne_f), _opt_ptr(shared_i),
         ptr(new_pack), ptr(parts_a), ptr(parts_b), t, p, n_w, pkey[0],
         pkey[1], pkey2[0], pkey2[1], vkey[0], vkey[1], vkey2[0], vkey2[1],
+        # benorlint: allow-host-sync — rk (the host loop's round + 1), m,
+        # n_faulty and eps (cfg.quorum, .n_faulty, .coin_eps) are host values
         ckey[0], ckey[1], int(rk), float(m), float(n_faulty), float(eps),
         coin, equiv, int(rule == "textbook"), *_fault_ids(fault_model),
+        # benorlint: allow-host-sync — freeze is cfg.freeze_decided, a host
+        # bool
         int(bool(freeze)), _opt_ptr(bounds[0]), _opt_ptr(bounds[1]),
         FAULT_ROUNDS.get(fault_model, 0), bounds[2], grid[0], grid[1],
         stream(pack.device), None if obs is None else ctypes.byref(obs)),

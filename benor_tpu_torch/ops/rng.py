@@ -65,6 +65,8 @@ def _bernoulli(key) -> torch.Tensor:
 
 def round_key(seed: int, r: int, phase: int):
     """Key for (round, phase), shared across all lanes (host ints)."""
+    # benorlint: allow-host-sync — r is the host loop's round counter (the
+    # key is a pair of host words)
     return fold_in(fold_in(key_words(seed), int(r)), phase)
 
 

@@ -35,6 +35,8 @@ _ROT_B = (17, 29, 16, 24)
 def key_words(seed: int) -> tuple[int, int]:
     """The two key words ``jax.random.key_data(jax.random.key(seed))`` holds
     for a threefry key: ``(0, seed mod 2**32)``."""
+    # benorlint: allow-host-sync — seed is the run's host int seed (the key
+    # words are host ints)
     return 0, int(seed) & _M32
 
 
@@ -68,6 +70,8 @@ def stream_scal(seed: int, r: int, salt: int) -> tuple[int, int]:
     package's ``_stream_scal`` (the other two are mesh offsets, 0 on one
     device)."""
     kd0, kd1 = key_words(seed)
+    # benorlint: allow-host-sync — r is the host loop's round counter (the
+    # stream key is a pair of host words)
     return threefry2x32(kd0, kd1, int(r) & _M32, salt & _M32)
 
 
@@ -174,6 +178,8 @@ def cf_pair_draws(m, key, hist_f: torch.Tensor, shape, device):
     u1 = bits_to_uniform(b1)
     c0, c1, cq = hist_f[:, 0:1], hist_f[:, 1:2], hist_f[:, 2:3]
     total = c0 + c1 + cq
+    # benorlint: allow-host-sync — m is cfg.quorum, a host int: a dynamic
+    # quorum raises before the samplers (tally._histogram_counts)
     mf = torch.full_like(c0, float(m))
     p0 = cf_sample(u0, cf_terms(cf_pop(total, c0), mf))
     p1 = cf_sample(u1, cf_terms(cf_pop(torch.clamp_min(total - c0, 0.0), c1),
@@ -190,6 +196,8 @@ def equiv_trial(hist_f: torch.Tensor, ne_f: torch.Tensor, m) -> dict:
     ne = ne_f[:, None]
     total_h = c0 + c1 + cq
     total = total_h + ne
+    # benorlint: allow-host-sync — m is cfg.quorum, a host int: a dynamic
+    # quorum raises before the samplers (tally._histogram_counts)
     mf = torch.full_like(c0, float(m))
     return dict(db=cf_terms(cf_pop(total, ne), mf), pop0=cf_pop(total_h, c0),
                 pop1=cf_pop(torch.clamp_min(total_h - c0, 0.0), c1), m=mf)

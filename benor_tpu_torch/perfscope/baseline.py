@@ -18,15 +18,21 @@ package's, with two additions for documents of the two packages:
     compile stages, which eager torch does not have.  Two documents of one
     package compare on every field, as in the JAX package.
 
-``check_bench_trajectory`` and the other walkers of the committed
-``BENCH_r*.json`` / ``MULTICHIP_r*.json`` series are not here: they belong
-to the regression gates (ROADMAP Queue A item 16e).
+The walkers of the committed series — ``check_bench_trajectory``,
+``check_pallas_speedup_trajectory`` (``BENCH_r*.json``) and
+``check_multichip_trajectory`` (``MULTICHIP_r*.json``) — are the JAX
+package's, verbatim: they compare a record only with earlier records of
+its own platform (or device count), so a record of the card never meets
+the TPU-era ones that are committed today.
+benor_tpu_torch/tools/check_perf_regression.py runs them under
+``--trajectory``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import json
+from typing import Dict, List, Optional, Sequence
 
 #: metric -> max allowed new/old ratio (and 1/band on the way down).
 STRUCTURAL_BANDS: Dict[str, float] = {
@@ -159,6 +165,21 @@ def compare_manifests(new: dict, base: dict,
     return out
 
 
+def _headline(rec: dict) -> dict:
+    """Unwrap a committed bench record to its headline dict.
+
+    A committed BENCH_r*.json record is a wrapper ({cmd, rc, tail,
+    parsed}) whose ``parsed`` key holds the stdout headline; a raw
+    headline (bench.py stdout piped straight to a file) is its own
+    record.  The trajectory walkers accept both — a wrapper record
+    read as a raw one would look like a pre-metric capture and the whole
+    committed series would be skipped."""
+    parsed = rec.get("parsed")
+    if isinstance(parsed, dict):
+        return parsed
+    return rec
+
+
 #: The bit-plane layout must cut a node's round traffic at least this much
 #: at the reference geometry (max_rounds = PACKED_RATIO_REF_MAX_ROUNDS);
 #: a capture's own ratio is normalized to it before the gate.
@@ -234,4 +255,148 @@ def check_fused_vs_xla(manifest: dict) -> List[str]:
             f"real backend ({fvx.get('rounds_executed')} rounds at "
             f"N={fvx.get('n_nodes')}) — the fused fast path trails the "
             f"plain XLA loop again")
+    return findings
+
+
+def check_pallas_speedup_trajectory(paths: Sequence[str],
+                                    collapse_ratio: float = 3.0
+                                    ) -> List[str]:
+    """Same-platform pallas-kernel speedup collapses along the committed
+    BENCH_r*.json series — with interpret-mode captures EXCLUDED.
+
+    Records carrying ``pallas_interpret: true`` measured the kernels
+    under the CPU pallas interpreter: their ratios price XLA-vs-emulator
+    and systematically read as losses (BENCH_r05's round=0.628 was this
+    artifact).  Treating them as regressions — or their occasional
+    emulator-beats-XLA flukes as wins — would gate on noise, so they are
+    noted and skipped; only real-backend ratios participate, per
+    (platform, kernel), against the best earlier same-platform value."""
+    findings: List[str] = []
+    best: Dict[tuple, tuple] = {}    # (platform, kernel) -> (ratio, path)
+    for path in paths:
+        try:
+            with open(path) as fh:
+                rec = json.load(fh)
+        except (OSError, json.JSONDecodeError) as e:
+            findings.append(f"note: {path}: unreadable ({e})")
+            continue
+        if not isinstance(rec, dict) or rec.get("error"):
+            continue                 # the bench walk already notes these
+        head = _headline(rec)
+        speedups = head.get("pallas_speedups")
+        if not isinstance(speedups, dict) or not speedups:
+            continue                 # pre-metric capture
+        if head.get("pallas_interpret"):
+            findings.append(
+                f"note: {path}: pallas_speedups captured under the "
+                f"interpreter (pallas_interpret=true) — excluded from "
+                f"kernel-ratio gating")
+            continue
+        plat = head.get("platform")
+        for kernel, ratio in speedups.items():
+            if not isinstance(ratio, (int, float)) or not plat:
+                continue
+            key = (plat, kernel)
+            prev = best.get(key)
+            if prev and ratio * collapse_ratio < prev[0]:
+                findings.append(
+                    f"REGRESSION: {path}: pallas_speedups.{kernel} "
+                    f"{ratio:.3g} is >{collapse_ratio}x below the "
+                    f"{plat} best {prev[0]:.3g} ({prev[1]})")
+            if prev is None or ratio > prev[0]:
+                best[key] = (ratio, path)
+    return findings
+
+
+def check_bench_trajectory(paths: Sequence[str],
+                           collapse_ratio: float = 3.0) -> List[str]:
+    """Same-platform throughput collapses along a BENCH_r*.json series.
+
+    Compares each record's ``node_rounds_per_sec`` (the workload-
+    invariant throughput number; ``value`` = trials/s is NOT comparable
+    across regime-set changes — bench.py documents why) against the best
+    earlier same-platform record; a drop past ``collapse_ratio`` is a
+    finding.  Records that failed to parse, carried an error, or predate
+    the metric are skipped with a note."""
+    findings: List[str] = []
+    best: Dict[str, tuple] = {}              # platform -> (value, path)
+    for path in paths:
+        try:
+            with open(path) as fh:
+                rec = json.load(fh)
+        except (OSError, json.JSONDecodeError) as e:
+            findings.append(f"note: {path}: unreadable ({e})")
+            continue
+        if not isinstance(rec, dict) or rec.get("error"):
+            findings.append(f"note: {path}: error record, skipped")
+            continue
+        head = _headline(rec)
+        plat = head.get("platform")
+        nrps = head.get("node_rounds_per_sec")
+        if not plat or nrps is None:
+            # ABSENT metric = pre-metric capture; a present 0.0 is the
+            # worst possible collapse and must flow into the comparison
+            findings.append(
+                f"note: {path}: no node_rounds_per_sec (pre-metric "
+                f"capture), skipped")
+            continue
+        prev = best.get(plat)
+        if prev and nrps * collapse_ratio < prev[0]:
+            findings.append(
+                f"REGRESSION: {path}: node_rounds_per_sec {nrps:.3g} is "
+                f">{collapse_ratio}x below the {plat} best {prev[0]:.3g} "
+                f"({prev[1]})")
+        if prev is None or nrps > prev[0]:
+            best[plat] = (nrps, path)
+    return findings
+
+
+def check_multichip_trajectory(paths: Sequence[str],
+                               collapse_ratio: float = 3.0) -> List[str]:
+    """Scaling-efficiency collapses along the MULTICHIP_r*.json series.
+
+    The multichip round captures carry the "near-linear scaling"
+    evidence the pod-scale arc rests on; once a record publishes a
+    ``scaling_efficiency`` (meshscope-era captures do — the best
+    same-device-count efficiency of their scaling manifest), later
+    records must not collapse below it.  Mirrors the bench-series
+    ``node_rounds_per_sec=0.0`` rule, one notch stricter: a MISSING or
+    zero scaling_efficiency on an otherwise-ok record is treated as the
+    WORST collapse (efficiency 0.0) and flows into the comparison
+    instead of being skipped — a capture that stopped reporting the
+    metric must not read as healthy.  Records that failed (``ok``
+    false), were skipped, or are unreadable are noted and skipped, like
+    error records in the bench walk.  Comparisons key on ``n_devices``
+    (efficiency at 2 chips and at 8 are different experiments)."""
+    findings: List[str] = []
+    best: Dict[object, tuple] = {}      # n_devices -> (efficiency, path)
+    for path in paths:
+        try:
+            with open(path) as fh:
+                rec = json.load(fh)
+        except (OSError, json.JSONDecodeError) as e:
+            findings.append(f"note: {path}: unreadable ({e})")
+            continue
+        if not isinstance(rec, dict) or rec.get("skipped") \
+                or not rec.get("ok"):
+            findings.append(f"note: {path}: skipped/failed capture, "
+                            f"not compared")
+            continue
+        eff = rec.get("scaling_efficiency")
+        if not eff:
+            # missing or zero = the worst possible collapse; it still
+            # participates (flagged iff an earlier record set a bar)
+            findings.append(
+                f"note: {path}: no scaling_efficiency — treated as 0.0 "
+                f"(the worst collapse), not skipped")
+            eff = 0.0
+        key = rec.get("n_devices")
+        prev = best.get(key)
+        if prev and eff * collapse_ratio < prev[0]:
+            findings.append(
+                f"REGRESSION: {path}: scaling_efficiency {eff:.3g} is "
+                f">{collapse_ratio}x below the n_devices={key} best "
+                f"{prev[0]:.3g} ({prev[1]})")
+        if eff and (prev is None or eff > prev[0]):
+            best[key] = (eff, path)
     return findings

@@ -63,6 +63,30 @@ from .state import (DynParams, FaultSpec, NetState, init_state,
                     new_recorder, new_witness)
 from .utils.tracing import emit_round_event
 
+#: The device path's roots: the per-round work that the two host loops
+#: (ops.packed_round.run_packed_slice and _unfused_slice below) launch,
+#: round after round, named module-relative.  benorlint reads this roster
+#: by parsing (analysis/visitors.py) and holds every function these reach
+#: to the tracer rules: no host sync, no global-generator draw, no Python
+#: branch on a tensor, no 64-bit float.  The loops themselves read the
+#: unsettled count once a round by design (ROADMAP "Known differences").
+#: The two dense tallies are named too: tally._dense_receiver_counts picks
+#: one into a variable, a call the analysis does not follow.
+DEVICE_ROOTS = (
+    "ops.packed_round.packed_round",
+    "ops.packed_round.sent_hist_from_pack",
+    "ops.packed_round.unsettled_from_pack",
+    "ops.packed_round.n_equiv_from_pack",
+    "ops.packed_round.pack_state",
+    "ops.packed_round.unpack_state",
+    "state.recorder_write",
+    "state.witness_write",
+    "models.benor.benor_round",
+    "models.benor.all_settled",
+    "ops.tally.dense_counts",
+    "ops.dense.dense_counts",
+)
+
 #: One warning per process for each demotion the announcers below name.
 _debug_demotion_warned = False
 _structured_demotion_warned = False

@@ -232,6 +232,9 @@ def point_from_raw(cfg_f: SimConfig, vals, seconds: float) -> SweepPoint:
 
 def random_inputs(seed: int, trials: int, n: int) -> np.ndarray:
     """Per-trial random initial bits — the standard MC input distribution."""
+    # benorlint: allow-host-rng — seeded host-side INPUT generation, made
+    # once a sweep before any round runs and moved to the device with the
+    # state; every protocol draw keys on ops/rng.py's threefry streams
     return np.random.default_rng(seed).integers(
         0, 2, size=(trials, n), dtype=np.int8)
 

@@ -40,8 +40,10 @@ def pipeline_buckets(work: Sequence[Tuple], build: Callable,
                 if stop.is_set():
                     return
                 q.put(("plan", build(*item)))
-        # relay boundary: whatever the build raised is re-raised verbatim
-        # on the consuming thread, in bucket order
+        # benorlint: allow-broad-except — cross-thread relay boundary:
+        # whatever the build raised (a kernel-library build failure
+        # included) is re-raised verbatim on the consuming thread, in
+        # bucket order; nothing is swallowed and nothing falls back
         except BaseException as e:
             q.put(("raise", e))
             return

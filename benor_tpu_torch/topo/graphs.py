@@ -251,6 +251,10 @@ def build_neighbor_table(spec: TopologySpec, n_nodes: int):
     # until every row holds d distinct non-self senders; d << N makes
     # the collision mass shrink geometrically, so the loop terminates
     # in a handful of passes)
+    # benorlint: allow-host-rng — seeded STATIC graph construction on the
+    # host, once a config (a pure function of (graph_seed, N), moved to
+    # the device as the neighbour table); protocol draws all use
+    # ops/rng.py
     gen = np.random.default_rng(spec.graph_seed)
     tbl = gen.integers(0, n, size=(n, d), dtype=np.int32)
     for _ in range(10_000):

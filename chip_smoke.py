@@ -227,7 +227,21 @@ Phases (any failure ends the run non-zero; nothing is caught):
      benor_tpu_torch watch --no-follow`` on the file (exit 0); the same
      runs at 8192 x 8 card against CPU, every record equal but its
      clocks;
- 20. the kernels line, the card line, and the result line.
+ 20. ``[gates]``: lint and the regression gates, with no kernel.  The
+     card's documents of the earlier phases (``[profile]``'s perf, kernel
+     and sweep manifests, ``[serve]``'s load manifest, ``[science]``'s
+     atlas manifest), kept in one work directory, each through the port's
+     gate script (benor_tpu_torch/tools/check_*_regression.py) in a
+     process of its own: against itself (exit 0; perf exit 2 exactly
+     while the manifest's ``fused_vs_xla.speedup`` <= 1.0, the gate's
+     REGRESSION line printed), against the committed CPU baseline (exit
+     3, the refusal printed), a tampered kernel and serve manifest (one
+     stage counter changed, one client error added: exit 2);
+     ``check_perf_regression.py --trajectory`` giving the committed
+     series' findings; ``python -m benor_tpu_torch lint --format json``
+     (exit 0, no finding, the suppressions pinned by the CPU tests); the
+     kernels' launch counts read around the phase (none);
+ 21. the kernels line, the card line, and the result line.
 
 It imports nothing of JAX and nothing of the JAX package, and needs one card.
 """
@@ -1861,7 +1875,10 @@ def main() -> int:
     # --- 19. the progress heartbeat ------------------------------------------
     heartbeat_phase(dev)
 
-    # --- 20. the kernels line, the card, the result ------------------------
+    # --- 20. lint and the regression gates -----------------------------------
+    gates_phase(dev)
+
+    # --- 21. the kernels line, the card, the result ------------------------
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4793,6 +4810,7 @@ def science_phase(dev) -> None:
         caps[tag] = (manifest.capture_atlas(device=d),
                      time.perf_counter() - t0, launches())
     (g_doc, g_s, g_launch), (c_doc, c_s, _) = caps["card"], caps["cpu"]
+    keep_doc("atlas", g_doc)
     same = (science_strip(g_doc["searches"])
             == science_strip(c_doc["searches"]))
     findings = gate.compare_atlas(c_doc, baseline)
@@ -5173,7 +5191,6 @@ def profile_phase(dev) -> None:
     import contextlib
     import io
     import os
-    import tempfile
     from benor_tpu_torch.__main__ import main as cli
     from benor_tpu_torch.kernelscope import capture_kernels
     from benor_tpu_torch.kernelscope.capture import CAPTURE_SCALE
@@ -5197,15 +5214,14 @@ def profile_phase(dev) -> None:
             rc = cli(argv)
         return rc, buf.getvalue()
 
-    # (1) perfscope at the card's profile scale
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "perf.json")
-        t0 = time.perf_counter()
-        rc, _ = run_cli(["profile", "--device", "cuda", "--profile-out",
-                         path])
-        t_cli = time.perf_counter() - t0
-        with open(path) as fh:
-            doc = json.load(fh)
+    # (1) perfscope at the card's profile scale (the manifest kept for
+    # [gates])
+    path = keep_doc("perf")
+    t0 = time.perf_counter()
+    rc, _ = run_cli(["profile", "--device", "cuda", "--profile-out", path])
+    t_cli = time.perf_counter() - t0
+    with open(path) as fh:
+        doc = json.load(fh)
     sc = doc["scale"]
     print(f"[profile] perfscope N={sc['n_nodes']} T={sc['trials']} "
           f"R<={sc['max_rounds']}: exit {rc} in {t_cli:.1f} s ({card})")
@@ -5233,12 +5249,11 @@ def profile_phase(dev) -> None:
         raise SystemExit("[profile] perfscope failed a check")
 
     # (2) kernelscope: CAPTURE_SCALE card == CPU, then the larger scales
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "kernels.json")
-        rc, _ = run_cli(["profile", "--kernels", "--device", "cuda",
-                         "--profile-out", path])
-        with open(path) as fh:
-            card_k = json.load(fh)["kernels"]
+    path = keep_doc("kernel")
+    rc, _ = run_cli(["profile", "--kernels", "--device", "cuda",
+                     "--profile-out", path])
+    with open(path) as fh:
+        card_k = json.load(fh)["kernels"]
     cpu_k = capture_kernels(device="cpu")["kernels"]
     same = sorted(card_k) == sorted(cpu_k) and all(
         card_k[k]["stages"] == cpu_k[k]["stages"]
@@ -5301,6 +5316,7 @@ def profile_phase(dev) -> None:
     kids = [sum(1 for c in spans if c.parent_id == b.span_id)
             for b in buckets]
     m = man["cuda"][0]
+    keep_doc("sweep", m)
     print(f"[profile] sweep manifest {m['scale']}: buckets "
           f"{shape(m)} (cpu {shape(man['cpu'][0])}), science card == cpu "
           f"{science['cuda'] == science['cpu']}, coverage / band max "
@@ -5443,7 +5459,6 @@ def serve_phase(dev) -> None:
     import contextlib
     import io
     import os
-    import tempfile
     import torch
     from benor_tpu_torch.__main__ import main as cli
     from benor_tpu_torch.ops import dense as dk
@@ -5459,17 +5474,17 @@ def serve_phase(dev) -> None:
     for ops in (dk, hk, pr):
         ops.reset_launches()
 
-    # (1) the load test at the committed baseline's scale
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "serve.json")
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli(["load", "--device", str(dev), "--clients",
-                      str(SERVE_LOAD_CLIENTS), "--profile-out", path])
-        t_load = time.perf_counter() - t0
-        with open(path) as fh:
-            m = json.load(fh)
+    # (1) the load test at the committed baseline's scale (the manifest
+    # kept for [gates])
+    path = keep_doc("serve")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli(["load", "--device", str(dev), "--clients",
+                  str(SERVE_LOAD_CLIENTS), "--profile-out", path])
+    t_load = time.perf_counter() - t0
+    with open(path) as fh:
+        m = json.load(fh)
     lat, attr, st = m["latency_ms"], m["attribution"], m["stages"]
     print(f"[serve] load --clients {m['clients']} ({m['platform']}, "
           f"{m['device_kind']}): exit {rc} in {t_load:.1f} s; jobs "
@@ -5722,6 +5737,161 @@ def heartbeat_phase(dev) -> None:
     print(f"[heartbeat] kernel launches in the phase: {total}, armed "
           f"{pr.obs_launch_counts()}")
     print(f"[heartbeat] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- the [gates] phase: lint and the regression gates -----------------------
+
+#: The card documents the earlier phases capture, gate name -> path, in one
+#: work directory (``keep_doc``), for [gates].
+GATE_DOCS = {}
+_GATE_WORK = []
+#: The gates' committed CPU baselines.
+GATE_BASELINES = {"perf": "PERF_BASELINE.json",
+                  "kernel": "KERNEL_BASELINE.json",
+                  "serve": "SERVE_BASELINE.json",
+                  "sweep": "SWEEP_BASELINE.json",
+                  "atlas": "ATLAS_BASELINE.json"}
+#: The shipped tree's lint suppressions, by rule: tests/test_torch_lint.py's
+#: SHIPPED_SUPPRESSED.
+LINT_SUPPRESSED = {"host-sync": 32, "host-rng": 2, "broad-except": 4}
+
+
+def keep_doc(gate, doc=None) -> str:
+    """The kept path of ``gate``'s card document (written from ``doc``
+    when given, else by the caller)."""
+    import os
+    import tempfile
+    if not _GATE_WORK:
+        _GATE_WORK.append(tempfile.mkdtemp(prefix="gates_"))
+    path = os.path.join(_GATE_WORK[0], f"{gate}.json")
+    if doc is not None:
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+    GATE_DOCS[gate] = path
+    return path
+
+
+def gates_phase(dev) -> None:
+    """Phase 20: lint and the regression gates.  (1) each card document of
+    the earlier phases through the port's gate script, in a process of its
+    own, against itself: exit 0, and for perf exit 2 exactly while
+    ``fused_vs_xla.speedup`` <= 1.0 (the packed loop slower than the
+    unfused one); (2) against the committed CPU baseline: exit 3 (the
+    platforms differ); (3) a tampered kernel manifest (one stage counter
+    changed) and serve manifest (one client error added): exit 2; (4)
+    ``check_perf_regression.py --trajectory``: the committed series'
+    findings, as ``perfscope/baseline.py`` gives them in this process;
+    (5) ``python -m benor_tpu_torch lint --format json``: exit 0, no
+    finding, the CPU tests' suppressions.  No kernel launches."""
+    import glob
+    import os
+    import shutil
+    from benor_tpu_torch.ops import dense as dk
+    from benor_tpu_torch.ops import hist as hk
+    from benor_tpu_torch.ops import packed_round as pr
+    from benor_tpu_torch.perfscope import baseline as pbase
+    t_phase = time.perf_counter()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    tables = (dk.KERNELS, hk.KERNELS, pr.KERNELS)
+    for ops in (dk, hk, pr):
+        ops.reset_launches()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tools = os.path.join(root, "benor_tpu_torch", "tools")
+    work = _GATE_WORK[0]
+
+    def run(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, capture_output=True,
+                              text=True, timeout=300)
+        lines = proc.stdout.splitlines() + proc.stderr.splitlines()
+        return proc.returncode, lines, time.perf_counter() - t0
+
+    def gate(name, *args):
+        return run([sys.executable, os.path.join(
+            tools, f"check_{name}_regression.py"), *args])
+
+    def shown(lines, keys=("REGRESSION", "INCOMPARABLE", "not comparable",
+                           "in-band", "kernel gate")):
+        return [ln for ln in lines if any(k in ln for k in keys)]
+
+    ok = True
+    if sorted(GATE_DOCS) != sorted(GATE_BASELINES):
+        raise SystemExit(f"[gates] card documents missing: {GATE_DOCS}")
+    # (1) each card document against itself
+    for name, path in sorted(GATE_DOCS.items()):
+        rc, lines, sec = gate(name, path, path)
+        want = 0
+        if name == "perf":
+            with open(path) as fh:
+                speedup = json.load(fh)["fused_vs_xla"]["speedup"]
+            want = 2 if speedup is None or speedup <= 1.0 else 0
+            print(f"[gates] perf card manifest: fused_vs_xla.speedup "
+                  f"{speedup}")
+        print(f"[gates] {name} card manifest against itself: exit {rc} "
+              f"(want {want}) in {sec:.2f} s: {shown(lines)}; {card}")
+        ok &= rc == want
+    # (2) against the committed CPU baseline
+    for name, path in sorted(GATE_DOCS.items()):
+        rc, lines, sec = gate(name, path,
+                              os.path.join(root, GATE_BASELINES[name]))
+        print(f"[gates] {name} card manifest against "
+              f"{GATE_BASELINES[name]}: exit {rc} (want 3): "
+              f"{shown(lines)}")
+        ok &= rc == 3
+    # (3) tampered copies of the card's kernel and serve manifests
+    tampers = {
+        "kernel": lambda d: d["kernels"]["two_kernel"]["stages"]["vote"][
+            "counters"].update(coin_draws=d["kernels"]["two_kernel"][
+                "stages"]["vote"]["counters"]["coin_draws"] + 1),
+        "serve": lambda d: d.update(errors=d["errors"] + 1),
+    }
+    for name, tamper in tampers.items():
+        with open(GATE_DOCS[name]) as fh:
+            doc = json.load(fh)
+        tamper(doc)
+        bad = os.path.join(work, f"{name}_tampered.json")
+        with open(bad, "w") as fh:
+            json.dump(doc, fh)
+        rc, lines, _ = gate(name, bad, GATE_DOCS[name])
+        print(f"[gates] {name} tampered against the card manifest: exit "
+              f"{rc} (want 2): {shown(lines, ('REGRESSION',))}")
+        ok &= rc == 2
+    # (4) the committed series under --trajectory
+    perf_base = os.path.join(root, GATE_BASELINES["perf"])
+    rc, lines, sec = gate("perf", perf_base, perf_base, "--trajectory")
+    bench = sorted(glob.glob(os.path.join(root, "BENCH_r*.json")))
+    multi = sorted(glob.glob(os.path.join(root, "MULTICHIP_r*.json")))
+    want = (pbase.check_bench_trajectory(bench)
+            + pbase.check_pallas_speedup_trajectory(bench)
+            + pbase.check_multichip_trajectory(multi))
+    got = [ln for ln in lines if ln.startswith(("note: /", "REGRESSION: /"))]
+    print(f"[gates] --trajectory over {len(bench)} BENCH and {len(multi)} "
+          f"MULTICHIP records: exit {rc} in {sec:.2f} s, "
+          f"{len(got)} findings, equal to this process's {got == want}")
+    for ln in got:
+        print(f"[gates]   {ln.replace(root + os.sep, '')}")
+    ok &= rc == 0 and got == want
+    # (5) lint, on the machine with the card, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "benor_tpu_torch", "lint",
+                           "--format", "json"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    rc, sec = proc.returncode, time.perf_counter() - t0
+    doc = json.loads(proc.stdout)
+    print(f"[gates] lint: exit {rc} in {sec:.2f} s, {doc['files']} files, "
+          f"{len(doc['findings'])} findings, suppressed {doc['suppressed']}"
+          f" (pinned {LINT_SUPPRESSED}), lint {doc['elapsed_s']} s")
+    ok &= (rc == 0 and not doc["findings"]
+           and doc["suppressed"] == LINT_SUPPRESSED)
+    got = {k: fn.launches for t in tables for k, fn in t.items()
+           if fn.launches}
+    print(f"[gates] kernel launches in the phase: {got}, armed "
+          f"{pr.obs_launch_counts()}")
+    shutil.rmtree(work, ignore_errors=True)
+    if not ok or got:
+        raise SystemExit("[gates] a gate or lint disagreed")
+    print(f"[gates] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 REPLACES = {

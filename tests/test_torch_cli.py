@@ -11,11 +11,11 @@ left out of the JSON (``seconds``, ``trials_per_sec``, ``compile_count``;
 a timer's seconds, the trace's host spans' times, the JSON-lines ``ts``):
 they differ by design, as do the JAX package's XLA counters (``jax.*``,
 ``backend.*``), which the port does not keep.  Both registries are emptied
-before each call.  ``serve``, ``load``, ``watch`` and the sweep's
-heartbeat flags run; each unported subcommand raises naming its ROADMAP
-item, and without ``--device cpu`` on a machine with no CUDA device a
-subcommand fails instead of running on the CPU, but the event-loop
-oracles' demo and ``watch``, which take no device.
+before each call.  ``serve``, ``load``, ``watch``, ``lint`` and the
+sweep's heartbeat flags run; each unported subcommand raises naming its
+ROADMAP item, and without ``--device cpu`` on a machine with no CUDA
+device a subcommand fails instead of running on the CPU, but the
+event-loop oracles' demo, ``watch`` and ``lint``, which take no device.
 
 The uniform-scheduler runs draw by the CF sampler in both packages
 (``EXACT_TABLE_MAX`` lowered to 4).  The JAX side runs in the worker pool
@@ -248,7 +248,6 @@ def test_cli_matches_jax(name):
 # --- what is not ported --------------------------------------------------------
 
 UNPORTED = {
-    ("lint",): "16",
     ("profile", "--regimes", "traced,sharded"): "15",
     ("scale", "--mesh", "1,2"): "15",
 }
@@ -260,11 +259,31 @@ def test_unported_commands_and_flags_raise(argv):
     device is touched (with or without --device cpu)."""
     item = UNPORTED[argv]
     for extra in ([], ["--device", "cpu"]):
-        if argv[0] in ("lint", "scale") and extra:
+        if argv[0] == "scale" and extra:
             continue
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
             tmain(list(argv) + extra)
+
+
+# --- lint: the pin that raised before it was ported, now a run --------------
+
+
+@pytest.mark.parametrize("tree", ["shipped", "dirty"])
+def test_lint_runs(tmp_path, capsys, tree):
+    """`lint` in the process, with no --device: exit 0 on the shipped port
+    tree and 2 on a tree with a finding, the JSON report on stdout."""
+    argv = ["lint", "--format", "json"]
+    if tree == "dirty":
+        (tmp_path / "gen.py").write_text(
+            "import numpy as np\n\n\ndef inputs(n):\n"
+            "    return np.random.default_rng(0).integers(0, 2, n)\n")
+        argv += ["--root", str(tmp_path)]
+    rc = tmain(argv)
+    doc = json.loads(capsys.readouterr().out)
+    assert rc == (0 if tree == "shipped" else 2)
+    assert doc["ok"] is (tree == "shipped")
+    assert doc["counts"] == ({} if tree == "shipped" else {"host-rng": 1})
 
 
 # --- the request plane and the heartbeat: the pins that raised before

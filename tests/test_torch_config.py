@@ -2,21 +2,16 @@
 validation verdicts, derived properties, and the port's JAX-free import."""
 
 import dataclasses
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 
 import pytest
 
+import torch_no_jax
 from benor_tpu import config as jcfg
 from benor_tpu.ops import sampling as jsampling
 from benor_tpu.ops import tally as jtally
 from benor_tpu_torch import config as tcfg
 from benor_tpu_torch.ops import sampling as tsampling
 from benor_tpu_torch.ops import tally as ttally
-
-REPO = Path(__file__).resolve().parent.parent
 
 
 def test_fields_and_defaults_match():
@@ -173,31 +168,30 @@ def test_gate_predicates_match(table_max):
         jsampling.EXACT_TABLE_MAX, tsampling.EXACT_TABLE_MAX = old
 
 
+torch_no_jax.script("port", """
+    import benor_tpu_torch
+    import benor_tpu_torch.meshscope, benor_tpu_torch.serve
+    from benor_tpu_torch import SimConfig, simulate
+    from benor_tpu_torch.ops import sampling
+    from benor_tpu_torch.sweep import balanced_inputs
+    old, sampling.EXACT_TABLE_MAX = sampling.EXACT_TABLE_MAX, 4
+    cfg = SimConfig(n_nodes=64, n_faulty=16, trials=2,
+                    delivery="quorum", scheduler="uniform",
+                    path="histogram", use_pallas_hist=True,
+                    use_pallas_round=True, max_rounds=8)
+    r, st, _ = simulate(cfg, balanced_inputs(2, 64),
+                        [True] * 16 + [False] * 48, device="cpu")
+    sampling.EXACT_TABLE_MAX = old
+    print("OK", r, loaded("benor_tpu"))
+""")
+
+
 def test_port_imports_without_jax_or_the_jax_package():
     """With ``jax`` made unimportable, the port imports (the request plane
     and the heartbeat included) and runs a CPU simulation, and no
-    ``benor_tpu`` module is ever loaded."""
-    code = textwrap.dedent("""
-        import sys
-        sys.modules["jax"] = None
-        import benor_tpu_torch
-        import benor_tpu_torch.meshscope, benor_tpu_torch.serve
-        from benor_tpu_torch import SimConfig, simulate
-        from benor_tpu_torch.ops import sampling
-        from benor_tpu_torch.sweep import balanced_inputs
-        sampling.EXACT_TABLE_MAX = 4
-        cfg = SimConfig(n_nodes=64, n_faulty=16, trials=2,
-                        delivery="quorum", scheduler="uniform",
-                        path="histogram", use_pallas_hist=True,
-                        use_pallas_round=True, max_rounds=8)
-        r, st, _ = simulate(cfg, balanced_inputs(2, 64),
-                            [True] * 16 + [False] * 48, device="cpu")
-        bad = sorted(m for m in sys.modules
-                     if m == "benor_tpu" or m.startswith("benor_tpu."))
-        print("OK", r, bad)
-    """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().startswith("OK"), out.stdout
-    assert out.stdout.strip().endswith("[]"), out.stdout
+    ``benor_tpu`` module is ever loaded (in the shared child process,
+    tests/torch_no_jax.py)."""
+    out, error = torch_no_jax.result("port")
+    assert error == "", error
+    assert out.strip().startswith("OK"), out
+    assert out.strip().endswith("[]"), out

@@ -36,6 +36,7 @@ from benor_tpu_torch.perfscope import regimes as tregimes
 from benor_tpu_torch.sim import run_consensus, run_consensus_slice
 from benor_tpu_torch.state import FaultSpec, init_state
 from benor_tpu_torch.utils.metrics import REGISTRY
+import torch_no_jax
 from torch_ref_pool import prefetch, ref, start
 
 # the packages' __init__ export the function ``roofline`` under the
@@ -313,39 +314,77 @@ def test_capture_leaves_plain_runs_unchanged(tmp_path):
     assert _build.library_events == events0
 
 
+torch_no_jax.script("observatory", """
+    import benor_tpu_torch.perfscope, benor_tpu_torch.kernelscope
+    import benor_tpu_torch.sweepscope
+    import benor_tpu_torch.perfscope.regimes
+    import benor_tpu_torch.kernelscope.capture
+    import benor_tpu_torch.sweepscope.manifest
+    print(loaded("jax", "jaxlib", "benor_tpu"))
+""")
+
+
 def test_observatory_imports_no_jax():
     """perfscope, kernelscope and sweepscope (their captures included)
-    load no JAX module and nothing of the JAX package."""
-    code = ("import sys\n"
-            "import benor_tpu_torch.perfscope, benor_tpu_torch.kernelscope\n"
-            "import benor_tpu_torch.sweepscope\n"
-            "import benor_tpu_torch.perfscope.regimes\n"
-            "import benor_tpu_torch.kernelscope.capture\n"
-            "import benor_tpu_torch.sweepscope.manifest\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'benor_tpu')]\n"
-            "print(bad)\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "[]"
+    load no JAX module and nothing of the JAX package (in the shared
+    child process where JAX is unimportable, tests/torch_no_jax.py)."""
+    out, error = torch_no_jax.result("observatory")
+    assert error == "", error
+    assert out.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", ("perfscope/baseline.py",
                                   "kernelscope/gate.py",
                                   "sweepscope/gate.py",
-                                  "serve/gate.py"))
+                                  "serve/gate.py",
+                                  "atlas/gate.py",
+                                  "analysis",
+                                  "tools/check_perf_regression.py",
+                                  "tools/check_kernel_regression.py",
+                                  "tools/check_serve_regression.py",
+                                  "tools/check_sweep_regression.py",
+                                  "tools/check_atlas_regression.py"))
 def test_gate_loads_by_path_with_stdlib_alone(path):
-    """The four gates load by file path, as a CI step loads them, with
-    no module outside the standard library."""
-    code = ("import importlib.util, sys\n"
-            f"p = {os.path.join(ROOT, 'benor_tpu_torch', path)!r}\n"
-            "spec = importlib.util.spec_from_file_location('gate', p)\n"
-            "mod = importlib.util.module_from_spec(spec)\n"
-            "sys.modules['gate'] = mod\n"
-            "spec.loader.exec_module(mod)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('torch', 'numpy', 'jax', 'benor_tpu', 'benor_tpu_torch')]\n"
-            "print(bad)\n")
+    """The gates, the linter (analysis/, a package, which then lints
+    itself) and the gate scripts (each with the gate module it loads by
+    path) load by file path, as a CI step loads them, with the standard
+    library alone: a ``sys.meta_path`` finder records every attempt to
+    import torch, numpy, JAX or either package and refuses it, so a
+    guarded optional import shows as well as a loaded module."""
+    code = f"""
+import importlib.util, os, sys
+BLOCKED = ("torch", "numpy", "jax", "jaxlib", "benor_tpu",
+           "benor_tpu_torch")
+attempted = set()
+
+
+class Blocker:
+    @staticmethod
+    def find_spec(name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            attempted.add(name)
+            raise ModuleNotFoundError(f"{{name}} is blocked", name=name)
+        return None
+
+
+sys.meta_path.insert(0, Blocker)
+p = {os.path.join(ROOT, 'benor_tpu_torch', path)!r}
+pkg = os.path.isdir(p)
+spec = importlib.util.spec_from_file_location(
+    "gate", os.path.join(p, "__init__.py") if pkg else p,
+    submodule_search_locations=[p] if pkg else None)
+mod = importlib.util.module_from_spec(spec)
+sys.modules["gate"] = mod
+spec.loader.exec_module(mod)
+load = getattr(mod, "_load_gate", None) or getattr(
+    mod, "_load_baseline_module", None)
+if load:
+    load()
+if pkg:
+    mod.run_rules(mod.Project(p), names=["broad-except"])
+print(sorted({{m for m in list(sys.modules) + sorted(attempted)
+              if m.split(".")[0] in BLOCKED}}))
+"""
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"

@@ -36,6 +36,7 @@ from benor_tpu_torch.sim import start_state as t_start
 from benor_tpu_torch.state import FaultSpec as TFaults
 from benor_tpu_torch.sweepscope import journal as tjournal
 from benor_tpu_torch.utils import checkpoint as tckpt
+import torch_no_jax
 from torch_ref_pool import prefetch, ref, start
 
 N, T = 96, 8
@@ -401,42 +402,37 @@ def test_checkpoint_refusals(cf_regime, tmp_path):
             tckpt.load_checkpoint(str(path))
 
 
-def test_sweep_modules_import_without_jax(tmp_path):
+torch_no_jax.script("sweep", """
+    import os
+    from benor_tpu_torch import SimConfig, init_state
+    from benor_tpu_torch.results import topo_curves
+    from benor_tpu_torch.sweep import run_curve_batched, default_crash_faults
+    from benor_tpu_torch.utils.checkpoint import resume_from, save_checkpoint
+    base = SimConfig(n_nodes=64, n_faulty=0, trials=2, max_rounds=8,
+                     delivery="quorum", path="histogram")
+    j = os.path.join(tmp, "j.jsonl")
+    a = run_curve_batched(base, [8, 16], journal_path=j, pipeline=True,
+                          device="cpu")
+    b = run_curve_batched(base, [8, 16], journal_path=j, resume=True,
+                          device="cpu")
+    cfg = base.replace(n_faulty=8)
+    fl = default_crash_faults(cfg)
+    save_checkpoint(os.path.join(tmp, "c.npz"), cfg,
+                    init_state(cfg, [0, 1] * 32, fl), fl, 1)
+    r, _, _ = resume_from(os.path.join(tmp, "c.npz"), device="cpu")
+    rows = topo_curves(36, 2, max_rounds=4, device="cpu")
+    print("OK", b.bucket_reused, r, len(rows["degree_curve"]),
+          loaded("benor_tpu"))
+""")
+
+
+def test_sweep_modules_import_without_jax():
     """With ``jax`` made unimportable, the engine, the journal, the
     scheduler, the checkpoints and the curves import and run a journaled,
-    pipelined, resumed sweep, a checkpoint and the topo curves on the CPU;
-    no ``benor_tpu`` module is ever loaded."""
-    import subprocess
-    import sys
-    import textwrap
-    code = textwrap.dedent(f"""
-        import sys
-        sys.modules["jax"] = None
-        from benor_tpu_torch import SimConfig, init_state
-        from benor_tpu_torch.results import topo_curves
-        from benor_tpu_torch.sweep import run_curve_batched, default_crash_faults
-        from benor_tpu_torch.utils.checkpoint import resume_from, save_checkpoint
-        base = SimConfig(n_nodes=64, n_faulty=0, trials=2, max_rounds=8,
-                         delivery="quorum", path="histogram")
-        j = {str(tmp_path / "j.jsonl")!r}
-        a = run_curve_batched(base, [8, 16], journal_path=j, pipeline=True,
-                              device="cpu")
-        b = run_curve_batched(base, [8, 16], journal_path=j, resume=True,
-                              device="cpu")
-        cfg = base.replace(n_faulty=8)
-        fl = default_crash_faults(cfg)
-        save_checkpoint({str(tmp_path / "c.npz")!r}, cfg,
-                        init_state(cfg, [0, 1] * 32, fl), fl, 1)
-        r, _, _ = resume_from({str(tmp_path / "c.npz")!r}, device="cpu")
-        rows = topo_curves(36, 2, max_rounds=4, device="cpu")
-        bad = sorted(m for m in sys.modules
-                     if m == "benor_tpu" or m.startswith("benor_tpu."))
-        print("OK", b.bucket_reused, r, len(rows["degree_curve"]), bad)
-    """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
-                         env={**os.environ, "PYTHONPATH": os.path.dirname(
-                             os.path.dirname(os.path.abspath(__file__)))},
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().startswith("OK [True, True]"), out.stdout
-    assert out.stdout.strip().endswith("5 []"), out.stdout
+    pipelined, resumed sweep, a checkpoint and the topo curves on the CPU,
+    from a directory outside the repo; no ``benor_tpu`` module is ever
+    loaded (in the shared child process, tests/torch_no_jax.py)."""
+    out, error = torch_no_jax.result("sweep")
+    assert error == "", error
+    assert out.strip().startswith("OK [True, True]"), out
+    assert out.strip().endswith("5 []"), out
